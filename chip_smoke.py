@@ -7,11 +7,15 @@ Phases (each raises on failure, so the process exits non-zero):
    build of the hand-written kernels from csrc/ (nvcc, sm_90a);
 2. each kernel against its plain PyTorch version on the card at full 357M
    width: the frame step at several cache positions and temperatures, the
-   codec conv for every (C_in, C_out, k, dilation, residual) class a decode
-   runs; with both times;
+   batched frame step at B=8 and B=32 with ring-style masks, the codec conv
+   for every (C_in, C_out, k, dilation, residual) class a decode runs; with
+   both times;
 3. the main path through the user entry point: production-width random
    GGUFs, ``magpie_tts_tpu_torch.cli.main`` with ``--device cuda``, the WAV
-   checked, and the kernels' launch counts checked against the loop.
+   checked, and the kernels' launch counts checked against the loop;
+4. the serve path on the same GGUFs: ``cli.main(["serve", ...])`` with JSONL
+   requests on a stdin stand-in, every WAV checked, the batched kernel's
+   launches checked against the segments run.
 
 The line before last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -265,6 +269,109 @@ def check_frame_step(dev) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "temp07_code_flips": flips}
 
 
+def _ring_valid(B: int, S: int, write_row: int, rng):
+    """Per-slot valid rows as the ring cache leaves them: runs of different
+    lengths and starts, some wrapping past S - 1; the last slot empty."""
+    valid = np.zeros((B, S), bool)
+    for b in range(B - 1):
+        n = int(rng.integers(60, 400))
+        valid[b, (write_row + 1 + int(rng.integers(0, S)) + np.arange(n)) % S] = True
+    valid[:, write_row] = False
+    return valid
+
+
+def check_frame_step_batched(dev) -> dict:
+    """Kernel C vs frame_step_batched_reference at full width on the card."""
+    import torch
+
+    from magpie_tts_tpu_torch.config import MagpieConfig
+    from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
+    from magpie_tts_tpu_torch.models import magpie as magpie_mod
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+
+    c = MagpieConfig()
+    w = random_magpie_weights(c, seed=0).to(device=dev)
+    rng = np.random.default_rng(1)
+    E = 128
+    Bmax = 32
+    with torch.no_grad():
+        tokens = torch.tensor(rng.integers(2, c.text_vocab_size - 2, size=(Bmax, 32)), device=dev)
+        enc = [int(n) for n in rng.integers(8, 33, Bmax)]
+        xa_k, xa_v, k_ctx, v_ctx, hidden = magpie_mod.prepare_batch(
+            tokens, enc, [b % c.num_speakers for b in range(Bmax)], w, c)
+    pad = (0, 0, 0, E - xa_k.shape[2])
+    xa_k = torch.nn.functional.pad(xa_k, pad).contiguous()
+    xa_v = torch.nn.functional.pad(xa_v, pad).contiguous()
+    # Cache rows hold random K/V of the prefill's scale.
+    scale = float(k_ctx[:, :, :c.context_frames].std())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k_base = torch.randn(k_ctx.shape, generator=gen, device=dev) * scale
+    v_base = torch.randn(v_ctx.shape, generator=gen, device=dev) * scale
+    del k_ctx, v_ctx
+
+    def inputs(B, write_row):
+        return dict(
+            hidden=hidden[:B].contiguous(), write_row=write_row,
+            valid=torch.tensor(_ring_valid(B, c.max_seq, write_row, rng), device=dev),
+            may_continue=torch.tensor(rng.random(B) < 0.8, device=dev),
+            posemb=w.decoder.pos_emb[torch.tensor(rng.integers(c.context_frames + 1, c.max_seq, B),
+                                                   device=dev)],
+            xa_k=xa_k[:B].contiguous(), xa_v=xa_v[:B].contiguous(),
+            enc_lengths=torch.tensor(enc[:B], dtype=torch.int32, device=dev),
+            seeds=torch.tensor(rng.integers(-2**31, 2**31, B), dtype=torch.int32, device=dev),
+            forbid_eos=torch.tensor(rng.random(B) < 0.3, device=dev),
+            weights=w, config=c, top_k=80)
+
+    worst, flips = 0.0, 0
+    with torch.no_grad():
+        for B in (8, Bmax):
+            for write_row in (5, c.max_seq // 2, c.max_seq - 10):
+                for temp in (0.0, 0.7):
+                    x = inputs(B, write_row)
+                    kk, vk = k_base[:B].clone(), v_base[:B].clone()
+                    kr, vr = k_base[:B].clone(), v_base[:B].clone()
+                    sk, ak, hk, _, _ = fsb.frame_step_batched(k_cache=kk, v_cache=vk,
+                                                              temperature=temp, **x)
+                    sr, ar, hr, _, _ = fsb.frame_step_batched_reference(
+                        k_cache=kr, v_cache=vr, temperature=temp, **x)
+                    torch.cuda.synchronize()
+                    n_diff = int((sk != sr).sum()) + int((ak != ar).sum())
+                    live = slice(0, B - 1)   # the last slot has no valid row
+                    err = max(float((hk[live] - hr[live]).abs().max()),
+                              float((kk[live] - kr[live]).abs().max()),
+                              float((vk[live] - vr[live]).abs().max()))
+                    finite = all(bool(torch.isfinite(t).all()) for t in (hk, kk, vk))
+                    log(f"frame_step_batched B {B} row {write_row} temp {temp}: codes "
+                        f"differing {n_diff} of {2 * sk.numel()}, max |hidden/cache err| "
+                        f"{err:.3g} (live slots), finite {finite}")
+                    if temp == 0.0 and n_diff:
+                        raise AssertionError(f"frame_step_batched codes differ at temp 0, "
+                                             f"B {B}, row {write_row}")
+                    flips += n_diff if temp > 0 else 0
+                    if err > FRAME_TOL or not finite:
+                        raise AssertionError(f"frame_step_batched disagrees at B {B}, row "
+                                             f"{write_row}: {err} > {FRAME_TOL} or not finite")
+                    worst = max(worst, err)
+        log(f"frame_step_batched: differing codes at temp 0.7 over 6 cases: {flips}")
+        # Times at B=8 (and B=32), write row 300 (357M), temp 0.7.
+        time_row = c.max_seq // 2 - 20
+        times = {}
+        for B in (8, Bmax):
+            x = inputs(B, time_row)
+            kk, vk = k_base[:B].clone(), v_base[:B].clone()
+            times[B] = time_ms(lambda: fsb.frame_step_batched(k_cache=kk, v_cache=vk,
+                                                              temperature=0.7, **x), reps=30)
+        x = inputs(8, time_row)
+        kk, vk = k_base[:8].clone(), v_base[:8].clone()
+        plain_ms = time_ms(lambda: fsb.frame_step_batched_reference(
+            k_cache=kk, v_cache=vk, temperature=0.7, **x), reps=3, warmup=1)
+    log(f"frame_step_batched time at row {time_row}, temp 0.7: B=8 kernel {times[8]:.4f} ms "
+        f"({times[8] / 8:.4f} ms per slot), plain {plain_ms:.4f} ms; B={Bmax} kernel "
+        f"{times[Bmax]:.4f} ms ({times[Bmax] / Bmax:.4f} ms per slot)")
+    return {"max_abs_err": worst, "ms": times[8], "plain_ms": plain_ms, "ms_b32": times[Bmax],
+            "temp07_code_flips": flips}
+
+
 def check_codec_conv(dev, frames: int = 32) -> dict:
     """Kernel B vs the plain HalfSnake + conv for every conv class of a decode
     of ``frames`` frames; times are summed over the 92 convs of that decode."""
@@ -317,21 +424,27 @@ def check_codec_conv(dev, frames: int = 32) -> dict:
     return {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
 
 
-def run_main_path(tmp: Path, card: str) -> dict:
-    """cli.main at full width on random GGUFs; checks the WAV and launch counts."""
-    from magpie_tts_tpu_torch import cli
+def write_ggufs(tmp: Path):
+    """Production-width random GGUFs (max_dec_steps cut to 128 frames)."""
     from magpie_tts_tpu_torch.config import CodecConfig, MagpieConfig
-    from magpie_tts_tpu_torch.io.wav import read_wav
-    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
-    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
 
     mcfg = dataclasses.replace(MagpieConfig(), max_dec_steps=128)
     ccfg = CodecConfig()
-    hop = ccfg.hop_length
     t0 = time.perf_counter()
     write_model_gguf(str(tmp / "magpie.gguf"), mcfg, seed=0)
     write_codec_gguf(str(tmp / "codec.gguf"), ccfg, seed=1)
     log(f"wrote production-width GGUFs in {time.perf_counter() - t0:.1f} s")
+    return mcfg, ccfg
+
+
+def run_main_path(tmp: Path, mcfg, ccfg, card: str) -> dict:
+    """cli.main at full width on random GGUFs; checks the WAV and launch counts."""
+    from magpie_tts_tpu_torch import cli
+    from magpie_tts_tpu_torch.io.wav import read_wav
+    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+
+    hop = ccfg.hop_length
     out = tmp / "out.wav"
     argv = ["-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
             "-t", "hello world", "-o", str(out), "--device", "cuda",
@@ -369,6 +482,86 @@ def run_main_path(tmp: Path, card: str) -> dict:
             "n_frames": n_frames, "fps": fps}
 
 
+SERVE_SLOTS, SERVE_SEGMENT = 4, 16
+SERVE_TEXTS = ["hello world", "hello, world!", "world hello.", "abc def", "hello abc world",
+               "def, hello"]
+
+
+def run_serve(tmp: Path, mcfg, ccfg, card: str) -> dict:
+    """cli.main serve at full width: six JSONL requests and a malformed line on
+    a stdin stand-in; checks every result, the error line, the WAVs, and the
+    batched kernel's and codec conv's launch counts."""
+    from magpie_tts_tpu_torch import cli
+    from magpie_tts_tpu_torch.io.wav import read_wav
+    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+    from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
+    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
+
+    hop = ccfg.hop_length
+    lines = [json.dumps({"id": f"r{i}", "text": t, "seed": i})
+             for i, t in enumerate(SERVE_TEXTS)]
+    lines.insert(3, '{"id": "bad", "text": ')
+    counts = {"segments": 0, "decode_batch": 0}
+
+    def counted(fn, key):
+        def wrapper(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
+            "--out-dir", str(tmp / "serve"), "--slots", str(SERVE_SLOTS),
+            "--segment-frames", str(SERVE_SEGMENT), "--temp", "0.7", "--device", "cuda"]
+    out, err = io.StringIO(), io.StringIO()
+    seg_fn, dec_fn, stdin = ContinuousBatchingEngine._segment, CodecEngine.decode_batch, sys.stdin
+    ContinuousBatchingEngine._segment = counted(seg_fn, "segments")
+    CodecEngine.decode_batch = counted(dec_fn, "decode_batch")
+    sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    try:
+        fsb.launches = 0
+        cc.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        batched_launches, conv_launches = fsb.launches, cc.launches
+    finally:
+        ContinuousBatchingEngine._segment, CodecEngine.decode_batch = seg_fn, dec_fn
+        sys.stdin = stdin
+    log(err.getvalue().rstrip())
+    if rc != 0:
+        raise AssertionError(f"cli.main serve returned {rc}")
+    results = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    errors = [r for r in results if "error" in r]
+    done = {r["id"]: r for r in results if "error" not in r}
+    if len(errors) != 1 or sorted(done) != sorted(f"r{i}" for i in range(len(SERVE_TEXTS))):
+        raise AssertionError(f"serve results: {results}")
+    frames = 0
+    for r in done.values():
+        samples, sr = read_wav(r["wav"])
+        if r["frames"] <= 0 or len(samples) != r["frames"] * hop or sr != mcfg.sample_rate:
+            raise AssertionError(f"bad serve WAV for {r}: {len(samples)} samples at {sr} Hz")
+        if not np.all(np.isfinite(samples)) or float(np.std(samples)) == 0.0:
+            raise AssertionError(f"serve WAV of {r['id']} is not finite or is constant")
+        frames += r["frames"]
+    want = counts["segments"] * SERVE_SEGMENT
+    if batched_launches == 0 or batched_launches != want:
+        raise AssertionError(f"frame_step_batched launched {batched_launches}x for "
+                             f"{counts['segments']} segments of {SERVE_SEGMENT}")
+    if conv_launches == 0 or conv_launches != 92 * counts["decode_batch"]:
+        raise AssertionError(f"codec conv launched {conv_launches}x for "
+                             f"{counts['decode_batch']} decode_batch calls")
+    m = re.search(r"in ([0-9.]+)s \(([0-9.]+) aggregate fps", err.getvalue())
+    fps = float(m.group(2)) if m else float("nan")
+    log(f"serve path: {len(done)} requests, {frames} frames, {counts['segments']} segments, "
+        f"frame_step_batched launches {batched_launches}, conv launches {conv_launches} "
+        f"({counts['decode_batch']} decode_batch calls), {fps} aggregate fps "
+        f"(cli.main serve wall {wall:.2f} s incl. load) on {card}")
+    return {"batched_launches": batched_launches, "conv_launches": conv_launches,
+            "frames": frames, "fps": fps}
+
+
 def main() -> int:
     import torch
 
@@ -395,19 +588,29 @@ def main() -> int:
             log("  ptxas: " + line.strip())
 
     fs_res = check_frame_step(dev)
+    fsb_res = check_frame_step_batched(dev)
     cc_res = check_codec_conv(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        main_res = run_main_path(Path(tmp), card)
+        mcfg, ccfg = write_ggufs(Path(tmp))
+        main_res = run_main_path(Path(tmp), mcfg, ccfg, card)
+        serve_res = run_serve(Path(tmp), mcfg, ccfg, card)
 
-    log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames; codec_conv "
-        f"also replaces magpie_tts_tpu/ops/pallas_kernels/codec_conv.py:373 "
-        f"(snake_causal_conv_packed); on {card}")
+    log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames; serve "
+        f"{serve_res['fps']} aggregate fps over {serve_res['frames']} frames; batched frame "
+        f"B=32 {fsb_res['ms_b32']} ms; codec_conv also replaces "
+        f"magpie_tts_tpu/ops/pallas_kernels/codec_conv.py:373 (snake_causal_conv_packed); "
+        f"on {card}")
     log(json.dumps({"kernels": [
         {"name": "frame_step", "route": "cuda",
          "source": "magpie_tts_tpu_torch/csrc/frame_step.cu",
          "replaces": "magpie_tts_tpu/ops/pallas_kernels/frame_step.py:352",
          "launches": main_res["frame_launches"], "max_abs_err": fs_res["max_abs_err"],
          "ms": fs_res["ms"], "plain_ms": fs_res["plain_ms"]},
+        {"name": "frame_step_batched", "route": "cuda",
+         "source": "magpie_tts_tpu_torch/csrc/frame_step_batched.cu",
+         "replaces": "magpie_tts_tpu/ops/pallas_kernels/frame_step_batched.py:591",
+         "launches": serve_res["batched_launches"], "max_abs_err": fsb_res["max_abs_err"],
+         "ms": fsb_res["ms"], "plain_ms": fsb_res["plain_ms"]},
         {"name": "codec_conv", "route": "cuda",
          "source": "magpie_tts_tpu_torch/csrc/codec_conv.cu",
          "replaces": "magpie_tts_tpu/ops/pallas_kernels/codec_conv.py:157",

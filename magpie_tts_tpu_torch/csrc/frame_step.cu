@@ -28,43 +28,10 @@
 
 #include "common.cuh"
 
-#include <limits.h>
-
 namespace {
 
 constexpr int kGemvThreads = 256;   // 8 warps; one float4 column per lane
 constexpr int kTargetBlocks = 264;  // 2 blocks per SM on a 132-SM card
-constexpr int kSampleThreads = 1024;
-constexpr int kMaxVocab = 4 * kSampleThreads;
-constexpr float kNegBig = -1e30f;
-
-constexpr uint32_t kMixA = 0x85EBCA6Bu;
-constexpr uint32_t kMixB = 0xC2B2AE3Du;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-constexpr uint32_t kPhaseC = 0x2C9277B5u;
-
-__device__ __forceinline__ float gelu_f(float x, int tanh_flavor) {
-  if (tanh_flavor) {
-    const float inner = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-    return 0.5f * x * (1.0f + tanhf(inner));
-  }
-  return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= kMixA;
-  x ^= x >> 13;
-  x *= kMixB;
-  x ^= x >> 16;
-  return x;
-}
-
-// Monotone int key of a float: f1 < f2 <=> key(f1) < key(f2); +0 == -0.
-__device__ __forceinline__ int order_key(float f) {
-  const int bits = __float_as_int(f);
-  return bits >= 0 ? bits : (int)(0x80000000u - (uint32_t)bits);
-}
 
 // part[s, n] = sum over k in split s of x[k] * W[k, n]. W is row-major
 // [K, N] with N % 4 == 0; a lane owns 4 consecutive columns, the 8 warps of a
@@ -242,59 +209,13 @@ lt_sample_kernel(const float* __restrict__ part, int S, int V, const float* __re
   __shared__ int redi[32];
   const int tid = threadIdx.x, bd = blockDim.x;
 
-  float bv = -INFINITY;
-  int bi = INT_MAX;
   for (int v = tid; v < V; v += bd) {
-    float l = sum_parts(part, S, V, v) + bias[v];
-    const bool forbidden = v == bos_id || (v >= bos_id + 2 && v <= bos_id + 7) ||
-                           (forbid_eos && v == eos_id);
-    if (forbidden) l = kNegBig;
-    lg[v] = l;
-    argmax_merge(bv, bi, l, v);
+    const float l = sum_parts(part, S, V, v) + bias[v];
+    lg[v] = lt_forbidden(v, bos_id, eos_id, forbid_eos) ? kNegBig : l;
   }
-  const int amax = block_argmax(bv, bi, redv, redi);
-  int code = amax;
-
-  if (!(temperature < 0.01f)) {
-    const int k = min(top_k, V);
-    int kmin = INT_MAX, kmax = INT_MIN;
-    for (int v = tid; v < V; v += bd) {
-      const int key = order_key(lg[v]);
-      kmin = min(kmin, key);
-      kmax = max(kmax, key);
-    }
-    long long lo = block_min_int(kmin, redi);
-    long long hi = (long long)block_max_int(kmax, redi) + 1;
-    for (int it = 0; it < 32; ++it) {
-      const long long mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
-      int cnt = 0;
-      for (int j = 0; j < kMaxVocab / kSampleThreads; ++j) {
-        const int v = tid + j * bd;
-        cnt += __syncthreads_count(v < V && (long long)order_key(lg[v]) >= mid);
-      }
-      if (cnt >= k) {
-        lo = mid;
-      } else {
-        hi = mid;
-      }
-    }
-    const float t = fmaxf(temperature, 0.01f);
-    const uint32_t base = (uint32_t)seed + (uint32_t)cb * kPhaseC;
-    float bz = -INFINITY;
-    int bzi = INT_MAX;
-    for (int v = tid; v < V; v += bd) {
-      float z = kNegBig;
-      if ((long long)order_key(lg[v]) >= lo) {
-        const uint32_t hsh = fmix32(base + (uint32_t)v * kGolden);
-        float u = (float)(hsh >> 8) * (1.0f / 16777216.0f);
-        u = fminf(fmaxf(u, 1e-10f), 0.99999988f);
-        const float g = -logf(-logf(u));
-        z = lg[v] / t + g;
-      }
-      argmax_merge(bz, bzi, z, v);
-    }
-    code = block_argmax(bz, bzi, redv, redi);
-  }
+  int amax;
+  const int code = block_sample(lg, V, temperature, top_k,
+                                (uint32_t)seed + (uint32_t)cb * kPhaseC, redv, redi, amax);
 
   if (tid == 0) {
     codes[cb] = code;

@@ -5,6 +5,10 @@
 - ``prefill``           the speaker-context frames through all layers, filling the cache.
 - ``decode_step``       one autoregressive position against the fixed-capacity cache;
                         the plain version of the frame-step kernel's decoder half.
+- ``decode_step_masked`` the same with the cache row, the position embedding and
+                        the attended rows decoupled (continuous batching's ring
+                        cache); ``decode_rows`` is its body, the plain version of
+                        the batched frame kernel's decoder half.
 
 Cache layout: ``[n_layers, max_seq, d_model]`` for K and V. ``decode_step``
 writes the new row in place (the JAX version returns updated copies).
@@ -75,25 +79,57 @@ def decode_step(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tenso
     x: [d_model] frame embedding (without position); pos: absolute position,
     also the cache row written (in place) before attending; xa_k/xa_v:
     [L, enc_seq, d_xa]; caches: [L, max_seq, d_model]. Returns hidden [d_model].
+    """
+    valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
+    return decode_step_masked(x, pos, pos, valid, xa_k, xa_v, k_cache, v_cache, weights,
+                              config, enc_length=enc_length)
 
-    The residual carry stays float32 and attention covers rows ``<= pos`` of
-    the whole ``max_seq`` buffer, the frame-step kernel's rounding points.
+
+def decode_step_masked(x: torch.Tensor, logical_pos, write_row: int, valid_mask: torch.Tensor,
+                       xa_k: torch.Tensor, xa_v: torch.Tensor,
+                       k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       weights: MagpieWeights, config: MagpieConfig,
+                       enc_length: Optional[int] = None) -> torch.Tensor:
+    """Decoder step with cache row, position embedding and attention
+    membership decoupled (the continuous-batching ring cache).
+
+    ``logical_pos`` (int or 0-d tensor) indexes the position-embedding table;
+    ``write_row`` is the cache row the new K/V land in (in place);
+    ``valid_mask`` [max_seq] bool marks the rows this step attends to (it
+    must include ``write_row``). Returns hidden [d_model].
+    """
+    x_pe = x + weights.decoder.pos_emb[logical_pos]
+    return decode_rows(x_pe, write_row, valid_mask, xa_k, xa_v, k_cache, v_cache, weights,
+                       config, enc_length=enc_length)
+
+
+def decode_rows(x_pe: torch.Tensor, write_row: int, valid_mask: torch.Tensor,
+                xa_k: torch.Tensor, xa_v: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                weights: MagpieWeights, config: MagpieConfig,
+                enc_length: Optional[int] = None) -> torch.Tensor:
+    """The 12 layers of ``decode_step_masked`` on an input that already holds
+    its position embedding (the batched frame kernel receives posemb rows).
+
+    The residual carry stays float32 and attention covers the rows of the
+    whole ``max_seq`` buffer that ``valid_mask`` admits, the frame-step
+    kernels' rounding points.
     """
     dec = weights.decoder
     n_heads = config.dec_sa_heads
     d_model = config.d_model
     d_head = d_model // n_heads
-    wdt = x.dtype
-    xf = (x + dec.pos_emb[pos]).float()
+    wdt = x_pe.dtype
+    xf = x_pe.float()
     max_seq = k_cache.shape[1]
-    length_mask = (torch.arange(max_seq, device=x.device) <= pos)[None, None, :]
+    length_mask = valid_mask[None, None, :]
 
     for l in range(dec.qkv.shape[0]):
         h = layer_norm(xf, dec.norm_self[l], config.eps).to(wdt)
         qkv = torch.matmul(h, dec.qkv[l]).to(wdt)
         q = qkv[:d_model]
-        k_cache[l, pos] = qkv[d_model:2 * d_model]
-        v_cache[l, pos] = qkv[2 * d_model:]
+        k_cache[l, write_row] = qkv[d_model:2 * d_model]
+        v_cache[l, write_row] = qkv[2 * d_model:]
         qh = q.reshape(n_heads, 1, d_head)
         kh = k_cache[l].reshape(max_seq, n_heads, d_head).transpose(0, 1)
         vh = v_cache[l].reshape(max_seq, n_heads, d_head).transpose(0, 1)

@@ -1,17 +1,20 @@
 """Magpie pipeline assembly (magpie_tts_tpu/models/magpie.py): embeddings,
-prefill, and the autoregressive decode loop.
+prefill, and the autoregressive decode loops.
 
 1. ``prepare``     encoder + XA-KV precompute + context prefill + BOS step (plain PyTorch).
 2. ``decode_loop`` a Python loop over frames; each iteration is one call of
                    ``ops.kernels.frame_step.frame_step`` (the CUDA kernel on a
                    CUDA device, the plain LT sampler + embedding + decoder step
                    on the CPU), then the EOS test on the host.
+3. ``synthesize_codes_batched_program`` the lockstep loop over B utterances:
+                   one ``ops.kernels.frame_step_batched.frame_step_batched``
+                   call per frame, EOS bookkeeping on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +23,7 @@ from ..config import MagpieConfig
 from ..io.magpie_weights import MagpieWeights
 from ..ops import sampling
 from ..ops.kernels.frame_step import frame_step
+from ..ops.kernels.frame_step_batched import frame_step_batched
 from . import decoder as decoder_mod
 from .encoder import run_encoder
 
@@ -114,3 +118,82 @@ def synthesize_codes_program(tokens: torch.Tensor, enc_length: int, speaker_id: 
         state = decode_loop(xa_k, xa_v, state, enc_length, weights, config, key,
                             temperature, top_k)
     return state.codes, state.frame_idx
+
+
+def prepare_batch(tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
+                  weights: MagpieWeights, config: MagpieConfig):
+    """``prepare`` of every row of tokens [B, T]. Returns (xa_k, xa_v
+    [B, L, T, d_xa], k_cache, v_cache [B, L, max_seq, d_model], hidden [B, d_model])."""
+    outs = [prepare(tokens[b], int(enc_lengths[b]), int(speaker_ids[b]), weights, config)
+            for b in range(tokens.shape[0])]
+    xa_k = torch.stack([o[0] for o in outs])
+    xa_v = torch.stack([o[1] for o in outs])
+    k_cache = torch.stack([o[2].k_cache for o in outs])
+    v_cache = torch.stack([o[2].v_cache for o in outs])
+    hidden = torch.stack([o[2].hidden for o in outs])
+    return xa_k, xa_v, k_cache, v_cache, hidden
+
+
+# Frames between the lockstep loop's host reads of the all-done flag: each
+# read drains the device queue, so the host stops enqueueing ahead.
+_SYNC_EVERY = 8
+
+
+@dataclasses.dataclass
+class BatchedDecodeState:
+    """What the lockstep loop carries: one write position for all streams."""
+    k_cache: torch.Tensor      # [B, L, max_seq, d_model], updated in place
+    v_cache: torch.Tensor      # [B, L, max_seq, d_model], updated in place
+    hidden: torch.Tensor       # [B, d_model]
+    step: int                  # frames attempted so far
+    frame_idx: torch.Tensor    # [B] int32 frames kept per stream (freezes at EOS)
+    codes: torch.Tensor        # [B, max_dec_steps, 8] int32
+    done: torch.Tensor         # [B] bool
+
+
+def synthesize_codes_batched_program(
+        tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
+        keys: Sequence[Tuple[int, int]], temperature: float, weights: MagpieWeights,
+        config: MagpieConfig, top_k: int, max_steps: Optional[int] = None):
+    """Lockstep batched synthesis: tokens [B, T] -> (codes [B, N, 8] int32,
+    n_frames [B] int32), both on the weights' device.
+
+    Streams that hit EOS idle (their ``frame_idx`` / codes freeze) while the
+    rest continue. Per frame, as in the JAX loop: every stream's key splits
+    (seeds from the host threefry, uploaded once), ``valid = arange(S) <= pos``
+    and ``may_continue = ~done``. The all-done test reads the device every
+    ``_SYNC_EVERY`` frames, so up to ``_SYNC_EVERY - 1`` frames may run after
+    the last stream finished; they change no kept code.
+    """
+    max_steps = max_steps or config.max_dec_steps
+    device = weights.text_emb.device
+    with torch.no_grad():
+        xa_k, xa_v, k_cache, v_cache, hidden = prepare_batch(tokens, enc_lengths, speaker_ids,
+                                                             weights, config)
+        B = tokens.shape[0]
+        seeds, _ = sampling.frame_seeds_batch(np.array(keys, np.uint32), max_steps)
+        seeds = torch.from_numpy(seeds).to(device)                          # [steps, B]
+        enc = torch.tensor(list(enc_lengths), dtype=torch.int32, device=device)
+        s = BatchedDecodeState(
+            k_cache=k_cache, v_cache=v_cache, hidden=hidden, step=0,
+            frame_idx=torch.zeros(B, dtype=torch.int32, device=device),
+            codes=torch.zeros(B, max_steps, config.num_codebooks, dtype=torch.int32,
+                              device=device),
+            done=torch.zeros(B, dtype=torch.bool, device=device))
+        rows = torch.arange(config.max_seq, device=device)
+        while s.step < max_steps:
+            if s.step and s.step % _SYNC_EVERY == 0 and bool(s.done.all()):
+                break
+            pos = config.context_frames + 1 + s.step
+            valid = (rows <= pos)[None].expand(B, -1)
+            posemb = weights.decoder.pos_emb[pos][None].expand(B, -1)
+            forbid = s.frame_idx < config.min_generated_frames
+            sampled, argmax, s.hidden, _, _ = frame_step_batched(
+                s.hidden, pos, valid, ~s.done, posemb, xa_k, xa_v, s.k_cache, s.v_cache,
+                weights, config, enc, seeds[s.step], temperature, top_k, forbid, rows=pos + 1)
+            is_eos = ((sampled == config.audio_eos_id) | (argmax == config.audio_eos_id)).any(-1)
+            s.done = s.done | is_eos
+            s.codes[:, s.step] = sampled
+            s.frame_idx = torch.where(s.done, s.frame_idx, s.frame_idx + 1)
+            s.step += 1
+    return s.codes, s.frame_idx

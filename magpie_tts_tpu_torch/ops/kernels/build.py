@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, at first use, under
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for Hopper (``sm_90a``),
+all started together, and linked into one shared library with a plain C
+interface, at first use, under
 ``build/magpie_torch_kernels/`` of the checkout, named by a hash of the sources
 and flags (an edited source builds anew; an unchanged one loads the cached
 library). The library is bound with ``ctypes``: every entry point returns the
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -23,9 +25,10 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "magpie_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()  # engines on several cards load from a thread pool
 build_seconds: Optional[float] = None  # wall time of this process's nvcc run
 build_log: str = ""                    # nvcc/ptxas output of that run
 
@@ -57,38 +60,50 @@ def library_path() -> Path:
 def _build(target: Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # Build into a temporary name, then rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, target)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = str(Path(tmp) / f"{src.stem}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+        logs = [p.communicate()[0] for p in procs]
+        # Link into a temporary name, then rename: a concurrent process never
+        # loads a half-written library.
+        so = str(Path(tmp) / target.name)
+        link = None
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run([nvcc, "-shared", "-o", so, *objs], capture_output=True,
+                                  text=True)
+            logs.append(link.stdout + link.stderr)
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
+        if link is None or link.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        os.replace(so, target)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; declares every entry
     point's argument and return types."""
     global _lib
-    if _lib is None:
-        target = library_path()
-        if not target.exists():
-            _build(target)
-        lib = ctypes.CDLL(str(target))
-        from . import codec_conv, frame_step
+    with _lib_lock:
+        if _lib is None:
+            target = library_path()
+            if not target.exists():
+                _build(target)
+            lib = ctypes.CDLL(str(target))
+            from . import codec_conv, frame_step, frame_step_batched
 
-        frame_step.declare(lib)
-        codec_conv.declare(lib)
-        lib.magpie_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.magpie_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+            frame_step.declare(lib)
+            frame_step_batched.declare(lib)
+            codec_conv.declare(lib)
+            lib.magpie_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.magpie_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

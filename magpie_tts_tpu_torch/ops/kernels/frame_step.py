@@ -100,17 +100,14 @@ def _workspace(config: MagpieConfig, device) -> dict:
     return dict(zip(padded, ws.split(list(padded.values()))))
 
 
-def _tensors(hidden, k_cache, v_cache, xa_k, xa_v, weights: MagpieWeights,
-             config: MagpieConfig) -> dict:
-    """{argument name: (tensor, required shape)} of every tensor the kernel reads."""
+def weight_tensors(weights: MagpieWeights, config: MagpieConfig) -> dict:
+    """{argument name: (tensor, required shape)} of the LT, audio-embedding
+    and decoder-layer weights both frame kernels read."""
     c = config
     dec, lt = weights.decoder, weights.lt
-    L, S, D = k_cache.shape
-    E = xa_k.shape[1]
-    F, LT, LF, V, X = c.d_ffn, c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb, c.d_xa
+    L, D, F = c.dec_layers, c.d_model, c.d_ffn
+    LT, LF, V, X = c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb, c.d_xa
     return {
-        "hidden": (hidden, (D,)), "k_cache": (k_cache, (L, S, D)),
-        "v_cache": (v_cache, (L, S, D)), "xa_k": (xa_k, (L, E, X)), "xa_v": (xa_v, (L, E, X)),
         "lt_in_w": (lt.in_proj_w, (D, LT)), "lt_in_b": (lt.in_proj_b, (LT,)),
         "lt_pos": (lt.pos_emb, (c.lt_max_pos, LT)), "lt_norm_self": (lt.norm_self, (LT,)),
         "lt_qkv": (lt.qkv, (LT, 3 * LT)), "lt_sa_out": (lt.sa_out, (LT, LT)),
@@ -118,12 +115,26 @@ def _tensors(hidden, k_cache, v_cache, xa_k, xa_v, weights: MagpieWeights,
         "lt_ff_out": (lt.ff_out, (LF, LT)), "lt_out_w": (lt.out_proj_w, (c.num_codebooks, LT, V)),
         "lt_out_b": (lt.out_proj_b, (c.num_codebooks, V)),
         "audio_emb": (weights.audio_emb, (c.num_codebooks, V, D)),
-        "pos_emb": (dec.pos_emb, (c.max_pos, D)), "norm_self": (dec.norm_self, (L, D)),
+        "norm_self": (dec.norm_self, (L, D)),
         "qkv": (dec.qkv, (L, D, 3 * D)), "sa_out": (dec.sa_out, (L, D, D)),
         "norm_xa_q": (dec.norm_xa_q, (L, D)), "xa_q": (dec.xa_q, (L, D, X)),
         "xa_out": (dec.xa_out, (L, X, D)), "norm_ff": (dec.norm_ff, (L, D)),
         "ff_proj": (dec.ff_proj, (L, D, F)), "ff_out": (dec.ff_out, (L, F, D)),
         "norm_out": (dec.norm_out, (D,)),
+    }
+
+
+def _tensors(hidden, k_cache, v_cache, xa_k, xa_v, weights: MagpieWeights,
+             config: MagpieConfig) -> dict:
+    """{argument name: (tensor, required shape)} of every tensor the kernel reads."""
+    L, S, D = k_cache.shape
+    E = xa_k.shape[1]
+    X = config.d_xa
+    return {
+        "hidden": (hidden, (D,)), "k_cache": (k_cache, (L, S, D)),
+        "v_cache": (v_cache, (L, S, D)), "xa_k": (xa_k, (L, E, X)), "xa_v": (xa_v, (L, E, X)),
+        "pos_emb": (weights.decoder.pos_emb, (config.max_pos, D)),
+        **weight_tensors(weights, config),
     }
 
 

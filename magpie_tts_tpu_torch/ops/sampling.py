@@ -39,8 +39,9 @@ def _rotl(x: int, r: int) -> int:
     return ((x << r) | (x >> (32 - r))) & _M32
 
 
-def threefry2x32(k0: int, k1: int, x0: int, x1: int) -> Tuple[int, int]:
-    """Threefry-2x32 with 20 rounds (Random123; jax.random's block cipher)."""
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (Random123; jax.random's block cipher), on
+    ints or elementwise on uint32 arrays (which wrap, so the masks are no-ops)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -85,6 +86,19 @@ def frame_seeds(key: Tuple[int, int], n: int) -> list:
         key, sub = split(key)
         seeds.append(seed_from_key(sub))
     return seeds
+
+
+def frame_seeds_batch(keys: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``frame_seeds`` of B keys at once: keys [B, 2] uint32 -> (seeds [n, B]
+    int32 of frames 0..n-1, the keys [B, 2] after those n splits)."""
+    k0, k1 = keys[:, 0].astype(np.uint32), keys[:, 1].astype(np.uint32)
+    zero, one = np.zeros_like(k0), np.ones_like(k0)
+    seeds = np.empty((n, keys.shape[0]), np.int32)
+    for j in range(n):
+        s0, s1 = threefry2x32(k0, k1, zero, one)
+        seeds[j] = (s0 ^ s1).view(np.int32)
+        k0, k1 = threefry2x32(k0, k1, zero, zero)
+    return seeds, np.stack([k0, k1], axis=1)
 
 
 # ------------------------------------------------------ int32 hash + noise

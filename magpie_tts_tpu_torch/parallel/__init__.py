@@ -1,0 +1,3 @@
+"""Batched serving (magpie_tts_tpu/parallel/): lockstep batches
+(``serving.py``) and continuous batching over a ring cache, one engine per
+device behind a shared queue (``continuous.py``)."""

@@ -147,6 +147,24 @@ class CodecEngine:
                 audio = (torch.clamp(audio.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
         return audio.cpu().numpy()
 
+    def decode_batch(self, codes_list) -> list:
+        """Vocode several utterances in one batched codec call (padded to the
+        bucket of the longest). Returns float32 waveforms [n_i * hop]."""
+        if not codes_list:
+            return []
+        lens = [np.asarray(c).shape[0] for c in codes_list]
+        bucket = pick_bucket(self.frame_buckets, max(max(lens), 1))
+        padded = np.zeros((len(codes_list), self.config.num_codebooks, bucket), np.int64)
+        for i, c in enumerate(codes_list):
+            padded[i, :, :lens[i]] = np.asarray(c, np.int64).T
+        with torch.no_grad():
+            codes = torch.from_numpy(padded).to(self.device)
+            latent = codec_mod.fsq_dequantize(codes, self.config).to(self.weights.pre_conv_w.dtype)
+            audio = codec_mod.codec_decode_latent(latent.contiguous(), self.weights,
+                                                  self.config).float().cpu().numpy()
+        hop = self.config.hop_length
+        return [audio[i, :lens[i] * hop] for i in range(len(codes_list))]
+
 
 def synthesize_audio_fused(engine: MagpieEngine, codec: CodecEngine,
                            token_ids: Sequence[int], *, speaker_id: int = 0,

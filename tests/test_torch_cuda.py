@@ -17,6 +17,9 @@ from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
 from magpie_tts_tpu_torch.models import magpie as magpie_mod
 from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
 from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
+from magpie_tts_tpu_torch.parallel.serving import BatchedMagpieEngine
 from magpie_tts_tpu_torch.runtime import engine as engine_mod
 
 pytestmark = pytest.mark.cuda
@@ -93,6 +96,71 @@ def test_main_path_goes_through_the_kernels(prepared):
     assert cc.launches == 92 and np.all(np.isfinite(audio))
 
 
+def _batched_inputs(w, B, write_row, device):
+    """B slots with ring-style masks (wrapped runs; the last slot empty)."""
+    rng = np.random.default_rng(B)
+    L, S, D, E = SMALL.dec_layers, SMALL.max_seq, SMALL.d_model, 16
+    valid = np.zeros((B, S), bool)
+    for b in range(B - 1):
+        valid[b, (write_row + 1 + 3 * b + np.arange(10 + b)) % S] = True
+    valid[:, write_row] = False
+    f32 = lambda *shape, s=0.5: torch.tensor(rng.normal(0, s, shape), dtype=torch.float32,
+                                            device=device)
+    return dict(
+        hidden=f32(B, D, s=1.0), write_row=write_row,
+        valid=torch.tensor(valid, device=device),
+        may_continue=torch.tensor(rng.random(B) < 0.7, device=device),
+        posemb=w.decoder.pos_emb[torch.tensor(rng.integers(0, 100, B), device=device)],
+        xa_k=f32(B, L, E, SMALL.d_xa), xa_v=f32(B, L, E, SMALL.d_xa),
+        k_cache=f32(B, L, S, D), v_cache=f32(B, L, S, D),
+        enc_lengths=torch.tensor(rng.integers(1, E + 1, B), dtype=torch.int32, device=device),
+        seeds=torch.tensor(rng.integers(-2**31, 2**31, B), dtype=torch.int32, device=device),
+        forbid_eos=torch.tensor(rng.random(B) < 0.3, device=device))
+
+
+@pytest.mark.parametrize("B,write_row,temperature", [(3, 5, 0.0), (8, 30, 0.7), (13, 47, 0.7)])
+def test_frame_step_batched_kernel_matches_plain(cuda, B, write_row, temperature):
+    """Any B in 1..64 (3 and 13 are not multiples of 8); masks that wrap;
+    codes exact, hidden and caches to TOL for slots with a valid row."""
+    w = random_magpie_weights(SMALL, seed=11).to(device=cuda)
+    x = _batched_inputs(w, B, write_row, cuda)
+    kk, vk = x["k_cache"].clone(), x["v_cache"].clone()
+    kr, vr = x.pop("k_cache"), x.pop("v_cache")
+    args = dict(x, weights=w, config=SMALL, temperature=temperature, top_k=8)
+    fsb.launches = 0
+    with torch.no_grad():
+        sk, ak, hk, _, _ = fsb.frame_step_batched(k_cache=kk, v_cache=vk, **args)
+        sr, ar, hr, _, _ = fsb.frame_step_batched_reference(k_cache=kr, v_cache=vr, **args)
+    torch.cuda.synchronize()
+    assert fsb.launches == 1
+    assert torch.equal(sk, sr) and torch.equal(ak, ar)
+    live = slice(0, B - 1)
+    for got, want in ((hk, hr), (kk, kr), (vk, vr)):
+        assert float((got[live] - want[live]).abs().max()) < TOL
+        assert torch.isfinite(got).all()
+
+
+def test_batched_engines_go_through_the_kernel(cuda):
+    """Lockstep: one launch per frame run; continuous: one per segment frame."""
+    w = random_magpie_weights(SMALL, seed=11)
+    rng = np.random.default_rng(5)
+    reqs = [[98] + [int(t) for t in rng.integers(2, 30, size=n)] + [99] for n in (4, 9, 6)]
+    fsb.launches = 0
+    lock = BatchedMagpieEngine(w, SMALL, batch_size=3, device="cuda", token_buckets=(16,))
+    codes = lock.synthesize_batch(reqs, temperature=0.7, top_k=8, seed=1)
+    assert 0 < fsb.launches <= SMALL.max_dec_steps
+    assert all(c.shape[1] == 8 for c in codes)
+    fsb.launches = 0
+    cont = ContinuousBatchingEngine(w, SMALL, n_slots=2, device="cuda", token_buckets=(16,),
+                                    segment_frames=4)
+    ids = [cont.submit(r, seed=2) for r in reqs]
+    segments, finished = 0, {}
+    while cont.pending:
+        segments += 1
+        finished.update(cont.step(temperature=0.7, top_k=8))
+    assert sorted(finished) == ids and fsb.launches == 4 * segments
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         cc.snake_causal_conv(torch.zeros(8, 4, device=cuda, dtype=torch.float64),
@@ -101,3 +169,8 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         cc.snake_causal_conv(torch.zeros(8, 4, device=cuda), torch.zeros(3, 5, 4, device=cuda),
                              torch.zeros(4, device=cuda), None)
+    w = random_magpie_weights(SMALL, seed=11).to(device=cuda)
+    x = _batched_inputs(w, 2, 5, cuda)
+    x["valid"] = x["valid"].to(torch.int32)          # must be bool
+    with pytest.raises(ValueError):
+        fsb.frame_step_batched(weights=w, config=SMALL, temperature=0.0, top_k=8, **x)

@@ -37,6 +37,18 @@ def test_threefry_key_chain_matches_jax(seed):
             ts.fold_in(ts.prng_key(seed), i)
 
 
+def test_frame_seeds_batch_matches_jax_per_slot():
+    """The serving engines' per-slot chain: fold_in(PRNGKey(seed), id), then
+    one split per frame, for all slots at once, equals jax.random's."""
+    keys = [jax.random.fold_in(jax.random.PRNGKey(s), i) for i, s in enumerate(SEEDS)]
+    seeds, after = ts.frame_seeds_batch(np.array([_key(k) for k in keys], np.uint32), 12)
+    for b, key in enumerate(keys):
+        for j in range(12):
+            key, sub = jax.random.split(key)
+            assert seeds[j, b] == int(js.seed_from_key(sub))
+        assert tuple(int(v) for v in after[b]) == _key(key)
+
+
 def test_prng_key_rejects_out_of_range_seed():
     with pytest.raises(ValueError):
         ts.prng_key(2**31)
