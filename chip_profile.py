@@ -1,0 +1,273 @@
+"""Profile of the PyTorch/CUDA port on one NVIDIA GPU: where the batched frame
+kernel's time goes, and where ``serve``'s time goes.
+
+Run from the root of a checkout:  python3 chip_profile.py [frame|serve|all]
+
+frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
+    weights, write row 300, for each (B, temperature, rows attended) of
+    FRAME_CASES: host enqueue ms per frame (REPS launches, then one sync),
+    CUDA-event ms per frame, and device ms per frame in all and by kernel
+    family, from ``torch.profiler``.
+serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
+    16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
+    after one warm-up run: an unprofiled run (serve's aggregate fps and the
+    wall seconds spent in admission, segments and ``decode_batch``) and a
+    profiled run. ``busy_share`` is the device's busy time inside serve's
+    loop window (the ``serve.loop`` span, the window of serve's
+    aggregate-fps line) over that window's length; busy time is the union of
+    the kernels' intervals, copies excluded.
+
+Every result is one JSON line on stdout; the card's nvidia-smi name and power
+limit come first.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import re
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+FRAME_CASES = [(1, 0.7, 640), (1, 0.7, 301), (8, 0.0, 301), (8, 0.7, 640), (8, 0.7, 301),
+               (32, 0.7, 640), (32, 0.7, 301)]
+SERVE_CASES = [(4, 6), (8, 16), (32, 48)]
+SERVE_SEGMENT = 16
+REPS = 20
+FAMILIES = ("attention", "gemm", "combine_ln", "lt_sample", "reduce_act", "qkv_scatter")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _device_events(prof):
+    """The profiler's device-side events (kernels, copies) as (name, start us,
+    end us), user annotations left out."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        out.append((e.name, e.time_range.start, e.time_range.end))
+    return out
+
+
+def _is_copy(name: str) -> bool:
+    return name.startswith("Memcpy") or name.startswith("Memset")
+
+
+def _family(name: str) -> str:
+    for fam in FAMILIES:
+        if fam in name:
+            return fam
+    return "other"
+
+
+def profile_frame(dev) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from magpie_tts_tpu_torch.config import MagpieConfig
+    from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+
+    c = MagpieConfig()
+    w = random_magpie_weights(c, seed=0).to(device=dev)
+    S, L, D, E = c.max_seq, c.dec_layers, c.d_model, 128
+    write_row = 300
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape, s=0.5: torch.randn(*shape, generator=gen, device=dev) * s
+    bmax = max(b for b, _, _ in FRAME_CASES)
+    k_base, v_base = rnd(bmax, L, S, D), rnd(bmax, L, S, D)
+    xa_k, xa_v = rnd(bmax, L, E, c.d_xa), rnd(bmax, L, E, c.d_xa)
+    hidden = rnd(bmax, D, s=1.0)
+    valid = torch.zeros(bmax, S, dtype=torch.bool, device=dev)
+    valid[:, :write_row] = True
+    for B, temp, rows in FRAME_CASES:
+        kc, vc = k_base[:B].clone(), v_base[:B].clone()
+        args = dict(hidden=hidden[:B].contiguous(), write_row=write_row, valid=valid[:B],
+                    may_continue=torch.ones(B, dtype=torch.bool, device=dev),
+                    posemb=w.decoder.pos_emb[write_row][None].expand(B, -1),
+                    xa_k=xa_k[:B].contiguous(), xa_v=xa_v[:B].contiguous(), k_cache=kc,
+                    v_cache=vc, weights=w, config=c,
+                    enc_lengths=torch.full((B,), 32, dtype=torch.int32, device=dev),
+                    seeds=torch.arange(B, dtype=torch.int32, device=dev),
+                    temperature=temp, top_k=80,
+                    forbid_eos=torch.zeros(B, dtype=torch.bool, device=dev), rows=rows)
+        with torch.no_grad():
+            for _ in range(3):
+                fsb.frame_step_batched(**args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPS):
+                fsb.frame_step_batched(**args)
+            enqueue = (time.perf_counter() - t0) * 1e3 / REPS
+            end.record()
+            torch.cuda.synchronize()
+            event = start.elapsed_time(end) / REPS
+            # One traced warm-up step first: the tracer misses launches at its start.
+            traced = []
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                         on_trace_ready=lambda p: traced.append(_device_events(p))) as prof:
+                for reps in (1, REPS):
+                    for _ in range(reps):
+                        fsb.frame_step_batched(**args)
+                    torch.cuda.synchronize()
+                    prof.step()
+        by_family: dict = {}
+        launches: dict = {}
+        for name, t0_us, t1_us in traced[0]:
+            if _is_copy(name):
+                continue
+            fam = _family(name)
+            by_family[fam] = by_family.get(fam, 0.0) + (t1_us - t0_us) / 1e3 / REPS
+            launches[fam] = launches.get(fam, 0) + 1
+        emit({"phase": "frame", "B": B, "temperature": temp, "rows": rows,
+              "enqueue_ms": enqueue, "event_ms": event,
+              "device_ms": sum(by_family.values()),
+              "device_ms_by_family": by_family,
+              "launches_per_frame": {k: v / REPS for k, v in launches.items()}})
+
+
+class _StageTimer:
+    """Wall seconds spent inside a few methods, by name."""
+
+    def __init__(self, targets):
+        self.targets = targets       # [(owner, attribute name)]
+        self.seconds = {name: 0.0 for _, name in targets}
+        self._saved = []
+
+    def __enter__(self):
+        for owner, name in self.targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+
+            def timed(*a, _fn=fn, _name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def _serve_once(tmp: Path, slots: int, n_requests: int, seed0: int):
+    """One cli.main serve run; returns (stderr, frames)."""
+    from chip_smoke import SERVE_TEXTS
+    from magpie_tts_tpu_torch import cli
+
+    lines = [json.dumps({"id": f"q{i}", "text": SERVE_TEXTS[i % len(SERVE_TEXTS)],
+                         "seed": seed0 + i}) for i in range(n_requests)]
+    argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
+            "--out-dir", str(tmp / "serve"), "--slots", str(slots), "--segment-frames",
+            str(SERVE_SEGMENT), "--temp", "0.7", "--device", "cuda"]
+    out, err, stdin = io.StringIO(), io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        sys.stdin = stdin
+    results = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    if rc != 0 or len(results) != n_requests or any("error" in r for r in results):
+        raise AssertionError(f"serve run failed (rc {rc}): {err.getvalue()[-2000:]}")
+    return err.getvalue(), sum(r["frames"] for r in results)
+
+
+def _busy_share(prof) -> dict:
+    """Union of kernel intervals inside the serve.loop span, over the span."""
+    from torch.autograd import DeviceType
+
+    spans = [e for e in prof.events() if e.name == "serve.loop" and e.device_type == DeviceType.CPU]
+    if len(spans) != 1:
+        raise AssertionError(f"the profile holds {len(spans)} serve.loop spans, want 1")
+    ws, we = spans[0].time_range.start, spans[0].time_range.end
+    kernels = sorted((max(t0, ws), min(t1, we)) for name, t0, t1 in _device_events(prof)
+                     if not _is_copy(name) and t1 > ws and t0 < we)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in kernels:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return {"window_s": (we - ws) / 1e6, "device_busy_s": busy / 1e6,
+            "busy_share": busy / (we - ws), "kernels_in_window": len(kernels)}
+
+
+def profile_serve() -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import write_ggufs
+    from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
+    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
+
+    fps_re = re.compile(r"(\d+) frames in ([0-9.]+)s \(([0-9.]+) aggregate fps")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_ggufs(tmp)
+        _serve_once(tmp, 8, 2, 1000)   # warm-up: kernel build, CUDA init
+        for slots, n_req in SERVE_CASES:
+            stages = [(ContinuousBatchingEngine, "_admit_pending"),
+                      (ContinuousBatchingEngine, "_segment"), (CodecEngine, "decode_batch")]
+            with _StageTimer(stages) as timer:
+                log, frames = _serve_once(tmp, slots, n_req, 0)
+            m = fps_re.search(log)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                plog, _ = _serve_once(tmp, slots, n_req, 0)
+                torch.cuda.synchronize()
+            pm = fps_re.search(plog)
+            emit({"phase": "serve", "slots": slots, "requests": n_req, "frames": frames,
+                  "serve_s": float(m.group(2)), "fps": float(m.group(3)),
+                  "stage_wall_s": timer.seconds,
+                  "profiled": {"serve_s": float(pm.group(2)), "fps": float(pm.group(3)),
+                               **_busy_share(prof)}})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from chip_smoke import card_line
+    from magpie_tts_tpu_torch.ops.kernels import build
+    from magpie_tts_tpu_torch.runtime.engine import resolve_device
+
+    what = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if what not in ("frame", "serve", "all"):
+        print("usage: python3 chip_profile.py [frame|serve|all]", file=sys.stderr)
+        return 2
+    dev = resolve_device("cuda")
+    emit({"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda})
+    build.load_library()
+    if what in ("frame", "all"):
+        profile_frame(dev)
+    if what in ("serve", "all"):
+        profile_serve()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

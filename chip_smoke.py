@@ -7,7 +7,9 @@ Phases (each raises on failure, so the process exits non-zero):
    build of the hand-written kernels from csrc/ (nvcc, sm_90a);
 2. each kernel against its plain PyTorch version on the card at full 357M
    width: the frame step at several cache positions and temperatures, the
-   batched frame step at B=8 and B=32 with ring-style masks, the codec conv
+   batched frame step at B=8 and B=32 with ring-style masks and at serve's B
+   with its arguments as the continuous and lockstep engines pass them
+   (attention bound, broadcast rows), the codec conv
    for every (C_in, C_out, k, dilation, residual) class a decode runs; with
    both times;
 3. the main path through the user entry point: production-width random
@@ -280,6 +282,53 @@ def _ring_valid(B: int, S: int, write_row: int, rng):
     return valid
 
 
+def check_engine_arguments(fsb, kind: str, x: dict, k_base, v_base, temp: float, w, c,
+                           dev) -> int:
+    """Kernel C with its arguments as an engine passes them, against the plain
+    version, and against itself with the attention bound at max_seq (bit for
+    bit: rows past the bound hold no valid row). ``continuous``: valid rows
+    behind the shared write row and ``rows`` the end of the segment, as the
+    ring engine tracks it (the last slot empty); ``lockstep``: one broadcast
+    row ``arange(S) <= pos`` and one posemb row (stride 0), ``rows = pos + 1``.
+    Returns the number of codes differing from plain (0 at temp 0)."""
+    import torch
+
+    B, S, r = x["hidden"].shape[0], c.max_seq, x["write_row"]
+    if kind == "continuous":
+        rows, live = min(S, r + SERVE_SEGMENT), slice(0, B - 1)
+        valid = np.zeros((B, S), bool)
+        for b in range(B - 1):
+            valid[b, r - 1 - b * (r // B):r] = True
+        x["valid"] = torch.tensor(valid, device=dev)
+    else:
+        rows, live = r + 1, slice(0, B)
+        x["valid"] = (torch.arange(S, device=dev) <= r)[None].expand(B, -1)
+        x["posemb"] = w.decoder.pos_emb[r][None].expand(B, -1)
+    caches = [(k_base.clone(), v_base.clone()) for _ in range(3)]
+    (kk, vk), (kf, vf), (kr, vr) = caches
+    sk, ak, hk, _, _ = fsb.frame_step_batched(k_cache=kk, v_cache=vk, temperature=temp,
+                                              rows=rows, **x)
+    sf, af, hf, _, _ = fsb.frame_step_batched(k_cache=kf, v_cache=vf, temperature=temp,
+                                              rows=S, **x)
+    sr, ar, hr, _, _ = fsb.frame_step_batched_reference(k_cache=kr, v_cache=vr,
+                                                        temperature=temp, rows=rows, **x)
+    torch.cuda.synchronize()
+    bound_exact = (torch.equal(sk, sf) and torch.equal(ak, af) and
+                   all(torch.equal(a[live], b[live]) for a, b in ((hk, hf), (kk, kf), (vk, vf))))
+    n_diff = int((sk != sr).sum()) + int((ak != ar).sum())
+    err = max(float((a[live] - b[live]).abs().max()) for a, b in ((hk, hr), (kk, kr), (vk, vr)))
+    log(f"frame_step_batched as {kind} passes it, B {B} row {r} rows {rows} temp {temp}: "
+        f"codes differing from plain {n_diff} of {2 * sk.numel()}, max |hidden/cache err| "
+        f"{err:.3g}, equal to rows={S} bit for bit: {bound_exact}")
+    if not bound_exact:
+        raise AssertionError(f"frame_step_batched with rows={rows} differs from rows={S} "
+                             f"({kind}, row {r})")
+    if (temp == 0.0 and n_diff) or err > FRAME_TOL:
+        raise AssertionError(f"frame_step_batched disagrees with plain as {kind} passes it, "
+                             f"row {r}, temp {temp}: {n_diff} codes, err {err}")
+    return n_diff
+
+
 def check_frame_step_batched(dev) -> dict:
     """Kernel C vs frame_step_batched_reference at full width on the card."""
     import torch
@@ -353,6 +402,13 @@ def check_frame_step_batched(dev) -> dict:
                                              f"{write_row}: {err} > {FRAME_TOL} or not finite")
                     worst = max(worst, err)
         log(f"frame_step_batched: differing codes at temp 0.7 over 6 cases: {flips}")
+        for kind in ("continuous", "lockstep"):
+            for write_row in ((200, c.max_seq - 24) if kind == "continuous"
+                              else (c.context_frames + 1, 400)):
+                for temp in (0.0, 0.7):
+                    flips += check_engine_arguments(fsb, kind, inputs(SERVE_SLOTS, write_row),
+                                                    k_base[:SERVE_SLOTS], v_base[:SERVE_SLOTS],
+                                                    temp, w, c, dev)
         # Times at B=8 (and B=32), write row 300 (357M), temp 0.7.
         time_row = c.max_seq // 2 - 20
         times = {}
@@ -482,7 +538,7 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str) -> dict:
             "n_frames": n_frames, "fps": fps}
 
 
-SERVE_SLOTS, SERVE_SEGMENT = 4, 16
+SERVE_SLOTS, SERVE_SEGMENT = 8, 16  # serve's default slots
 SERVE_TEXTS = ["hello world", "hello, world!", "world hello.", "abc def", "hello abc world",
                "def, hello"]
 

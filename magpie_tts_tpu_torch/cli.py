@@ -53,14 +53,14 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--model", default="weights/magpie-357m-f32.gguf")
     p.add_argument("-c", "--codec", default="weights/nano-codec-f32.gguf")
     p.add_argument("--out-dir", default=".", help="directory for output WAVs")
-    p.add_argument("--slots", type=int, default=8, help="concurrent decode slots per device")
+    p.add_argument("--slots", type=int, default=8, help="concurrent decode slots")
     p.add_argument("--segment-frames", type=int, default=32,
                    help="frames decoded per scheduler segment")
     p.add_argument("--temp", type=float, default=0.7)
     p.add_argument("--top-k", type=int, default=80)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="device to run on (no fallback: cuda needs a CUDA device; with "
-                        "several cards, one engine per card)")
+                   help="device to run on (no fallback: cuda needs a CUDA device; "
+                        "serves on the first card, also where there are several)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="compute dtype (only float32 is ported; the JAX serve defaults "
                         "to bfloat16)")
@@ -93,7 +93,7 @@ def serve(argv) -> int:
     from .io.gguf import GGUFReader
     from .io.magpie_weights import load_magpie_weights
     from .io.wav import write_wav
-    from .parallel.continuous import ContinuousBatchingEngine, MultiChipContinuousServer
+    from .parallel.continuous import ContinuousBatchingEngine
     from .runtime.engine import CodecEngine
     from .text.tokenizer import MagpieTokenizer
 
@@ -124,22 +124,15 @@ def serve(argv) -> int:
         print(f"error: failed to load model: {e}", file=sys.stderr)
         return 1
 
-    n_cards = torch.cuda.device_count() if args.device == "cuda" else 1
-    if n_cards > 1:
-        engine = MultiChipContinuousServer(
-            weights, config, devices=[f"cuda:{i}" for i in range(n_cards)],
-            slots_per_device=args.slots, segment_frames=args.segment_frames)
-        for e in engine.engines:
-            e.split_token_id = tokenizer.space_id
-        log(f"serve: {n_cards} devices x {args.slots} slots, "
-            f"segment={args.segment_frames} frames")
-    else:
-        engine = ContinuousBatchingEngine(weights, config, n_slots=args.slots,
-                                          device=args.device,
-                                          segment_frames=args.segment_frames)
-        engine.split_token_id = tokenizer.space_id
-        log(f"serve: {args.slots} slots, segment={args.segment_frames} frames "
-            f"(device={args.device})")
+    # One engine on one device, also on a host with several cards:
+    # parallel.continuous.MultiChipContinuousServer runs one engine per card,
+    # but its engines' per-frame Python loops share one interpreter lock, and
+    # on four cards it served slower than one engine on one card.
+    engine = ContinuousBatchingEngine(weights, config, n_slots=args.slots, device=args.device,
+                                      segment_frames=args.segment_frames)
+    engine.split_token_id = tokenizer.space_id
+    log(f"serve: {args.slots} slots, segment={args.segment_frames} frames "
+        f"(device={engine.device})")
     codec = CodecEngine(codec_weights, codec_config, device=args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     names = {}
@@ -177,40 +170,43 @@ def serve(argv) -> int:
     n_done = 0
     total_frames = 0
     t0 = time.perf_counter()
-    eof = False
-    while not eof or engine.pending:
-        # Drain everything already queued; block only when idle.
-        while True:
+    # The span marks the window of the aggregate-fps line for a profiler
+    # (chip_profile.py reads the device's busy share over it).
+    with torch.profiler.record_function("serve.loop"):
+        eof = False
+        while not eof or engine.pending:
+            # Drain everything already queued; block only when idle.
+            while True:
+                try:
+                    line = lines.get(block=not engine.pending and not eof)
+                except queue.Empty:
+                    break
+                if line is None:
+                    eof = True
+                    break
+                admit(line)
+                if engine.pending and lines.empty():
+                    break  # do not starve the decode loop
+            if not engine.pending:
+                continue
+            finished = engine.step(temperature=args.temp, top_k=args.top_k)
+            if not finished:
+                continue
             try:
-                line = lines.get(block=not engine.pending and not eof)
-            except queue.Empty:
-                break
-            if line is None:
-                eof = True
-                break
-            admit(line)
-            if engine.pending and lines.empty():
-                break  # do not starve the decode loop
-        if not engine.pending:
-            continue
-        finished = engine.step(temperature=args.temp, top_k=args.top_k)
-        if not finished:
-            continue
-        try:
-            audios = codec.decode_batch(list(finished.values()))
-        except Exception as e:
-            for rid in finished:
-                emit({"id": names.get(rid, str(rid)),
-                      "error": f"codec decode failed: {type(e).__name__}: {e}"})
-            continue
-        for (rid, codes), audio in zip(finished.items(), audios):
-            path = os.path.join(args.out_dir, f"{names.get(rid, rid)}.wav")
-            write_wav(path, audio, config.sample_rate)
-            total_frames += codes.shape[0]
-            n_done += 1
-            emit({"id": names.get(rid, str(rid)), "wav": path, "frames": int(codes.shape[0]),
-                  "seconds": round(len(audio) / config.sample_rate, 3)})
-    dt = time.perf_counter() - t0
+                audios = codec.decode_batch(list(finished.values()))
+            except Exception as e:
+                for rid in finished:
+                    emit({"id": names.get(rid, str(rid)),
+                          "error": f"codec decode failed: {type(e).__name__}: {e}"})
+                continue
+            for (rid, codes), audio in zip(finished.items(), audios):
+                path = os.path.join(args.out_dir, f"{names.get(rid, rid)}.wav")
+                write_wav(path, audio, config.sample_rate)
+                total_frames += codes.shape[0]
+                n_done += 1
+                emit({"id": names.get(rid, str(rid)), "wav": path, "frames": int(codes.shape[0]),
+                      "seconds": round(len(audio) / config.sample_rate, 3)})
+        dt = time.perf_counter() - t0
     log(f"serve: {n_done} requests, {total_frames} frames in {dt:.2f}s "
         f"({total_frames / dt:.0f} aggregate fps)" if dt > 0 else "serve: done")
     return 0

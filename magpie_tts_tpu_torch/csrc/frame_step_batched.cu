@@ -23,8 +23,9 @@
 // shared memory and multiplies it into the B input rows, also staged there,
 // with B accumulators spread over its threads; the split-K partials are
 // reduced in a fixed order by the next kernel (no atomics). Per-slot work
-// (attention per slot and head, sampling, LayerNorm) gets a slot dimension in
-// its grid. wgmma, TMA, fewer launches and CUDA graphs are later work.
+// (attention per slot and head, sampling, LayerNorm) runs the kernels of
+// frame_kernels.cuh, shared with frame_step.cu, with a slot dimension in the
+// grid. wgmma, TMA, fewer launches and CUDA graphs are later work.
 //
 // Semantics the callers rely on:
 // - valid[b, r] (bool, row stride valid_stride, 0 to broadcast one row)
@@ -39,7 +40,7 @@
 //   erff GELU, softmax as exp(s - max) / sum, argmax ties to the lowest
 //   index, the exact top-k bisection and the Gumbel draw of frame_step.cu.
 
-#include "common.cuh"
+#include "frame_kernels.cuh"
 
 namespace {
 
@@ -49,7 +50,6 @@ constexpr int kTileK = 32;                         // weight rows per smem stage
 constexpr int kGemmThreads = 256;
 constexpr int kSlotGroups = kGemmThreads / kTileN;  // threads sharing a column
 constexpr int kTargetBlocks = 264;                 // 2 blocks per SM on 132 SMs
-constexpr int kRt = 256;                           // reduce / attention threads
 
 // part[(s * B + b) * N + n] = sum over k in split s of X[b, k] * W[k, n].
 // W is row-major [K, N] with N % 4 == 0, X is [B, K]. Thread (n, g) owns
@@ -104,199 +104,6 @@ gemm_splitk_kernel(const float* __restrict__ X, int B, const float* __restrict__
   }
 }
 
-__device__ __forceinline__ float sum_parts(const float* part, int S, int B, int N, int b, int n) {
-  float v = 0.f;
-  for (int s = 0; s < S; ++s) v += part[((size_t)s * B + b) * N + n];
-  return v;
-}
-
-// One block per slot b. v = sum of the S partials of row b (+ bias); then
-// either x[b] += v (accumulate) or x[b] = v (+ add, one row for all slots);
-// then h[b] = LayerNorm(x[b]) * ln_w when ln_w is given.
-__global__ void combine_ln_kernel(const float* __restrict__ part, int S, int N,
-                                  const float* __restrict__ bias, const float* __restrict__ add,
-                                  float* x, int accumulate, const float* __restrict__ ln_w,
-                                  float eps, float* h) {
-  __shared__ float red[32];
-  const int b = blockIdx.x, B = gridDim.x;
-  float* xb = x + (size_t)b * N;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float v = sum_parts(part, S, B, N, b, n);
-    if (bias) v += bias[n];
-    if (accumulate) {
-      xb[n] = xb[n] + v;
-    } else {
-      xb[n] = add ? v + add[n] : v;
-    }
-  }
-  if (ln_w) block_layer_norm(xb, ln_w, h + (size_t)b * N, N, eps, red);
-}
-
-// out[b, n] = act(sum of partials); act 0 = none, 1 = GELU. Grid (., B).
-__global__ void reduce_act_kernel(const float* __restrict__ part, int S, int N, int gelu,
-                                  int gelu_tanh, float* __restrict__ out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y, B = gridDim.y;
-  if (n >= N) return;
-  const float v = sum_parts(part, S, B, N, b, n);
-  out[(size_t)b * N + n] = gelu ? gelu_f(v, gelu_tanh) : v;
-}
-
-// Reduces the fused QKV partials [S, B, 3*D]: q -> q_out[b], and the new K / V
-// rows into k_row / v_row + b * slot_stride (the cache row of every slot).
-__global__ void qkv_scatter_kernel(const float* __restrict__ part, int S, int D,
-                                   float* __restrict__ q_out, float* __restrict__ k_row,
-                                   float* __restrict__ v_row, size_t slot_stride) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y, B = gridDim.y;
-  if (n >= 3 * D) return;
-  const float v = sum_parts(part, S, B, 3 * D, b, n);
-  if (n < D) {
-    q_out[(size_t)b * D + n] = v;
-  } else if (n < 2 * D) {
-    k_row[b * slot_stride + n - D] = v;
-  } else {
-    v_row[b * slot_stride + n - 2 * D] = v;
-  }
-}
-
-// Single-query attention, block (head, slot). q is the sum of Sq partials
-// [Sq, B, Nq] (Sq = 1: a plain [B, Nq] row). K / V of slot b start at
-// b * slot_stride, rows `row_stride` floats apart; the head's columns start at
-// head * d_head. Rows [0, rows) are attended; with rows_dev the slot's own
-// count min(max(rows_dev[b], 1), rows) is used instead. With `valid`, row r
-// of slot b counts when valid[b * valid_stride + r] (row write_row: when
-// new_valid[b]); other rows score -1e30.
-// Dynamic shared memory: (d_head + rows + blockDim.x) floats.
-__global__ void attention_kernel(const float* __restrict__ qpart, int Sq, int Nq,
-                                 const float* __restrict__ K, const float* __restrict__ V,
-                                 size_t slot_stride, int row_stride, int rows,
-                                 const int* __restrict__ rows_dev,
-                                 const unsigned char* __restrict__ valid, int valid_stride,
-                                 int write_row, const int* __restrict__ new_valid, int d_head,
-                                 float scale, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  __shared__ float red[32];
-  const int b = blockIdx.y, B = gridDim.y;
-  const int n_rows = rows_dev ? min(max(rows_dev[b], 1), rows) : rows;
-  float* qs = sm;
-  float* sc = sm + d_head;
-  float* acc = sc + n_rows;
-  const int tid = threadIdx.x, bd = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = bd >> 5;
-  const int off = blockIdx.x * d_head;
-  K += b * slot_stride;
-  V += b * slot_stride;
-
-  for (int d = tid; d < d_head; d += bd) qs[d] = sum_parts(qpart, Sq, B, Nq, b, off + d);
-  __syncthreads();
-  for (int r = warp; r < n_rows; r += nw) {
-    const float* kr = K + (size_t)r * row_stride + off;
-    float dot = 0.f;
-    for (int d = lane; d < d_head; d += 32) dot = fmaf(qs[d], kr[d], dot);
-    dot = warp_sum(dot);
-    if (lane == 0) {
-      bool ok = true;
-      if (valid) ok = r == write_row ? new_valid[b] != 0 : valid[(size_t)b * valid_stride + r] != 0;
-      sc[r] = ok ? dot * scale : kNegBig;
-    }
-  }
-  __syncthreads();
-  float m = -INFINITY;
-  for (int r = tid; r < n_rows; r += bd) m = fmaxf(m, sc[r]);
-  m = block_max(m, red);
-  float s = 0.f;
-  for (int r = tid; r < n_rows; r += bd) {
-    const float e = expf(sc[r] - m);
-    sc[r] = e;
-    s += e;
-  }
-  s = block_sum(s, red);
-  for (int r = tid; r < n_rows; r += bd) sc[r] = sc[r] / s;
-  __syncthreads();
-
-  float* ob = out + (size_t)b * Nq + off;
-  if (d_head <= bd) {
-    const int G = bd / d_head;
-    const int d = tid % d_head, gg = tid / d_head;
-    float a = 0.f;
-    if (gg < G) {
-      for (int r = gg; r < n_rows; r += G) a = fmaf(sc[r], V[(size_t)r * row_stride + off + d], a);
-    }
-    acc[tid] = a;
-    __syncthreads();
-    if (tid < d_head) {
-      float o = 0.f;
-      for (int k = 0; k < G; ++k) o += acc[k * d_head + tid];
-      ob[tid] = o;
-    }
-  } else {
-    for (int d = tid; d < d_head; d += bd) {
-      float a = 0.f;
-      for (int r = 0; r < n_rows; ++r) a = fmaf(sc[r], V[(size_t)r * row_stride + off + d], a);
-      ob[d] = a;
-    }
-  }
-}
-
-// One LT phase's sampling, one block of kSampleThreads per slot b: logits =
-// partials + bias, forbidden specials -> -1e30, then block_sample with the
-// slot's seed. The sampled code's embedding row is kept for the next phase's
-// input projection and added to the slot's embedding sum. The last phase
-// decides the new row's validity and seeds the decoder:
-// x[b] = sum / n_cb + posemb[b], h[b] = LayerNorm(x[b]) with layer 0's norm.
-__global__ void __launch_bounds__(kSampleThreads)
-lt_sample_kernel(const float* __restrict__ part, int S, int V, const float* __restrict__ bias,
-                 int cb, int ncb, const unsigned char* __restrict__ forbid_eos, int bos_id,
-                 int eos_id, const int* __restrict__ seeds, float temperature, int top_k,
-                 const float* __restrict__ emb_table, int D, int* __restrict__ codes,
-                 int* __restrict__ amax_out, float* __restrict__ emb_row,
-                 float* __restrict__ emb_acc, const float* __restrict__ posemb,
-                 int posemb_stride, const unsigned char* __restrict__ may_continue,
-                 int* __restrict__ new_valid, float* __restrict__ x,
-                 const float* __restrict__ ln_w, float eps, float* __restrict__ h) {
-  __shared__ float lg[kMaxVocab];
-  __shared__ float redv[32];
-  __shared__ int redi[32];
-  const int tid = threadIdx.x, bd = blockDim.x;
-  const int b = blockIdx.x, B = gridDim.x;
-  const int forbid = forbid_eos[b];
-
-  for (int v = tid; v < V; v += bd) {
-    const float l = sum_parts(part, S, B, V, b, v) + bias[v];
-    lg[v] = lt_forbidden(v, bos_id, eos_id, forbid) ? kNegBig : l;
-  }
-  int amax;
-  const int code = block_sample(lg, V, temperature, top_k,
-                                (uint32_t)seeds[b] + (uint32_t)cb * kPhaseC, redv, redi, amax);
-
-  const bool last = cb == ncb - 1;
-  if (tid == 0) {
-    codes[b * ncb + cb] = code;
-    amax_out[b * ncb + cb] = amax;
-    if (last) {
-      bool eos = false;
-      for (int c = 0; c < ncb; ++c) {
-        eos = eos || codes[b * ncb + c] == eos_id || amax_out[b * ncb + c] == eos_id;
-      }
-      new_valid[b] = may_continue[b] != 0 && !eos;
-    }
-  }
-  const float* er = emb_table + (size_t)code * D;
-  float* rb = emb_row + (size_t)b * D;
-  float* ab = emb_acc + (size_t)b * D;
-  float* xb = x + (size_t)b * D;
-  const float* pb = posemb + (size_t)b * posemb_stride;
-  for (int n = tid; n < D; n += bd) {
-    const float e = er[n];
-    rb[n] = e;
-    const float s = cb == 0 ? e : ab[n] + e;
-    ab[n] = s;
-    if (last) xb[n] = s / (float)ncb + pb[n];
-  }
-  if (last) block_layer_norm(xb, ln_w, h + (size_t)b * D, D, eps, redv);
-}
-
 // Launches the split-K GEMM of X[B, K] @ W[K, N]; returns the split count S.
 int launch_gemm(const float* X, int B, const float* W, float* part, int K, int N, int part_cap,
                 cudaStream_t st) {
@@ -320,10 +127,6 @@ int launch_gemm(const float* X, int B, const float* W, float* part, int K, int N
     gemm_splitk_kernel<16><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
   }
   return S;
-}
-
-int attention_smem(int d_head, int rows) {
-  return (d_head + rows + kRt) * (int)sizeof(float);
 }
 
 }  // namespace
@@ -439,8 +242,8 @@ extern "C" int magpie_frame_step_batched_f32(const FrameStepBatchedArgs* a, void
     S = launch_gemm(a->lt_x, B, a->lt_out_w + (size_t)cb * LT * V, a->part, LT, V, cap, st);
     MAGPIE_CHECK_LAUNCH();
     lt_sample_kernel<<<B, kSampleThreads, 0, st>>>(
-        a->part, S, V, a->lt_out_b + (size_t)cb * V, cb, ncb, a->forbid_eos, a->audio_bos_id,
-        a->audio_eos_id, a->seeds, a->temperature, a->top_k, a->audio_emb + (size_t)cb * V * D,
+        a->part, S, V, a->lt_out_b + (size_t)cb * V, cb, ncb, a->forbid_eos, 0, a->audio_bos_id,
+        a->audio_eos_id, a->seeds, 0, a->temperature, a->top_k, a->audio_emb + (size_t)cb * V * D,
         D, a->sampled, a->argmax, a->emb_row, a->emb_acc, a->posemb, a->posemb_stride,
         a->may_continue, a->new_valid, a->x, a->norm_self, a->eps, a->h);
     MAGPIE_CHECK_LAUNCH();

@@ -18,6 +18,7 @@ from magpie_tts_tpu_torch.models import magpie as magpie_mod
 from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
 from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
 from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+from magpie_tts_tpu_torch.parallel import continuous as continuous_mod
 from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
 from magpie_tts_tpu_torch.parallel.serving import BatchedMagpieEngine
 from magpie_tts_tpu_torch.runtime import engine as engine_mod
@@ -159,6 +160,49 @@ def test_batched_engines_go_through_the_kernel(cuda):
         segments += 1
         finished.update(cont.step(temperature=0.7, top_k=8))
     assert sorted(finished) == ids and fsb.launches == 4 * segments
+
+
+@pytest.mark.parametrize("path", ["continuous", "lockstep"])
+def test_attention_bound_drops_no_valid_row(cuda, monkeypatch, path):
+    """The host-side attention bound an engine passes (``rows``: the ring
+    engine's tracked bound, lockstep's pos + 1) gives codes equal, bit for bit,
+    to the same run with the bound at max_seq. Continuous: nine requests
+    through three slots, one joining per segment, so the ring wraps."""
+    w = random_magpie_weights(SMALL, seed=11)
+    rng = np.random.default_rng(13)
+    reqs = [[98] + [int(t) for t in rng.integers(2, 30, size=n)] + [99]
+            for n in (4, 9, 6, 12, 5, 7, 3, 10, 8)]
+    module = continuous_mod if path == "continuous" else magpie_mod
+    real = fsb.frame_step_batched
+    bounds = []
+
+    def run(full: bool):
+        def launch(*a, rows=None, **k):
+            bounds.append(rows)
+            return real(*a, rows=None if full else rows, **k)
+
+        monkeypatch.setattr(module, "frame_step_batched", launch)
+        if path == "lockstep":
+            lock = BatchedMagpieEngine(w, SMALL, batch_size=3, device="cuda", token_buckets=(16,))
+            return lock.synthesize_batch(reqs[:3], temperature=0.7, top_k=8, seed=1)
+        cont = ContinuousBatchingEngine(w, SMALL, n_slots=3, device="cuda", token_buckets=(16,),
+                                        segment_frames=8)
+        ids = [cont.submit(r, seed=i) for i, r in enumerate(reqs[:3])]
+        ring, finished = [], {}
+        while cont.pending or len(ids) < len(reqs):
+            if len(ids) < len(reqs):   # one more request per segment
+                ids.append(cont.submit(reqs[len(ids)], seed=len(ids)))
+            ring.append(cont.ring_p)
+            finished.update(cont.step(temperature=0.0, top_k=8))
+        assert any(b < a for a, b in zip(ring, ring[1:])), "the ring never wrapped"
+        return [finished[i] for i in ids]
+
+    bounded = run(full=False)
+    assert any(b is not None and b < SMALL.max_seq for b in bounds)
+    full = run(full=True)
+    assert len(bounded) == len(full)
+    for i, (got, want) in enumerate(zip(bounded, full)):
+        np.testing.assert_array_equal(got, want, err_msg=f"{path} request {i}")
 
 
 def test_wrappers_reject_bad_inputs(cuda):
