@@ -1,13 +1,27 @@
 """Profile of the PyTorch/CUDA port on one NVIDIA GPU: where the batched frame
-kernel's time goes, and where ``serve``'s time goes.
+kernel's time goes, the fused frame against the split path, and where
+``serve``'s time goes.
 
-Run from the root of a checkout:  python3 chip_profile.py [frame|serve|all]
+Run from the root of a checkout:
+    python3 chip_profile.py [frame|split|fused|serve|all] [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
     weights, write row 300, for each (B, temperature, rows attended) of
     FRAME_CASES: host enqueue ms per frame (REPS launches, then one sync),
     CUDA-event ms per frame, and device ms per frame in all and by kernel
     family, from ``torch.profiler``.
+split: one decode frame as each loop runs it, at 357M width, row 300,
+    temp 0.7: single stream fused (kernel A, then the host EOS read) and
+    split (kernel 4, the host EOS read, the embedding, kernel 5), and at B=8
+    fused (kernel C) and split (kernel 7, the EOS bookkeeping, the embedding
+    + posemb, kernel 8); then each of the four split kernels alone. Per
+    frame: host wall ms (REPS frames, then one sync; the single-stream loops
+    sync every frame), device ms in all and by kernel family, and launches
+    by family.
+fused: the fused rows of ``split`` alone. They use only what the package
+    had before the split path, so ``--root DIR`` (another checkout's root,
+    whose package is imported and built instead of this one's) compares two
+    commits in one call.
 serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
@@ -39,7 +53,7 @@ FRAME_CASES = [(1, 0.7, 640), (1, 0.7, 301), (8, 0.0, 301), (8, 0.7, 640), (8, 0
 SERVE_CASES = [(4, 6), (8, 16), (32, 48)]
 SERVE_SEGMENT = 16
 REPS = 20
-FAMILIES = ("attention", "gemm", "combine_ln", "lt_sample", "reduce_act", "qkv_scatter")
+FAMILIES = ("attention", "gemm", "gemv", "combine_ln", "lt_sample", "reduce_act", "qkv_scatter")
 
 
 def emit(obj) -> None:
@@ -243,6 +257,123 @@ def profile_serve() -> None:
                                **_busy_share(prof)}})
 
 
+def _profile_frames(frame, reps: int = REPS) -> dict:
+    """Host wall ms per frame over ``reps`` calls of ``frame()`` then one
+    sync, and the device ms per frame in all and by kernel family (copies
+    excluded), with launches per frame by family, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        frame()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        frame()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    traced = []
+    # One traced warm-up step first: the tracer misses launches at its start.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.append(_device_events(p))) as prof:
+        for n in (1, reps):
+            for _ in range(n):
+                frame()
+            torch.cuda.synchronize()
+            prof.step()
+    by_family: dict = {}
+    launches: dict = {}
+    for name, t0_us, t1_us in traced[0]:
+        if _is_copy(name):
+            continue
+        fam = _family(name)
+        by_family[fam] = by_family.get(fam, 0.0) + (t1_us - t0_us) / 1e3 / reps
+        launches[fam] = launches.get(fam, 0) + 1
+    return {"wall_ms": wall, "device_ms": sum(by_family.values()),
+            "device_ms_by_family": by_family,
+            "launches_per_frame": {k: v / reps for k, v in launches.items()}}
+
+
+def profile_split(dev, split: bool) -> None:
+    """One frame as the loops run it, fused and (with ``split``) split."""
+    import torch
+
+    from magpie_tts_tpu_torch.config import MagpieConfig
+    from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+
+    c = MagpieConfig()
+    w = random_magpie_weights(c, seed=0).to(device=dev)
+    S, L, D, E, B, row = c.max_seq, c.dec_layers, c.d_model, 128, 8, 300
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape, s=0.5: torch.randn(*shape, generator=gen, device=dev) * s
+    kc, vc = rnd(B, L, S, D), rnd(B, L, S, D)
+    xa_k, xa_v = rnd(B, L, E, c.d_xa), rnd(B, L, E, c.d_xa)
+    hidden = rnd(B, D, s=1.0)
+    eos = c.audio_eos_id
+    one = dict(xa_k=xa_k[0], xa_v=xa_v[0], k_cache=kc[0], v_cache=vc[0], weights=w, config=c)
+    valid = (torch.arange(S, device=dev) <= row)[None].expand(B, -1)
+    posemb = w.decoder.pos_emb[row][None].expand(B, -1)
+    enc = torch.full((B,), 32, dtype=torch.int32, device=dev)
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    forbid = torch.zeros(B, dtype=torch.bool, device=dev)
+    batched = dict(xa_k=xa_k, xa_v=xa_v, k_cache=kc, v_cache=vc, weights=w, config=c)
+
+    def fused_one():
+        sampled, argmax, _, _, _ = fs.frame_step(hidden[0], row, seed=7, temperature=0.7,
+                                                 top_k=80, forbid_eos=False, enc_length=32,
+                                                 **one)
+        return bool(((sampled == eos) | (argmax == eos)).any().cpu())
+
+    def fused_batched():
+        sampled, argmax, _, _, _ = fsb.frame_step_batched(
+            hidden, row, valid, torch.ones(B, dtype=torch.bool, device=dev), posemb,
+            enc_lengths=enc, seeds=seeds, temperature=0.7, top_k=80, forbid_eos=forbid,
+            rows=row + 1, **batched)
+        return ((sampled == eos) | (argmax == eos)).any(-1)
+
+    frames = {("fused", 1): fused_one, ("fused", B): fused_batched}
+    if split:
+        from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+        from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+        from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
+        from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+
+        def split_one():
+            sampled, argmax = lts.sample_frame_codes(hidden[0], w, c, 7, 0.7, 80, False)
+            done = bool(((sampled == eos) | (argmax == eos)).any().cpu())
+            ds.decode_step(audio_frame_embedding(sampled, w, c), row, enc_length=32, **one)
+            return done
+
+        def split_batched():
+            sampled, argmax = ltsb.sample_frame_codes_batched(hidden, w, c, seeds, 0.7, 80,
+                                                              forbid)
+            is_eos = ((sampled == eos) | (argmax == eos)).any(-1)
+            x_pe = audio_frame_embedding(sampled, w, c) + posemb
+            dsb.decode_step_batched(x_pe, row, valid, enc_lengths=enc, rows=row + 1, **batched)
+            return is_eos
+
+        emb = audio_frame_embedding(torch.zeros(c.num_codebooks, dtype=torch.int32, device=dev),
+                                    w, c)
+        x_pe = audio_frame_embedding(torch.zeros(B, c.num_codebooks, dtype=torch.int32,
+                                                 device=dev), w, c) + posemb
+        frames.update({
+            ("split", 1): split_one, ("split", B): split_batched,
+            ("lt_sampler", 1): lambda: lts.sample_frame_codes(hidden[0], w, c, 7, 0.7, 80, False),
+            ("decoder_step", 1): lambda: ds.decode_step(emb, row, enc_length=32, **one),
+            ("lt_sampler_batched", B): lambda: ltsb.sample_frame_codes_batched(
+                hidden, w, c, seeds, 0.7, 80, forbid),
+            ("decoder_step_batched", B): lambda: dsb.decode_step_batched(
+                x_pe, row, valid, enc_lengths=enc, rows=row + 1, **batched)})
+    with torch.no_grad():
+        for (path, b), frame in frames.items():
+            emit({"phase": "split" if split else "fused", "path": path, "B": b, "row": row,
+                  "temperature": 0.7, **_profile_frames(frame)})
+
+
 def main() -> int:
     import torch
 
@@ -250,20 +381,31 @@ def main() -> int:
         print("chip_profile: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    root = Path(__file__).resolve().parent
+    if "--root" in args:
+        i = args.index("--root")
+        root = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(root))
     from chip_smoke import card_line
     from magpie_tts_tpu_torch.ops.kernels import build
     from magpie_tts_tpu_torch.runtime.engine import resolve_device
 
-    what = sys.argv[1] if len(sys.argv) > 1 else "all"
-    if what not in ("frame", "serve", "all"):
-        print("usage: python3 chip_profile.py [frame|serve|all]", file=sys.stderr)
+    what = args[0] if args else "all"
+    if what not in ("frame", "split", "fused", "serve", "all"):
+        print("usage: python3 chip_profile.py [frame|split|fused|serve|all] [--root DIR]",
+              file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
-    emit({"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit({"card": card_line(), "torch": torch.__version__, "cuda": torch.version.cuda,
+          "package": str(Path(build.__file__).resolve().parents[3])})
     build.load_library()
     if what in ("frame", "all"):
         profile_frame(dev)
+    if what in ("split", "fused", "all"):
+        profile_split(dev, split=what != "fused")
     if what in ("serve", "all"):
         profile_serve()
     return 0

@@ -9,15 +9,21 @@ Phases (each raises on failure, so the process exits non-zero):
    width: the frame step at several cache positions and temperatures, the
    batched frame step at B=8 and B=32 with ring-style masks and at serve's B
    with its arguments as the continuous and lockstep engines pass them
-   (attention bound, broadcast rows), the codec conv
-   for every (C_in, C_out, k, dilation, residual) class a decode runs; with
-   both times;
+   (attention bound, broadcast rows), the codec conv for every (C_in, C_out,
+   k, dilation, residual) class a decode runs, and the split path's four
+   kernels (LT sampler and decoder step, single-stream and batched, the
+   batched decoder step also with the engines' arguments); the split path
+   also against the fused kernels on the same state; with both times, each
+   kernel's bound and, where one PyTorch call computes the same function,
+   that call's time;
 3. the main path through the user entry point: production-width random
    GGUFs, ``magpie_tts_tpu_torch.cli.main`` with ``--device cuda``, the WAV
-   checked, and the kernels' launch counts checked against the loop;
+   checked, and the kernels' launch counts checked against the loop; then
+   the same with ``--no-fused`` (the split kernels, none of the fused one);
 4. the serve path on the same GGUFs: ``cli.main(["serve", ...])`` with JSONL
    requests on a stdin stand-in, every WAV checked, the batched kernel's
-   launches checked against the segments run.
+   launches checked against the segments run; then the same under
+   ``MAGPIE_NO_FUSED=1`` (the split batched kernels, none of the fused one).
 
 The line before last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -27,7 +33,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
+import os
 import json
 import re
 import subprocess
@@ -39,8 +47,14 @@ from pathlib import Path
 import numpy as np
 
 FRAME_TOL = 1e-4   # hidden / cache rows: GEMV summation order differs from torch.matmul
+SPLIT_TOL = 1e-5   # the split kernels: against plain, and split against fused
 CONV_ATOL = 1e-4   # conv outputs of O(1): summation order differs from F.conv1d
 CONV_RTOL = 1e-5
+# An H100 SXM's published peaks (NVIDIA's datasheet): device memory
+# rate, and float32 outside the tensor cores (every kernel here is SIMT f32).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+F32 = 4
 
 
 def log(msg: str) -> None:
@@ -69,6 +83,54 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for a function: the larger of the
+    bytes it must move over the memory rate and its operations over the
+    float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def lt_work(c, B: int):
+    """(bytes, flops) of B slots' LT sampling: every LT weight and output head
+    read once, each slot's hidden row and its 8 sampled embedding rows read,
+    its codes written; the matrix products' flops (the 9-row attention and the
+    sampling passes are small beside them)."""
+    D, LT, LF, V, n = c.d_model, c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb, c.num_codebooks
+    weights = D * LT + LT + n * LT + 2 * LT + 4 * LT * LT + 2 * LT * LF + n * (LT * V + V)
+    nbytes = F32 * (weights + B * (D + n * D)) + B * 2 * n * 4
+    flops = B * n * 2 * (D * LT + 4 * LT * LT + 2 * LT * LF + LT * V)
+    return nbytes, flops
+
+
+def dec_work(c, kv_rows, enc_rows, input_rows: int = 2):
+    """(bytes, flops) of one decoder step for slots attending kv_rows[b]
+    existing cache rows and enc_rows[b] cross-attention rows: every decoder
+    weight read once; per slot its rows of K and V, its cross-attention K/V
+    rows and ``input_rows`` rows of input (the embedding and its posemb row)
+    read, its new K/V rows and hidden written."""
+    D, F, X, L = c.d_model, c.d_ffn, c.d_xa, c.dec_layers
+    mats = 3 * D * D + D * D + D * X + X * D + 2 * D * F
+    nbytes = F32 * (L * (mats + 3 * D) + D)
+    flops = 0
+    for r, e in zip(kv_rows, enc_rows):
+        nbytes += F32 * (2 * L * r * D + 2 * L * e * X + input_rows * D + 2 * L * D + D)
+        flops += 2 * L * mats + 4 * L * (r + 1) * D + 4 * L * e * X
+    return nbytes, flops
+
+
+@functools.lru_cache(maxsize=1)
+def prod_weights(dev):
+    """Random 357M weights (seed 0) on the card, made once for every phase."""
+    from magpie_tts_tpu_torch.config import MagpieConfig
+    from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
+
+    c = MagpieConfig()
+    return c, random_magpie_weights(c, seed=0).to(device=dev)
 
 
 # --------------------------------------------------------------- GGUF files
@@ -211,32 +273,41 @@ def write_codec_gguf(path: str, config, seed: int) -> None:
 
 # ------------------------------------------------------------------ phases
 
+SINGLE_ENC = 20
+
+
+@functools.lru_cache(maxsize=1)
+def single_state(dev):
+    """One stream after prepare() at 357M width, and K/V caches whose rows
+    past the speaker context hold random K/V of the prefill's scale."""
+    import torch
+
+    from magpie_tts_tpu_torch.models import magpie as magpie_mod
+
+    c, w = prod_weights(dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.tensor(rng.integers(2, c.text_vocab_size - 2, size=32), device=dev)
+    with torch.no_grad():
+        xa_k, xa_v, st = magpie_mod.prepare(tokens, SINGLE_ENC, 0, w, c)
+    scale = float(st.k_cache[:, :c.context_frames].std())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    filler = lambda: torch.randn(st.k_cache.shape, generator=gen, device=dev) * scale
+    ctx = torch.arange(c.max_seq, device=dev)[None, :, None] < c.context_frames + 1
+    k_base = torch.where(ctx, st.k_cache, filler())
+    v_base = torch.where(ctx, st.v_cache, filler())
+    # 111, 300 and 610 at 357M width: the first decode row, mid-cache, near full.
+    positions = (c.context_frames + 1, c.max_seq // 2 - 20, c.max_seq - 30)
+    return c, w, xa_k, xa_v, st.hidden, k_base, v_base, positions
+
+
 def check_frame_step(dev) -> dict:
     """Kernel A vs frame_step_reference at full width on the card."""
     import torch
 
-    from magpie_tts_tpu_torch.config import MagpieConfig
-    from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
-    from magpie_tts_tpu_torch.models import magpie as magpie_mod
     from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
 
-    c = MagpieConfig()
-    w = random_magpie_weights(c, seed=0).to(device=dev)
-    rng = np.random.default_rng(0)
-    enc_len = 20
-    tokens = torch.tensor(rng.integers(2, c.text_vocab_size - 2, size=32), device=dev)
-    with torch.no_grad():
-        xa_k, xa_v, st = magpie_mod.prepare(tokens, enc_len, 0, w, c)
-    # Rows past the speaker context hold random K/V of the prefill's scale.
-    scale = float(st.k_cache[:, :c.context_frames].std())
-    gen = torch.Generator(device=dev).manual_seed(0)
-    filler = lambda: torch.randn(st.k_cache.shape, generator=gen, device=dev) * scale
-    k_base = torch.where(torch.arange(c.max_seq, device=dev)[None, :, None] < c.context_frames + 1,
-                         st.k_cache, filler())
-    v_base = torch.where(torch.arange(c.max_seq, device=dev)[None, :, None] < c.context_frames + 1,
-                         st.v_cache, filler())
-    # 111, 300 and 610 at 357M width: the first decode row, mid-cache, near full.
-    positions = (c.context_frames + 1, c.max_seq // 2 - 20, c.max_seq - 30)
+    c, w, xa_k, xa_v, hidden, k_base, v_base, positions = single_state(dev)
+    enc_len = SINGLE_ENC
     worst, flips = 0.0, 0
     with torch.no_grad():
         for pos in positions:
@@ -244,9 +315,9 @@ def check_frame_step(dev) -> dict:
                 seed = 1000 + pos
                 kk, vk = k_base.clone(), v_base.clone()
                 kr, vr = k_base.clone(), v_base.clone()
-                sk, ak, hk, _, _ = fs.frame_step(st.hidden, pos, xa_k, xa_v, kk, vk, w, c, seed,
+                sk, ak, hk, _, _ = fs.frame_step(hidden, pos, xa_k, xa_v, kk, vk, w, c, seed,
                                                  temp, 80, False, enc_length=enc_len)
-                sr, ar, hr, _, _ = fs.frame_step_reference(st.hidden, pos, xa_k, xa_v, kr, vr, w,
+                sr, ar, hr, _, _ = fs.frame_step_reference(hidden, pos, xa_k, xa_v, kr, vr, w,
                                                            c, seed, temp, 80, False,
                                                            enc_length=enc_len)
                 torch.cuda.synchronize()
@@ -263,12 +334,15 @@ def check_frame_step(dev) -> dict:
                 worst = max(worst, err)
         log(f"frame_step: differing codes at temp 0.7 over 3 positions: {flips}")
         # Times at the middle position, temp 0.7 (its cache row is rewritten per call).
-        args = (st.hidden, positions[1], xa_k, xa_v, k_base.clone(), v_base.clone(), w, c, 7, 0.7, 80,
+        args = (hidden, positions[1], xa_k, xa_v, k_base.clone(), v_base.clone(), w, c, 7, 0.7, 80,
                 False)
         ms = time_ms(lambda: fs.frame_step(*args, enc_length=enc_len), reps=50)
         plain_ms = time_ms(lambda: fs.frame_step_reference(*args, enc_length=enc_len), reps=5)
     log(f"frame_step time at pos {positions[1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "temp07_code_flips": flips}
+    lt_b, lt_f = lt_work(c, 1)
+    dec_b, dec_f = dec_work(c, [positions[1]], [enc_len], input_rows=1)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "temp07_code_flips": flips,
+            **bound(lt_b + dec_b, lt_f + dec_f)}
 
 
 def _ring_valid(B: int, S: int, write_row: int, rng):
@@ -329,20 +403,20 @@ def check_engine_arguments(fsb, kind: str, x: dict, k_base, v_base, temp: float,
     return n_diff
 
 
-def check_frame_step_batched(dev) -> dict:
-    """Kernel C vs frame_step_batched_reference at full width on the card."""
+BATCH_MAX, BATCH_ENC = 32, 128
+
+
+@functools.lru_cache(maxsize=1)
+def batched_state(dev):
+    """BATCH_MAX prepared streams at 357M width (xa padded to BATCH_ENC rows)
+    and K/V caches of random rows at the prefill's scale."""
     import torch
 
-    from magpie_tts_tpu_torch.config import MagpieConfig
-    from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
     from magpie_tts_tpu_torch.models import magpie as magpie_mod
-    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
 
-    c = MagpieConfig()
-    w = random_magpie_weights(c, seed=0).to(device=dev)
+    c, w = prod_weights(dev)
     rng = np.random.default_rng(1)
-    E = 128
-    Bmax = 32
+    Bmax, E = BATCH_MAX, BATCH_ENC
     with torch.no_grad():
         tokens = torch.tensor(rng.integers(2, c.text_vocab_size - 2, size=(Bmax, 32)), device=dev)
         enc = [int(n) for n in rng.integers(8, 33, Bmax)]
@@ -351,25 +425,43 @@ def check_frame_step_batched(dev) -> dict:
     pad = (0, 0, 0, E - xa_k.shape[2])
     xa_k = torch.nn.functional.pad(xa_k, pad).contiguous()
     xa_v = torch.nn.functional.pad(xa_v, pad).contiguous()
-    # Cache rows hold random K/V of the prefill's scale.
     scale = float(k_ctx[:, :, :c.context_frames].std())
     gen = torch.Generator(device=dev).manual_seed(2)
     k_base = torch.randn(k_ctx.shape, generator=gen, device=dev) * scale
     v_base = torch.randn(v_ctx.shape, generator=gen, device=dev) * scale
-    del k_ctx, v_ctx
+    return c, w, hidden, xa_k, xa_v, k_base, v_base, enc
 
-    def inputs(B, write_row):
-        return dict(
-            hidden=hidden[:B].contiguous(), write_row=write_row,
-            valid=torch.tensor(_ring_valid(B, c.max_seq, write_row, rng), device=dev),
-            may_continue=torch.tensor(rng.random(B) < 0.8, device=dev),
-            posemb=w.decoder.pos_emb[torch.tensor(rng.integers(c.context_frames + 1, c.max_seq, B),
-                                                   device=dev)],
-            xa_k=xa_k[:B].contiguous(), xa_v=xa_v[:B].contiguous(),
-            enc_lengths=torch.tensor(enc[:B], dtype=torch.int32, device=dev),
-            seeds=torch.tensor(rng.integers(-2**31, 2**31, B), dtype=torch.int32, device=dev),
-            forbid_eos=torch.tensor(rng.random(B) < 0.3, device=dev),
-            weights=w, config=c, top_k=80)
+
+def batched_inputs(dev, B: int, write_row: int, rng) -> dict:
+    """Kernel C's arguments for B slots of batched_state: ring-style masks
+    (the last slot empty), random may_continue / posemb rows / seeds /
+    forbid_eos."""
+    import torch
+
+    c, w, hidden, xa_k, xa_v, _, _, enc = batched_state(dev)
+    return dict(
+        hidden=hidden[:B].contiguous(), write_row=write_row,
+        valid=torch.tensor(_ring_valid(B, c.max_seq, write_row, rng), device=dev),
+        may_continue=torch.tensor(rng.random(B) < 0.8, device=dev),
+        posemb=w.decoder.pos_emb[torch.tensor(rng.integers(c.context_frames + 1, c.max_seq, B),
+                                               device=dev)],
+        xa_k=xa_k[:B].contiguous(), xa_v=xa_v[:B].contiguous(),
+        enc_lengths=torch.tensor(enc[:B], dtype=torch.int32, device=dev),
+        seeds=torch.tensor(rng.integers(-2**31, 2**31, B), dtype=torch.int32, device=dev),
+        forbid_eos=torch.tensor(rng.random(B) < 0.3, device=dev),
+        weights=w, config=c, top_k=80)
+
+
+def check_frame_step_batched(dev) -> dict:
+    """Kernel C vs frame_step_batched_reference at full width on the card."""
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+
+    c, w, _, _, _, k_base, v_base, enc = batched_state(dev)
+    rng = np.random.default_rng(1)
+    Bmax = BATCH_MAX
+    inputs = lambda B, write_row: batched_inputs(dev, B, write_row, rng)
 
     worst, flips = 0.0, 0
     with torch.no_grad():
@@ -411,21 +503,24 @@ def check_frame_step_batched(dev) -> dict:
                                                     temp, w, c, dev)
         # Times at B=8 (and B=32), write row 300 (357M), temp 0.7.
         time_row = c.max_seq // 2 - 20
-        times = {}
+        times, timed = {}, {}
         for B in (8, Bmax):
-            x = inputs(B, time_row)
+            x = timed[B] = inputs(B, time_row)
             kk, vk = k_base[:B].clone(), v_base[:B].clone()
             times[B] = time_ms(lambda: fsb.frame_step_batched(k_cache=kk, v_cache=vk,
                                                               temperature=0.7, **x), reps=30)
-        x = inputs(8, time_row)
+        x = timed[8]
         kk, vk = k_base[:8].clone(), v_base[:8].clone()
         plain_ms = time_ms(lambda: fsb.frame_step_batched_reference(
             k_cache=kk, v_cache=vk, temperature=0.7, **x), reps=3, warmup=1)
     log(f"frame_step_batched time at row {time_row}, temp 0.7: B=8 kernel {times[8]:.4f} ms "
         f"({times[8] / 8:.4f} ms per slot), plain {plain_ms:.4f} ms; B={Bmax} kernel "
         f"{times[Bmax]:.4f} ms ({times[Bmax] / Bmax:.4f} ms per slot)")
+    lt_b, lt_f = lt_work(c, 8)
+    dec_b, dec_f = dec_work(c, x["valid"].sum(-1).tolist(), x["enc_lengths"].tolist(),
+                            input_rows=1)
     return {"max_abs_err": worst, "ms": times[8], "plain_ms": plain_ms, "ms_b32": times[Bmax],
-            "temp07_code_flips": flips}
+            "temp07_code_flips": flips, **bound(lt_b + dec_b, lt_f + dec_f)}
 
 
 def check_codec_conv(dev, frames: int = 32) -> dict:
@@ -456,7 +551,7 @@ def check_codec_conv(dev, frames: int = 32) -> dict:
     if sum(m for *_, m in classes) != 92:
         raise AssertionError("conv classes do not add up to 92 convs per decode")
 
-    worst, total_ms, total_plain = 0.0, 0.0, 0.0
+    worst, total_ms, total_plain, total_lib, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0, 0
     with torch.no_grad():
         for name, T, wt, b, alpha, d, res, mult in classes:
             k, c_in, c_out = wt.shape
@@ -470,14 +565,236 @@ def check_codec_conv(dev, frames: int = 32) -> dict:
                                      f"disagrees: max abs err {err}")
             t_k = time_ms(lambda: cc.snake_causal_conv(x, wt, b, alpha, d, 0.01, residual=r), 5)
             t_p = time_ms(lambda: cc.snake_causal_conv_reference(x, wt, b, alpha, d, 0.01, r), 5)
+            # The library yardstick: one cuDNN conv1d (float32, TF32 off) of the
+            # same shapes; it leaves out the HalfSnake and the residual add.
+            x_nct, w_oik = x.transpose(1, 2).contiguous(), wt.permute(2, 1, 0).contiguous()
+            t_l = time_ms(lambda: torch.nn.functional.conv1d(x_nct, w_oik, b, dilation=d,
+                                                             padding=(k - 1) * d), 5)
             log(f"codec_conv {name:18s} {c_in:4d}->{c_out:4d} k{k:2d} d{d} T{T:6d} "
-                f"res={int(res)}: max abs err {err:.3g}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+                f"res={int(res)}: max abs err {err:.3g}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                f"conv1d {t_l:.4f} ms")
             worst = max(worst, err)
             total_ms += t_k * mult
             total_plain += t_p * mult
+            total_lib += t_l * mult
+            n_alpha = 0 if alpha is None else alpha.numel()
+            nbytes += mult * F32 * (T * c_in + k * c_in * c_out + c_out + n_alpha
+                                    + T * c_out * (2 if res else 1))
+            flops += mult * 2 * T * k * c_in * c_out
     log(f"codec_conv: 92 convs of a {frames}-frame decode: kernel {total_ms:.4f} ms, "
-        f"plain {total_plain:.4f} ms")
-    return {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain}
+        f"plain {total_plain:.4f} ms, conv1d {total_lib:.4f} ms")
+    return {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
+            "library_ms": total_lib, **bound(nbytes, flops)}
+
+
+def _eos(sampled, argmax, c):
+    return ((sampled == c.audio_eos_id) | (argmax == c.audio_eos_id)).any(-1)
+
+
+def _max_err(pairs, live=slice(None)) -> float:
+    return max(float((a[live] - b[live]).abs().max()) for a, b in pairs)
+
+
+def check_split_single(dev) -> dict:
+    """Kernels 4 (LT sampler) and 5 (decoder step) against their plain
+    versions at full width, and the split frame (kernel 4, the embedding,
+    kernel 5) against kernel A on the same state: codes exact, floats within
+    SPLIT_TOL, at positions 111 / 300 / 610 and temperatures 0 / 0.7."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
+
+    c, w, xa_k, xa_v, hidden, k_base, v_base, positions = single_state(dev)
+    enc_len = SINGLE_ENC
+    err_dec, err_fused = 0.0, 0.0
+    with torch.no_grad():
+        for pos in positions:
+            for temp in (0.0, 0.7):
+                seed, forbid = 2000 + pos, pos == positions[0]
+                sk, ak = lts.sample_frame_codes(hidden, w, c, seed, temp, 80, forbid)
+                sr, ar = lts.sample_frame_codes_reference(hidden, w, c, seed, temp, 80, forbid)
+                emb = audio_frame_embedding(sk, w, c)
+                (kk, vk), (kr, vr), (kf, vf) = [(k_base.clone(), v_base.clone()) for _ in range(3)]
+                hk = ds.decode_step(emb, pos, xa_k, xa_v, kk, vk, w, c, enc_length=enc_len)
+                hr = ds.decode_step_reference(emb, pos, xa_k, xa_v, kr, vr, w, c,
+                                              enc_length=enc_len)
+                sf, af, hf, _, _ = fs.frame_step(hidden, pos, xa_k, xa_v, kf, vf, w, c, seed, temp,
+                                                 80, forbid, enc_length=enc_len)
+                torch.cuda.synchronize()
+                n_plain = int((sk != sr).sum()) + int((ak != ar).sum())
+                n_fused = int((sk != sf).sum()) + int((ak != af).sum())
+                e_plain = _max_err(((hk, hr), (kk, kr), (vk, vr)))
+                e_fused = _max_err(((hk, hf), (kk, kf), (vk, vf)))
+                log(f"split pos {pos} temp {temp}: lt_sampler codes differing from plain "
+                    f"{n_plain}, from frame_step {n_fused}; decoder_step max |hidden/cache err| "
+                    f"{e_plain:.3g} vs plain, {e_fused:.3g} (split frame) vs frame_step")
+                if n_plain or n_fused or e_plain > SPLIT_TOL or e_fused > SPLIT_TOL:
+                    raise AssertionError(f"split path disagrees at pos {pos}, temp {temp}")
+                err_dec, err_fused = max(err_dec, e_plain), max(err_fused, e_fused)
+        pos = positions[1]
+        k_t, v_t = k_base.clone(), v_base.clone()
+        lt_args = (hidden, w, c, 7, 0.7, 80, False)
+        dec_args = (emb, pos, xa_k, xa_v, k_t, v_t, w, c)
+        times = {
+            "lt": time_ms(lambda: lts.sample_frame_codes(*lt_args), reps=50),
+            "lt_plain": time_ms(lambda: lts.sample_frame_codes_reference(*lt_args), reps=5),
+            "dec": time_ms(lambda: ds.decode_step(*dec_args, enc_length=enc_len), reps=50),
+            "dec_plain": time_ms(lambda: ds.decode_step_reference(*dec_args, enc_length=enc_len),
+                                 reps=5)}
+    log(f"split times (temp 0.7; decoder step at pos {pos}): lt_sampler {times['lt']:.4f} ms, "
+        f"plain {times['lt_plain']:.4f} ms; decoder_step {times['dec']:.4f} ms, plain "
+        f"{times['dec_plain']:.4f} ms; max |split frame - frame_step| {err_fused:.3g}")
+    return {"lt": {"max_abs_err": 0.0, "ms": times["lt"], "plain_ms": times["lt_plain"],
+                   **bound(*lt_work(c, 1))},
+            "dec": {"max_abs_err": err_dec, "ms": times["dec"], "plain_ms": times["dec_plain"],
+                    **bound(*dec_work(c, [pos], [enc_len]))},
+            "split_vs_fused_err": err_fused}
+
+
+def check_split_engine_arguments(kind: str, x: dict, k_base, v_base, dev) -> float:
+    """Kernel 8 with its arguments as an engine passes them, against the
+    plain version and against itself with the attention bound at max_seq
+    (bit for bit). ``continuous``: rows behind ring row r plus row r as the
+    segment writes it before the step, ``rows`` the end of the segment;
+    ``lockstep``: one broadcast row ``arange(S) <= pos`` (stride 0), ``rows =
+    pos + 1``. Returns the largest difference from plain."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+
+    w, c = x["weights"], x["config"]
+    B, S, r = x["hidden"].shape[0], c.max_seq, x["write_row"]
+    sampled, argmax = ltsb.sample_frame_codes_batched(x["hidden"], w, c, x["seeds"], 0.7, 80,
+                                                      x["forbid_eos"])
+    x_pe = audio_frame_embedding(sampled, w, c)
+    if kind == "continuous":
+        rows, live = min(S, r + SERVE_SEGMENT), slice(0, B - 1)
+        valid = np.zeros((B, S), bool)
+        for b in range(B - 1):
+            valid[b, r - 1 - b * (r // B):r] = True
+        valid = torch.tensor(valid, device=dev)
+        valid[:, r] = x["may_continue"] & ~_eos(sampled, argmax, c)
+        x_pe = x_pe + x["posemb"]
+    else:
+        rows, live = r + 1, slice(0, B)
+        valid = (torch.arange(S, device=dev) <= r)[None].expand(B, -1)
+        x_pe = x_pe + w.decoder.pos_emb[r][None].expand(B, -1)
+    (kk, vk), (kf, vf), (kr, vr) = [(k_base.clone(), v_base.clone()) for _ in range(3)]
+    step = (x_pe, r, valid, x["xa_k"], x["xa_v"])
+    hk = dsb.decode_step_batched(*step, kk, vk, w, c, x["enc_lengths"], rows=rows)
+    hf = dsb.decode_step_batched(*step, kf, vf, w, c, x["enc_lengths"], rows=S)
+    hr = dsb.decode_step_batched_reference(*step, kr, vr, w, c, x["enc_lengths"], rows=rows)
+    torch.cuda.synchronize()
+    bound_exact = all(torch.equal(a[live], b[live]) for a, b in ((hk, hf), (kk, kf), (vk, vf)))
+    err = _max_err(((hk, hr), (kk, kr), (vk, vr)), live)
+    log(f"decoder_step_batched as {kind} passes it, B {B} row {r} rows {rows}: max "
+        f"|hidden/cache err| {err:.3g}, equal to rows={S} bit for bit: {bound_exact}")
+    if not bound_exact or err > SPLIT_TOL:
+        raise AssertionError(f"decoder_step_batched as {kind} passes it, row {r}: bound exact "
+                             f"{bound_exact}, err {err}")
+    return err
+
+
+def check_split_batched(dev) -> dict:
+    """Kernels 7 (batched LT sampler) and 8 (batched decoder step) against
+    their plain versions at full width, B = 8 and 32 with ring masks (the
+    last slot empty), write rows 111 / 300 / 610, temperatures 0 / 0.7; the
+    split frame (kernel 7, the embedding + posemb, kernel 8 with the write
+    row valid as kernel C decides it) against kernel C on the same state;
+    kernel 8 also with the engines' arguments."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+
+    c, w, _, _, _, k_base, v_base, _ = batched_state(dev)
+    rng = np.random.default_rng(3)
+    rows_of = (c.context_frames + 1, c.max_seq // 2 - 20, c.max_seq - 30)
+    err_dec, err_fused = 0.0, 0.0
+
+    def split_frame(x, temp, caches):
+        (kk, vk), (kr, vr) = caches
+        sample = (x["hidden"], w, c, x["seeds"], temp, 80, x["forbid_eos"])
+        sk, ak = ltsb.sample_frame_codes_batched(*sample)
+        sr, ar = ltsb.sample_frame_codes_batched_reference(*sample)
+        r = x["write_row"]
+        valid = x["valid"].clone()
+        valid[:, r] = x["may_continue"] & ~_eos(sk, ak, c)
+        step = (audio_frame_embedding(sk, w, c) + x["posemb"], r, valid, x["xa_k"], x["xa_v"])
+        hk = dsb.decode_step_batched(*step, kk, vk, w, c, x["enc_lengths"])
+        hr = dsb.decode_step_batched_reference(*step, kr, vr, w, c, x["enc_lengths"])
+        return (sk, ak, hk), (sr, ar, hr), step
+
+    with torch.no_grad():
+        for B in (8, BATCH_MAX):
+            for r in rows_of:
+                for temp in (0.0, 0.7):
+                    x = batched_inputs(dev, B, r, rng)
+                    (kk, vk), (kr, vr), (kf, vf) = [(k_base[:B].clone(), v_base[:B].clone())
+                                                    for _ in range(3)]
+                    (sk, ak, hk), (sr, ar, hr), _ = split_frame(x, temp, ((kk, vk), (kr, vr)))
+                    sf, af, hf, _, _ = fsb.frame_step_batched(k_cache=kf, v_cache=vf,
+                                                              temperature=temp, **x)
+                    torch.cuda.synchronize()
+                    live = slice(0, B - 1)   # the last slot has no valid row
+                    n_plain = int((sk != sr).sum()) + int((ak != ar).sum())
+                    n_fused = int((sk != sf).sum()) + int((ak != af).sum())
+                    e_plain = _max_err(((hk, hr), (kk, kr), (vk, vr)), live)
+                    e_fused = _max_err(((hk, hf), (kk, kf), (vk, vf)), live)
+                    finite = all(bool(torch.isfinite(t).all()) for t in (hk, kk, vk))
+                    log(f"split batched B {B} row {r} temp {temp}: lt_sampler_batched codes "
+                        f"differing from plain {n_plain}, from frame_step_batched {n_fused} of "
+                        f"{2 * sk.numel()}; decoder_step_batched max |hidden/cache err| "
+                        f"{e_plain:.3g} vs plain, {e_fused:.3g} (split frame) vs "
+                        f"frame_step_batched (live slots), finite {finite}")
+                    if (n_plain or n_fused or e_plain > SPLIT_TOL or e_fused > SPLIT_TOL
+                            or not finite):
+                        raise AssertionError(f"split batched path disagrees at B {B}, row {r}, "
+                                             f"temp {temp}")
+                    err_dec, err_fused = max(err_dec, e_plain), max(err_fused, e_fused)
+        for kind, rows in (("continuous", (200, c.max_seq - 24)),
+                           ("lockstep", (c.context_frames + 1, 400))):
+            for r in rows:
+                err_dec = max(err_dec, check_split_engine_arguments(
+                    kind, batched_inputs(dev, SERVE_SLOTS, r, rng), k_base[:SERVE_SLOTS],
+                    v_base[:SERVE_SLOTS], dev))
+        # Times at B=8 (and B=32), write row 300, temp 0.7.
+        times = {}
+        for B in (8, BATCH_MAX):
+            x = batched_inputs(dev, B, rows_of[1], rng)
+            kk, vk = k_base[:B].clone(), v_base[:B].clone()
+            sample = (x["hidden"], w, c, x["seeds"], 0.7, 80, x["forbid_eos"])
+            _, _, step = split_frame(x, 0.7, ((kk, vk), (kk.clone(), vk.clone())))
+            times[B] = {
+                "lt": time_ms(lambda: ltsb.sample_frame_codes_batched(*sample), reps=30),
+                "dec": time_ms(lambda: dsb.decode_step_batched(*step, kk, vk, w, c,
+                                                               x["enc_lengths"]), reps=30)}
+            if B == 8:
+                timed = x
+                times[B]["lt_plain"] = time_ms(
+                    lambda: ltsb.sample_frame_codes_batched_reference(*sample), reps=3, warmup=1)
+                times[B]["dec_plain"] = time_ms(
+                    lambda: dsb.decode_step_batched_reference(*step, kk, vk, w, c,
+                                                              x["enc_lengths"]), reps=3, warmup=1)
+    t8, t32 = times[8], times[BATCH_MAX]
+    log(f"split batched times at row {rows_of[1]}, temp 0.7: B=8 lt_sampler_batched "
+        f"{t8['lt']:.4f} ms (plain {t8['lt_plain']:.4f}), decoder_step_batched {t8['dec']:.4f} ms "
+        f"(plain {t8['dec_plain']:.4f}); B={BATCH_MAX} {t32['lt']:.4f} / {t32['dec']:.4f} ms; "
+        f"max |split frame - frame_step_batched| {err_fused:.3g}")
+    valid_rows = timed["valid"].sum(-1).tolist()
+    dec_b, dec_f = dec_work(c, valid_rows, timed["enc_lengths"].tolist(), input_rows=1)
+    return {"lt": {"max_abs_err": 0.0, "ms": t8["lt"], "plain_ms": t8["lt_plain"],
+                   "ms_b32": t32["lt"], **bound(*lt_work(c, 8))},
+            "dec": {"max_abs_err": err_dec, "ms": t8["dec"], "plain_ms": t8["dec_plain"],
+                    "ms_b32": t32["dec"], **bound(dec_b + 8 * c.max_seq, dec_f)},
+            "split_vs_fused_err": err_fused}
 
 
 def write_ggufs(tmp: Path):
@@ -493,26 +810,31 @@ def write_ggufs(tmp: Path):
     return mcfg, ccfg
 
 
-def run_main_path(tmp: Path, mcfg, ccfg, card: str) -> dict:
-    """cli.main at full width on random GGUFs; checks the WAV and launch counts."""
+def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict:
+    """cli.main at full width on random GGUFs; checks the WAV and launch
+    counts: kernel A once per loop step, or with ``split`` (``--no-fused``)
+    kernels 4 and 5 once per step and kernel A never."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
     from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
 
     hop = ccfg.hop_length
-    out = tmp / "out.wav"
+    out = tmp / ("out_split.wav" if split else "out.wav")
     argv = ["-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
             "-t", "hello world", "-o", str(out), "--device", "cuda",
-            "--temp", "0.7", "--seed", "0"]
+            "--temp", "0.7", "--seed", "0"] + (["--no-fused"] if split else [])
     err = io.StringIO()
-    fs.launches = 0
-    cc.launches = 0
+    kernels = (fs, lts, ds, cc)
+    for k in kernels:
+        k.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
-    frame_launches, conv_launches = fs.launches, cc.launches
+    frame_launches, lt_launches, dec_launches, conv_launches = (k.launches for k in kernels)
     log(err.getvalue().rstrip())
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
@@ -525,17 +847,22 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str) -> dict:
     # The loop runs one frame step per kept frame, plus the EOS frame when it
     # stopped before max_dec_steps.
     want_steps = n_frames + (1 if n_frames < mcfg.max_dec_steps else 0)
-    if frame_launches != want_steps:
-        raise AssertionError(f"frame_step launched {frame_launches}x for {want_steps} steps")
+    want = (0, want_steps, want_steps) if split else (want_steps, 0, 0)
+    if (frame_launches, lt_launches, dec_launches) != want:
+        raise AssertionError(f"frame_step / lt_sampler / decoder_step launched {frame_launches} "
+                             f"/ {lt_launches} / {dec_launches}x for {want_steps} steps "
+                             f"(split {split})")
     if conv_launches != 92:
         raise AssertionError(f"codec conv launched {conv_launches}x, want 92 per decode")
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) fps", err.getvalue())
     synth_s, fps = (float(m.group(1)), float(m.group(2))) if m else (float("nan"),) * 2
-    log(f"main path: {n_frames} frames, {len(samples)} samples, frame_step launches "
-        f"{frame_launches}, conv launches {conv_launches}, synth {synth_s} s = {fps} fps "
+    log(f"main path{' --no-fused' if split else ''}: {n_frames} frames, {len(samples)} samples, "
+        f"frame_step / lt_sampler / decoder_step launches {frame_launches} / {lt_launches} / "
+        f"{dec_launches}, conv launches {conv_launches}, synth {synth_s} s = {fps} fps "
         f"(cli.main wall {wall:.2f} s incl. load) on {card}")
-    return {"frame_launches": frame_launches, "conv_launches": conv_launches,
-            "n_frames": n_frames, "fps": fps}
+    return {"frame_launches": frame_launches, "lt_launches": lt_launches,
+            "dec_launches": dec_launches, "conv_launches": conv_launches, "n_frames": n_frames,
+            "fps": fps}
 
 
 SERVE_SLOTS, SERVE_SEGMENT = 8, 16  # serve's default slots
@@ -543,14 +870,18 @@ SERVE_TEXTS = ["hello world", "hello, world!", "world hello.", "abc def", "hello
                "def, hello"]
 
 
-def run_serve(tmp: Path, mcfg, ccfg, card: str) -> dict:
+def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict:
     """cli.main serve at full width: six JSONL requests and a malformed line on
     a stdin stand-in; checks every result, the error line, the WAVs, and the
-    batched kernel's and codec conv's launch counts."""
+    launch counts: kernel C once per segment frame, or with ``split``
+    (``MAGPIE_NO_FUSED=1``) kernels 7 and 8 once per segment frame and kernel
+    C never; codec conv 92 per ``decode_batch``."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
     from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
     from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
     from magpie_tts_tpu_torch.runtime.engine import CodecEngine
 
@@ -566,25 +897,30 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str) -> dict:
             return fn(*a, **k)
         return wrapper
 
+    out_dir = tmp / ("serve_split" if split else "serve")
     argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
-            "--out-dir", str(tmp / "serve"), "--slots", str(SERVE_SLOTS),
+            "--out-dir", str(out_dir), "--slots", str(SERVE_SLOTS),
             "--segment-frames", str(SERVE_SEGMENT), "--temp", "0.7", "--device", "cuda"]
     out, err = io.StringIO(), io.StringIO()
     seg_fn, dec_fn, stdin = ContinuousBatchingEngine._segment, CodecEngine.decode_batch, sys.stdin
     ContinuousBatchingEngine._segment = counted(seg_fn, "segments")
     CodecEngine.decode_batch = counted(dec_fn, "decode_batch")
     sys.stdin = io.StringIO("\n".join(lines) + "\n")
+    kernels = (fsb, ltsb, dsb, cc)
+    if split:
+        os.environ["MAGPIE_NO_FUSED"] = "1"
     try:
-        fsb.launches = 0
-        cc.launches = 0
+        for k in kernels:
+            k.launches = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.main(argv)
         wall = time.perf_counter() - t0
-        batched_launches, conv_launches = fsb.launches, cc.launches
+        batched_launches, lt_launches, dec_launches, conv_launches = (k.launches for k in kernels)
     finally:
         ContinuousBatchingEngine._segment, CodecEngine.decode_batch = seg_fn, dec_fn
         sys.stdin = stdin
+        os.environ.pop("MAGPIE_NO_FUSED", None)
     log(err.getvalue().rstrip())
     if rc != 0:
         raise AssertionError(f"cli.main serve returned {rc}")
@@ -601,21 +937,25 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str) -> dict:
         if not np.all(np.isfinite(samples)) or float(np.std(samples)) == 0.0:
             raise AssertionError(f"serve WAV of {r['id']} is not finite or is constant")
         frames += r["frames"]
-    want = counts["segments"] * SERVE_SEGMENT
-    if batched_launches == 0 or batched_launches != want:
-        raise AssertionError(f"frame_step_batched launched {batched_launches}x for "
-                             f"{counts['segments']} segments of {SERVE_SEGMENT}")
+    seg_frames = counts["segments"] * SERVE_SEGMENT
+    want = (0, seg_frames, seg_frames) if split else (seg_frames, 0, 0)
+    if seg_frames == 0 or (batched_launches, lt_launches, dec_launches) != want:
+        raise AssertionError(f"frame_step_batched / lt_sampler_batched / decoder_step_batched "
+                             f"launched {batched_launches} / {lt_launches} / {dec_launches}x for "
+                             f"{counts['segments']} segments of {SERVE_SEGMENT} (split {split})")
     if conv_launches == 0 or conv_launches != 92 * counts["decode_batch"]:
         raise AssertionError(f"codec conv launched {conv_launches}x for "
                              f"{counts['decode_batch']} decode_batch calls")
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) aggregate fps", err.getvalue())
     fps = float(m.group(2)) if m else float("nan")
-    log(f"serve path: {len(done)} requests, {frames} frames, {counts['segments']} segments, "
-        f"frame_step_batched launches {batched_launches}, conv launches {conv_launches} "
-        f"({counts['decode_batch']} decode_batch calls), {fps} aggregate fps "
-        f"(cli.main serve wall {wall:.2f} s incl. load) on {card}")
-    return {"batched_launches": batched_launches, "conv_launches": conv_launches,
-            "frames": frames, "fps": fps}
+    log(f"serve path{' MAGPIE_NO_FUSED=1' if split else ''}: {len(done)} requests, {frames} "
+        f"frames, {counts['segments']} segments, frame_step_batched / lt_sampler_batched / "
+        f"decoder_step_batched launches {batched_launches} / {lt_launches} / {dec_launches}, "
+        f"conv launches {conv_launches} ({counts['decode_batch']} decode_batch calls), {fps} "
+        f"aggregate fps (cli.main serve wall {wall:.2f} s incl. load) on {card}")
+    return {"batched_launches": batched_launches, "lt_launches": lt_launches,
+            "dec_launches": dec_launches, "conv_launches": conv_launches, "frames": frames,
+            "fps": fps}
 
 
 def main() -> int:
@@ -646,32 +986,48 @@ def main() -> int:
     fs_res = check_frame_step(dev)
     fsb_res = check_frame_step_batched(dev)
     cc_res = check_codec_conv(dev)
+    split_res = check_split_single(dev)
+    splitb_res = check_split_batched(dev)
     with tempfile.TemporaryDirectory() as tmp:
         mcfg, ccfg = write_ggufs(Path(tmp))
         main_res = run_main_path(Path(tmp), mcfg, ccfg, card)
+        split_main = run_main_path(Path(tmp), mcfg, ccfg, card, split=True)
         serve_res = run_serve(Path(tmp), mcfg, ccfg, card)
+        split_serve = run_serve(Path(tmp), mcfg, ccfg, card, split=True)
 
-    log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames; serve "
-        f"{serve_res['fps']} aggregate fps over {serve_res['frames']} frames; batched frame "
-        f"B=32 {fsb_res['ms_b32']} ms; codec_conv also replaces "
+    log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames, --no-fused "
+        f"{split_main['fps']} fps over {split_main['n_frames']} frames; serve {serve_res['fps']} "
+        f"aggregate fps over {serve_res['frames']} frames, MAGPIE_NO_FUSED=1 {split_serve['fps']} "
+        f"over {split_serve['frames']}; batched frame B=32 {fsb_res['ms_b32']} ms; split B=32 "
+        f"{splitb_res['lt']['ms_b32']} + {splitb_res['dec']['ms_b32']} ms; split frame vs fused "
+        f"max err {split_res['split_vs_fused_err']} / {splitb_res['split_vs_fused_err']} "
+        f"(B=8/32); codec_conv also replaces "
         f"magpie_tts_tpu/ops/pallas_kernels/codec_conv.py:373 (snake_causal_conv_packed); "
         f"on {card}")
+    pk = "magpie_tts_tpu/ops/pallas_kernels/"
+    src = "magpie_tts_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, launches, res):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": pk + replaces,
+                "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
+
     log(json.dumps({"kernels": [
-        {"name": "frame_step", "route": "cuda",
-         "source": "magpie_tts_tpu_torch/csrc/frame_step.cu",
-         "replaces": "magpie_tts_tpu/ops/pallas_kernels/frame_step.py:352",
-         "launches": main_res["frame_launches"], "max_abs_err": fs_res["max_abs_err"],
-         "ms": fs_res["ms"], "plain_ms": fs_res["plain_ms"]},
-        {"name": "frame_step_batched", "route": "cuda",
-         "source": "magpie_tts_tpu_torch/csrc/frame_step_batched.cu",
-         "replaces": "magpie_tts_tpu/ops/pallas_kernels/frame_step_batched.py:591",
-         "launches": serve_res["batched_launches"], "max_abs_err": fsb_res["max_abs_err"],
-         "ms": fsb_res["ms"], "plain_ms": fsb_res["plain_ms"]},
-        {"name": "codec_conv", "route": "cuda",
-         "source": "magpie_tts_tpu_torch/csrc/codec_conv.cu",
-         "replaces": "magpie_tts_tpu/ops/pallas_kernels/codec_conv.py:157",
-         "launches": main_res["conv_launches"], "max_abs_err": cc_res["max_abs_err"],
-         "ms": cc_res["ms"], "plain_ms": cc_res["plain_ms"]},
+        entry("frame_step", "frame_step.cu", "frame_step.py:352", main_res["frame_launches"],
+              fs_res),
+        entry("frame_step_batched", "frame_step_batched.cu", "frame_step_batched.py:591",
+              serve_res["batched_launches"], fsb_res),
+        entry("codec_conv", "codec_conv.cu", "codec_conv.py:157", main_res["conv_launches"],
+              cc_res),
+        entry("lt_sampler", "frame_step.cu", "lt_sampler.py:174", split_main["lt_launches"],
+              split_res["lt"]),
+        entry("decoder_step", "frame_step.cu", "decoder_step.py:212",
+              split_main["dec_launches"], split_res["dec"]),
+        entry("lt_sampler_batched", "frame_step_batched.cu", "lt_sampler_batched.py:259",
+              split_serve["lt_launches"], splitb_res["lt"]),
+        entry("decoder_step_batched", "frame_step_batched.cu", "decoder_step_batched.py:280",
+              split_serve["dec_launches"], splitb_res["dec"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch/CUDA port, argv-compatible with the
 JAX package's ``magpie-tts``: the synth command (-m/-c/-t/-o/-s/--temp/
---top-k/--seed/--gelu/-q) and ``serve`` (-m/-c/--out-dir/--slots/
+--top-k/--seed/--gelu/--no-fused/-q) and ``serve`` (-m/-c/--out-dir/--slots/
 --segment-frames/--temp/--top-k/--dtype/--gelu/-q), each plus
 --device {cuda,cpu}.
 
@@ -16,7 +16,7 @@ import time
 
 # Surfaces of the JAX CLI that this port does not have yet.
 _NOT_PORTED_COMMANDS = ("warmup",)
-_NOT_PORTED_FLAGS = ("--serve-int8", "--serve-q8", "--stream", "--no-fused")
+_NOT_PORTED_FLAGS = ("--serve-int8", "--serve-q8", "--stream")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +37,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device to run on (no fallback: cuda needs a CUDA device)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="compute dtype (only float32 is ported)")
+    p.add_argument("--no-fused", action="store_true",
+                   help="disable the fused per-frame megakernel (LT sampling + "
+                        "decoder step in one kernel); runs the separate "
+                        "kernels instead. Equivalent env var: MAGPIE_NO_FUSED")
     p.add_argument("--gelu", choices=("erf", "tanh"), default=None,
                    help="GELU flavor for every FFN: 'erf' (default) or 'tanh'")
     p.add_argument("-q", "--quiet", action="store_true",
@@ -249,7 +253,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     try:
         pipeline = MagpiePipeline.from_gguf(args.model, args.codec, device=args.device,
-                                            gelu_flavor=args.gelu)
+                                            gelu_flavor=args.gelu,
+                                            use_fused=False if args.no_fused else None)
     except FileNotFoundError as e:
         print(f"error: model file not found: {e.filename or e}", file=sys.stderr)
         return 1

@@ -1,9 +1,10 @@
-// Per-slot kernels of a decode frame, shared by frame_step.cu (one slot) and
-// frame_step_batched.cu (B slots): the reduction of split-K partials into
-// residual / LayerNorm, activation and QKV rows, single-query attention and
-// one LT phase's sampling. Every kernel takes the slot from its grid (gridDim
-// = 1 slot for frame_step.cu) and reads partials laid out as
-// part[(s * B + b) * N + n]; with B = 1 that is the single-slot [S, N] layout.
+// Per-slot kernels of a decode frame, launched by frame_sequence.cuh for
+// frame_step.cu (one slot) and frame_step_batched.cu (B slots): the
+// reduction of split-K partials into residual / LayerNorm, activation and QKV
+// rows, single-query attention and one LT phase's sampling. Every kernel
+// takes the slot from its grid (gridDim = 1 slot for frame_step.cu) and reads
+// partials laid out as part[(s * B + b) * N + n]; with B = 1 that is the
+// single-slot [S, N] layout.
 // Sums run in a fixed order with no atomics, so a frame gives the same bits
 // on every run.
 
@@ -81,8 +82,8 @@ __global__ void qkv_scatter_kernel(const float* __restrict__ part, int S, int D,
 // b * slot_stride, rows `row_stride` floats apart; the head's columns start at
 // head * d_head. Rows [0, rows) are attended; with rows_dev the slot's own
 // count min(max(rows_dev[b], 1), rows) is used instead. With `valid`, row r
-// of slot b counts when valid[b * valid_stride + r] (row write_row: when
-// new_valid[b]); other rows score -1e30. Scores are scaled, softmaxed as
+// of slot b counts when valid[b * valid_stride + r] (row write_row, when
+// new_valid is given: when new_valid[b]); other rows score -1e30. Scores are scaled, softmaxed as
 // exp(s - max) / sum, and the probabilities weight the V rows.
 // Dynamic shared memory: attention_smem(d_head, rows).
 __global__ void attention_kernel(const float* __restrict__ qpart, int Sq, int Nq,
@@ -114,7 +115,10 @@ __global__ void attention_kernel(const float* __restrict__ qpart, int Sq, int Nq
     dot = warp_sum(dot);
     if (lane == 0) {
       bool ok = true;
-      if (valid) ok = r == write_row ? new_valid[b] != 0 : valid[(size_t)b * valid_stride + r] != 0;
+      if (valid) {
+        ok = new_valid && r == write_row ? new_valid[b] != 0
+                                         : valid[(size_t)b * valid_stride + r] != 0;
+      }
       sc[r] = ok ? dot * scale : kNegBig;
     }
   }
@@ -166,10 +170,11 @@ int attention_smem(int d_head, int rows) {
 // slot's seed. The slot's flags are forbid_eos[b] and seeds[b]; a null array
 // gives every slot forbid_eos1 / seed1. The sampled code's embedding row is
 // kept for the next phase's input projection and added to the slot's
-// embedding sum. The last phase seeds the decoder, x[b] = sum / n_cb +
-// posemb[b], h[b] = LayerNorm(x[b]) with layer 0's norm, and, with new_valid,
-// decides the new row's validity: may_continue[b] && no sampled or argmax
-// code of the frame is EOS.
+// embedding sum. With x (the fused frame), the last phase seeds the decoder,
+// x[b] = sum / n_cb + posemb[b], h[b] = LayerNorm(x[b]) with layer 0's norm;
+// with new_valid it decides the new row's validity: may_continue[b] && no
+// sampled or argmax code of the frame is EOS. The split path's LT sampler
+// passes neither and stops at the codes.
 __global__ void __launch_bounds__(kSampleThreads)
 lt_sample_kernel(const float* __restrict__ part, int S, int V, const float* __restrict__ bias,
                  int cb, int ncb, const unsigned char* __restrict__ forbid_eos, int forbid_eos1,
@@ -197,6 +202,7 @@ lt_sample_kernel(const float* __restrict__ part, int S, int V, const float* __re
                                 redi, amax);
 
   const bool last = cb == ncb - 1;
+  const bool to_decoder = last && x != nullptr;
   if (tid == 0) {
     codes[b * ncb + cb] = code;
     amax_out[b * ncb + cb] = amax;
@@ -211,16 +217,16 @@ lt_sample_kernel(const float* __restrict__ part, int S, int V, const float* __re
   const float* er = emb_table + (size_t)code * D;
   float* rb = emb_row + (size_t)b * D;
   float* ab = emb_acc + (size_t)b * D;
-  float* xb = x + (size_t)b * D;
-  const float* pb = posemb + (size_t)b * posemb_stride;
   for (int n = tid; n < D; n += bd) {
     const float e = er[n];
     rb[n] = e;
     const float s = cb == 0 ? e : ab[n] + e;
     ab[n] = s;
-    if (last) xb[n] = s / (float)ncb + pb[n];
+    if (to_decoder) {
+      x[(size_t)b * D + n] = s / (float)ncb + posemb[(size_t)b * posemb_stride + n];
+    }
   }
-  if (last) block_layer_norm(xb, ln_w, h + (size_t)b * D, D, eps, redv);
+  if (to_decoder) block_layer_norm(x + (size_t)b * D, ln_w, h + (size_t)b * D, D, eps, redv);
 }
 
 }  // namespace

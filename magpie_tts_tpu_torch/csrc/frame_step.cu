@@ -1,34 +1,47 @@
-// One decode frame of Magpie TTS on Hopper, float32: local-transformer (LT)
-// sampling of the 8 codebook codes, the frame embedding, and the 12-layer
-// cached decoder step.
+// One decode frame of Magpie TTS on Hopper for one stream, float32, and its
+// two halves:
+// - magpie_frame_step_f32 (kernel A): local-transformer (LT) sampling of the
+//   8 codebook codes, the frame embedding, and the 12-layer cached decoder
+//   step. Replaces magpie_tts_tpu/ops/pallas_kernels/frame_step.py
+//   (frame_step_pallas), dense float32 weight stream.
+// - magpie_lt_sample_f32 (kernel 4): the LT sampling alone. Replaces
+//   magpie_tts_tpu/ops/pallas_kernels/lt_sampler.py (sample_frame_codes_pallas).
+// - magpie_decode_step_f32 (kernel 5): the decoder step alone, from a frame
+//   embedding to which it adds pos_emb[pos]. Replaces
+//   magpie_tts_tpu/ops/pallas_kernels/decoder_step.py (decode_step_pallas),
+//   dense float32 weight stream.
+// The split path (--no-fused) runs kernel 4, the embedding in torch, then
+// kernel 5; all three run frame_sequence.cuh's launch sequences.
 //
-// Replaces the TPU kernel magpie_tts_tpu/ops/pallas_kernels/frame_step.py
-// (frame_step_pallas), dense float32 weight stream. The TPU kernel is one
-// sequential grid that carries the LT buffer, the residual and the DMA double
-// buffers in VMEM from step to step. Hopper blocks carry nothing between
-// launches, so here the frame is a fixed sequence of small kernels on one
-// stream and every carried value (LT rows, residual x, K/V rows, codes, the
-// embedding sum) lives in a workspace in device memory that the wrapper
-// allocates.
+// The TPU kernels are sequential grids that carry the LT buffer, the residual
+// and the DMA double buffers in VMEM from step to step. Hopper blocks carry
+// nothing between launches, so here a frame is a fixed sequence of small
+// kernels on one stream and every carried value (LT rows, residual x, K/V
+// rows, codes, the embedding sum) lives in a workspace in device memory that
+// the wrapper allocates.
 //
-// What bounds it on the card: the frame reads every decoder and LT weight
-// once (~400 MB in float32 at 357M width) plus the K/V cache rows <= pos, and
-// does ~2 flops per weight read: far below the card's compute/byte ratio, so
-// device memory bandwidth is the floor, and at this size the ~260 launches of
-// a frame (launch latency) sit above it. The design answers the bandwidth
-// side only: every matrix-vector product is a split-K GEMV whose grid covers
-// all SMs with 16-byte loads on consecutive columns, and partial sums are
-// reduced in a fixed order by the next kernel (no atomics, so the bits do not
-// change from run to run). The per-slot kernels (reductions, attention, LT
-// sampling) are frame_kernels.cuh's, launched for one slot; the GEMV is this
-// file's own. Fewer launches (CUDA graphs, fusion) are later work.
+// What bounds them on the card: the decoder step reads every decoder weight
+// once (~349 MB in float32 at 357M width) plus the K/V cache rows <= pos, the
+// LT sampler ~20 MB of LT weights and heads; both do ~2 flops per weight read,
+// far below the card's compute/byte ratio, so device memory bandwidth is the
+// floor (~0.11 ms for the decoder step at pos 300, ~6 us for the sampler) and
+// the launches (157 for the decoder step, 104 for the sampler, 260 for a
+// fused frame) sit above it: the sampler is latency-bound. The design answers
+// the bandwidth side only: every matrix-vector product is a split-K GEMV whose
+// grid covers all SMs with 16-byte loads on consecutive columns, and partial
+// sums are reduced in a fixed order by the next kernel (no atomics, so the
+// bits do not change from run to run). The per-slot kernels (reductions,
+// attention, LT sampling) are frame_kernels.cuh's, launched for one slot; the
+// GEMV is this file's own. Fewer launches (CUDA graphs, fusion) are later
+// work.
 //
-// Numerics follow the plain version (frame_step_reference): float32 residual
-// carry, exact-erf GELU via erff, softmax as exp(s - max) / sum, the
-// Gumbel noise via logf, argmax ties to the lowest index, and the exact top-k
-// set by 32-pass integer bisection on the monotone key of the float bits.
+// Numerics follow the plain versions (frame_step_reference, the LT sampler's
+// sample_frame_codes, decode_step): float32 residual carry, exact-erf GELU via
+// erff, softmax as exp(s - max) / sum, the Gumbel noise via logf, argmax ties
+// to the lowest index, and the exact top-k set by 32-pass integer bisection
+// on the monotone key of the float bits.
 
-#include "frame_kernels.cuh"
+#include "frame_sequence.cuh"
 
 namespace {
 
@@ -150,97 +163,72 @@ struct FrameStepArgs {
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
+namespace {
+
+// Kernel A's FrameStepArgs as the shared sequence's one-slot FrameSeq: the
+// scalar flags, posemb row pos, self-attention over rows [0, pos] with no mask.
+FrameSeq seq_of(const FrameStepArgs& a) {
+  FrameSeq s{};
+  s.B = 1;
+  s.D = a.d_model, s.F = a.d_ffn, s.L = a.n_layers, s.NS = a.max_seq, s.E = a.enc_rows;
+  s.X = a.d_xa, s.n_heads = a.n_heads, s.xa_heads = a.xa_heads, s.LT = a.lt_dim;
+  s.LF = a.lt_ffn, s.ncb = a.n_cb, s.V = a.vocab, s.part_cap = a.part_cap;
+  s.hidden = a.hidden;
+  s.lt_in_w = a.lt_in_w, s.lt_in_b = a.lt_in_b, s.lt_pos = a.lt_pos;
+  s.lt_norm_self = a.lt_norm_self, s.lt_qkv = a.lt_qkv, s.lt_sa_out = a.lt_sa_out;
+  s.lt_norm_ff = a.lt_norm_ff, s.lt_ff_proj = a.lt_ff_proj, s.lt_ff_out = a.lt_ff_out;
+  s.lt_out_w = a.lt_out_w, s.lt_out_b = a.lt_out_b, s.audio_emb = a.audio_emb;
+  s.forbid_eos1 = a.forbid_eos, s.seed1 = a.seed, s.top_k = a.top_k;
+  s.bos_id = a.audio_bos_id, s.eos_id = a.audio_eos_id, s.temperature = a.temperature;
+  s.sampled = a.sampled, s.argmax = a.argmax;
+  s.posemb = a.pos_emb ? a.pos_emb + (size_t)a.pos * a.d_model : nullptr;
+  s.norm_self = a.norm_self, s.qkv = a.qkv, s.sa_out = a.sa_out, s.norm_xa_q = a.norm_xa_q;
+  s.xa_q = a.xa_q, s.xa_out = a.xa_out, s.norm_ff = a.norm_ff, s.ff_proj = a.ff_proj;
+  s.ff_out = a.ff_out, s.norm_out = a.norm_out;
+  s.k_cache = a.k_cache, s.v_cache = a.v_cache, s.xa_k = a.xa_k, s.xa_v = a.xa_v;
+  s.write_row = a.pos, s.rows = a.pos + 1, s.enc_len = a.enc_len;
+  s.hidden_out = a.hidden_out;
+  s.part = a.part, s.x = a.x, s.h = a.h, s.q = a.q, s.attn = a.attn, s.f = a.f, s.xa = a.xa;
+  s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q, s.lt_k = a.lt_k, s.lt_v = a.lt_v;
+  s.lt_attn = a.lt_attn, s.lt_f = a.lt_f, s.emb_row = a.emb_row, s.emb_acc = a.emb_acc;
+  s.eps = a.eps, s.sa_scale = a.sa_scale, s.xa_scale = a.xa_scale, s.lt_scale = a.lt_scale;
+  s.gelu_tanh = a.gelu_tanh;
+  return s;
+}
+
+struct Gemv {
+  int cap;
+  int operator()(const float* x, const float* W, float* part, int K, int N,
+                 cudaStream_t st) const {
+    return launch_gemv(x, W, part, K, N, cap, st);
+  }
+};
+
+}  // namespace
+
+// Kernel A: one fused frame, LT sampling from `hidden` then the decoder at pos.
 extern "C" int magpie_frame_step_f32(const FrameStepArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int D = a->d_model, F = a->d_ffn, LT = a->lt_dim, LF = a->lt_ffn, V = a->vocab;
-  const int cap = a->part_cap;
-  int S;
+  const FrameSeq s = seq_of(*a);
+  const Gemv mm{a->part_cap};
+  int err = lt_phases(s, mm, true, st);
+  if (!err) err = decoder_layers(s, mm, st);
+  return err ? err : (int)cudaGetLastError();
+}
 
-  for (int cb = 0; cb < a->n_cb; ++cb) {
-    S = launch_gemv(cb == 0 ? a->hidden : a->emb_row, a->lt_in_w, a->part, D, LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<1, kRt, 0, st>>>(a->part, S, LT, a->lt_in_b, a->lt_pos + (size_t)cb * LT,
-                                         a->lt_x, 0, a->lt_norm_self, a->eps, a->lt_h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->lt_h, a->lt_qkv, a->part, LT, 3 * LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    qkv_scatter_kernel<<<(3 * LT + kRt - 1) / kRt, kRt, 0, st>>>(
-        a->part, S, LT, a->lt_q, a->lt_k + (size_t)cb * LT, a->lt_v + (size_t)cb * LT, 0);
-    MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<1, kRt, attention_smem(LT, cb + 1), st>>>(
-        a->lt_q, 1, LT, a->lt_k, a->lt_v, 0, LT, cb + 1, nullptr, nullptr, 0, 0, nullptr, LT,
-        a->lt_scale, a->lt_attn);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->lt_attn, a->lt_sa_out, a->part, LT, LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<1, kRt, 0, st>>>(a->part, S, LT, nullptr, nullptr, a->lt_x, 1,
-                                         a->lt_norm_ff, a->eps, a->lt_h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->lt_h, a->lt_ff_proj, a->part, LT, LF, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<(LF + kRt - 1) / kRt, kRt, 0, st>>>(a->part, S, LF, 1, a->gelu_tanh,
-                                                            a->lt_f);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->lt_f, a->lt_ff_out, a->part, LF, LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<1, kRt, 0, st>>>(a->part, S, LT, nullptr, nullptr, a->lt_x, 1, nullptr,
-                                         a->eps, nullptr);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->lt_x, a->lt_out_w + (size_t)cb * LT * V, a->part, LT, V, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    lt_sample_kernel<<<1, kSampleThreads, 0, st>>>(
-        a->part, S, V, a->lt_out_b + (size_t)cb * V, cb, a->n_cb, nullptr, a->forbid_eos,
-        a->audio_bos_id, a->audio_eos_id, nullptr, a->seed, a->temperature, a->top_k,
-        a->audio_emb + (size_t)cb * V * D, D, a->sampled, a->argmax, a->emb_row, a->emb_acc,
-        a->pos_emb + (size_t)a->pos * D, 0, nullptr, nullptr, a->x, a->norm_self, a->eps, a->h);
-    MAGPIE_CHECK_LAUNCH();
-  }
+// Kernel 4 (the split path's LT sampler): the codes of `hidden` only.
+extern "C" int magpie_lt_sample_f32(const FrameStepArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = lt_phases(seq_of(*a), Gemv{a->part_cap}, false, st);
+  return err ? err : (int)cudaGetLastError();
+}
 
-  const int dh = D / a->n_heads;
-  const int dxh = a->d_xa / a->xa_heads;
-  for (int l = 0; l < a->n_layers; ++l) {
-    float* kc = a->k_cache + (size_t)l * a->max_seq * D;
-    float* vc = a->v_cache + (size_t)l * a->max_seq * D;
-    const float* xk = a->xa_k + (size_t)l * a->enc_rows * a->d_xa;
-    const float* xv = a->xa_v + (size_t)l * a->enc_rows * a->d_xa;
-
-    S = launch_gemv(a->h, a->qkv + (size_t)l * D * 3 * D, a->part, D, 3 * D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    qkv_scatter_kernel<<<(3 * D + kRt - 1) / kRt, kRt, 0, st>>>(
-        a->part, S, D, a->q, kc + (size_t)a->pos * D, vc + (size_t)a->pos * D, 0);
-    MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<a->n_heads, kRt, attention_smem(dh, a->pos + 1), st>>>(
-        a->q, 1, D, kc, vc, 0, D, a->pos + 1, nullptr, nullptr, 0, 0, nullptr, dh, a->sa_scale,
-        a->attn);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->attn, a->sa_out + (size_t)l * D * D, a->part, D, D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<1, kRt, 0, st>>>(a->part, S, D, nullptr, nullptr, a->x, 1,
-                                         a->norm_xa_q + (size_t)l * D, a->eps, a->h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->h, a->xa_q + (size_t)l * D * a->d_xa, a->part, D, a->d_xa, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<a->xa_heads, kRt, attention_smem(dxh, a->enc_len), st>>>(
-        a->part, S, a->d_xa, xk, xv, 0, a->d_xa, a->enc_len, nullptr, nullptr, 0, 0, nullptr,
-        dxh, a->xa_scale, a->xa);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->xa, a->xa_out + (size_t)l * a->d_xa * D, a->part, a->d_xa, D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<1, kRt, 0, st>>>(a->part, S, D, nullptr, nullptr, a->x, 1,
-                                         a->norm_ff + (size_t)l * D, a->eps, a->h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->h, a->ff_proj + (size_t)l * D * F, a->part, D, F, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<(F + kRt - 1) / kRt, kRt, 0, st>>>(a->part, S, F, 1, a->gelu_tanh,
-                                                           a->f);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemv(a->f, a->ff_out + (size_t)l * F * D, a->part, F, D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    const bool last = l + 1 == a->n_layers;
-    combine_ln_kernel<<<1, kRt, 0, st>>>(a->part, S, D, nullptr, nullptr, a->x, 1,
-                                         last ? a->norm_out : a->norm_self + (size_t)(l + 1) * D,
-                                         a->eps, last ? a->hidden_out : a->h);
-    MAGPIE_CHECK_LAUNCH();
-  }
-  return (int)cudaGetLastError();
+// Kernel 5 (the split path's decoder step): `hidden` holds the frame
+// embedding; the decoder runs on hidden + pos_emb[pos] at row pos.
+extern "C" int magpie_decode_step_f32(const FrameStepArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FrameSeq s = seq_of(*a);
+  int err = decoder_input(s, a->hidden, s.posemb, st);
+  if (!err) err = decoder_layers(s, Gemv{a->part_cap}, st);
+  return err ? err : (int)cudaGetLastError();
 }

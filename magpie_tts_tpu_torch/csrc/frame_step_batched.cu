@@ -1,17 +1,29 @@
-// One decode frame for B slots of Magpie TTS on Hopper, float32: per-slot
-// local-transformer (LT) sampling of 8 codebook codes, the frame embedding
-// plus each slot's position-embedding row, the new cache row's validity, and
-// the 12-layer decoder step over per-slot validity masks with one shared
-// cache write row.
+// One decode frame for B slots of Magpie TTS on Hopper, float32, and its two
+// halves:
+// - magpie_frame_step_batched_f32 (kernel C): per-slot local-transformer (LT)
+//   sampling of 8 codebook codes, the frame embedding plus each slot's
+//   position-embedding row, the new cache row's validity, and the 12-layer
+//   decoder step over per-slot validity masks with one shared cache write
+//   row. Replaces magpie_tts_tpu/ops/pallas_kernels/frame_step_batched.py
+//   (frame_step_batched_pallas), dense float32 weight stream.
+// - magpie_lt_sample_batched_f32 (kernel 7): the per-slot LT sampling alone.
+//   Replaces magpie_tts_tpu/ops/pallas_kernels/lt_sampler_batched.py
+//   (sample_frame_codes_batched_pallas).
+// - magpie_decode_step_batched_f32 (kernel 8): the decoder step alone, from
+//   x_pe (embedding + position embedding) and a mask that already holds the
+//   write row. Replaces magpie_tts_tpu/ops/pallas_kernels/
+//   decoder_step_batched.py (decode_step_batched_pallas), dense float32.
+// All three run frame_sequence.cuh's launch sequences.
 //
-// Replaces the TPU kernel magpie_tts_tpu/ops/pallas_kernels/
-// frame_step_batched.py (frame_step_batched_pallas), dense float32 weight
-// stream. The TPU kernel is one sequential grid (8 LT phases + 12 layers)
-// that keeps the slots' LT rows, residuals and cache groups in VMEM and
-// contracts every weight tile with all B rows on the MXU. Hopper blocks carry
-// nothing between launches, so, as in frame_step.cu, the frame is a fixed
-// sequence of kernels on one stream with every carried value in a workspace
-// the wrapper allocates.
+// The TPU kernels are sequential grids (8 LT phases, 12 layers) that keep
+// the slots' LT rows, residuals and cache groups in VMEM and contract every
+// weight tile with all B rows on the MXU; the batched LT sampler pre-projects
+// the whole audio-embedding table through in_proj once per call. Hopper
+// blocks carry nothing between launches, so, as in frame_step.cu, a frame is a
+// fixed sequence of kernels on one stream with every carried value in a
+// workspace the wrapper allocates, and the LT projects only the B sampled
+// rows per phase (the plain version's rounding; the weight is still read
+// once for all slots).
 //
 // What bounds it on the card: a frame reads ~360 MB of decoder and LT weights
 // plus the attended cache rows of B slots (at B=8, ~300 rows: ~177 MB), at
@@ -29,8 +41,9 @@
 //
 // Semantics the callers rely on:
 // - valid[b, r] (bool, row stride valid_stride, 0 to broadcast one row)
-//   marks the existing rows slot b attends to; row write_row is decided here:
-//   new_valid[b] = may_continue[b] && no sampled or argmax code is EOS.
+//   marks the existing rows slot b attends to. Kernel C decides row
+//   write_row itself: new_valid[b] = may_continue[b] && no sampled or argmax
+//   code is EOS. Kernel 8 reads it from valid like any other row.
 // - Self-attention covers rows [0, rows) only: the caller promises that no
 //   valid row lies at or past `rows` (lockstep passes pos + 1, the ring cache
 //   a bound its host tracks). Masked scores are -1e30, so a slot with no
@@ -40,7 +53,7 @@
 //   erff GELU, softmax as exp(s - max) / sum, argmax ties to the lowest
 //   index, the exact top-k bisection and the Gumbel draw of frame_step.cu.
 
-#include "frame_kernels.cuh"
+#include "frame_sequence.cuh"
 
 namespace {
 
@@ -200,103 +213,74 @@ struct FrameStepBatchedArgs {
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
+namespace {
+
+FrameSeq seq_of(const FrameStepBatchedArgs& a) {
+  FrameSeq s{};
+  s.B = a.batch;
+  s.D = a.d_model, s.F = a.d_ffn, s.L = a.n_layers, s.NS = a.max_seq, s.E = a.enc_rows;
+  s.X = a.d_xa, s.n_heads = a.n_heads, s.xa_heads = a.xa_heads, s.LT = a.lt_dim;
+  s.LF = a.lt_ffn, s.ncb = a.n_cb, s.V = a.vocab, s.part_cap = a.part_cap;
+  s.hidden = a.hidden;
+  s.lt_in_w = a.lt_in_w, s.lt_in_b = a.lt_in_b, s.lt_pos = a.lt_pos;
+  s.lt_norm_self = a.lt_norm_self, s.lt_qkv = a.lt_qkv, s.lt_sa_out = a.lt_sa_out;
+  s.lt_norm_ff = a.lt_norm_ff, s.lt_ff_proj = a.lt_ff_proj, s.lt_ff_out = a.lt_ff_out;
+  s.lt_out_w = a.lt_out_w, s.lt_out_b = a.lt_out_b, s.audio_emb = a.audio_emb;
+  s.forbid_eos = a.forbid_eos, s.seeds = a.seeds, s.top_k = a.top_k;
+  s.bos_id = a.audio_bos_id, s.eos_id = a.audio_eos_id, s.temperature = a.temperature;
+  s.sampled = a.sampled, s.argmax = a.argmax;
+  s.posemb = a.posemb, s.posemb_stride = a.posemb_stride, s.may_continue = a.may_continue;
+  s.new_valid = a.new_valid;
+  s.norm_self = a.norm_self, s.qkv = a.qkv, s.sa_out = a.sa_out, s.norm_xa_q = a.norm_xa_q;
+  s.xa_q = a.xa_q, s.xa_out = a.xa_out, s.norm_ff = a.norm_ff, s.ff_proj = a.ff_proj;
+  s.ff_out = a.ff_out, s.norm_out = a.norm_out;
+  s.k_cache = a.k_cache, s.v_cache = a.v_cache, s.xa_k = a.xa_k, s.xa_v = a.xa_v;
+  s.write_row = a.write_row, s.rows = a.rows, s.valid = a.valid;
+  s.valid_stride = a.valid_stride, s.enc_lengths = a.enc_lengths;
+  s.hidden_out = a.hidden_out;
+  s.part = a.part, s.x = a.x, s.h = a.h, s.q = a.q, s.attn = a.attn, s.f = a.f, s.xa = a.xa;
+  s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q, s.lt_k = a.lt_k, s.lt_v = a.lt_v;
+  s.lt_attn = a.lt_attn, s.lt_f = a.lt_f, s.emb_row = a.emb_row, s.emb_acc = a.emb_acc;
+  s.eps = a.eps, s.sa_scale = a.sa_scale, s.xa_scale = a.xa_scale, s.lt_scale = a.lt_scale;
+  s.gelu_tanh = a.gelu_tanh;
+  return s;
+}
+
+struct Gemm {
+  int B, cap;
+  int operator()(const float* X, const float* W, float* part, int K, int N,
+                 cudaStream_t st) const {
+    return launch_gemm(X, B, W, part, K, N, cap, st);
+  }
+};
+
+}  // namespace
+
+// Kernel C: one fused frame for B slots.
 extern "C" int magpie_frame_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int B = a->batch;
-  const int D = a->d_model, F = a->d_ffn, LT = a->lt_dim, LF = a->lt_ffn, V = a->vocab;
-  const int X = a->d_xa, E = a->enc_rows, L = a->n_layers, NS = a->max_seq;
-  const int ncb = a->n_cb, cap = a->part_cap;
-  const size_t lt_slot = (size_t)ncb * LT;
-  int S;
+  const FrameSeq s = seq_of(*a);
+  const Gemm mm{a->batch, a->part_cap};
+  int err = lt_phases(s, mm, true, st);
+  if (!err) err = decoder_layers(s, mm, st);
+  return err ? err : (int)cudaGetLastError();
+}
 
-  for (int cb = 0; cb < ncb; ++cb) {
-    S = launch_gemm(cb == 0 ? a->hidden : a->emb_row, B, a->lt_in_w, a->part, D, LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(a->part, S, LT, a->lt_in_b, a->lt_pos + (size_t)cb * LT,
-                                         a->lt_x, 0, a->lt_norm_self, a->eps, a->lt_h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->lt_h, B, a->lt_qkv, a->part, LT, 3 * LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    qkv_scatter_kernel<<<dim3((3 * LT + kRt - 1) / kRt, B), kRt, 0, st>>>(
-        a->part, S, LT, a->lt_q, a->lt_k + (size_t)cb * LT, a->lt_v + (size_t)cb * LT, lt_slot);
-    MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<dim3(1, B), kRt, attention_smem(LT, cb + 1), st>>>(
-        a->lt_q, 1, LT, a->lt_k, a->lt_v, lt_slot, LT, cb + 1, nullptr, nullptr, 0, 0, nullptr,
-        LT, a->lt_scale, a->lt_attn);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->lt_attn, B, a->lt_sa_out, a->part, LT, LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(a->part, S, LT, nullptr, nullptr, a->lt_x, 1,
-                                         a->lt_norm_ff, a->eps, a->lt_h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->lt_h, B, a->lt_ff_proj, a->part, LT, LF, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<dim3((LF + kRt - 1) / kRt, B), kRt, 0, st>>>(a->part, S, LF, 1,
-                                                                   a->gelu_tanh, a->lt_f);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->lt_f, B, a->lt_ff_out, a->part, LF, LT, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(a->part, S, LT, nullptr, nullptr, a->lt_x, 1, nullptr,
-                                         a->eps, nullptr);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->lt_x, B, a->lt_out_w + (size_t)cb * LT * V, a->part, LT, V, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    lt_sample_kernel<<<B, kSampleThreads, 0, st>>>(
-        a->part, S, V, a->lt_out_b + (size_t)cb * V, cb, ncb, a->forbid_eos, 0, a->audio_bos_id,
-        a->audio_eos_id, a->seeds, 0, a->temperature, a->top_k, a->audio_emb + (size_t)cb * V * D,
-        D, a->sampled, a->argmax, a->emb_row, a->emb_acc, a->posemb, a->posemb_stride,
-        a->may_continue, a->new_valid, a->x, a->norm_self, a->eps, a->h);
-    MAGPIE_CHECK_LAUNCH();
-  }
+// Kernel 7 (the split path's batched LT sampler): the codes of B slots.
+extern "C" int magpie_lt_sample_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = lt_phases(seq_of(*a), Gemm{a->batch, a->part_cap}, false, st);
+  return err ? err : (int)cudaGetLastError();
+}
 
-  const int dh = D / a->n_heads;
-  const int dxh = X / a->xa_heads;
-  const size_t cache_slot = (size_t)L * NS * D;
-  const size_t xa_slot = (size_t)L * E * X;
-  for (int l = 0; l < L; ++l) {
-    float* kc = a->k_cache + (size_t)l * NS * D;
-    float* vc = a->v_cache + (size_t)l * NS * D;
-    const float* xk = a->xa_k + (size_t)l * E * X;
-    const float* xv = a->xa_v + (size_t)l * E * X;
-
-    S = launch_gemm(a->h, B, a->qkv + (size_t)l * D * 3 * D, a->part, D, 3 * D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    qkv_scatter_kernel<<<dim3((3 * D + kRt - 1) / kRt, B), kRt, 0, st>>>(
-        a->part, S, D, a->q, kc + (size_t)a->write_row * D, vc + (size_t)a->write_row * D,
-        cache_slot);
-    MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<dim3(a->n_heads, B), kRt, attention_smem(dh, a->rows), st>>>(
-        a->q, 1, D, kc, vc, cache_slot, D, a->rows, nullptr, a->valid, a->valid_stride,
-        a->write_row, a->new_valid, dh, a->sa_scale, a->attn);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->attn, B, a->sa_out + (size_t)l * D * D, a->part, D, D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(a->part, S, D, nullptr, nullptr, a->x, 1,
-                                         a->norm_xa_q + (size_t)l * D, a->eps, a->h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->h, B, a->xa_q + (size_t)l * D * X, a->part, D, X, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<dim3(a->xa_heads, B), kRt, attention_smem(dxh, E), st>>>(
-        a->part, S, X, xk, xv, xa_slot, X, E, a->enc_lengths, nullptr, 0, 0, nullptr, dxh,
-        a->xa_scale, a->xa);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->xa, B, a->xa_out + (size_t)l * X * D, a->part, X, D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(a->part, S, D, nullptr, nullptr, a->x, 1,
-                                         a->norm_ff + (size_t)l * D, a->eps, a->h);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->h, B, a->ff_proj + (size_t)l * D * F, a->part, D, F, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<dim3((F + kRt - 1) / kRt, B), kRt, 0, st>>>(a->part, S, F, 1,
-                                                                  a->gelu_tanh, a->f);
-    MAGPIE_CHECK_LAUNCH();
-    S = launch_gemm(a->f, B, a->ff_out + (size_t)l * F * D, a->part, F, D, cap, st);
-    MAGPIE_CHECK_LAUNCH();
-    const bool last = l + 1 == L;
-    combine_ln_kernel<<<B, kRt, 0, st>>>(a->part, S, D, nullptr, nullptr, a->x, 1,
-                                         last ? a->norm_out : a->norm_self + (size_t)(l + 1) * D,
-                                         a->eps, last ? a->hidden_out : a->h);
-    MAGPIE_CHECK_LAUNCH();
-  }
-  return (int)cudaGetLastError();
+// Kernel 8 (the split path's batched decoder step): `hidden` holds x_pe, the
+// frame embeddings with their position embeddings; `valid` already holds
+// every slot's write row (new_valid is null).
+extern "C" int magpie_decode_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  FrameSeq s = seq_of(*a);
+  s.new_valid = nullptr;  // attention reads row write_row from valid like any row
+  int err = decoder_input(s, a->hidden, nullptr, st);
+  if (!err) err = decoder_layers(s, Gemm{a->batch, a->part_cap}, st);
+  return err ? err : (int)cudaGetLastError();
 }

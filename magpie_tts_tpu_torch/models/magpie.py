@@ -5,15 +5,22 @@ prefill, and the autoregressive decode loops.
 2. ``decode_loop`` a Python loop over frames; each iteration is one call of
                    ``ops.kernels.frame_step.frame_step`` (the CUDA kernel on a
                    CUDA device, the plain LT sampler + embedding + decoder step
-                   on the CPU), then the EOS test on the host.
+                   on the CPU), then the EOS test on the host. The split path
+                   (``use_fused=False``) runs the LT sampler and the decoder
+                   step as two kernels with the embedding between.
 3. ``synthesize_codes_batched_program`` the lockstep loop over B utterances:
                    one ``ops.kernels.frame_step_batched.frame_step_batched``
-                   call per frame, EOS bookkeeping on the device.
+                   call per frame (split: the batched sampler, then the
+                   batched decoder step), EOS bookkeeping on the device.
+
+``use_fused=None`` everywhere means: fused, unless the ``MAGPIE_NO_FUSED``
+environment variable is set (the JAX package's debug switch).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,8 +29,12 @@ import torch
 from ..config import MagpieConfig
 from ..io.magpie_weights import MagpieWeights
 from ..ops import sampling
+from ..ops.kernels.decoder_step import decode_step
+from ..ops.kernels.decoder_step_batched import decode_step_batched
 from ..ops.kernels.frame_step import frame_step
 from ..ops.kernels.frame_step_batched import frame_step_batched
+from ..ops.kernels.lt_sampler import sample_frame_codes
+from ..ops.kernels.lt_sampler_batched import sample_frame_codes_batched
 from . import decoder as decoder_mod
 from .encoder import run_encoder
 
@@ -36,6 +47,11 @@ def audio_frame_embedding(codes: torch.Tensor, weights: MagpieWeights,
     per_cb = weights.audio_emb[cb, codes.long()]               # [..., 8, d_model]
     mean = per_cb.float().sum(dim=-2) / config.num_codebooks
     return mean.to(per_cb.dtype)
+
+
+def resolve_use_fused(use_fused: Optional[bool]) -> bool:
+    """None -> the fused frame kernels unless MAGPIE_NO_FUSED is set."""
+    return not os.environ.get("MAGPIE_NO_FUSED") if use_fused is None else bool(use_fused)
 
 
 def speaker_context(weights: MagpieWeights, speaker_id: int) -> torch.Tensor:
@@ -84,25 +100,37 @@ def prepare(tokens: torch.Tensor, enc_length: int, speaker_id: int,
 
 def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
                 enc_length: int, weights: MagpieWeights, config: MagpieConfig,
-                key: Tuple[int, int], temperature: float, top_k: int) -> DecodeState:
+                key: Tuple[int, int], temperature: float, top_k: int,
+                use_fused: Optional[bool] = None) -> DecodeState:
     """Sample frames until EOS or ``config.max_dec_steps``.
 
     Per frame: split the key (host threefry, as jax.random.split), run one
     frame step (sample 8 codes, embed, decoder step at ``pos``), then stop on
     EOS (any codebook's sampled or argmax code) — one host sync per frame.
     The EOS frame's codes are written but not counted, as in the JAX loop.
+    The split path samples, tests EOS on the host, embeds and runs the
+    decoder step, the last also on the EOS frame, as the JAX loop does.
     """
     max_steps = config.max_dec_steps
     seeds = sampling.frame_seeds(key, max_steps)
+    fused = resolve_use_fused(use_fused)
     s = state
     while not s.done and s.frame_idx < max_steps:
         forbid_eos = s.frame_idx < config.min_generated_frames
-        sampled, argmax, s.hidden, s.k_cache, s.v_cache = frame_step(
-            s.hidden, s.pos, xa_k, xa_v, s.k_cache, s.v_cache, weights, config,
-            seeds[s.frame_idx], temperature, top_k, forbid_eos, enc_length=enc_length)
-        sampled, argmax = sampled.cpu(), argmax.cpu()
-        s.codes[s.frame_idx] = sampled.numpy()
-        s.done = sampling.frame_has_eos(sampled, argmax, config.audio_eos_id)
+        if fused:
+            sampled, argmax, s.hidden, s.k_cache, s.v_cache = frame_step(
+                s.hidden, s.pos, xa_k, xa_v, s.k_cache, s.v_cache, weights, config,
+                seeds[s.frame_idx], temperature, top_k, forbid_eos, enc_length=enc_length)
+        else:
+            sampled, argmax = sample_frame_codes(s.hidden, weights, config, seeds[s.frame_idx],
+                                                 temperature, top_k, forbid_eos)
+        sampled_h, argmax_h = sampled.cpu(), argmax.cpu()
+        s.codes[s.frame_idx] = sampled_h.numpy()
+        s.done = sampling.frame_has_eos(sampled_h, argmax_h, config.audio_eos_id)
+        if not fused:
+            emb = audio_frame_embedding(sampled, weights, config)
+            s.hidden = decode_step(emb, s.pos, xa_k, xa_v, s.k_cache, s.v_cache, weights,
+                                   config, enc_length=enc_length)
         if not s.done:
             s.frame_idx += 1
         s.pos += 1
@@ -111,12 +139,13 @@ def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
 
 def synthesize_codes_program(tokens: torch.Tensor, enc_length: int, speaker_id: int,
                              key: Tuple[int, int], temperature: float,
-                             weights: MagpieWeights, config: MagpieConfig, top_k: int):
+                             weights: MagpieWeights, config: MagpieConfig, top_k: int,
+                             use_fused: Optional[bool] = None):
     """The full single-utterance synthesis: returns (codes [max_dec_steps, 8], n_frames)."""
     with torch.no_grad():
         xa_k, xa_v, state = prepare(tokens, enc_length, speaker_id, weights, config)
         state = decode_loop(xa_k, xa_v, state, enc_length, weights, config, key,
-                            temperature, top_k)
+                            temperature, top_k, use_fused=use_fused)
     return state.codes, state.frame_idx
 
 
@@ -154,7 +183,8 @@ class BatchedDecodeState:
 def synthesize_codes_batched_program(
         tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
         keys: Sequence[Tuple[int, int]], temperature: float, weights: MagpieWeights,
-        config: MagpieConfig, top_k: int, max_steps: Optional[int] = None):
+        config: MagpieConfig, top_k: int, max_steps: Optional[int] = None,
+        use_fused: Optional[bool] = None):
     """Lockstep batched synthesis: tokens [B, T] -> (codes [B, N, 8] int32,
     n_frames [B] int32), both on the weights' device.
 
@@ -163,10 +193,14 @@ def synthesize_codes_batched_program(
     (seeds from the host threefry, uploaded once), ``valid = arange(S) <= pos``
     and ``may_continue = ~done``. The all-done test reads the device every
     ``_SYNC_EVERY`` frames, so up to ``_SYNC_EVERY - 1`` frames may run after
-    the last stream finished; they change no kept code.
+    the last stream finished; they change no kept code. The split path runs
+    the batched sampler, the bookkeeping, ``audio_frame_embedding + pos_emb[pos]``
+    and the batched decoder step, whose row ``pos`` is valid for every stream
+    (as in the JAX split branch).
     """
     max_steps = max_steps or config.max_dec_steps
     device = weights.text_emb.device
+    fused = resolve_use_fused(use_fused)
     with torch.no_grad():
         xa_k, xa_v, k_cache, v_cache, hidden = prepare_batch(tokens, enc_lengths, speaker_ids,
                                                              weights, config)
@@ -188,12 +222,22 @@ def synthesize_codes_batched_program(
             valid = (rows <= pos)[None].expand(B, -1)
             posemb = weights.decoder.pos_emb[pos][None].expand(B, -1)
             forbid = s.frame_idx < config.min_generated_frames
-            sampled, argmax, s.hidden, _, _ = frame_step_batched(
-                s.hidden, pos, valid, ~s.done, posemb, xa_k, xa_v, s.k_cache, s.v_cache,
-                weights, config, enc, seeds[s.step], temperature, top_k, forbid, rows=pos + 1)
+            if fused:
+                sampled, argmax, s.hidden, _, _ = frame_step_batched(
+                    s.hidden, pos, valid, ~s.done, posemb, xa_k, xa_v, s.k_cache, s.v_cache,
+                    weights, config, enc, seeds[s.step], temperature, top_k, forbid,
+                    rows=pos + 1)
+            else:
+                sampled, argmax = sample_frame_codes_batched(s.hidden, weights, config,
+                                                             seeds[s.step], temperature, top_k,
+                                                             forbid)
             is_eos = ((sampled == config.audio_eos_id) | (argmax == config.audio_eos_id)).any(-1)
             s.done = s.done | is_eos
             s.codes[:, s.step] = sampled
             s.frame_idx = torch.where(s.done, s.frame_idx, s.frame_idx + 1)
+            if not fused:
+                x_pe = audio_frame_embedding(sampled, weights, config) + posemb
+                s.hidden = decode_step_batched(x_pe, pos, valid, xa_k, xa_v, s.k_cache,
+                                               s.v_cache, weights, config, enc, rows=pos + 1)
             s.step += 1
     return s.codes, s.frame_idx

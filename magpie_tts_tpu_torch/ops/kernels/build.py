@@ -96,11 +96,12 @@ def load_library() -> ctypes.CDLL:
             if not target.exists():
                 _build(target)
             lib = ctypes.CDLL(str(target))
-            from . import codec_conv, frame_step, frame_step_batched
+            from . import (codec_conv, decoder_step, decoder_step_batched, frame_step,
+                           frame_step_batched, lt_sampler, lt_sampler_batched)
 
-            frame_step.declare(lib)
-            frame_step_batched.declare(lib)
-            codec_conv.declare(lib)
+            for module in (frame_step, frame_step_batched, codec_conv, lt_sampler, decoder_step,
+                           lt_sampler_batched, decoder_step_batched):
+                module.declare(lib)
             lib.magpie_cuda_error_string.argtypes = [ctypes.c_int]
             lib.magpie_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -6,11 +6,14 @@ magpie_tts_tpu/ops/pallas_kernels/frame_step_batched.py
 launches csrc/frame_step_batched.cu (a fixed sequence of kernels on the
 current stream that reads every weight once per frame for all B slots, see
 the source note there) or raises; on CPU tensors it runs
-``frame_step_batched_reference``: per slot, ``sample_frame_codes`` +
-``audio_frame_embedding`` + ``decode_rows``.
+``frame_step_batched_reference``: the split path's plain versions,
+``lt_sampler_batched.sample_frame_codes_batched_reference`` +
+``audio_frame_embedding`` + posemb + ``decoder_step_batched.
+decode_step_batched_reference`` with the new row's validity decided between.
 
 Both update the K/V caches ``[B, L, max_seq, d_model]`` in place (row
-``write_row`` of every layer and slot).
+``write_row`` of every layer and slot). ``launch`` and the tensor tables here
+also serve the split path's kernels 7 and 8, entry points of the same source.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from ..attention import attn_scale
 from . import build
-from .frame_step import weight_tensors
+from .frame_step import check_config, decoder_weight_tensors, lt_weight_tensors
 
 launches = 0  # kernel launches (one per frame) since the last reset
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
@@ -56,9 +59,10 @@ class FrameStepBatchedArgs(ctypes.Structure):
                 [(n, ctypes.c_float) for n in _floats])
 
 
-def declare(lib: ctypes.CDLL) -> None:
-    lib.magpie_frame_step_batched_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.magpie_frame_step_batched_f32.restype = ctypes.c_int
+def declare(lib: ctypes.CDLL, entry: str = "magpie_frame_step_batched_f32") -> None:
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def frame_step_batched_reference(
@@ -71,49 +75,50 @@ def frame_step_batched_reference(
     """Plain PyTorch batched frame, one slot at a time. ``rows`` only bounds
     the kernel's attention window; rows past it must hold no valid row, so
     the plain version attends over the whole masked cache."""
-    from ...models import decoder as decoder_mod
-    from ...models import local_transformer as lt_mod
     from ...models.magpie import audio_frame_embedding
-    from .. import sampling
+    from .decoder_step_batched import decode_step_batched_reference
+    from .lt_sampler_batched import sample_frame_codes_batched_reference
 
-    del rows
-    static_mask = sampling.forbidden_token_mask(config.vocab_per_cb, config.audio_bos_id,
-                                                device=hidden.device)
-    seeds_l, forbid_l = seeds.tolist(), forbid_eos.tolist()
-    cont_l, enc_l = may_continue.tolist(), enc_lengths.tolist()
-    sampled, argmax, out = [], [], []
-    for b in range(hidden.shape[0]):
-        s_b, a_b = lt_mod.sample_frame_codes(hidden[b], weights, config, seeds_l[b],
-                                             temperature, top_k, bool(forbid_l[b]),
-                                             static_mask)
-        new_valid = bool(cont_l[b]) and not sampling.frame_has_eos(s_b, a_b,
-                                                                   config.audio_eos_id)
-        mask = valid[b].to(torch.bool).clone()
-        mask[write_row] = new_valid
-        emb = audio_frame_embedding(s_b, weights, config)
-        out.append(decoder_mod.decode_rows(emb + posemb[b], write_row, mask, xa_k[b], xa_v[b],
-                                           k_cache[b], v_cache[b], weights, config,
-                                           enc_length=int(enc_l[b])))
-        sampled.append(s_b)
-        argmax.append(a_b)
-    return torch.stack(sampled), torch.stack(argmax), torch.stack(out), k_cache, v_cache
+    sampled, argmax = sample_frame_codes_batched_reference(hidden, weights, config, seeds,
+                                                           temperature, top_k, forbid_eos)
+    eos = config.audio_eos_id
+    new_valid = may_continue & ~((sampled == eos) | (argmax == eos)).any(-1)
+    mask = valid.to(torch.bool).clone()
+    mask[:, write_row] = new_valid
+    x_pe = audio_frame_embedding(sampled, weights, config) + posemb
+    out = decode_step_batched_reference(x_pe, write_row, mask, xa_k, xa_v, k_cache, v_cache,
+                                        weights, config, enc_lengths, rows)
+    return sampled, argmax, out, k_cache, v_cache
 
 
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], dtype=torch.float32,
-           broadcast_ok: bool = False) -> None:
+def check_tensor(who: str, name: str, t: torch.Tensor, shape: Tuple[int, ...],
+                 dtype=torch.float32, broadcast_ok: bool = False) -> None:
     """Device, dtype and shape; contiguous rows, or one row broadcast over the
     leading dim (stride 0) where ``broadcast_ok``."""
     if t.device.type != "cuda" or t.dtype != dtype:
-        raise ValueError(f"frame_step_batched: {name} must be a {dtype} CUDA tensor, "
+        raise ValueError(f"{who}: {name} must be a {dtype} CUDA tensor, "
                          f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"frame_step_batched: {name} has shape {tuple(t.shape)}, "
-                         f"want {shape}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, want {shape}")
     rows_ok = t.is_contiguous() or (broadcast_ok and t.dim() == 2 and t.stride(0) == 0
                                     and t.stride(1) == 1)
     if not rows_ok or (dtype == torch.float32 and t.data_ptr() % 16):
-        raise ValueError(f"frame_step_batched: {name} must be contiguous (float32: 16-byte "
-                         f"aligned)")
+        raise ValueError(f"{who}: {name} must be contiguous (float32: 16-byte aligned)")
+
+
+def check_batch(who: str, B: int) -> None:
+    if not 1 <= B <= MAX_SLOTS:
+        raise ValueError(f"{who}: {B} slots, the kernel takes 1..{MAX_SLOTS}")
+
+
+def check_rows(who: str, config: MagpieConfig, write_row: int, rows: Optional[int],
+               S: int) -> int:
+    """The attention bound (default max_seq), range-checked with the write row."""
+    rows = S if rows is None else int(rows)
+    if not (0 <= write_row < rows <= S and S <= config.max_pos):
+        raise ValueError(f"{who}: write_row {write_row} / rows {rows} out of range for "
+                         f"max_seq {S}")
+    return rows
 
 
 def _workspace(config: MagpieConfig, B: int, device) -> dict:
@@ -132,24 +137,61 @@ def _workspace(config: MagpieConfig, B: int, device) -> dict:
     return out
 
 
-def _tensors(hidden, valid, may_continue, posemb, forbid_eos, seeds, enc_lengths, k_cache,
-             v_cache, xa_k, xa_v, weights: MagpieWeights, config: MagpieConfig) -> dict:
-    """{argument name: (tensor, shape, dtype, broadcast_ok)} of every tensor the
-    kernel reads."""
+def sampler_tensors(hidden, forbid_eos, seeds, weights: MagpieWeights,
+                    config: MagpieConfig) -> dict:
+    """{argument name: (tensor, shape, dtype, broadcast_ok)} of what the LT
+    sampling sequence reads for B slots."""
+    B, D = hidden.shape[0], config.d_model
+    f32 = torch.float32
+    return {"hidden": (hidden, (B, D), f32, False),
+            "forbid_eos": (forbid_eos, (B,), torch.bool, False),
+            "seeds": (seeds, (B,), torch.int32, False),
+            **{name: (t, shape, f32, False)
+               for name, (t, shape) in lt_weight_tensors(weights, config).items()}}
+
+
+def decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights: MagpieWeights,
+                    config: MagpieConfig) -> dict:
+    """{argument name: (tensor, shape, dtype, broadcast_ok)} of what the
+    decoder sequence reads for B slots (besides its input rows)."""
     B, L, S, D = k_cache.shape
     E, X = xa_k.shape[2], config.d_xa
-    f32, b8, i32 = torch.float32, torch.bool, torch.int32
-    return {
-        "hidden": (hidden, (B, D), f32, False), "valid": (valid, (B, S), b8, True),
-        "may_continue": (may_continue, (B,), b8, False), "posemb": (posemb, (B, D), f32, True),
-        "forbid_eos": (forbid_eos, (B,), b8, False), "seeds": (seeds, (B,), i32, False),
-        "enc_lengths": (enc_lengths, (B,), i32, False),
-        "k_cache": (k_cache, (B, L, S, D), f32, False),
-        "v_cache": (v_cache, (B, L, S, D), f32, False),
-        "xa_k": (xa_k, (B, L, E, X), f32, False), "xa_v": (xa_v, (B, L, E, X), f32, False),
-        **{name: (t, shape, f32, False)
-           for name, (t, shape) in weight_tensors(weights, config).items()},
-    }
+    f32 = torch.float32
+    return {"valid": (valid, (B, S), torch.bool, True),
+            "enc_lengths": (enc_lengths, (B,), torch.int32, False),
+            "k_cache": (k_cache, (B, L, S, D), f32, False),
+            "v_cache": (v_cache, (B, L, S, D), f32, False),
+            "xa_k": (xa_k, (B, L, E, X), f32, False), "xa_v": (xa_v, (B, L, E, X), f32, False),
+            **{name: (t, shape, f32, False)
+               for name, (t, shape) in decoder_weight_tensors(weights, config).items()}}
+
+
+def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfig, device,
+           **scalars) -> None:
+    """Validate ``tensors`` ({name: (tensor, shape, dtype, broadcast_ok)}),
+    allocate a B-slot workspace on ``device`` and call the library's ``entry``
+    on that card with a FrameStepBatchedArgs of the tensors, the workspace,
+    ``outputs`` ({name: tensor}) and the config's dims; ``scalars`` fill the
+    remaining fields (unset pointers are null)."""
+    c = config
+    for name, (t, shape, dtype, broadcast_ok) in tensors.items():
+        check_tensor(entry, name, t, shape, dtype, broadcast_ok)
+    lib = build.load_library()
+    ptrs = {name: t.data_ptr() for name, (t, *_) in tensors.items()}
+    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, device).items()})
+    ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
+    args = FrameStepBatchedArgs(
+        **ptrs, batch=B, d_model=c.d_model, d_ffn=c.d_ffn, n_layers=c.dec_layers,
+        d_xa=c.d_xa, n_heads=c.dec_sa_heads, xa_heads=c.dec_xa_heads, lt_dim=c.lt_dim,
+        lt_ffn=c.lt_ffn_dim, n_cb=c.num_codebooks, vocab=c.vocab_per_cb, part_cap=_PART_CAP,
+        audio_bos_id=c.audio_bos_id, audio_eos_id=c.audio_eos_id, gelu_tanh=int(c.gelu_tanh),
+        eps=float(c.eps), sa_scale=attn_scale(c.d_model // c.dec_sa_heads),
+        xa_scale=attn_scale(c.d_xa // c.dec_xa_heads), lt_scale=attn_scale(c.lt_dim),
+        **scalars)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):  # the launch goes to the caches' card
+        err = getattr(lib, entry)(ctypes.addressof(args), stream)
+    build.check(err, entry)
 
 
 def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor,
@@ -180,49 +222,23 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     if hidden.device.type != "cuda":
         raise ValueError(f"frame_step_batched: unsupported device {hidden.device}")
     c = config
-    B, L, S, D = k_cache.shape
-    rows = S if rows is None else int(rows)
-    if not 1 <= B <= MAX_SLOTS:
-        raise ValueError(f"frame_step_batched: {B} slots, the kernel takes 1..{MAX_SLOTS}")
-    if not (0 <= write_row < rows <= S and S <= c.max_pos):
-        raise ValueError(f"frame_step_batched: write_row {write_row} / rows {rows} out of "
-                         f"range for max_seq {S}")
-    if c.vocab_per_cb > 4096 or top_k < 1 or c.num_codebooks > c.lt_max_pos:
-        raise ValueError("frame_step_batched: needs vocab_per_cb <= 4096, top_k >= 1 and "
-                         "num_codebooks <= lt_max_pos")
-    for n in (3 * c.d_model, c.d_ffn, c.d_xa, c.lt_dim, 3 * c.lt_dim, c.lt_ffn_dim,
-              c.vocab_per_cb):
-        if n % 4:
-            raise ValueError(f"frame_step_batched: GEMM width {n} is not a multiple of 4")
-    tensors = _tensors(hidden, valid, may_continue, posemb, forbid_eos, seeds, enc_lengths,
-                       k_cache, v_cache, xa_k, xa_v, weights, c)
-    for name, (t, shape, dtype, broadcast_ok) in tensors.items():
-        _check(name, t, shape, dtype, broadcast_ok)
-    lib = build.load_library()
-    stream = torch.cuda.current_stream(hidden.device).cuda_stream
+    B, S = k_cache.shape[0], k_cache.shape[2]
+    check_batch("frame_step_batched", B)
+    rows = check_rows("frame_step_batched", c, write_row, rows, S)
+    check_config("frame_step_batched", c, top_k)
     dev = hidden.device
     sampled = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
     argmax = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
-    hidden_out = torch.empty(B, D, dtype=torch.float32, device=dev)
-    ptrs = {name: t.data_ptr() for name, (t, *_) in tensors.items()}
-    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, dev).items()})
-    ptrs.update(sampled=sampled.data_ptr(), argmax=argmax.data_ptr(),
-                hidden_out=hidden_out.data_ptr())
-    X = c.d_xa
-    args = FrameStepBatchedArgs(
-        **ptrs, batch=B, d_model=D, d_ffn=c.d_ffn, n_layers=L, max_seq=S,
-        enc_rows=xa_k.shape[2], d_xa=X, n_heads=c.dec_sa_heads, xa_heads=c.dec_xa_heads,
-        lt_dim=c.lt_dim, lt_ffn=c.lt_ffn_dim, n_cb=c.num_codebooks, vocab=c.vocab_per_cb,
-        part_cap=_PART_CAP, write_row=int(write_row), rows=rows,
-        valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
-        top_k=min(int(top_k), c.vocab_per_cb), audio_bos_id=c.audio_bos_id,
-        audio_eos_id=c.audio_eos_id, gelu_tanh=int(c.gelu_tanh),
-        temperature=float(temperature), eps=float(c.eps),
-        sa_scale=attn_scale(D // c.dec_sa_heads), xa_scale=attn_scale(X // c.dec_xa_heads),
-        lt_scale=attn_scale(c.lt_dim))
-    with torch.cuda.device(dev):  # the launch goes to the caches' card
-        err = lib.magpie_frame_step_batched_f32(ctypes.addressof(args), stream)
-    build.check(err, "frame_step_batched")
+    hidden_out = torch.empty(B, c.d_model, dtype=torch.float32, device=dev)
+    tensors = {**sampler_tensors(hidden, forbid_eos, seeds, weights, c),
+               **decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights, c),
+               "may_continue": (may_continue, (B,), torch.bool, False),
+               "posemb": (posemb, (B, c.d_model), torch.float32, True)}
+    launch("magpie_frame_step_batched_f32", B, tensors,
+           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev,
+           max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
+           valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
+           top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
     with _launches_lock:
         launches += 1
     return sampled, argmax, hidden_out, k_cache, v_cache

@@ -11,8 +11,10 @@ request's context + BOS rows are rolled into place ending at ``ring_p - 1``.
 A slot lives at most ``max_seq - (context_frames + 2)`` steps.
 
 Every frame is one ``frame_step_batched`` call plus a few tensor ops on the
-device; the host reads the device once per segment (frame counts, done flags,
-codes). Sampling keys live on the host: a slot's key is
+device (the split path, ``use_fused=False`` or ``MAGPIE_NO_FUSED``: the
+batched LT sampler, the bookkeeping, then the batched decoder step); the host
+reads the device once per segment (frame counts, done flags, codes).
+Sampling keys live on the host: a slot's key is
 ``fold_in(PRNGKey(seed), request_id)`` at admission and splits once per frame,
 as in the JAX engine, so the per-frame seeds of a whole segment are derived
 and uploaded at once.
@@ -32,7 +34,9 @@ from ..config import MagpieConfig
 from ..io.magpie_weights import MagpieWeights
 from ..models import magpie as magpie_mod
 from ..ops import sampling
+from ..ops.kernels.decoder_step_batched import decode_step_batched
 from ..ops.kernels.frame_step_batched import frame_step_batched
+from ..ops.kernels.lt_sampler_batched import sample_frame_codes_batched
 from ..runtime.engine import check_dtype, pick_bucket, resolve_device, split_to_buckets
 
 
@@ -46,13 +50,17 @@ class _Request:
 
 class ContinuousBatchingEngine:
     """Slot-based serving engine on one device: submit() requests, pump
-    step(), collect codes."""
+    step(), collect codes. ``use_fused`` (None: fused unless MAGPIE_NO_FUSED)
+    picks the fused frame kernel or the split sampler + decoder step, at any
+    slot count (the JAX engine's ``slots % 8`` switch is Mosaic's)."""
 
     def __init__(self, weights: MagpieWeights, config: MagpieConfig, n_slots: int = 8,
                  device="cuda", compute_dtype=torch.float32,
-                 token_buckets: Sequence[int] = (32, 64, 128), segment_frames: int = 32):
+                 token_buckets: Sequence[int] = (32, 64, 128), segment_frames: int = 32,
+                 use_fused: Optional[bool] = None):
         check_dtype(compute_dtype)
         self.config = config
+        self.use_fused = use_fused
         self.n_slots = n_slots
         self.segment_frames = segment_frames
         self.token_buckets = tuple(token_buckets)
@@ -159,22 +167,35 @@ class ContinuousBatchingEngine:
         codes_seg = torch.zeros(K, B, c.num_codebooks, dtype=torch.int32, device=dev)
         self._rows_hi = S if self.ring_p + K > S else max(self._rows_hi, self.ring_p + K)
         pos_emb = self.weights.decoder.pos_emb
+        fused = magpie_mod.resolve_use_fused(self.use_fused)
         for j in range(K):
             r = (self.ring_p + j) % S
             alive = active & ~done
             may_continue = alive & (self.frame_count < c.max_dec_steps)
             forbid = self.frame_count < c.min_generated_frames
             posemb = pos_emb[self.logical_pos.clamp(0, c.max_pos - 1).long()]
-            sampled, argmax, self.hidden, _, _ = frame_step_batched(
-                self.hidden, r, self.valid, may_continue, posemb, self.xa_k, self.xa_v,
-                self.k_cache, self.v_cache, self.weights, c, self.enc_lengths, seeds[j],
-                temperature, top_k, forbid, rows=self._rows_hi)
+            if fused:
+                sampled, argmax, self.hidden, _, _ = frame_step_batched(
+                    self.hidden, r, self.valid, may_continue, posemb, self.xa_k, self.xa_v,
+                    self.k_cache, self.v_cache, self.weights, c, self.enc_lengths, seeds[j],
+                    temperature, top_k, forbid, rows=self._rows_hi)
+            else:
+                sampled, argmax = sample_frame_codes_batched(self.hidden, self.weights, c,
+                                                             seeds[j], temperature, top_k,
+                                                             forbid)
             is_eos = ((sampled == c.audio_eos_id) | (argmax == c.audio_eos_id)).any(-1)
             codes_seg[j] = sampled
             counts = may_continue & ~is_eos
             self.frame_count += counts.to(torch.int32)
             done = done | (active & is_eos)
+            # Split path: ring row r's validity is written before the decoder
+            # step attends to it (the fused kernel decides it inside).
             self.valid[:, r] = counts
+            if not fused:
+                x_pe = magpie_mod.audio_frame_embedding(sampled, self.weights, c) + posemb
+                self.hidden = decode_step_batched(x_pe, r, self.valid, self.xa_k, self.xa_v,
+                                                  self.k_cache, self.v_cache, self.weights, c,
+                                                  self.enc_lengths, rows=self._rows_hi)
             self.logical_pos += counts.to(torch.int32)
         self.ring_p = (self.ring_p + K) % S
         self._counts_host = self.frame_count.cpu().numpy().astype(np.int64)

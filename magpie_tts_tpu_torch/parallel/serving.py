@@ -1,14 +1,15 @@
 """Lockstep batched serving (magpie_tts_tpu/parallel/serving.py) on one device.
 
 B utterances decode in lockstep: one ``frame_step_batched`` call per frame
-until every stream hit EOS or the step budget. The JAX engine's ``mesh``
+(split path: the batched sampler and decoder step) until every stream hit
+EOS or the step budget. The JAX engine's ``mesh``
 (data parallelism over chips) is not ported here; more than one device is
 ``continuous.MultiChipContinuousServer``'s job.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,22 +23,27 @@ from ..runtime.engine import check_dtype, pick_bucket, resolve_device, split_to_
 
 def batched_synthesize_program(tokens: torch.Tensor, enc_lengths: Sequence[int],
                                speaker_ids: Sequence[int], keys, temperature: float,
-                               weights: MagpieWeights, config: MagpieConfig, top_k: int):
+                               weights: MagpieWeights, config: MagpieConfig, top_k: int,
+                               use_fused: Optional[bool] = None):
     """tokens [B, T]; enc_lengths, speaker_ids: B ints; keys: B (k0, k1).
     Returns (codes [B, N, 8], n_frames [B]) on the weights' device."""
     return magpie_mod.synthesize_codes_batched_program(
-        tokens, enc_lengths, speaker_ids, keys, temperature, weights, config, top_k)
+        tokens, enc_lengths, speaker_ids, keys, temperature, weights, config, top_k,
+        use_fused=use_fused)
 
 
 class BatchedMagpieEngine:
-    """Fixed-batch lockstep serving engine on one device."""
+    """Fixed-batch lockstep serving engine on one device. ``use_fused``
+    (None: fused unless MAGPIE_NO_FUSED) picks the fused frame kernel or the
+    split sampler + decoder step."""
 
     def __init__(self, weights: MagpieWeights, config: MagpieConfig, batch_size: int,
                  device="cuda", compute_dtype=torch.float32,
                  token_buckets: Sequence[int] = (32, 64, 128, 256),
-                 split_token_id: int = 93):
+                 split_token_id: int = 93, use_fused: Optional[bool] = None):
         check_dtype(compute_dtype)
         self.config = config
+        self.use_fused = use_fused
         self.batch_size = batch_size
         self.device = resolve_device(device)
         self.weights = weights.to(device=self.device, dtype=compute_dtype)
@@ -103,6 +109,6 @@ class BatchedMagpieEngine:
         keys = list(keys) + [(0, 0)] * (B - len(keys))
         codes, n_frames = batched_synthesize_program(
             torch.from_numpy(tokens).to(self.device), enc_lengths.tolist(), spk.tolist(),
-            keys, temperature, self.weights, self.config, top_k)
+            keys, temperature, self.weights, self.config, top_k, use_fused=self.use_fused)
         codes, n_frames = codes.cpu().numpy(), n_frames.cpu().numpy()
         return [codes[i, :n_frames[i]] for i in range(len(chunk_lists))]

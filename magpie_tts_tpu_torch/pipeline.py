@@ -26,10 +26,12 @@ class MagpiePipeline:
     @classmethod
     def from_gguf(cls, model_path: str, codec_path: Optional[str] = None,
                   device="cuda", compute_dtype=torch.float32,
-                  gelu_flavor: Optional[str] = None) -> "MagpiePipeline":
+                  gelu_flavor: Optional[str] = None,
+                  use_fused: Optional[bool] = None) -> "MagpiePipeline":
         """Load the model (and codec) GGUFs onto ``device``; the tokenizer comes
         from the model GGUF's metadata. ``gelu_flavor`` ("erf" / "tanh")
-        overrides the config's GELU in every FFN."""
+        overrides the config's GELU in every FFN; ``use_fused`` goes to the
+        engine (False: the split decode path)."""
         check_dtype(compute_dtype)
         reader = GGUFReader(model_path)
         config, weights = load_magpie_weights(model_path, reader=reader)
@@ -37,7 +39,7 @@ class MagpiePipeline:
             config = dataclasses.replace(config, gelu_flavor=gelu_flavor)
         tokenizer = MagpieTokenizer.from_gguf_metadata(reader.metadata)
         engine = MagpieEngine(weights, config, device=device, compute_dtype=compute_dtype,
-                              split_token_id=tokenizer.space_id)
+                              split_token_id=tokenizer.space_id, use_fused=use_fused)
         codec = None
         if codec_path:
             codec_config, codec_weights = load_codec_weights(codec_path)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,14 +73,17 @@ class SynthesisResult:
 
 
 class MagpieEngine:
-    """TTS code generation for one model instance on one device."""
+    """TTS code generation for one model instance on one device.
+    ``use_fused`` (None: fused unless MAGPIE_NO_FUSED; the CLI's --no-fused
+    passes False) picks the fused frame kernel or the split path."""
 
     def __init__(self, weights: MagpieWeights, config: MagpieConfig, device="cuda",
                  compute_dtype=torch.float32,
                  token_buckets: Sequence[int] = DEFAULT_TOKEN_BUCKETS,
-                 split_token_id: int = 93):
+                 split_token_id: int = 93, use_fused: Optional[bool] = None):
         check_dtype(compute_dtype)
         self.config = config
+        self.use_fused = use_fused
         self.device = resolve_device(device)
         self.weights = weights.to(device=self.device, dtype=compute_dtype)
         self.token_buckets = tuple(token_buckets)
@@ -111,7 +114,7 @@ class MagpieEngine:
                 key = sampling.fold_in(key, i)
             codes, n_frames = magpie_mod.synthesize_codes_program(
                 tokens, enc_length, speaker_id, key, temperature, self.weights,
-                self.config, top_k)
+                self.config, top_k, use_fused=self.use_fused)
             parts.append(codes[:n_frames])
         codes = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
         return SynthesisResult(codes=codes, n_frames=codes.shape[0])

@@ -16,8 +16,12 @@ from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
 from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
 from magpie_tts_tpu_torch.models import magpie as magpie_mod
 from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
 from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
 from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
+from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
 from magpie_tts_tpu_torch.parallel import continuous as continuous_mod
 from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
 from magpie_tts_tpu_torch.parallel.serving import BatchedMagpieEngine
@@ -162,18 +166,17 @@ def test_batched_engines_go_through_the_kernel(cuda):
     assert sorted(finished) == ids and fsb.launches == 4 * segments
 
 
-@pytest.mark.parametrize("path", ["continuous", "lockstep"])
-def test_attention_bound_drops_no_valid_row(cuda, monkeypatch, path):
-    """The host-side attention bound an engine passes (``rows``: the ring
-    engine's tracked bound, lockstep's pos + 1) gives codes equal, bit for bit,
-    to the same run with the bound at max_seq. Continuous: nine requests
+def _bounded_vs_full(monkeypatch, path: str, kernel: str, use_fused: bool):
+    """Codes of an engine run with the attention bound the engine passes
+    (``rows``) and with the bound at max_seq, through ``kernel``, the name of
+    the bounded wrapper in the loop's module. Continuous: nine requests
     through three slots, one joining per segment, so the ring wraps."""
     w = random_magpie_weights(SMALL, seed=11)
     rng = np.random.default_rng(13)
     reqs = [[98] + [int(t) for t in rng.integers(2, 30, size=n)] + [99]
             for n in (4, 9, 6, 12, 5, 7, 3, 10, 8)]
     module = continuous_mod if path == "continuous" else magpie_mod
-    real = fsb.frame_step_batched
+    real = getattr(module, kernel)
     bounds = []
 
     def run(full: bool):
@@ -181,12 +184,13 @@ def test_attention_bound_drops_no_valid_row(cuda, monkeypatch, path):
             bounds.append(rows)
             return real(*a, rows=None if full else rows, **k)
 
-        monkeypatch.setattr(module, "frame_step_batched", launch)
+        monkeypatch.setattr(module, kernel, launch)
         if path == "lockstep":
-            lock = BatchedMagpieEngine(w, SMALL, batch_size=3, device="cuda", token_buckets=(16,))
+            lock = BatchedMagpieEngine(w, SMALL, batch_size=3, device="cuda", token_buckets=(16,),
+                                       use_fused=use_fused)
             return lock.synthesize_batch(reqs[:3], temperature=0.7, top_k=8, seed=1)
         cont = ContinuousBatchingEngine(w, SMALL, n_slots=3, device="cuda", token_buckets=(16,),
-                                        segment_frames=8)
+                                        segment_frames=8, use_fused=use_fused)
         ids = [cont.submit(r, seed=i) for i, r in enumerate(reqs[:3])]
         ring, finished = [], {}
         while cont.pending or len(ids) < len(reqs):
@@ -203,6 +207,143 @@ def test_attention_bound_drops_no_valid_row(cuda, monkeypatch, path):
     assert len(bounded) == len(full)
     for i, (got, want) in enumerate(zip(bounded, full)):
         np.testing.assert_array_equal(got, want, err_msg=f"{path} request {i}")
+
+
+@pytest.mark.parametrize("path", ["continuous", "lockstep"])
+def test_attention_bound_drops_no_valid_row(cuda, monkeypatch, path):
+    """The host-side attention bound an engine passes kernel C (``rows``: the
+    ring engine's tracked bound, lockstep's pos + 1) gives codes equal, bit
+    for bit, to the same run with the bound at max_seq."""
+    _bounded_vs_full(monkeypatch, path, "frame_step_batched", use_fused=True)
+
+
+@pytest.mark.parametrize("path", ["continuous", "lockstep"])
+def test_split_attention_bound_drops_no_valid_row(cuda, monkeypatch, path):
+    """The same for the split path's batched decoder step (kernel 8)."""
+    _bounded_vs_full(monkeypatch, path, "decode_step_batched", use_fused=False)
+
+
+def _eos(sampled, argmax):
+    return ((sampled == SMALL.audio_eos_id) | (argmax == SMALL.audio_eos_id)).any(-1)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_split_kernels_match_plain_and_fused(prepared, temperature):
+    """Kernels 4 and 5 against their plain versions, and kernel 4 + the
+    embedding + kernel 5 against kernel A on the same state: codes exact,
+    hidden and caches to TOL."""
+    w, xa_k, xa_v, st = prepared
+    lts.launches = ds.launches = 0
+    caches = [(st.k_cache.clone(), st.v_cache.clone()) for _ in range(3)]
+    (kk, vk), (kr, vr), (kf, vf) = caches
+    with torch.no_grad():
+        for forbid in (True, False):
+            sk, ak = lts.sample_frame_codes(st.hidden, w, SMALL, 5, temperature, 8, forbid)
+            sr, ar = lts.sample_frame_codes_reference(st.hidden, w, SMALL, 5, temperature, 8,
+                                                      forbid)
+            assert torch.equal(sk, sr) and torch.equal(ak, ar)
+        emb = magpie_mod.audio_frame_embedding(sk, w, SMALL)
+        hk = ds.decode_step(emb, st.pos, xa_k, xa_v, kk, vk, w, SMALL, enc_length=6)
+        hr = ds.decode_step_reference(emb, st.pos, xa_k, xa_v, kr, vr, w, SMALL, enc_length=6)
+        sf, af, hf, _, _ = fs.frame_step(st.hidden, st.pos, xa_k, xa_v, kf, vf, w, SMALL, 5,
+                                         temperature, 8, False, enc_length=6)
+    torch.cuda.synchronize()
+    assert lts.launches == 2 and ds.launches == 1
+    assert torch.equal(sk, sf) and torch.equal(ak, af)
+    for want in ((hr, kr, vr), (hf, kf, vf)):
+        for got, ref in zip((hk, kk, vk), want):
+            assert float((got - ref).abs().max()) < TOL
+
+
+@pytest.mark.parametrize("B,write_row,temperature", [(3, 5, 0.0), (8, 30, 0.7), (13, 47, 0.7)])
+def test_split_batched_kernels_match_plain_and_fused(cuda, B, write_row, temperature):
+    """Kernels 7 and 8 against their plain versions at any B (3 and 13 are not
+    multiples of 8), and kernel 7 + the embedding + kernel 8 (write row valid
+    as kernel C decides it) against kernel C on the same state: codes exact,
+    hidden and caches to TOL for slots with a valid row."""
+    w = random_magpie_weights(SMALL, seed=11).to(device=cuda)
+    x = _batched_inputs(w, B, write_row, cuda)
+    caches = [(x["k_cache"].clone(), x["v_cache"].clone()) for _ in range(3)]
+    (kk, vk), (kr, vr), (kf, vf) = caches
+    ltsb.launches = dsb.launches = 0
+    with torch.no_grad():
+        sample = (x["hidden"], w, SMALL, x["seeds"], temperature, 8, x["forbid_eos"])
+        sk, ak = ltsb.sample_frame_codes_batched(*sample)
+        sr, ar = ltsb.sample_frame_codes_batched_reference(*sample)
+        valid = x["valid"].clone()
+        valid[:, write_row] = x["may_continue"] & ~_eos(sk, ak)
+        x_pe = magpie_mod.audio_frame_embedding(sk, w, SMALL) + x["posemb"]
+        step = (x_pe, write_row, valid, x["xa_k"], x["xa_v"])
+        hk = dsb.decode_step_batched(*step, kk, vk, w, SMALL, x["enc_lengths"])
+        hr = dsb.decode_step_batched_reference(*step, kr, vr, w, SMALL, x["enc_lengths"])
+        fused = dict(x, k_cache=kf, v_cache=vf, weights=w, config=SMALL, temperature=temperature,
+                     top_k=8)
+        sf, af, hf, _, _ = fsb.frame_step_batched(**fused)
+    torch.cuda.synchronize()
+    assert ltsb.launches == 1 and dsb.launches == 1
+    assert torch.equal(sk, sr) and torch.equal(ak, ar)
+    assert torch.equal(sk, sf) and torch.equal(ak, af)
+    live = slice(0, B - 1)
+    for want in ((hr, kr, vr), (hf, kf, vf)):
+        for got, ref in zip((hk, kk, vk), want):
+            assert float((got[live] - ref[live]).abs().max()) < TOL
+            assert torch.isfinite(got).all()
+
+
+def test_split_paths_go_through_the_kernels(prepared):
+    """use_fused=False: kernels 4 and 5 once per loop iteration, kernels 7 and
+    8 once per lockstep frame and per continuous segment frame; kernels A and
+    C never."""
+    w, xa_k, xa_v, st = prepared
+    for m in (fs, fsb, lts, ds, ltsb, dsb):
+        m.launches = 0
+    with torch.no_grad():
+        out = magpie_mod.decode_loop(xa_k, xa_v, st, 6, w, SMALL, (0, 3), 0.7, 8,
+                                     use_fused=False)
+    steps = out.frame_idx + (1 if out.done else 0)
+    assert lts.launches == ds.launches == steps and fs.launches == 0
+    rng = np.random.default_rng(5)
+    reqs = [[98] + [int(t) for t in rng.integers(2, 30, size=n)] + [99] for n in (4, 9, 6)]
+    lock = BatchedMagpieEngine(w, SMALL, batch_size=3, device="cuda", token_buckets=(16,),
+                               use_fused=False)
+    lock.synthesize_batch(reqs, temperature=0.7, top_k=8, seed=1)
+    assert 0 < ltsb.launches == dsb.launches <= SMALL.max_dec_steps
+    ltsb.launches = dsb.launches = 0
+    cont = ContinuousBatchingEngine(w, SMALL, n_slots=2, device="cuda", token_buckets=(16,),
+                                    segment_frames=4, use_fused=False)
+    ids = [cont.submit(r, seed=2) for r in reqs]
+    segments, finished = 0, {}
+    while cont.pending:
+        segments += 1
+        finished.update(cont.step(temperature=0.7, top_k=8))
+    assert sorted(finished) == ids
+    assert ltsb.launches == dsb.launches == 4 * segments and fsb.launches == 0
+
+
+def test_split_wrappers_reject_bad_inputs(cuda):
+    w = random_magpie_weights(SMALL, seed=11).to(device=cuda)
+    D = SMALL.d_model
+    with pytest.raises(ValueError):   # hidden must be float32
+        lts.sample_frame_codes(torch.zeros(D, device=cuda, dtype=torch.float64), w, SMALL, 1,
+                               0.0, 8, False)
+    x = _batched_inputs(w, 2, 5, cuda)
+    with pytest.raises(ValueError):   # caches must be [L, max_seq, d_model]
+        ds.decode_step(x["hidden"][0], 9, x["xa_k"][0], x["xa_v"][0], x["k_cache"][0][:, :10],
+                       x["v_cache"][0], w, SMALL)
+    with pytest.raises(ValueError):   # pos past the cache
+        ds.decode_step(x["hidden"][0], SMALL.max_seq, x["xa_k"][0], x["xa_v"][0],
+                       x["k_cache"][0], x["v_cache"][0], w, SMALL)
+    with pytest.raises(ValueError):   # seeds must be int32
+        ltsb.sample_frame_codes_batched(x["hidden"], w, SMALL, x["seeds"].long(), 0.0, 8,
+                                        x["forbid_eos"])
+    with pytest.raises(ValueError):   # valid must be bool
+        dsb.decode_step_batched(x["hidden"], 5, x["valid"].to(torch.int32), x["xa_k"],
+                                x["xa_v"], x["k_cache"], x["v_cache"], w, SMALL,
+                                x["enc_lengths"])
+    with pytest.raises(ValueError):   # at most 64 slots
+        ltsb.sample_frame_codes_batched(torch.zeros(65, D, device=cuda), w, SMALL,
+                                        torch.zeros(65, dtype=torch.int32, device=cuda), 0.0,
+                                        8, torch.zeros(65, dtype=torch.bool, device=cuda))
 
 
 def test_wrappers_reject_bad_inputs(cuda):
