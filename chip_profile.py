@@ -3,7 +3,7 @@ kernel's time goes, the fused frame against the split path, and where
 ``serve``'s time goes.
 
 Run from the root of a checkout:
-    python3 chip_profile.py [frame|split|fused|serve|all] [--root DIR]
+    python3 chip_profile.py [frame|split|fused|stream|serve|all] [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
     weights, write row 300, for each (B, temperature, rows attended) of
@@ -22,6 +22,10 @@ fused: the fused rows of ``split`` alone. They use only what the package
     had before the split path, so ``--root DIR`` (another checkout's root,
     whose package is imported and built instead of this one's) compares two
     commits in one call.
+stream: kernels A and 5 (single stream) and C and 8 (B=8) at 357M width,
+    row 300, temp 0.7, with each weight stream (dense float32, int8 columns,
+    Q8_0 blocks): host wall ms, device ms in all and by kernel family, and
+    launches per frame, as ``split`` reports them.
 serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
@@ -374,6 +378,54 @@ def profile_split(dev, split: bool) -> None:
                   "temperature": 0.7, **_profile_frames(frame)})
 
 
+def profile_stream(dev) -> None:
+    """Kernels A, 5, C and 8 by weight stream, one frame each."""
+    import torch
+
+    from chip_smoke import prod_streams, prod_weights
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+
+    c, w = prod_weights(dev)
+    q8, deq, int8 = prod_streams(dev)
+    S, L, D, E, B, row = c.max_seq, c.dec_layers, c.d_model, 128, 8, 300
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape, s=0.5: torch.randn(*shape, generator=gen, device=dev) * s
+    kc, vc = rnd(B, L, S, D), rnd(B, L, S, D)
+    xa_k, xa_v = rnd(B, L, E, c.d_xa), rnd(B, L, E, c.d_xa)
+    hidden = rnd(B, D, s=1.0)
+    valid = (torch.arange(S, device=dev) <= row)[None].expand(B, -1)
+    posemb = w.decoder.pos_emb[row][None].expand(B, -1)
+    enc = torch.full((B,), 32, dtype=torch.int32, device=dev)
+    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+    forbid = torch.zeros(B, dtype=torch.bool, device=dev)
+    codes = torch.zeros(B, c.num_codebooks, dtype=torch.int32, device=dev)
+    x_pe = audio_frame_embedding(codes, w, c) + posemb
+    with torch.no_grad():
+        for mode, weights, stream in (("dense", w, None), ("int8", w, int8), ("q8", deq, q8)):
+            one = dict(xa_k=xa_k[0], xa_v=xa_v[0], k_cache=kc[0], v_cache=vc[0],
+                       weights=weights, config=c, stream=stream)
+            batched = dict(xa_k=xa_k, xa_v=xa_v, k_cache=kc, v_cache=vc, weights=weights,
+                           config=c, stream=stream)
+            frames = {
+                ("frame_step", 1): lambda: fs.frame_step(
+                    hidden[0], row, seed=7, temperature=0.7, top_k=80, forbid_eos=False,
+                    enc_length=32, **one),
+                ("decoder_step", 1): lambda: ds.decode_step(x_pe[0], row, enc_length=32, **one),
+                ("frame_step_batched", B): lambda: fsb.frame_step_batched(
+                    hidden, row, valid, torch.ones(B, dtype=torch.bool, device=dev), posemb,
+                    enc_lengths=enc, seeds=seeds, temperature=0.7, top_k=80, forbid_eos=forbid,
+                    rows=row + 1, **batched),
+                ("decoder_step_batched", B): lambda: dsb.decode_step_batched(
+                    x_pe, row, valid, enc_lengths=enc, rows=row + 1, **batched)}
+            for (path, b), frame in frames.items():
+                emit({"phase": "stream", "stream": mode, "path": path, "B": b, "row": row,
+                      "temperature": 0.7, **_profile_frames(frame)})
+
+
 def main() -> int:
     import torch
 
@@ -394,8 +446,8 @@ def main() -> int:
     from magpie_tts_tpu_torch.runtime.engine import resolve_device
 
     what = args[0] if args else "all"
-    if what not in ("frame", "split", "fused", "serve", "all"):
-        print("usage: python3 chip_profile.py [frame|split|fused|serve|all] [--root DIR]",
+    if what not in ("frame", "split", "fused", "stream", "serve", "all"):
+        print("usage: python3 chip_profile.py [frame|split|fused|stream|serve|all] [--root DIR]",
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
@@ -406,6 +458,8 @@ def main() -> int:
         profile_frame(dev)
     if what in ("split", "fused", "all"):
         profile_split(dev, split=what != "fused")
+    if what in ("stream", "all"):
+        profile_stream(dev)
     if what in ("serve", "all"):
         profile_serve()
     return 0

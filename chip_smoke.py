@@ -23,7 +23,17 @@ Phases (each raises on failure, so the process exits non-zero):
 4. the serve path on the same GGUFs: ``cli.main(["serve", ...])`` with JSONL
    requests on a stdin stand-in, every WAV checked, the batched kernel's
    launches checked against the segments run; then the same under
-   ``MAGPIE_NO_FUSED=1`` (the split batched kernels, none of the fused one).
+   ``MAGPIE_NO_FUSED=1`` (the split batched kernels, none of the fused one);
+5. quantized weight serving: kernels A, 5, C and 8 with the Q8_0 stream bit
+   for bit against the same kernel dense on the dequantized weights, and with
+   the Q8_0 and int8 streams against their plain versions; kernel 10 (the
+   Q8_0 dequant) bit for bit against its plain version and the dense load
+   for every block-stored tensor of a production-width Q8_0 GGUF; then
+   ``cli.main`` with ``--serve-q8`` on that file, fused and ``--no-fused``
+   (the WAV at temp 0 byte-identical to serving the file without the flag),
+   and with ``--serve-int8`` on the float32 file, fused and ``--no-fused``;
+   and ``synthesize_codes_batched_program`` with each stream, fused and split
+   (kernels C and 8 in stream mode; their only caller).
 
 The line before last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -107,15 +117,22 @@ def lt_work(c, B: int):
     return nbytes, flops
 
 
-def dec_work(c, kv_rows, enc_rows, input_rows: int = 2):
+def dec_work(c, kv_rows, enc_rows, input_rows: int = 2, stream: str = "dense"):
     """(bytes, flops) of one decoder step for slots attending kv_rows[b]
     existing cache rows and enc_rows[b] cross-attention rows: every decoder
-    weight read once; per slot its rows of K and V, its cross-attention K/V
-    rows and ``input_rows`` rows of input (the embedding and its posemb row)
-    read, its new K/V rows and hidden written."""
+    weight read once (the four streamed matrices as 1-byte int8 values plus
+    their float32 scales with an ``int8`` or ``q8`` stream: one per column,
+    or one per 32 rows of a column); per slot its rows of K and V, its
+    cross-attention K/V rows and ``input_rows`` rows of input (the embedding
+    and its posemb row) read, its new K/V rows and hidden written."""
     D, F, X, L = c.d_model, c.d_ffn, c.d_xa, c.dec_layers
     mats = 3 * D * D + D * D + D * X + X * D + 2 * D * F
-    nbytes = F32 * (L * (mats + 3 * D) + D)
+    streamed = 3 * D * D + D * D + 2 * D * F
+    scales = {"dense": 0, "int8": 3 * D + D + F + D,
+              "q8": streamed // 32}[stream]
+    weight_bytes = F32 * mats if stream == "dense" else (
+        F32 * (mats - streamed) + streamed + F32 * scales)
+    nbytes = L * (weight_bytes + F32 * 3 * D) + F32 * D
     flops = 0
     for r, e in zip(kv_rows, enc_rows):
         nbytes += F32 * (2 * L * r * D + 2 * L * e * X + input_rows * D + 2 * L * D + D)
@@ -135,10 +152,24 @@ def prod_weights(dev):
 
 # --------------------------------------------------------------- GGUF files
 
-def write_model_gguf(path: str, config, seed: int) -> None:
+# The converter's Q8_0 allowlist (tools/convert_nemo_to_gguf.py
+# QUANT_PATTERNS): attention / FFN / projection weight matrices quantize;
+# norms, biases and embeddings stay float32.
+QUANT_PATTERNS = (
+    r"\.layers\.\d+\.self_attention\.(qkv_net|o_net)\.weight$",
+    r"\.layers\.\d+\.cross_attention\.(q_net|kv_net|o_net)\.weight$",
+    r"\.layers\.\d+\.pos_ff\.(proj|o_net)\.conv\.weight$",
+    r"^final_proj\.weight$",
+    r"^local_transformer_out_projections\.\d+\.weight$",
+    r"^local_transformer_in_projection\.weight$",
+)
+
+
+def write_model_gguf(path: str, config, seed: int, quant=None) -> None:
     """Random-weight Magpie GGUF with the converter's tensor names, hparams
-    and a small tokenizer payload."""
-    from magpie_tts_tpu_torch.io.gguf import GGUFWriter
+    and a small tokenizer payload; ``quant="q8_0"`` stores the converter's
+    allowlisted tensors as Q8_0 (the same float weights for the same seed)."""
+    from magpie_tts_tpu_torch.io.gguf import GGML_Q8_0, GGUFWriter
 
     c = config
     rng = np.random.default_rng(seed)
@@ -150,6 +181,11 @@ def write_model_gguf(path: str, config, seed: int) -> None:
         return (1.0 + rng.normal(0, 0.05, size=shape)).astype(np.float32)
 
     wr = GGUFWriter()
+
+    def add(name, arr):
+        q8 = quant == "q8_0" and any(re.search(p, name) for p in QUANT_PATTERNS)
+        wr.add_tensor(name, arr, GGML_Q8_0 if q8 else None)
+
     wr.add_metadata("general.architecture", "magpie")
     for key, val in (("d_model", c.d_model), ("d_ffn", c.d_ffn), ("d_head", c.d_head),
                      ("encoder_layers", c.enc_layers), ("decoder_layers", c.dec_layers),
@@ -178,52 +214,50 @@ def write_model_gguf(path: str, config, seed: int) -> None:
     wr.add_metadata("magpie.tokenizer.oov", 95)
 
     D, F = c.d_model, c.d_ffn
-    wr.add_tensor("text_embedding.weight", w(c.text_vocab_size, D))
-    wr.add_tensor("encoder.position_embeddings.weight", w(c.max_pos, D))
+    add("text_embedding.weight", w(c.text_vocab_size, D))
+    add("encoder.position_embeddings.weight", w(c.max_pos, D))
     for i in range(c.enc_layers):
         p = f"encoder.layers.{i}"
-        wr.add_tensor(f"{p}.norm_self.weight", g(D))
-        wr.add_tensor(f"{p}.self_attention.qkv_net.weight", w(3 * D, D))
-        wr.add_tensor(f"{p}.self_attention.o_net.weight", w(D, D))
-        wr.add_tensor(f"{p}.norm_pos_ff.weight", g(D))
-        wr.add_tensor(f"{p}.pos_ff.proj.conv.weight", w(F, D, c.enc_kernel))
-        wr.add_tensor(f"{p}.pos_ff.o_net.conv.weight", w(D, F, c.enc_kernel))
-    wr.add_tensor("encoder.norm_out.weight", g(D))
-    wr.add_tensor("decoder.position_embeddings.weight", w(c.max_pos, D))
+        add(f"{p}.norm_self.weight", g(D))
+        add(f"{p}.self_attention.qkv_net.weight", w(3 * D, D))
+        add(f"{p}.self_attention.o_net.weight", w(D, D))
+        add(f"{p}.norm_pos_ff.weight", g(D))
+        add(f"{p}.pos_ff.proj.conv.weight", w(F, D, c.enc_kernel))
+        add(f"{p}.pos_ff.o_net.conv.weight", w(D, F, c.enc_kernel))
+    add("encoder.norm_out.weight", g(D))
+    add("decoder.position_embeddings.weight", w(c.max_pos, D))
     for i in range(c.dec_layers):
         p = f"decoder.layers.{i}"
-        wr.add_tensor(f"{p}.norm_self.weight", g(D))
-        wr.add_tensor(f"{p}.self_attention.qkv_net.weight", w(3 * D, D))
-        wr.add_tensor(f"{p}.self_attention.o_net.weight", w(D, D))
-        wr.add_tensor(f"{p}.norm_xattn_query.weight", g(D))
-        wr.add_tensor(f"{p}.norm_xattn_memory.weight", g(D))
-        wr.add_tensor(f"{p}.cross_attention.q_net.weight", w(c.d_xa, D))
-        wr.add_tensor(f"{p}.cross_attention.kv_net.weight", w(2 * c.d_xa, D))
-        wr.add_tensor(f"{p}.cross_attention.o_net.weight", w(D, c.d_xa))
-        wr.add_tensor(f"{p}.norm_pos_ff.weight", g(D))
-        wr.add_tensor(f"{p}.pos_ff.proj.conv.weight", w(F, D, 1))
-        wr.add_tensor(f"{p}.pos_ff.o_net.conv.weight", w(D, F, 1))
-    wr.add_tensor("decoder.norm_out.weight", g(D))
+        add(f"{p}.norm_self.weight", g(D))
+        add(f"{p}.self_attention.qkv_net.weight", w(3 * D, D))
+        add(f"{p}.self_attention.o_net.weight", w(D, D))
+        add(f"{p}.norm_xattn_query.weight", g(D))
+        add(f"{p}.norm_xattn_memory.weight", g(D))
+        add(f"{p}.cross_attention.q_net.weight", w(c.d_xa, D))
+        add(f"{p}.cross_attention.kv_net.weight", w(2 * c.d_xa, D))
+        add(f"{p}.cross_attention.o_net.weight", w(D, c.d_xa))
+        add(f"{p}.norm_pos_ff.weight", g(D))
+        add(f"{p}.pos_ff.proj.conv.weight", w(F, D, 1))
+        add(f"{p}.pos_ff.o_net.conv.weight", w(D, F, 1))
+    add("decoder.norm_out.weight", g(D))
     for i in range(c.num_codebooks):
-        wr.add_tensor(f"audio_embeddings.{i}.weight", w(c.vocab_per_cb, D))
-    wr.add_tensor("baked_context_embedding.weight",
-                  w(c.num_speakers, c.context_frames * D))
-    wr.add_tensor("final_proj.weight", w(c.num_codebooks * c.vocab_per_cb, D))
-    wr.add_tensor("final_proj.bias", w(c.num_codebooks * c.vocab_per_cb))
-    wr.add_tensor("local_transformer_in_projection.weight", w(c.lt_dim, D))
-    wr.add_tensor("local_transformer_in_projection.bias", w(c.lt_dim))
-    wr.add_tensor("local_transformer.position_embeddings.weight", w(c.lt_max_pos, c.lt_dim))
+        add(f"audio_embeddings.{i}.weight", w(c.vocab_per_cb, D))
+    add("baked_context_embedding.weight", w(c.num_speakers, c.context_frames * D))
+    add("final_proj.weight", w(c.num_codebooks * c.vocab_per_cb, D))
+    add("final_proj.bias", w(c.num_codebooks * c.vocab_per_cb))
+    add("local_transformer_in_projection.weight", w(c.lt_dim, D))
+    add("local_transformer_in_projection.bias", w(c.lt_dim))
+    add("local_transformer.position_embeddings.weight", w(c.lt_max_pos, c.lt_dim))
     lp = "local_transformer.layers.0"
-    wr.add_tensor(f"{lp}.norm_self.weight", g(c.lt_dim))
-    wr.add_tensor(f"{lp}.self_attention.qkv_net.weight", w(3 * c.lt_dim, c.lt_dim))
-    wr.add_tensor(f"{lp}.self_attention.o_net.weight", w(c.lt_dim, c.lt_dim))
-    wr.add_tensor(f"{lp}.norm_pos_ff.weight", g(c.lt_dim))
-    wr.add_tensor(f"{lp}.pos_ff.proj.conv.weight", w(c.lt_ffn_dim, c.lt_dim, 1))
-    wr.add_tensor(f"{lp}.pos_ff.o_net.conv.weight", w(c.lt_dim, c.lt_ffn_dim, 1))
+    add(f"{lp}.norm_self.weight", g(c.lt_dim))
+    add(f"{lp}.self_attention.qkv_net.weight", w(3 * c.lt_dim, c.lt_dim))
+    add(f"{lp}.self_attention.o_net.weight", w(c.lt_dim, c.lt_dim))
+    add(f"{lp}.norm_pos_ff.weight", g(c.lt_dim))
+    add(f"{lp}.pos_ff.proj.conv.weight", w(c.lt_ffn_dim, c.lt_dim, 1))
+    add(f"{lp}.pos_ff.o_net.conv.weight", w(c.lt_dim, c.lt_ffn_dim, 1))
     for i in range(c.num_codebooks):
-        wr.add_tensor(f"local_transformer_out_projections.{i}.weight",
-                      w(c.vocab_per_cb, c.lt_dim))
-        wr.add_tensor(f"local_transformer_out_projections.{i}.bias", w(c.vocab_per_cb))
+        add(f"local_transformer_out_projections.{i}.weight", w(c.vocab_per_cb, c.lt_dim))
+        add(f"local_transformer_out_projections.{i}.bias", w(c.vocab_per_cb))
     wr.write(path)
 
 
@@ -797,6 +831,224 @@ def check_split_batched(dev) -> dict:
             "split_vs_fused_err": err_fused}
 
 
+STREAMS = ("q8", "int8")
+
+
+@functools.lru_cache(maxsize=1)
+def prod_streams(dev):
+    """The weight streams of prod_weights' decoder: the Q8_0 stream (its
+    matrices round-tripped through the Q8_0 codec), the weights whose decoder
+    holds that stream's dequantized matrices, and the int8 stream."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.magpie_weights import (q8_dequantized_decoder,
+                                                         q8_stream_from_arrays,
+                                                         quantize_decoder_stream)
+
+    c, w = prod_weights(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        q8 = q8_stream_from_arrays(w.decoder).to(dev)
+        deq = dataclasses.replace(w, decoder=q8_dequantized_decoder(w.decoder, q8))
+        int8 = quantize_decoder_stream(w.decoder)
+    log(f"Q8_0 and int8 streams of the 357M decoder made in {time.perf_counter() - t0:.1f} s")
+    return q8, deq, int8
+
+
+def _compare_stream_runs(out: dict, who: str, n_codes: int, live=slice(None)) -> dict:
+    """The Q8_0 kernel against the dense kernel on the dequantized weights (bit
+    for bit), and each stream's kernel against its plain version (codes
+    exact, floats within FRAME_TOL on the live slots). ``out[name]`` is the
+    run's outputs, its ``n_codes`` code tensors first. Returns the largest
+    float difference from plain per stream."""
+    import torch
+
+    bit_equal = all(torch.equal(a, b) for a, b in zip(out["q8"], out["dense"]))
+    errs = {}
+    for mode in STREAMS:
+        got, want = out[mode], out[mode + "_plain"]
+        n_diff = sum(int((a != b).sum()) for a, b in zip(got[:n_codes], want[:n_codes]))
+        errs[mode] = _max_err(zip(got[n_codes:], want[n_codes:]), live)
+        if n_diff or errs[mode] > FRAME_TOL:
+            raise AssertionError(f"{who}: the {mode} stream kernel disagrees with plain: "
+                                 f"{n_diff} codes, err {errs[mode]}")
+    log(f"{who}: Q8_0 stream equal to dense on the dequantized weights bit for bit: "
+        f"{bit_equal}; codes equal to plain (q8, int8); max |float err| vs plain q8 "
+        f"{errs['q8']:.3g}, int8 {errs['int8']:.3g}")
+    if not bit_equal:
+        raise AssertionError(f"{who}: the Q8_0 stream differs from dense on dequantized weights")
+    return errs
+
+
+def check_stream_single(dev) -> dict:
+    """Kernels A and 5 with the Q8_0 and int8 streams at full width, positions
+    111 / 300 / 610, temperatures 0 / 0.7: the Q8_0 stream bit-equal to the
+    same kernel dense on the dequantized weights (codes, hidden, K/V rows),
+    each stream against its plain version; CUDA-event times at pos 300."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+
+    c, w, xa_k, xa_v, hidden, k_base, v_base, positions = single_state(dev)
+    q8, deq, int8 = prod_streams(dev)
+    enc_len = SINGLE_ENC
+    codes = (torch.arange(c.num_codebooks, device=dev, dtype=torch.int32) * 37) % c.codebook_size
+    emb = audio_frame_embedding(codes, w, c)
+    variants = (("q8", deq, q8, False), ("dense", deq, None, False), ("q8_plain", deq, q8, True),
+                ("int8", w, int8, False), ("int8_plain", w, int8, True))
+    worst = {m: {"A": 0.0, "5": 0.0} for m in STREAMS}
+    with torch.no_grad():
+        for pos in positions:
+            for temp in (0.0, 0.7):
+                seed = 3000 + pos
+
+                def run(weights, stream, plain):
+                    fa = fs.frame_step_reference if plain else fs.frame_step
+                    f5 = ds.decode_step_reference if plain else ds.decode_step
+                    ka, va, k5, v5 = (k_base.clone(), v_base.clone(), k_base.clone(),
+                                      v_base.clone())
+                    sa, aa, ha, _, _ = fa(hidden, pos, xa_k, xa_v, ka, va, weights, c, seed, temp,
+                                          80, False, enc_length=enc_len, stream=stream)
+                    h5 = f5(emb, pos, xa_k, xa_v, k5, v5, weights, c, enc_length=enc_len,
+                            stream=stream)
+                    return sa, aa, ha, ka, va, h5, k5, v5
+
+                out = {name: run(wt, st, plain) for name, wt, st, plain in variants}
+                torch.cuda.synchronize()
+                errs_a = _compare_stream_runs({k: v[:5] for k, v in out.items()},
+                                              f"frame_step streams pos {pos} temp {temp}", 2)
+                errs_5 = _compare_stream_runs({k: v[5:] for k, v in out.items()},
+                                              f"decoder_step streams pos {pos} temp {temp}", 0)
+                for m in STREAMS:
+                    worst[m]["A"] = max(worst[m]["A"], errs_a[m])
+                    worst[m]["5"] = max(worst[m]["5"], errs_5[m])
+        pos = positions[1]
+        times = {}
+        for m, weights, stream in (("q8", deq, q8), ("int8", w, int8), ("dense", w, None)):
+            ka, va = k_base.clone(), v_base.clone()
+            frame = (hidden, pos, xa_k, xa_v, ka, va, weights, c, 7, 0.7, 80, False)
+            step = (emb, pos, xa_k, xa_v, ka, va, weights, c)
+            times[m] = {
+                "A": time_ms(lambda: fs.frame_step(*frame, enc_length=enc_len, stream=stream), 50),
+                "5": time_ms(lambda: ds.decode_step(*step, enc_length=enc_len, stream=stream), 50)}
+            if m != "dense":
+                times[m]["A_plain"] = time_ms(lambda: fs.frame_step_reference(
+                    *frame, enc_length=enc_len, stream=stream), reps=5)
+                times[m]["5_plain"] = time_ms(lambda: ds.decode_step_reference(
+                    *step, enc_length=enc_len, stream=stream), reps=5)
+    log("stream times at pos {} (temp 0.7), CUDA-event ms: ".format(pos) + "; ".join(
+        f"{m}: frame_step {t['A']:.4f}, decoder_step {t['5']:.4f}" for m, t in times.items()))
+    lt_b, lt_f = lt_work(c, 1)
+    res = {}
+    for m in STREAMS:
+        a_b, a_f = dec_work(c, [pos], [enc_len], input_rows=1, stream=m)
+        d_b, d_f = dec_work(c, [pos], [enc_len], stream=m)
+        res[m] = {"A": {"max_abs_err": worst[m]["A"], "ms": times[m]["A"],
+                        "plain_ms": times[m]["A_plain"], "dense_ms": times["dense"]["A"],
+                        **bound(lt_b + a_b, lt_f + a_f)},
+                  "5": {"max_abs_err": worst[m]["5"], "ms": times[m]["5"],
+                        "plain_ms": times[m]["5_plain"], "dense_ms": times["dense"]["5"],
+                        **bound(d_b, d_f)}}
+    return res
+
+
+def check_stream_batched(dev) -> dict:
+    """Kernels C and 8 with the Q8_0 and int8 streams at full width, B = 8 and
+    32 with ring masks (the last slot empty), temperatures 0 / 0.7: the Q8_0
+    stream bit-equal to the dense kernel on the dequantized weights, each
+    stream against its plain version on the live slots; times at B = 8, row
+    300."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+
+    c, w, _, _, _, k_base, v_base, _ = batched_state(dev)
+    q8, deq, int8 = prod_streams(dev)
+    rng = np.random.default_rng(4)
+    variants = (("q8", deq, q8, False), ("dense", deq, None, False), ("q8_plain", deq, q8, True),
+                ("int8", w, int8, False), ("int8_plain", w, int8, True))
+    worst = {m: {"C": 0.0, "8": 0.0} for m in STREAMS}
+
+    def step8(x):
+        """Kernel 8's inputs from kernel C's: the embedding of fixed codes +
+        posemb, the write row valid where the slot may continue."""
+        B, r = x["hidden"].shape[0], x["write_row"]
+        codes = (torch.arange(B * c.num_codebooks, device=dev, dtype=torch.int32)
+                 .reshape(B, -1) * 37) % c.codebook_size
+        valid = x["valid"].clone()
+        valid[:, r] = x["may_continue"]
+        return (audio_frame_embedding(codes, w, c) + x["posemb"], r, valid, x["xa_k"], x["xa_v"])
+
+    with torch.no_grad():
+        for B, r in ((8, c.max_seq // 2 - 20), (BATCH_MAX, c.max_seq - 30)):
+            for temp in (0.0, 0.7):
+                x = batched_inputs(dev, B, r, rng)
+                step = step8(x)
+
+                def run(weights, stream, plain):
+                    fc = fsb.frame_step_batched_reference if plain else fsb.frame_step_batched
+                    f8 = (dsb.decode_step_batched_reference if plain
+                          else dsb.decode_step_batched)
+                    kc, vc = k_base[:B].clone(), v_base[:B].clone()
+                    k8, v8 = k_base[:B].clone(), v_base[:B].clone()
+                    args = dict(x, weights=weights)
+                    sc, ac, hc, _, _ = fc(k_cache=kc, v_cache=vc, temperature=temp,
+                                          stream=stream, **args)
+                    h8 = f8(*step, k8, v8, weights, c, x["enc_lengths"], stream=stream)
+                    return sc, ac, hc, kc, vc, h8, k8, v8
+
+                out = {name: run(wt, st, plain) for name, wt, st, plain in variants}
+                torch.cuda.synchronize()
+                live = slice(0, B - 1)   # the last slot has no valid row
+                errs_c = _compare_stream_runs(
+                    {k: v[:5] for k, v in out.items()},
+                    f"frame_step_batched streams B {B} row {r} temp {temp}", 2, live)
+                errs_8 = _compare_stream_runs(
+                    {k: v[5:] for k, v in out.items()},
+                    f"decoder_step_batched streams B {B} row {r} temp {temp}", 0, live)
+                for m in STREAMS:
+                    worst[m]["C"] = max(worst[m]["C"], errs_c[m])
+                    worst[m]["8"] = max(worst[m]["8"], errs_8[m])
+        x = batched_inputs(dev, 8, c.max_seq // 2 - 20, rng)
+        step = step8(x)
+        times = {}
+        for m, weights, stream in (("q8", deq, q8), ("int8", w, int8), ("dense", w, None)):
+            kc, vc = k_base[:8].clone(), v_base[:8].clone()
+            args = dict(x, weights=weights, k_cache=kc, v_cache=vc, temperature=0.7)
+            times[m] = {
+                "C": time_ms(lambda: fsb.frame_step_batched(**args, stream=stream), reps=30),
+                "8": time_ms(lambda: dsb.decode_step_batched(*step, kc, vc, weights, c,
+                                                             x["enc_lengths"], stream=stream),
+                             reps=30)}
+            if m != "dense":
+                times[m]["C_plain"] = time_ms(lambda: fsb.frame_step_batched_reference(
+                    **args, stream=stream), reps=3, warmup=1)
+                times[m]["8_plain"] = time_ms(lambda: dsb.decode_step_batched_reference(
+                    *step, kc, vc, weights, c, x["enc_lengths"], stream=stream),
+                    reps=3, warmup=1)
+    log(f"batched stream times at B=8 row {x['write_row']} (temp 0.7), CUDA-event ms: " +
+        "; ".join(f"{m}: frame_step_batched {t['C']:.4f}, decoder_step_batched {t['8']:.4f}"
+                  for m, t in times.items()))
+    lt_b, lt_f = lt_work(c, 8)
+    valid_rows = x["valid"].sum(-1).tolist()
+    res = {}
+    for m in STREAMS:
+        c_b, c_f = dec_work(c, valid_rows, x["enc_lengths"].tolist(), input_rows=1, stream=m)
+        d_b, d_f = dec_work(c, step[2].sum(-1).tolist(), x["enc_lengths"].tolist(),
+                            input_rows=1, stream=m)
+        res[m] = {"C": {"max_abs_err": worst[m]["C"], "ms": times[m]["C"],
+                        "plain_ms": times[m]["C_plain"], "dense_ms": times["dense"]["C"],
+                        **bound(lt_b + c_b, lt_f + c_f)},
+                  "8": {"max_abs_err": worst[m]["8"], "ms": times[m]["8"],
+                        "plain_ms": times[m]["8_plain"], "dense_ms": times["dense"]["8"],
+                        **bound(d_b + 8 * c.max_seq, d_f)}}
+    return res
+
+
 def write_ggufs(tmp: Path):
     """Production-width random GGUFs (max_dec_steps cut to 128 frames)."""
     from magpie_tts_tpu_torch.config import CodecConfig, MagpieConfig
@@ -806,38 +1058,94 @@ def write_ggufs(tmp: Path):
     t0 = time.perf_counter()
     write_model_gguf(str(tmp / "magpie.gguf"), mcfg, seed=0)
     write_codec_gguf(str(tmp / "codec.gguf"), ccfg, seed=1)
-    log(f"wrote production-width GGUFs in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    write_model_gguf(str(tmp / "magpie_q8.gguf"), mcfg, seed=0, quant="q8_0")
+    log(f"wrote production-width GGUFs in {t1 - t0:.1f} s, the Q8_0 model GGUF (the "
+        f"converter's allowlist quantized in numpy) in {time.perf_counter() - t1:.1f} s")
     return mcfg, ccfg
 
 
-def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict:
+def check_q8_dequant(tmp: Path, dev) -> dict:
+    """Kernel 10 for every block-stored tensor of the production-width Q8_0
+    GGUF (``load_magpie_weights(q8_native=True)``): bit for bit against its
+    plain version on the card and against the dense load of the same file;
+    times summed over the tensors (one program entry's materialize)."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.magpie_weights import load_magpie_weights, q8_blocks
+    from magpie_tts_tpu_torch.ops.kernels import q8_dequant
+
+    path = str(tmp / "magpie_q8.gguf")
+    _, native = load_magpie_weights(path, q8_native=True)
+    _, dense = load_magpie_weights(path)
+    found = q8_blocks(native)
+    total = {"ms": 0.0, "plain_ms": 0.0}
+    nbytes = 0
+    with torch.no_grad():
+        for name, blk in found.items():
+            blk = blk.to(dev)
+            want = dense
+            for part in name.split("."):
+                want = getattr(want, part)
+            want = want.to(dev)
+            args = (blk.q, blk.s, blk.torch_shape, blk.transform)
+            got = q8_dequant.dequantize(*args)
+            plain = q8_dequant.dequantize_reference(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, plain) and torch.equal(got, want)):
+                raise AssertionError(f"q8 dequant of {name} {blk.torch_shape} ({blk.transform}) "
+                                     f"differs from plain or from the dense load")
+            total["ms"] += time_ms(lambda: q8_dequant.dequantize(*args), reps=10)
+            total["plain_ms"] += time_ms(lambda: q8_dequant.dequantize_reference(*args), reps=5)
+            nbytes += blk.q.numel() + F32 * (blk.s.numel() + got.numel())
+            log(f"q8_dequant {name} {tuple(blk.q.shape)} -> {tuple(got.shape)} "
+                f"({blk.transform}): equal to plain and to the dense load bit for bit")
+    log(f"q8_dequant: {len(found)} block-stored tensors, {nbytes / 1e6:.1f} MB moved: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms per materialize")
+    return {"max_abs_err": 0.0, **total, "nodes": len(found), **bound(nbytes, 0)}
+
+
+def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
+                  model: str = "magpie.gguf", flags=(), temp: float = 0.7,
+                  q8_nodes: int = 0) -> dict:
     """cli.main at full width on random GGUFs; checks the WAV and launch
     counts: kernel A once per loop step, or with ``split`` (``--no-fused``)
-    kernels 4 and 5 once per step and kernel A never."""
+    kernels 4 and 5 once per step and kernel A never; every launch in the
+    weight stream that ``flags`` ask for (``--serve-q8`` / ``--serve-int8``,
+    else dense), and with ``--serve-q8`` kernel 10 once for each of the
+    ``q8_nodes`` block-stored tensors. Returns the counts, frames/s and the
+    WAV's bytes."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
     from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
     from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
     from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
+    from magpie_tts_tpu_torch.ops.kernels import q8_dequant
 
     hop = ccfg.hop_length
-    out = tmp / ("out_split.wav" if split else "out.wav")
-    argv = ["-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
+    mode = "q8" if "--serve-q8" in flags else "int8" if "--serve-int8" in flags else "dense"
+    tag = " ".join([model, *flags, *(["--no-fused"] if split else []), f"--temp {temp}"])
+    out = tmp / (tag.replace(" ", "_").replace("-", "") + ".wav")
+    argv = ["-m", str(tmp / model), "-c", str(tmp / "codec.gguf"),
             "-t", "hello world", "-o", str(out), "--device", "cuda",
-            "--temp", "0.7", "--seed", "0"] + (["--no-fused"] if split else [])
+            "--temp", str(temp), "--seed", "0", *flags] + (["--no-fused"] if split else [])
     err = io.StringIO()
-    kernels = (fs, lts, ds, cc)
+    kernels = (fs, lts, ds, cc, q8_dequant)
     for k in kernels:
         k.launches = 0
+    for k in (fs, ds):
+        k.mode_launches = dict.fromkeys(k.mode_launches, 0)
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
-    frame_launches, lt_launches, dec_launches, conv_launches = (k.launches for k in kernels)
+    frame_launches, lt_launches, dec_launches, conv_launches, deq_launches = (
+        k.launches for k in kernels)
+    by_mode = {"frame_step": dict(fs.mode_launches), "decoder_step": dict(ds.mode_launches)}
     log(err.getvalue().rstrip())
     if rc != 0:
-        raise AssertionError(f"cli.main returned {rc}")
+        raise AssertionError(f"cli.main returned {rc} ({tag})")
     samples, sr = read_wav(str(out))
     n_frames = len(samples) // hop
     if n_frames == 0 or len(samples) != n_frames * hop or sr != mcfg.sample_rate:
@@ -851,18 +1159,115 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict
     if (frame_launches, lt_launches, dec_launches) != want:
         raise AssertionError(f"frame_step / lt_sampler / decoder_step launched {frame_launches} "
                              f"/ {lt_launches} / {dec_launches}x for {want_steps} steps "
-                             f"(split {split})")
+                             f"({tag})")
+    stream_kernel = "decoder_step" if split else "frame_step"
+    if by_mode[stream_kernel][mode] != want_steps:
+        raise AssertionError(f"{stream_kernel} launched {by_mode[stream_kernel]} by weight "
+                             f"stream, want {want_steps} {mode} ({tag})")
     if conv_launches != 92:
         raise AssertionError(f"codec conv launched {conv_launches}x, want 92 per decode")
+    if deq_launches != (q8_nodes if mode == "q8" else 0):
+        raise AssertionError(f"q8 dequant launched {deq_launches}x, want "
+                             f"{q8_nodes if mode == 'q8' else 0} ({tag})")
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) fps", err.getvalue())
     synth_s, fps = (float(m.group(1)), float(m.group(2))) if m else (float("nan"),) * 2
-    log(f"main path{' --no-fused' if split else ''}: {n_frames} frames, {len(samples)} samples, "
-        f"frame_step / lt_sampler / decoder_step launches {frame_launches} / {lt_launches} / "
-        f"{dec_launches}, conv launches {conv_launches}, synth {synth_s} s = {fps} fps "
-        f"(cli.main wall {wall:.2f} s incl. load) on {card}")
+    log(f"main path {tag}: {n_frames} frames, {len(samples)} samples, frame_step / lt_sampler / "
+        f"decoder_step launches {frame_launches} / {lt_launches} / {dec_launches} (all "
+        f"{mode}), conv launches {conv_launches}, q8_dequant launches {deq_launches}, synth "
+        f"{synth_s} s = {fps} fps (cli.main wall {wall:.2f} s incl. load) on {card}")
     return {"frame_launches": frame_launches, "lt_launches": lt_launches,
-            "dec_launches": dec_launches, "conv_launches": conv_launches, "n_frames": n_frames,
-            "fps": fps}
+            "dec_launches": dec_launches, "conv_launches": conv_launches,
+            "deq_launches": deq_launches, "n_frames": n_frames, "fps": fps,
+            "wav": out.read_bytes()}
+
+
+def run_quantized_main_paths(tmp: Path, mcfg, ccfg, card: str, q8_nodes: int) -> dict:
+    """``--serve-q8`` on the Q8_0 GGUF, fused and ``--no-fused``, each at temp
+    0 against the same file served without the flag (WAV byte-identical);
+    ``--serve-int8`` on the float32 GGUF, fused and ``--no-fused``."""
+    runs = {}
+    for split in (False, True):
+        key = "split" if split else "fused"
+        q8 = run_main_path(tmp, mcfg, ccfg, card, split, "magpie_q8.gguf", ["--serve-q8"], 0.0,
+                           q8_nodes)
+        dense = run_main_path(tmp, mcfg, ccfg, card, split, "magpie_q8.gguf", (), 0.0)
+        same = q8["wav"] == dense["wav"]
+        log(f"--serve-q8{' --no-fused' if split else ''} at temp 0: WAV byte-identical to the "
+            f"Q8_0 file served without the flag: {same} ({len(q8['wav'])} bytes)")
+        if not same:
+            raise AssertionError(f"--serve-q8 ({key}) WAV differs from dequantized serving")
+        runs[f"q8_{key}"], runs[f"q8_dense_{key}"] = q8, dense
+        runs[f"int8_{key}"] = run_main_path(tmp, mcfg, ccfg, card, split, "magpie.gguf",
+                                            ["--serve-int8"], 0.7)
+    return runs
+
+
+def run_batched_streams(tmp: Path, dev, q8_nodes: int) -> dict:
+    """``synthesize_codes_batched_program(int8_stream=...)``, the batched
+    kernels' only caller with a stream, at full width on the GGUFs' weights,
+    B = 8, 24 frames, temp 0.7: the Q8_0 stream of ``from_gguf(serve_q8=True)``
+    (block-stored weights, so kernel 10 runs at program entry) against the
+    dense program on the materialized weights, codes equal, fused (kernel C)
+    and split (kernels 7 + 8); and the int8 stream of ``serve_int8=True``.
+    Counts each batched kernel's launches by weight stream."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.magpie_weights import materialize_weights
+    from magpie_tts_tpu_torch.models.magpie import synthesize_codes_batched_program
+    from magpie_tts_tpu_torch.ops import sampling
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+    from magpie_tts_tpu_torch.ops.kernels import q8_dequant
+    from magpie_tts_tpu_torch.pipeline import MagpiePipeline
+
+    q8_pipe = MagpiePipeline.from_gguf(str(tmp / "magpie_q8.gguf"), device=dev, serve_q8=True)
+    int8_pipe = MagpiePipeline.from_gguf(str(tmp / "magpie.gguf"), device=dev, serve_int8=True)
+    c = q8_pipe.config
+    B, steps = 8, 24
+    rng = np.random.default_rng(7)
+    tokens = torch.tensor(rng.integers(2, c.text_vocab_size - 2, size=(B, 32)), device=dev)
+    common = dict(tokens=tokens, enc_lengths=[int(n) for n in rng.integers(8, 33, B)],
+                  speaker_ids=[b % c.num_speakers for b in range(B)],
+                  keys=[sampling.prng_key(b) for b in range(B)], temperature=0.7, config=c,
+                  top_k=80, max_steps=steps)
+    runs = {}
+    with torch.no_grad():
+        dense_w = materialize_weights(q8_pipe.engine.weights)
+        for fused in (True, False):
+            key = "fused" if fused else "split"
+            got = {}
+            for mode, weights, stream in (
+                    ("q8", q8_pipe.engine.weights, q8_pipe.engine.int8_stream),
+                    ("dense", dense_w, None),
+                    ("int8", int8_pipe.engine.weights, int8_pipe.engine.int8_stream)):
+                for k in (fsb, dsb, q8_dequant):
+                    k.launches = 0
+                for k in (fsb, dsb):
+                    k.mode_launches = dict.fromkeys(k.mode_launches, 0)
+                codes, n_frames = synthesize_codes_batched_program(
+                    weights=weights, use_fused=fused, int8_stream=stream, **common)
+                torch.cuda.synchronize()
+                kernel = fsb if fused else dsb
+                other = dsb if fused else fsb
+                n = kernel.launches
+                if (n == 0 or kernel.mode_launches[mode] != n or other.launches
+                        or q8_dequant.launches != (q8_nodes if mode == "q8" else 0)):
+                    raise AssertionError(
+                        f"batched program {key} {mode}: {kernel.__name__} launches "
+                        f"{kernel.mode_launches}, other batched kernel {other.launches}, "
+                        f"q8 dequant {q8_dequant.launches}")
+                got[mode] = (codes, n_frames)
+                runs[f"{mode}_{key}"] = {"launches": n, "deq_launches": q8_dequant.launches}
+                log(f"batched program {key}, {mode} stream: {n} "
+                    f"{kernel.__name__.rsplit('.', 1)[1]} launches "
+                    f"(all {mode}), q8_dequant launches {q8_dequant.launches}, frames "
+                    f"{n_frames.tolist()}")
+            same = all(torch.equal(a, b) for a, b in zip(got["q8"], got["dense"]))
+            log(f"batched program {key}: Q8_0 stream codes equal to the dense program's on the "
+                f"materialized weights: {same}")
+            if not same:
+                raise AssertionError(f"batched program {key}: Q8_0 stream codes differ")
+    return runs
 
 
 SERVE_SLOTS, SERVE_SEGMENT = 8, 16  # serve's default slots
@@ -988,12 +1393,17 @@ def main() -> int:
     cc_res = check_codec_conv(dev)
     split_res = check_split_single(dev)
     splitb_res = check_split_batched(dev)
+    stream_res = check_stream_single(dev)
+    streamb_res = check_stream_batched(dev)
     with tempfile.TemporaryDirectory() as tmp:
         mcfg, ccfg = write_ggufs(Path(tmp))
+        deq_res = check_q8_dequant(Path(tmp), dev)
         main_res = run_main_path(Path(tmp), mcfg, ccfg, card)
         split_main = run_main_path(Path(tmp), mcfg, ccfg, card, split=True)
         serve_res = run_serve(Path(tmp), mcfg, ccfg, card)
         split_serve = run_serve(Path(tmp), mcfg, ccfg, card, split=True)
+        quant_main = run_quantized_main_paths(Path(tmp), mcfg, ccfg, card, deq_res["nodes"])
+        quant_batched = run_batched_streams(Path(tmp), dev, deq_res["nodes"])
 
     log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames, --no-fused "
         f"{split_main['fps']} fps over {split_main['n_frames']} frames; serve {serve_res['fps']} "
@@ -1004,30 +1414,54 @@ def main() -> int:
         f"(B=8/32); codec_conv also replaces "
         f"magpie_tts_tpu/ops/pallas_kernels/codec_conv.py:373 (snake_causal_conv_packed); "
         f"on {card}")
+    log(f"summary, quantized serving: --serve-q8 {quant_main['q8_fused']['fps']} fps / "
+        f"--no-fused {quant_main['q8_split']['fps']} fps (the same file dequantized at load: "
+        f"{quant_main['q8_dense_fused']['fps']} / {quant_main['q8_dense_split']['fps']}), "
+        f"--serve-int8 {quant_main['int8_fused']['fps']} / {quant_main['int8_split']['fps']} fps "
+        f"(float32 file: {main_res['fps']} / {split_main['fps']}); kernel A dense / q8 / int8 "
+        f"{stream_res['q8']['A']['dense_ms']} / {stream_res['q8']['A']['ms']} / "
+        f"{stream_res['int8']['A']['ms']} ms at pos 300; q8_dequant {deq_res['ms']} ms per "
+        f"materialize of {deq_res['nodes']} tensors; on {card}")
     pk = "magpie_tts_tpu/ops/pallas_kernels/"
     src = "magpie_tts_tpu_torch/csrc/"
 
     def entry(name, source, replaces, launches, res):
-        return {"name": name, "route": "cuda", "source": src + source, "replaces": pk + replaces,
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
                 "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
 
+    streams = []
+    for m in STREAMS:
+        streams += [
+            entry(f"frame_step[{m}]", "frame_step.cu", pk + "frame_step.py:352",
+                  quant_main[f"{m}_fused"]["frame_launches"], stream_res[m]["A"]),
+            entry(f"decoder_step[{m}]", "frame_step.cu", pk + "decoder_step.py:212",
+                  quant_main[f"{m}_split"]["dec_launches"], stream_res[m]["5"]),
+            entry(f"frame_step_batched[{m}]", "frame_step_batched.cu",
+                  pk + "frame_step_batched.py:591", quant_batched[f"{m}_fused"]["launches"],
+                  streamb_res[m]["C"]),
+            entry(f"decoder_step_batched[{m}]", "frame_step_batched.cu",
+                  pk + "decoder_step_batched.py:280", quant_batched[f"{m}_split"]["launches"],
+                  streamb_res[m]["8"])]
     log(json.dumps({"kernels": [
-        entry("frame_step", "frame_step.cu", "frame_step.py:352", main_res["frame_launches"],
-              fs_res),
-        entry("frame_step_batched", "frame_step_batched.cu", "frame_step_batched.py:591",
+        entry("frame_step", "frame_step.cu", pk + "frame_step.py:352",
+              main_res["frame_launches"], fs_res),
+        entry("frame_step_batched", "frame_step_batched.cu", pk + "frame_step_batched.py:591",
               serve_res["batched_launches"], fsb_res),
-        entry("codec_conv", "codec_conv.cu", "codec_conv.py:157", main_res["conv_launches"],
-              cc_res),
-        entry("lt_sampler", "frame_step.cu", "lt_sampler.py:174", split_main["lt_launches"],
-              split_res["lt"]),
-        entry("decoder_step", "frame_step.cu", "decoder_step.py:212",
+        entry("codec_conv", "codec_conv.cu", pk + "codec_conv.py:157",
+              main_res["conv_launches"], cc_res),
+        entry("lt_sampler", "frame_step.cu", pk + "lt_sampler.py:174",
+              split_main["lt_launches"], split_res["lt"]),
+        entry("decoder_step", "frame_step.cu", pk + "decoder_step.py:212",
               split_main["dec_launches"], split_res["dec"]),
-        entry("lt_sampler_batched", "frame_step_batched.cu", "lt_sampler_batched.py:259",
+        entry("lt_sampler_batched", "frame_step_batched.cu", pk + "lt_sampler_batched.py:259",
               split_serve["lt_launches"], splitb_res["lt"]),
-        entry("decoder_step_batched", "frame_step_batched.cu", "decoder_step_batched.py:280",
-              split_serve["dec_launches"], splitb_res["dec"]),
+        entry("decoder_step_batched", "frame_step_batched.cu",
+              pk + "decoder_step_batched.py:280", split_serve["dec_launches"], splitb_res["dec"]),
+        entry("q8_dequant", "q8_dequant.cu", "tests/test_pallas_kernels.py:443",
+              quant_main["q8_fused"]["deq_launches"], deq_res),
+        *streams,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch/CUDA port, argv-compatible with the
 JAX package's ``magpie-tts``: the synth command (-m/-c/-t/-o/-s/--temp/
---top-k/--seed/--gelu/--no-fused/-q) and ``serve`` (-m/-c/--out-dir/--slots/
+--top-k/--seed/--serve-int8/--serve-q8/--gelu/--no-fused/-q) and ``serve`` (-m/-c/--out-dir/--slots/
 --segment-frames/--temp/--top-k/--dtype/--gelu/-q), each plus
 --device {cuda,cpu}.
 
@@ -16,7 +16,7 @@ import time
 
 # Surfaces of the JAX CLI that this port does not have yet.
 _NOT_PORTED_COMMANDS = ("warmup",)
-_NOT_PORTED_FLAGS = ("--serve-int8", "--serve-q8", "--stream")
+_NOT_PORTED_FLAGS = ("--stream",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,6 +37,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device to run on (no fallback: cuda needs a CUDA device)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                    help="compute dtype (only float32 is ported)")
+    quant = p.add_mutually_exclusive_group()
+    quant.add_argument("--serve-int8", action="store_true",
+                       help="stream decoder weights as per-column int8 (half "
+                            "the per-frame HBM traffic; ~Q8 quantization "
+                            "error)")
+    quant.add_argument("--serve-q8", action="store_true",
+                       help="stream the checkpoint's OWN Q8_0 blocks (requires "
+                            "a Q8_0 GGUF): zero requantization error at ~53%% "
+                            "of the bf16 weight traffic (see docs/PARITY.md "
+                            "for the numerics contract)")
     p.add_argument("--no-fused", action="store_true",
                    help="disable the fused per-frame megakernel (LT sampling + "
                         "decoder step in one kernel); runs the separate "
@@ -254,7 +264,9 @@ def main(argv=None) -> int:
     try:
         pipeline = MagpiePipeline.from_gguf(args.model, args.codec, device=args.device,
                                             gelu_flavor=args.gelu,
-                                            use_fused=False if args.no_fused else None)
+                                            use_fused=False if args.no_fused else None,
+                                            serve_int8=args.serve_int8,
+                                            serve_q8=args.serve_q8)
     except FileNotFoundError as e:
         print(f"error: model file not found: {e.filename or e}", file=sys.stderr)
         return 1

@@ -1,7 +1,9 @@
 // Per-slot kernels of a decode frame, launched by frame_sequence.cuh for
 // frame_step.cu (one slot) and frame_step_batched.cu (B slots): the
 // reduction of split-K partials into residual / LayerNorm, activation and QKV
-// rows, single-query attention and one LT phase's sampling. Every kernel
+// rows, single-query attention and one LT phase's sampling; and the weight
+// loads every GEMV / GEMM shares, for the dense float32, int8-column and
+// Q8_0-block weight streams. Every kernel
 // takes the slot from its grid (gridDim = 1 slot for frame_step.cu) and reads
 // partials laid out as part[(s * B + b) * N + n]; with B = 1 that is the
 // single-slot [S, N] layout.
@@ -16,6 +18,44 @@ namespace {
 
 constexpr int kRt = 256;  // threads of the reduce / attention kernels
 
+// The weight modes of a matrix product: dense float32 W [K, N]; int8 q [K, N]
+// with per-column scales s [N] (applied by the reducer, col_scale above); or
+// int8 q [K, N] with Q8_0 block scales s [K / 32, N] (f16-valued, one per 32
+// rows of a column), applied to each weight before its product.
+enum StreamMode { kStreamDense = 0, kStreamInt8 = 1, kStreamQ8 = 2 };
+
+// One matrix a GEMV / GEMM reads, in one of the three modes.
+struct WeightRef {
+  const float* w;        // kStreamDense
+  const signed char* q;  // kStreamInt8 / kStreamQ8
+  const float* s;
+  int mode;
+};
+
+inline WeightRef dense_ref(const float* w) { return WeightRef{w, nullptr, nullptr, kStreamDense}; }
+
+// Row k, columns 4 * c4 .. 4 * c4 + 3 of a matrix N = 4 * n4 wide, as float4:
+// the dense values, the int8 values, or the int8 values times their block
+// scale. An f16-valued scale times an int8 value is exact in f32, so a Q8_0
+// weight equals its dequantized float32 copy bit for bit.
+template <int MODE>
+__device__ __forceinline__ float4 load_w4(const WeightRef& W, size_t k, int n4, int c4) {
+  if constexpr (MODE == kStreamDense) {
+    return __ldg(reinterpret_cast<const float4*>(W.w) + k * n4 + c4);
+  } else {
+    const char4 q = __ldg(reinterpret_cast<const char4*>(W.q) + k * n4 + c4);
+    float4 w = make_float4((float)q.x, (float)q.y, (float)q.z, (float)q.w);
+    if constexpr (MODE == kStreamQ8) {
+      const float4 s = __ldg(reinterpret_cast<const float4*>(W.s) + (k >> 5) * n4 + c4);
+      w.x = s.x * w.x;
+      w.y = s.y * w.y;
+      w.z = s.z * w.z;
+      w.w = s.w * w.w;
+    }
+    return w;
+  }
+}
+
 // Sum over s of part[(s * B + b) * N + n], in order of s; the pointer steps
 // over the B * N floats between partial rows (no index arithmetic per load).
 __device__ __forceinline__ float sum_parts(const float* part, int S, int B, int N, int b, int n) {
@@ -26,10 +66,15 @@ __device__ __forceinline__ float sum_parts(const float* part, int S, int B, int 
   return v;
 }
 
-// One block per slot b. v = sum of the S partials of row b (+ bias); then
-// either x[b] += v (accumulate) or x[b] = v (+ add, one row for all slots);
-// then h[b] = LayerNorm(x[b]) * ln_w when ln_w is given.
+// The reducers below take an optional col_scale[N]: the per-column scale of
+// an int8 weight stream, applied once to the fixed-order sum of the partials
+// (the plain (x @ q) * s). Null for a dense or Q8_0 stream.
+
+// One block per slot b. v = sum of the S partials of row b (* col_scale)
+// (+ bias); then either x[b] += v (accumulate) or x[b] = v (+ add, one row
+// for all slots); then h[b] = LayerNorm(x[b]) * ln_w when ln_w is given.
 __global__ void combine_ln_kernel(const float* __restrict__ part, int S, int N,
+                                  const float* __restrict__ col_scale,
                                   const float* __restrict__ bias, const float* __restrict__ add,
                                   float* x, int accumulate, const float* __restrict__ ln_w,
                                   float eps, float* h) {
@@ -38,6 +83,7 @@ __global__ void combine_ln_kernel(const float* __restrict__ part, int S, int N,
   float* xb = x + (size_t)b * N;
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float v = sum_parts(part, S, B, N, b, n);
+    if (col_scale) v *= col_scale[n];
     if (bias) v += bias[n];
     if (accumulate) {
       xb[n] = xb[n] + v;
@@ -48,26 +94,31 @@ __global__ void combine_ln_kernel(const float* __restrict__ part, int S, int N,
   if (ln_w) block_layer_norm(xb, ln_w, h + (size_t)b * N, N, eps, red);
 }
 
-// out[b, n] = act(sum of partials); act 0 = none, 1 = GELU. Grid (., B).
-__global__ void reduce_act_kernel(const float* __restrict__ part, int S, int N, int gelu,
-                                  int gelu_tanh, float* __restrict__ out) {
+// out[b, n] = act(sum of partials (* col_scale)); act 0 = none, 1 = GELU.
+// Grid (., B).
+__global__ void reduce_act_kernel(const float* __restrict__ part, int S, int N,
+                                  const float* __restrict__ col_scale, int gelu, int gelu_tanh,
+                                  float* __restrict__ out) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y, B = gridDim.y;
   if (n >= N) return;
-  const float v = sum_parts(part, S, B, N, b, n);
+  float v = sum_parts(part, S, B, N, b, n);
+  if (col_scale) v *= col_scale[n];
   out[(size_t)b * N + n] = gelu ? gelu_f(v, gelu_tanh) : v;
 }
 
-// Reduces the fused QKV partials [S, B, 3*D]: q -> q_out[b], and the new K / V
-// rows into k_row / v_row + b * slot_stride (the cache row of every slot; the
-// row is written before attending). Grid (., B).
+// Reduces the fused QKV partials [S, B, 3*D] (* col_scale): q -> q_out[b],
+// and the new K / V rows into k_row / v_row + b * slot_stride (the cache row
+// of every slot; the row is written before attending). Grid (., B).
 __global__ void qkv_scatter_kernel(const float* __restrict__ part, int S, int D,
+                                   const float* __restrict__ col_scale,
                                    float* __restrict__ q_out, float* __restrict__ k_row,
                                    float* __restrict__ v_row, size_t slot_stride) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int b = blockIdx.y, B = gridDim.y;
   if (n >= 3 * D) return;
-  const float v = sum_parts(part, S, B, 3 * D, b, n);
+  float v = sum_parts(part, S, B, 3 * D, b, n);
+  if (col_scale) v *= col_scale[n];
   if (n < D) {
     q_out[(size_t)b * D + n] = v;
   } else if (n < 2 * D) {

@@ -13,6 +13,28 @@
 
 namespace {
 
+// One of the four decoder matrices a frame streams (qkv, sa_out, ff_proj,
+// ff_out), [L, K, N] in the frame's stream mode: dense w, or int8 q with
+// per-column scales s [L, N] (int8) or block scales s [L, K / 32, N] (Q8_0).
+struct StreamW {
+  const float* w;
+  const signed char* q;
+  const float* s;
+  int mode;
+
+  // Layer l's [K, N] matrix.
+  WeightRef layer(int l, int K, int N) const {
+    const size_t kn = (size_t)K * N;
+    if (mode == kStreamDense) return WeightRef{w + l * kn, nullptr, nullptr, mode};
+    const size_t sl = mode == kStreamInt8 ? (size_t)N : (size_t)(K / 32) * N;
+    return WeightRef{nullptr, q + l * kn, s + l * sl, mode};
+  }
+  // The reducer's column scale of layer l (int8 only).
+  const float* col_scale(int l, int N) const {
+    return mode == kStreamInt8 ? s + (size_t)l * N : nullptr;
+  }
+};
+
 // Everything one frame's sequence reads and writes, for B slots. A per-slot
 // array that is null stands for the scalar beside it (forbid_eos1, seed1,
 // enc_len), as kernel A passes them.
@@ -35,8 +57,8 @@ struct FrameSeq {
   const unsigned char* may_continue;
   int* new_valid;
   // decoder: caches [B, L, NS, D], xa [B, L, E, X]; rows [0, rows) attended
-  const float *norm_self, *qkv, *sa_out, *norm_xa_q, *xa_q, *xa_out, *norm_ff, *ff_proj;
-  const float *ff_out, *norm_out;
+  const float *norm_self, *norm_xa_q, *xa_q, *xa_out, *norm_ff, *norm_out;
+  StreamW qkv, sa_out, ff_proj, ff_out;
   float *k_cache, *v_cache;
   const float *xa_k, *xa_v;
   int write_row, rows, valid_stride, enc_len;
@@ -53,44 +75,46 @@ struct FrameSeq {
 // The 8 LT phases: codes into sampled / argmax. With seed_decoder the last
 // phase also writes the decoder's input x = mean code embedding + posemb,
 // h = LayerNorm_0(x) and, with new_valid, the new row's validity.
-// mm(X, W, part, K, N) launches the [B, K] @ [K, N] split-K product and
-// returns its split count.
+// mm(X, W, part, K, N) launches the [B, K] @ [K, N] split-K product of a
+// WeightRef W and returns its split count.
 template <class Matmul>
 int lt_phases(const FrameSeq& s, const Matmul& mm, bool seed_decoder, cudaStream_t st) {
   const int B = s.B, LT = s.LT, LF = s.LF, V = s.V;
   const size_t lt_slot = (size_t)s.ncb * LT;
   int S;
   for (int cb = 0; cb < s.ncb; ++cb) {
-    S = mm(cb == 0 ? s.hidden : s.emb_row, s.lt_in_w, s.part, s.D, LT, st);
+    S = mm(cb == 0 ? s.hidden : s.emb_row, dense_ref(s.lt_in_w), s.part, s.D, LT, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, s.lt_in_b, s.lt_pos + (size_t)cb * LT,
-                                         s.lt_x, 0, s.lt_norm_self, s.eps, s.lt_h);
+    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, s.lt_in_b,
+                                         s.lt_pos + (size_t)cb * LT, s.lt_x, 0, s.lt_norm_self,
+                                         s.eps, s.lt_h);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.lt_h, s.lt_qkv, s.part, LT, 3 * LT, st);
+    S = mm(s.lt_h, dense_ref(s.lt_qkv), s.part, LT, 3 * LT, st);
     MAGPIE_CHECK_LAUNCH();
     qkv_scatter_kernel<<<dim3((3 * LT + kRt - 1) / kRt, B), kRt, 0, st>>>(
-        s.part, S, LT, s.lt_q, s.lt_k + (size_t)cb * LT, s.lt_v + (size_t)cb * LT, lt_slot);
+        s.part, S, LT, nullptr, s.lt_q, s.lt_k + (size_t)cb * LT, s.lt_v + (size_t)cb * LT,
+        lt_slot);
     MAGPIE_CHECK_LAUNCH();
     attention_kernel<<<dim3(1, B), kRt, attention_smem(LT, cb + 1), st>>>(
         s.lt_q, 1, LT, s.lt_k, s.lt_v, lt_slot, LT, cb + 1, nullptr, nullptr, 0, 0, nullptr, LT,
         s.lt_scale, s.lt_attn);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.lt_attn, s.lt_sa_out, s.part, LT, LT, st);
+    S = mm(s.lt_attn, dense_ref(s.lt_sa_out), s.part, LT, LT, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, s.lt_x, 1,
+    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr, s.lt_x, 1,
                                          s.lt_norm_ff, s.eps, s.lt_h);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.lt_h, s.lt_ff_proj, s.part, LT, LF, st);
+    S = mm(s.lt_h, dense_ref(s.lt_ff_proj), s.part, LT, LF, st);
     MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<dim3((LF + kRt - 1) / kRt, B), kRt, 0, st>>>(s.part, S, LF, 1,
+    reduce_act_kernel<<<dim3((LF + kRt - 1) / kRt, B), kRt, 0, st>>>(s.part, S, LF, nullptr, 1,
                                                                    s.gelu_tanh, s.lt_f);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.lt_f, s.lt_ff_out, s.part, LF, LT, st);
+    S = mm(s.lt_f, dense_ref(s.lt_ff_out), s.part, LF, LT, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, s.lt_x, 1, nullptr,
-                                         s.eps, nullptr);
+    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr, s.lt_x, 1,
+                                         nullptr, s.eps, nullptr);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.lt_x, s.lt_out_w + (size_t)cb * LT * V, s.part, LT, V, st);
+    S = mm(s.lt_x, dense_ref(s.lt_out_w + (size_t)cb * LT * V), s.part, LT, V, st);
     MAGPIE_CHECK_LAUNCH();
     lt_sample_kernel<<<B, kSampleThreads, 0, st>>>(
         s.part, S, V, s.lt_out_b + (size_t)cb * V, cb, s.ncb, s.forbid_eos, s.forbid_eos1,
@@ -108,14 +132,16 @@ int lt_phases(const FrameSeq& s, const Matmul& mm, bool seed_decoder, cudaStream
 // writes).
 inline int decoder_input(const FrameSeq& s, const float* x_in, const float* add,
                          cudaStream_t st) {
-  combine_ln_kernel<<<s.B, kRt, 0, st>>>(x_in, 1, s.D, nullptr, add, s.x, 0, s.norm_self, s.eps,
-                                         s.h);
+  combine_ln_kernel<<<s.B, kRt, 0, st>>>(x_in, 1, s.D, nullptr, nullptr, add, s.x, 0,
+                                         s.norm_self, s.eps, s.h);
   MAGPIE_CHECK_LAUNCH();
   return 0;
 }
 
 // The decoder layers from h = LayerNorm_0(x): the new K/V row lands at
 // write_row of every slot before attending; hidden_out = final norm of x.
+// qkv / sa_out / ff_proj / ff_out come in the frame's stream mode (their
+// int8 column scales go to the reducers); xa_q / xa_out are always dense.
 template <class Matmul>
 int decoder_layers(const FrameSeq& s, const Matmul& mm, cudaStream_t st) {
   const int B = s.B, D = s.D, F = s.F, X = s.X, E = s.E, NS = s.NS;
@@ -131,41 +157,43 @@ int decoder_layers(const FrameSeq& s, const Matmul& mm, cudaStream_t st) {
     const float* xk = s.xa_k + (size_t)l * E * X;
     const float* xv = s.xa_v + (size_t)l * E * X;
 
-    S = mm(s.h, s.qkv + (size_t)l * D * 3 * D, s.part, D, 3 * D, st);
+    S = mm(s.h, s.qkv.layer(l, D, 3 * D), s.part, D, 3 * D, st);
     MAGPIE_CHECK_LAUNCH();
     qkv_scatter_kernel<<<dim3((3 * D + kRt - 1) / kRt, B), kRt, 0, st>>>(
-        s.part, S, D, s.q, kc + (size_t)s.write_row * D, vc + (size_t)s.write_row * D,
-        cache_slot);
+        s.part, S, D, s.qkv.col_scale(l, 3 * D), s.q, kc + (size_t)s.write_row * D,
+        vc + (size_t)s.write_row * D, cache_slot);
     MAGPIE_CHECK_LAUNCH();
     attention_kernel<<<dim3(s.n_heads, B), kRt, attention_smem(dh, s.rows), st>>>(
         s.q, 1, D, kc, vc, cache_slot, D, s.rows, nullptr, s.valid, s.valid_stride, s.write_row,
         s.new_valid, dh, s.sa_scale, s.attn);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.attn, s.sa_out + (size_t)l * D * D, s.part, D, D, st);
+    S = mm(s.attn, s.sa_out.layer(l, D, D), s.part, D, D, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, nullptr, nullptr, s.x, 1,
-                                         s.norm_xa_q + (size_t)l * D, s.eps, s.h);
+    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, s.sa_out.col_scale(l, D), nullptr,
+                                         nullptr, s.x, 1, s.norm_xa_q + (size_t)l * D, s.eps,
+                                         s.h);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.h, s.xa_q + (size_t)l * D * X, s.part, D, X, st);
+    S = mm(s.h, dense_ref(s.xa_q + (size_t)l * D * X), s.part, D, X, st);
     MAGPIE_CHECK_LAUNCH();
     attention_kernel<<<dim3(s.xa_heads, B), kRt, attention_smem(dxh, xa_rows), st>>>(
         s.part, S, X, xk, xv, xa_slot, X, xa_rows, s.enc_lengths, nullptr, 0, 0, nullptr, dxh,
         s.xa_scale, s.xa);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.xa, s.xa_out + (size_t)l * X * D, s.part, X, D, st);
+    S = mm(s.xa, dense_ref(s.xa_out + (size_t)l * X * D), s.part, X, D, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, nullptr, nullptr, s.x, 1,
+    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, nullptr, nullptr, nullptr, s.x, 1,
                                          s.norm_ff + (size_t)l * D, s.eps, s.h);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.h, s.ff_proj + (size_t)l * D * F, s.part, D, F, st);
+    S = mm(s.h, s.ff_proj.layer(l, D, F), s.part, D, F, st);
     MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<dim3((F + kRt - 1) / kRt, B), kRt, 0, st>>>(s.part, S, F, 1,
-                                                                  s.gelu_tanh, s.f);
+    reduce_act_kernel<<<dim3((F + kRt - 1) / kRt, B), kRt, 0, st>>>(
+        s.part, S, F, s.ff_proj.col_scale(l, F), 1, s.gelu_tanh, s.f);
     MAGPIE_CHECK_LAUNCH();
-    S = mm(s.f, s.ff_out + (size_t)l * F * D, s.part, F, D, st);
+    S = mm(s.f, s.ff_out.layer(l, F, D), s.part, F, D, st);
     MAGPIE_CHECK_LAUNCH();
     const bool last = l + 1 == s.L;
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, nullptr, nullptr, s.x, 1,
+    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, s.ff_out.col_scale(l, D), nullptr,
+                                         nullptr, s.x, 1,
                                          last ? s.norm_out : s.norm_self + (size_t)(l + 1) * D,
                                          s.eps, last ? s.hidden_out : s.h);
     MAGPIE_CHECK_LAUNCH();

@@ -3,13 +3,14 @@
 // - magpie_frame_step_f32 (kernel A): local-transformer (LT) sampling of the
 //   8 codebook codes, the frame embedding, and the 12-layer cached decoder
 //   step. Replaces magpie_tts_tpu/ops/pallas_kernels/frame_step.py
-//   (frame_step_pallas), dense float32 weight stream.
+//   (frame_step_pallas) with its dense float32, int8-column and Q8_0 weight
+//   streams (stream_mode 0 / 1 / 2).
 // - magpie_lt_sample_f32 (kernel 4): the LT sampling alone. Replaces
 //   magpie_tts_tpu/ops/pallas_kernels/lt_sampler.py (sample_frame_codes_pallas).
 // - magpie_decode_step_f32 (kernel 5): the decoder step alone, from a frame
 //   embedding to which it adds pos_emb[pos]. Replaces
 //   magpie_tts_tpu/ops/pallas_kernels/decoder_step.py (decode_step_pallas),
-//   dense float32 weight stream.
+//   with the same three weight streams.
 // The split path (--no-fused) runs kernel 4, the embedding in torch, then
 // kernel 5; all three run frame_sequence.cuh's launch sequences.
 //
@@ -24,7 +25,9 @@
 // once (~349 MB in float32 at 357M width) plus the K/V cache rows <= pos, the
 // LT sampler ~20 MB of LT weights and heads; both do ~2 flops per weight read,
 // far below the card's compute/byte ratio, so device memory bandwidth is the
-// floor (~0.11 ms for the decoder step at pos 300, ~6 us for the sampler) and
+// floor (~0.11 ms for the decoder step at pos 300, ~6 us for the sampler;
+// the int8 and Q8_0 streams read the four streamed matrices at a quarter of
+// their float32 bytes, plus their scales: ~0.04 ms) and
 // the launches (157 for the decoder step, 104 for the sampler, 260 for a
 // fused frame) sit above it: the sampler is latency-bound. The design answers
 // the bandwidth side only: every matrix-vector product is a split-K GEMV whose
@@ -49,11 +52,17 @@ constexpr int kGemvThreads = 256;   // 8 warps; one float4 column per lane
 constexpr int kTargetBlocks = 264;  // 2 blocks per SM on a 132-SM card
 
 // part[s, n] = sum over k in split s of x[k] * W[k, n]. W is row-major
-// [K, N] with N % 4 == 0; a lane owns 4 consecutive columns, the 8 warps of a
-// block stride over the split's rows, and warp 0 adds the 8 warp sums in order.
+// [K, N] with N % 4 == 0 in mode MODE (load_w4: float4 of dense weights, or
+// a char4 of int8 values, times their float4 of Q8_0 block scales); a lane
+// owns 4 consecutive columns, the 8 warps of a block stride over the split's
+// rows, and warp 0 adds the 8 warp sums in order. The split count and the
+// fmaf chain do not depend on the mode, so a Q8_0 stream gives the same bits
+// as its dequantized float32 copy; an int8 stream's column scale is applied
+// by the reducer.
+template <int MODE>
 __global__ void __launch_bounds__(kGemvThreads)
-gemv_splitk_kernel(const float* __restrict__ x, const float* __restrict__ W,
-                   float* __restrict__ part, int K, int N, int kchunk) {
+gemv_splitk_kernel(const float* __restrict__ x, const WeightRef W, float* __restrict__ part,
+                   int K, int N, int kchunk) {
   __shared__ float4 red[kGemvThreads / 32][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n4 = N >> 2;
@@ -62,11 +71,10 @@ gemv_splitk_kernel(const float* __restrict__ x, const float* __restrict__ W,
   const int k1 = min(K, k0 + kchunk);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   if (c < n4) {
-    const float4* W4 = reinterpret_cast<const float4*>(W);
 #pragma unroll 4
     for (int k = k0 + warp; k < k1; k += kGemvThreads / 32) {
       const float xv = __ldg(x + k);
-      const float4 w = __ldg(W4 + (size_t)k * n4 + c);
+      const float4 w = load_w4<MODE>(W, (size_t)k, n4, c);
       acc.x = fmaf(xv, w.x, acc.x);
       acc.y = fmaf(xv, w.y, acc.y);
       acc.z = fmaf(xv, w.z, acc.z);
@@ -87,8 +95,9 @@ gemv_splitk_kernel(const float* __restrict__ x, const float* __restrict__ W,
   }
 }
 
-// Launches the split-K GEMV of x[K] @ W[K, N]; returns the split count S.
-int launch_gemv(const float* x, const float* W, float* part, int K, int N, int part_cap,
+// Launches the split-K GEMV of x[K] @ W[K, N]; returns the split count S,
+// which depends on K, N and part_cap only (not on W's mode).
+int launch_gemv(const float* x, const WeightRef& W, float* part, int K, int N, int part_cap,
                 cudaStream_t st) {
   const int tiles = (N / 4 + 31) / 32;
   int S = (kTargetBlocks + tiles - 1) / tiles;
@@ -96,7 +105,14 @@ int launch_gemv(const float* x, const float* W, float* part, int K, int N, int p
   S = max(1, min(S, K / (kGemvThreads / 32)));
   const int kchunk = (K + S - 1) / S;
   S = (K + kchunk - 1) / kchunk;
-  gemv_splitk_kernel<<<dim3(tiles, S), kGemvThreads, 0, st>>>(x, W, part, K, N, kchunk);
+  const dim3 grid(tiles, S);
+  if (W.mode == kStreamInt8) {
+    gemv_splitk_kernel<kStreamInt8><<<grid, kGemvThreads, 0, st>>>(x, W, part, K, N, kchunk);
+  } else if (W.mode == kStreamQ8) {
+    gemv_splitk_kernel<kStreamQ8><<<grid, kGemvThreads, 0, st>>>(x, W, part, K, N, kchunk);
+  } else {
+    gemv_splitk_kernel<kStreamDense><<<grid, kGemvThreads, 0, st>>>(x, W, part, K, N, kchunk);
+  }
   return S;
 }
 
@@ -135,6 +151,16 @@ struct FrameStepArgs {
   const float* ff_proj;
   const float* ff_out;
   const float* norm_out;
+  // quantized stream of qkv / sa_out / ff_proj / ff_out (stream_mode 1:
+  // int8 with column scales [L, N]; 2: Q8_0 blocks, scales [L, K / 32, N])
+  const signed char* qkv_q;
+  const float* qkv_s;
+  const signed char* sa_out_q;
+  const float* sa_out_s;
+  const signed char* ff_proj_q;
+  const float* ff_proj_s;
+  const signed char* ff_out_q;
+  const float* ff_out_s;
   // outputs
   int* sampled;
   int* argmax;
@@ -160,6 +186,7 @@ struct FrameStepArgs {
   int d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
   int lt_dim, lt_ffn, n_cb, vocab, part_cap;
   int pos, enc_len, seed, top_k, forbid_eos, audio_bos_id, audio_eos_id, gelu_tanh;
+  int stream_mode;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
@@ -182,9 +209,12 @@ FrameSeq seq_of(const FrameStepArgs& a) {
   s.bos_id = a.audio_bos_id, s.eos_id = a.audio_eos_id, s.temperature = a.temperature;
   s.sampled = a.sampled, s.argmax = a.argmax;
   s.posemb = a.pos_emb ? a.pos_emb + (size_t)a.pos * a.d_model : nullptr;
-  s.norm_self = a.norm_self, s.qkv = a.qkv, s.sa_out = a.sa_out, s.norm_xa_q = a.norm_xa_q;
-  s.xa_q = a.xa_q, s.xa_out = a.xa_out, s.norm_ff = a.norm_ff, s.ff_proj = a.ff_proj;
-  s.ff_out = a.ff_out, s.norm_out = a.norm_out;
+  s.norm_self = a.norm_self, s.norm_xa_q = a.norm_xa_q, s.xa_q = a.xa_q, s.xa_out = a.xa_out;
+  s.norm_ff = a.norm_ff, s.norm_out = a.norm_out;
+  s.qkv = StreamW{a.qkv, a.qkv_q, a.qkv_s, a.stream_mode};
+  s.sa_out = StreamW{a.sa_out, a.sa_out_q, a.sa_out_s, a.stream_mode};
+  s.ff_proj = StreamW{a.ff_proj, a.ff_proj_q, a.ff_proj_s, a.stream_mode};
+  s.ff_out = StreamW{a.ff_out, a.ff_out_q, a.ff_out_s, a.stream_mode};
   s.k_cache = a.k_cache, s.v_cache = a.v_cache, s.xa_k = a.xa_k, s.xa_v = a.xa_v;
   s.write_row = a.pos, s.rows = a.pos + 1, s.enc_len = a.enc_len;
   s.hidden_out = a.hidden_out;
@@ -198,7 +228,7 @@ FrameSeq seq_of(const FrameStepArgs& a) {
 
 struct Gemv {
   int cap;
-  int operator()(const float* x, const float* W, float* part, int K, int N,
+  int operator()(const float* x, const WeightRef& W, float* part, int K, int N,
                  cudaStream_t st) const {
     return launch_gemv(x, W, part, K, N, cap, st);
   }
@@ -208,6 +238,9 @@ struct Gemv {
 
 // Kernel A: one fused frame, LT sampling from `hidden` then the decoder at pos.
 extern "C" int magpie_frame_step_f32(const FrameStepArgs* a, void* stream) {
+  if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FrameSeq s = seq_of(*a);
   const Gemv mm{a->part_cap};
@@ -226,6 +259,9 @@ extern "C" int magpie_lt_sample_f32(const FrameStepArgs* a, void* stream) {
 // Kernel 5 (the split path's decoder step): `hidden` holds the frame
 // embedding; the decoder runs on hidden + pos_emb[pos] at row pos.
 extern "C" int magpie_decode_step_f32(const FrameStepArgs* a, void* stream) {
+  if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FrameSeq s = seq_of(*a);
   int err = decoder_input(s, a->hidden, s.posemb, st);

@@ -5,14 +5,16 @@
 //   position-embedding row, the new cache row's validity, and the 12-layer
 //   decoder step over per-slot validity masks with one shared cache write
 //   row. Replaces magpie_tts_tpu/ops/pallas_kernels/frame_step_batched.py
-//   (frame_step_batched_pallas), dense float32 weight stream.
+//   (frame_step_batched_pallas) with its dense float32, int8-column and Q8_0
+//   weight streams (stream_mode 0 / 1 / 2).
 // - magpie_lt_sample_batched_f32 (kernel 7): the per-slot LT sampling alone.
 //   Replaces magpie_tts_tpu/ops/pallas_kernels/lt_sampler_batched.py
 //   (sample_frame_codes_batched_pallas).
 // - magpie_decode_step_batched_f32 (kernel 8): the decoder step alone, from
 //   x_pe (embedding + position embedding) and a mask that already holds the
 //   write row. Replaces magpie_tts_tpu/ops/pallas_kernels/
-//   decoder_step_batched.py (decode_step_batched_pallas), dense float32.
+//   decoder_step_batched.py (decode_step_batched_pallas), with the same
+//   three weight streams.
 // All three run frame_sequence.cuh's launch sequences.
 //
 // The TPU kernels are sequential grids (8 LT phases, 12 layers) that keep
@@ -65,11 +67,16 @@ constexpr int kSlotGroups = kGemmThreads / kTileN;  // threads sharing a column
 constexpr int kTargetBlocks = 264;                 // 2 blocks per SM on 132 SMs
 
 // part[(s * B + b) * N + n] = sum over k in split s of X[b, k] * W[k, n].
-// W is row-major [K, N] with N % 4 == 0, X is [B, K]. Thread (n, g) owns
-// column n of the block's tile and the slots b = g + kSlotGroups * j.
-template <int BPT>
+// W is row-major [K, N] with N % 4 == 0 in mode MODE, X is [B, K]. Thread
+// (n, g) owns column n of the block's tile and the slots b = g + kSlotGroups
+// * j. The [kTileK x kTileN] stage holds float32 weights in every mode
+// (load_w4): with kchunk a multiple of 32, a stage is one Q8_0 block row per
+// column, dequantized exactly, so a Q8_0 stream gives the bits of its
+// dequantized float32 copy; an int8 stream's column scale waits for the
+// reducer. Every weight byte is still read once for all B slots.
+template <int BPT, int MODE>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_splitk_kernel(const float* __restrict__ X, int B, const float* __restrict__ W,
+gemm_splitk_kernel(const float* __restrict__ X, int B, const WeightRef W,
                    float* __restrict__ part, int K, int N, int kchunk) {
   __shared__ __align__(16) float ws[kTileK][kTileN];
   __shared__ float xs[kMaxSlots][kTileK];
@@ -88,7 +95,7 @@ gemm_splitk_kernel(const float* __restrict__ X, int B, const float* __restrict__
       const int r = i / (kTileN / 4), c4 = i % (kTileN / 4);
       const int k = kt + r, col4 = blockIdx.x * (kTileN / 4) + c4;
       float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < k1 && col4 < n4) w = __ldg(reinterpret_cast<const float4*>(W) + (size_t)k * n4 + col4);
+      if (k < k1 && col4 < n4) w = load_w4<MODE>(W, (size_t)k, n4, col4);
       reinterpret_cast<float4*>(&ws[r][0])[c4] = w;
     }
     for (int i = tid; i < B * kTileK; i += kGemmThreads) {
@@ -117,9 +124,26 @@ gemm_splitk_kernel(const float* __restrict__ X, int B, const float* __restrict__
   }
 }
 
-// Launches the split-K GEMM of X[B, K] @ W[K, N]; returns the split count S.
-int launch_gemm(const float* X, int B, const float* W, float* part, int K, int N, int part_cap,
-                cudaStream_t st) {
+template <int MODE>
+void launch_gemm_mode(const dim3& grid, int bpt, const float* X, int B, const WeightRef& W,
+                      float* part, int K, int N, int kchunk, cudaStream_t st) {
+  if (bpt <= 1) {
+    gemm_splitk_kernel<1, MODE><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
+  } else if (bpt <= 2) {
+    gemm_splitk_kernel<2, MODE><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
+  } else if (bpt <= 4) {
+    gemm_splitk_kernel<4, MODE><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
+  } else if (bpt <= 8) {
+    gemm_splitk_kernel<8, MODE><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
+  } else {
+    gemm_splitk_kernel<16, MODE><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
+  }
+}
+
+// Launches the split-K GEMM of X[B, K] @ W[K, N]; returns the split count S,
+// which depends on K, N and part_cap only (not on W's mode).
+int launch_gemm(const float* X, int B, const WeightRef& W, float* part, int K, int N,
+                int part_cap, cudaStream_t st) {
   const int tiles = (N + kTileN - 1) / kTileN;
   int S = (kTargetBlocks + tiles - 1) / tiles;
   S = max(1, min(S, min(part_cap, (K + kTileK - 1) / kTileK)));
@@ -128,16 +152,12 @@ int launch_gemm(const float* X, int B, const float* W, float* part, int K, int N
   S = (K + kchunk - 1) / kchunk;
   const dim3 grid(tiles, S);
   const int bpt = (B + kSlotGroups - 1) / kSlotGroups;
-  if (bpt <= 1) {
-    gemm_splitk_kernel<1><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
-  } else if (bpt <= 2) {
-    gemm_splitk_kernel<2><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
-  } else if (bpt <= 4) {
-    gemm_splitk_kernel<4><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
-  } else if (bpt <= 8) {
-    gemm_splitk_kernel<8><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
+  if (W.mode == kStreamInt8) {
+    launch_gemm_mode<kStreamInt8>(grid, bpt, X, B, W, part, K, N, kchunk, st);
+  } else if (W.mode == kStreamQ8) {
+    launch_gemm_mode<kStreamQ8>(grid, bpt, X, B, W, part, K, N, kchunk, st);
   } else {
-    gemm_splitk_kernel<16><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
+    launch_gemm_mode<kStreamDense>(grid, bpt, X, B, W, part, K, N, kchunk, st);
   }
   return S;
 }
@@ -183,6 +203,16 @@ struct FrameStepBatchedArgs {
   const float* ff_proj;
   const float* ff_out;
   const float* norm_out;
+  // quantized stream of qkv / sa_out / ff_proj / ff_out (stream_mode 1:
+  // int8 with column scales [L, N]; 2: Q8_0 blocks, scales [L, K / 32, N])
+  const signed char* qkv_q;
+  const float* qkv_s;
+  const signed char* sa_out_q;
+  const float* sa_out_s;
+  const signed char* ff_proj_q;
+  const float* ff_proj_s;
+  const signed char* ff_out_q;
+  const float* ff_out_s;
   // outputs
   int* sampled;
   int* argmax;
@@ -209,7 +239,7 @@ struct FrameStepBatchedArgs {
   int batch, d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
   int lt_dim, lt_ffn, n_cb, vocab, part_cap;
   int write_row, rows, valid_stride, posemb_stride, top_k, audio_bos_id, audio_eos_id;
-  int gelu_tanh;
+  int gelu_tanh, stream_mode;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
@@ -231,9 +261,12 @@ FrameSeq seq_of(const FrameStepBatchedArgs& a) {
   s.sampled = a.sampled, s.argmax = a.argmax;
   s.posemb = a.posemb, s.posemb_stride = a.posemb_stride, s.may_continue = a.may_continue;
   s.new_valid = a.new_valid;
-  s.norm_self = a.norm_self, s.qkv = a.qkv, s.sa_out = a.sa_out, s.norm_xa_q = a.norm_xa_q;
-  s.xa_q = a.xa_q, s.xa_out = a.xa_out, s.norm_ff = a.norm_ff, s.ff_proj = a.ff_proj;
-  s.ff_out = a.ff_out, s.norm_out = a.norm_out;
+  s.norm_self = a.norm_self, s.norm_xa_q = a.norm_xa_q, s.xa_q = a.xa_q, s.xa_out = a.xa_out;
+  s.norm_ff = a.norm_ff, s.norm_out = a.norm_out;
+  s.qkv = StreamW{a.qkv, a.qkv_q, a.qkv_s, a.stream_mode};
+  s.sa_out = StreamW{a.sa_out, a.sa_out_q, a.sa_out_s, a.stream_mode};
+  s.ff_proj = StreamW{a.ff_proj, a.ff_proj_q, a.ff_proj_s, a.stream_mode};
+  s.ff_out = StreamW{a.ff_out, a.ff_out_q, a.ff_out_s, a.stream_mode};
   s.k_cache = a.k_cache, s.v_cache = a.v_cache, s.xa_k = a.xa_k, s.xa_v = a.xa_v;
   s.write_row = a.write_row, s.rows = a.rows, s.valid = a.valid;
   s.valid_stride = a.valid_stride, s.enc_lengths = a.enc_lengths;
@@ -248,7 +281,7 @@ FrameSeq seq_of(const FrameStepBatchedArgs& a) {
 
 struct Gemm {
   int B, cap;
-  int operator()(const float* X, const float* W, float* part, int K, int N,
+  int operator()(const float* X, const WeightRef& W, float* part, int K, int N,
                  cudaStream_t st) const {
     return launch_gemm(X, B, W, part, K, N, cap, st);
   }
@@ -258,6 +291,9 @@ struct Gemm {
 
 // Kernel C: one fused frame for B slots.
 extern "C" int magpie_frame_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+  if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FrameSeq s = seq_of(*a);
   const Gemm mm{a->batch, a->part_cap};
@@ -277,6 +313,9 @@ extern "C" int magpie_lt_sample_batched_f32(const FrameStepBatchedArgs* a, void*
 // frame embeddings with their position embeddings; `valid` already holds
 // every slot's write row (new_valid is null).
 extern "C" int magpie_decode_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+  if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FrameSeq s = seq_of(*a);
   s.new_valid = nullptr;  // attention reads row write_row from valid like any row

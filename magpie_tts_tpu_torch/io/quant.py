@@ -1,4 +1,5 @@
-"""Block quantization (Q8_0 / Q4_0) — numpy codecs (dequantized at load).
+"""Block quantization (Q8_0 / Q4_0) — numpy codecs, and the Q8_0 block split
+that keeps a checkpoint's own int8 values and scales for serving.
 
 Block layout matches the reference converter exactly
 (scripts/convert_magpie_to_gguf.py:79-138): 32-element blocks, each block is a
@@ -65,3 +66,12 @@ def dequantize_q4_0(payload: np.ndarray, n_elements: int) -> np.ndarray:
     q = np.concatenate([low, high], axis=1).astype(np.float32)
     vals = q * blocks["scale"].astype(np.float32)[:, None]
     return vals.reshape(-1)[:n_elements]
+
+
+def split_q8_0(payload: np.ndarray, n_elements: int):
+    """Split a raw Q8_0 payload into (int8 values [n_blocks, 32], f32 scales
+    [n_blocks]): the blocks as stored, for serving them without dequantizing
+    at load (io.magpie_weights.Q8DecoderStream, Q8Blocks)."""
+    blocks = payload.view(np.dtype([("scale", np.float16), ("quants", np.int8, QK)]))
+    n_blocks = n_elements // QK
+    return blocks["quants"][:n_blocks].copy(), blocks["scale"][:n_blocks].astype(np.float32)

@@ -9,20 +9,21 @@ the field paths (tuple elements are their indices: ``"stages.0.convt_w"``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 
-def map_tensors(obj, fn: Callable[[torch.Tensor], torch.Tensor]):
-    """Apply ``fn`` to every tensor leaf, rebuilding the containers."""
-    if isinstance(obj, torch.Tensor):
+def map_tensors(obj, fn: Callable, is_leaf: Optional[Callable[[object], bool]] = None):
+    """Apply ``fn`` to every tensor leaf (and every node ``is_leaf`` accepts),
+    rebuilding the containers."""
+    if isinstance(obj, torch.Tensor) or (is_leaf is not None and is_leaf(obj)):
         return fn(obj)
     if isinstance(obj, tuple):
-        return tuple(map_tensors(x, fn) for x in obj)
+        return tuple(map_tensors(x, fn, is_leaf) for x in obj)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
-            f.name: map_tensors(getattr(obj, f.name), fn)
+            f.name: map_tensors(getattr(obj, f.name), fn, is_leaf)
             for f in dataclasses.fields(obj)})
     raise TypeError(f"not a tensor container: {type(obj).__name__}")
 

@@ -12,6 +12,11 @@
 
 Cache layout: ``[n_layers, max_seq, d_model]`` for K and V. ``decode_step``
 writes the new row in place (the JAX version returns updated copies).
+
+The decode steps take a ``stream``: None (the dense weights), an
+``Int8DecoderStream`` or a ``Q8DecoderStream``, which then supplies the four
+streamed matrices (``stream_matmul``, the plain version of every stream
+kernel). ``prefill`` always runs on the dense weights, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,10 +26,28 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import MagpieConfig
-from ..io.magpie_weights import DecoderWeights, MagpieWeights
+from ..io.magpie_weights import DecoderWeights, Int8DecoderStream, MagpieWeights, Q8DecoderStream
 from ..ops.attention import attend, cross_attention, precompute_cross_attention_kv
-from ..ops.conv_ffn import conv_ffn, conv_ffn_step
+from ..ops.conv_ffn import conv_ffn, gelu
 from ..ops.norms import layer_norm
+
+
+def stream_matmul(x: torch.Tensor, dec: DecoderWeights, stream, name: str,
+                  layer: int) -> torch.Tensor:
+    """``x @ W`` of streamed matrix ``name`` at ``layer``, float32: dense
+    ``x @ W``; int8 ``(x @ q) * s`` (the TPU kernels' out_scale order); Q8
+    ``x @ (repeat(s, 32, in-axis) * q)``, an exact dequant first, so the
+    product equals the dense one on the dequantized weights."""
+    if stream is None:
+        return torch.matmul(x, getattr(dec, name)[layer]).float()
+    if isinstance(stream, Int8DecoderStream):
+        q = getattr(stream, f"{name}_q")[layer].float()
+        return torch.matmul(x, q) * getattr(stream, f"{name}_s")[layer]
+    if isinstance(stream, Q8DecoderStream):
+        q = getattr(stream, f"{name}_q")[layer].float()
+        s = getattr(stream, f"{name}_bs")[layer]
+        return torch.matmul(x, torch.repeat_interleave(s, 32, dim=0) * q)
+    raise TypeError(f"not a decoder stream: {type(stream).__name__}")
 
 
 def precompute_xa_kv(enc_out: torch.Tensor, dec: DecoderWeights,
@@ -73,7 +96,7 @@ def prefill(context: torch.Tensor, xa_k: torch.Tensor, xa_v: torch.Tensor,
 def decode_step(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 weights: MagpieWeights, config: MagpieConfig,
-                enc_length: Optional[int] = None) -> torch.Tensor:
+                enc_length: Optional[int] = None, stream=None) -> torch.Tensor:
     """One autoregressive decoder position.
 
     x: [d_model] frame embedding (without position); pos: absolute position,
@@ -82,14 +105,14 @@ def decode_step(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tenso
     """
     valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
     return decode_step_masked(x, pos, pos, valid, xa_k, xa_v, k_cache, v_cache, weights,
-                              config, enc_length=enc_length)
+                              config, enc_length=enc_length, stream=stream)
 
 
 def decode_step_masked(x: torch.Tensor, logical_pos, write_row: int, valid_mask: torch.Tensor,
                        xa_k: torch.Tensor, xa_v: torch.Tensor,
                        k_cache: torch.Tensor, v_cache: torch.Tensor,
                        weights: MagpieWeights, config: MagpieConfig,
-                       enc_length: Optional[int] = None) -> torch.Tensor:
+                       enc_length: Optional[int] = None, stream=None) -> torch.Tensor:
     """Decoder step with cache row, position embedding and attention
     membership decoupled (the continuous-batching ring cache).
 
@@ -100,20 +123,21 @@ def decode_step_masked(x: torch.Tensor, logical_pos, write_row: int, valid_mask:
     """
     x_pe = x + weights.decoder.pos_emb[logical_pos]
     return decode_rows(x_pe, write_row, valid_mask, xa_k, xa_v, k_cache, v_cache, weights,
-                       config, enc_length=enc_length)
+                       config, enc_length=enc_length, stream=stream)
 
 
 def decode_rows(x_pe: torch.Tensor, write_row: int, valid_mask: torch.Tensor,
                 xa_k: torch.Tensor, xa_v: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 weights: MagpieWeights, config: MagpieConfig,
-                enc_length: Optional[int] = None) -> torch.Tensor:
+                enc_length: Optional[int] = None, stream=None) -> torch.Tensor:
     """The 12 layers of ``decode_step_masked`` on an input that already holds
     its position embedding (the batched frame kernel receives posemb rows).
 
     The residual carry stays float32 and attention covers the rows of the
     whole ``max_seq`` buffer that ``valid_mask`` admits, the frame-step
-    kernels' rounding points.
+    kernels' rounding points. ``stream`` supplies qkv / sa_out / ff_proj /
+    ff_out (``stream_matmul``).
     """
     dec = weights.decoder
     n_heads = config.dec_sa_heads
@@ -126,7 +150,7 @@ def decode_rows(x_pe: torch.Tensor, write_row: int, valid_mask: torch.Tensor,
 
     for l in range(dec.qkv.shape[0]):
         h = layer_norm(xf, dec.norm_self[l], config.eps).to(wdt)
-        qkv = torch.matmul(h, dec.qkv[l]).to(wdt)
+        qkv = stream_matmul(h, dec, stream, "qkv", l).to(wdt)
         q = qkv[:d_model]
         k_cache[l, write_row] = qkv[d_model:2 * d_model]
         v_cache[l, write_row] = qkv[2 * d_model:]
@@ -134,7 +158,7 @@ def decode_rows(x_pe: torch.Tensor, write_row: int, valid_mask: torch.Tensor,
         kh = k_cache[l].reshape(max_seq, n_heads, d_head).transpose(0, 1)
         vh = v_cache[l].reshape(max_seq, n_heads, d_head).transpose(0, 1)
         attn = attend(qh, kh.to(wdt), vh.to(wdt), length_mask).reshape(d_model)
-        xf = xf + torch.matmul(attn, dec.sa_out[l]).float()
+        xf = xf + stream_matmul(attn, dec, stream, "sa_out", l)
 
         q = layer_norm(xf, dec.norm_xa_q[l], config.eps).to(wdt)
         xf = xf + cross_attention(q[None, :], xa_k[l], xa_v[l], dec.xa_q[l],
@@ -142,7 +166,8 @@ def decode_rows(x_pe: torch.Tensor, write_row: int, valid_mask: torch.Tensor,
                                   enc_length=enc_length)[0].float()
 
         h = layer_norm(xf, dec.norm_ff[l], config.eps).to(wdt)
-        xf = xf + conv_ffn_step(h, dec.ff_proj[l], dec.ff_out[l],
-                                gelu_tanh=config.gelu_tanh)
+        f = gelu(stream_matmul(h, dec, stream, "ff_proj", l),
+                 approximate=config.gelu_tanh).to(wdt)
+        xf = xf + stream_matmul(f, dec, stream, "ff_out", l)
 
     return layer_norm(xf, dec.norm_out, config.eps).to(wdt)

@@ -15,6 +15,13 @@ prefill, and the autoregressive decode loops.
 
 ``use_fused=None`` everywhere means: fused, unless the ``MAGPIE_NO_FUSED``
 environment variable is set (the JAX package's debug switch).
+
+``int8_stream`` is the JAX package's one stream slot: None (dense), an
+``Int8DecoderStream`` or a ``Q8DecoderStream``; the loops hand it to the
+frame and decoder-step kernels, which dispatch on its type. ``prepare``
+(encoder, prefill, BOS step) always runs on the dense weights. Weights that
+hold ``Q8Blocks`` (``--serve-q8``) are dequantized at program entry
+(``materialize_weights``, kernel 10 on the card), once per call.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import MagpieConfig
-from ..io.magpie_weights import MagpieWeights
+from ..io.magpie_weights import MagpieWeights, materialize_weights
 from ..ops import sampling
 from ..ops.kernels.decoder_step import decode_step
 from ..ops.kernels.decoder_step_batched import decode_step_batched
@@ -76,6 +83,7 @@ def prepare(tokens: torch.Tensor, enc_length: int, speaker_id: int,
             ) -> Tuple[torch.Tensor, torch.Tensor, DecodeState]:
     """Everything before the AR loop; tokens may be right-padded to a bucket.
     Returns (xa_k, xa_v, state) with state.hidden the BOS-step output."""
+    weights = materialize_weights(weights)
     dtype = weights.text_emb.dtype
     device = weights.text_emb.device
     enc_out = run_encoder(tokens, weights, config)
@@ -101,7 +109,7 @@ def prepare(tokens: torch.Tensor, enc_length: int, speaker_id: int,
 def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
                 enc_length: int, weights: MagpieWeights, config: MagpieConfig,
                 key: Tuple[int, int], temperature: float, top_k: int,
-                use_fused: Optional[bool] = None) -> DecodeState:
+                use_fused: Optional[bool] = None, int8_stream=None) -> DecodeState:
     """Sample frames until EOS or ``config.max_dec_steps``.
 
     Per frame: split the key (host threefry, as jax.random.split), run one
@@ -110,7 +118,9 @@ def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
     The EOS frame's codes are written but not counted, as in the JAX loop.
     The split path samples, tests EOS on the host, embeds and runs the
     decoder step, the last also on the EOS frame, as the JAX loop does.
+    ``int8_stream`` goes to both kernels' stream slot.
     """
+    weights = materialize_weights(weights)
     max_steps = config.max_dec_steps
     seeds = sampling.frame_seeds(key, max_steps)
     fused = resolve_use_fused(use_fused)
@@ -120,7 +130,8 @@ def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
         if fused:
             sampled, argmax, s.hidden, s.k_cache, s.v_cache = frame_step(
                 s.hidden, s.pos, xa_k, xa_v, s.k_cache, s.v_cache, weights, config,
-                seeds[s.frame_idx], temperature, top_k, forbid_eos, enc_length=enc_length)
+                seeds[s.frame_idx], temperature, top_k, forbid_eos, enc_length=enc_length,
+                stream=int8_stream)
         else:
             sampled, argmax = sample_frame_codes(s.hidden, weights, config, seeds[s.frame_idx],
                                                  temperature, top_k, forbid_eos)
@@ -130,7 +141,7 @@ def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
         if not fused:
             emb = audio_frame_embedding(sampled, weights, config)
             s.hidden = decode_step(emb, s.pos, xa_k, xa_v, s.k_cache, s.v_cache, weights,
-                                   config, enc_length=enc_length)
+                                   config, enc_length=enc_length, stream=int8_stream)
         if not s.done:
             s.frame_idx += 1
         s.pos += 1
@@ -140,12 +151,13 @@ def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
 def synthesize_codes_program(tokens: torch.Tensor, enc_length: int, speaker_id: int,
                              key: Tuple[int, int], temperature: float,
                              weights: MagpieWeights, config: MagpieConfig, top_k: int,
-                             use_fused: Optional[bool] = None):
+                             use_fused: Optional[bool] = None, int8_stream=None):
     """The full single-utterance synthesis: returns (codes [max_dec_steps, 8], n_frames)."""
     with torch.no_grad():
+        weights = materialize_weights(weights)
         xa_k, xa_v, state = prepare(tokens, enc_length, speaker_id, weights, config)
         state = decode_loop(xa_k, xa_v, state, enc_length, weights, config, key,
-                            temperature, top_k, use_fused=use_fused)
+                            temperature, top_k, use_fused=use_fused, int8_stream=int8_stream)
     return state.codes, state.frame_idx
 
 
@@ -184,7 +196,7 @@ def synthesize_codes_batched_program(
         tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
         keys: Sequence[Tuple[int, int]], temperature: float, weights: MagpieWeights,
         config: MagpieConfig, top_k: int, max_steps: Optional[int] = None,
-        use_fused: Optional[bool] = None):
+        use_fused: Optional[bool] = None, int8_stream=None):
     """Lockstep batched synthesis: tokens [B, T] -> (codes [B, N, 8] int32,
     n_frames [B] int32), both on the weights' device.
 
@@ -196,12 +208,14 @@ def synthesize_codes_batched_program(
     the last stream finished; they change no kept code. The split path runs
     the batched sampler, the bookkeeping, ``audio_frame_embedding + pos_emb[pos]``
     and the batched decoder step, whose row ``pos`` is valid for every stream
-    (as in the JAX split branch).
+    (as in the JAX split branch). ``int8_stream`` goes to both batched
+    kernels' stream slot.
     """
     max_steps = max_steps or config.max_dec_steps
-    device = weights.text_emb.device
     fused = resolve_use_fused(use_fused)
     with torch.no_grad():
+        weights = materialize_weights(weights)
+        device = weights.text_emb.device
         xa_k, xa_v, k_cache, v_cache, hidden = prepare_batch(tokens, enc_lengths, speaker_ids,
                                                              weights, config)
         B = tokens.shape[0]
@@ -226,7 +240,7 @@ def synthesize_codes_batched_program(
                 sampled, argmax, s.hidden, _, _ = frame_step_batched(
                     s.hidden, pos, valid, ~s.done, posemb, xa_k, xa_v, s.k_cache, s.v_cache,
                     weights, config, enc, seeds[s.step], temperature, top_k, forbid,
-                    rows=pos + 1)
+                    rows=pos + 1, stream=int8_stream)
             else:
                 sampled, argmax = sample_frame_codes_batched(s.hidden, weights, config,
                                                              seeds[s.step], temperature, top_k,
@@ -238,6 +252,7 @@ def synthesize_codes_batched_program(
             if not fused:
                 x_pe = audio_frame_embedding(sampled, weights, config) + posemb
                 s.hidden = decode_step_batched(x_pe, pos, valid, xa_k, xa_v, s.k_cache,
-                                               s.v_cache, weights, config, enc, rows=pos + 1)
+                                               s.v_cache, weights, config, enc, rows=pos + 1,
+                                               stream=int8_stream)
             s.step += 1
     return s.codes, s.frame_idx

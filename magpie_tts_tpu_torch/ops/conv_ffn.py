@@ -48,9 +48,3 @@ def conv_ffn(x: torch.Tensor, proj_w: torch.Tensor, out_w: torch.Tensor,
     h = gelu(conv1d_causal_shifted(x, proj_w).to(x.dtype), approximate=gelu_tanh)
     return conv1d_causal_shifted(h, out_w).to(x.dtype)
 
-
-def conv_ffn_step(x: torch.Tensor, proj_w: torch.Tensor, out_w: torch.Tensor,
-                  gelu_tanh: bool = False) -> torch.Tensor:
-    """Single-position pointwise FFN (decode step), float32 output."""
-    h = gelu(torch.matmul(x, proj_w), approximate=gelu_tanh).to(x.dtype)
-    return torch.matmul(h, out_w).float()

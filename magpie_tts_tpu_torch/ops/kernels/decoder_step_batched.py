@@ -2,7 +2,8 @@
 
 ``decode_step_batched`` replaces the TPU kernel
 magpie_tts_tpu/ops/pallas_kernels/decoder_step_batched.py
-``decode_step_batched_pallas`` (dense float32 stream): the 12 cached decoder
+``decode_step_batched_pallas`` with its three weight streams (``stream``:
+None, an Int8DecoderStream or a Q8DecoderStream): the 12 cached decoder
 layers for B slots that share one cache write row, each attending to the
 rows its validity mask admits, every weight read once for all slots. On CUDA
 tensors it launches the ``magpie_decode_step_batched_f32`` entry point of
@@ -28,6 +29,7 @@ from . import frame_step_batched as fsb
 
 ENTRY = "magpie_decode_step_batched_f32"
 launches = 0  # kernel launches (one per frame) since the last reset
+mode_launches = dict.fromkeys(fsb.MODES, 0)  # the same, by weight stream
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
 
 
@@ -40,7 +42,7 @@ def decode_step_batched_reference(x_pe: torch.Tensor, write_row: int, valid: tor
                                   k_cache: torch.Tensor, v_cache: torch.Tensor,
                                   weights: MagpieWeights, config: MagpieConfig,
                                   enc_lengths: torch.Tensor,
-                                  rows: Optional[int] = None) -> torch.Tensor:
+                                  rows: Optional[int] = None, stream=None) -> torch.Tensor:
     """Plain PyTorch batched decoder step, one slot at a time. ``rows`` only
     bounds the kernel's attention window; rows past it must hold no valid
     row, so the plain version attends over the whole masked cache."""
@@ -51,14 +53,15 @@ def decode_step_batched_reference(x_pe: torch.Tensor, write_row: int, valid: tor
     return torch.stack([
         decoder_mod.decode_rows(x_pe[b], write_row, valid[b].to(torch.bool), xa_k[b], xa_v[b],
                                 k_cache[b], v_cache[b], weights, config,
-                                enc_length=int(enc_l[b]))
+                                enc_length=int(enc_l[b]), stream=stream)
         for b in range(x_pe.shape[0])])
 
 
 def decode_step_batched(x_pe: torch.Tensor, write_row: int, valid: torch.Tensor,
                         xa_k: torch.Tensor, xa_v: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, weights: MagpieWeights, config: MagpieConfig,
-                        enc_lengths: torch.Tensor, rows: Optional[int] = None) -> torch.Tensor:
+                        enc_lengths: torch.Tensor, rows: Optional[int] = None,
+                        stream=None) -> torch.Tensor:
     """One decoder step for B slots.
 
     x_pe [B, d_model]: frame embeddings WITH their position embeddings;
@@ -67,12 +70,13 @@ def decode_step_batched(x_pe: torch.Tensor, write_row: int, valid: torch.Tensor,
     caches [B, L, max_seq, d_model] take the new K/V row at ``write_row`` for
     every slot (in place); xa_k / xa_v [B, L, enc, d_xa]; enc_lengths [B]
     int32. ``rows`` (host int, default max_seq) bounds self-attention to rows
-    [0, rows): no valid row may lie past it. Returns hidden [B, d_model].
+    [0, rows): no valid row may lie past it. ``stream`` supplies the four
+    streamed decoder matrices when given. Returns hidden [B, d_model].
     """
     global launches
     if x_pe.device.type == "cpu":
         return decode_step_batched_reference(x_pe, write_row, valid, xa_k, xa_v, k_cache,
-                                             v_cache, weights, config, enc_lengths, rows)
+                                             v_cache, weights, config, enc_lengths, rows, stream)
     if x_pe.device.type != "cuda":
         raise ValueError(f"decode_step_batched: unsupported device {x_pe.device}")
     c = config
@@ -83,10 +87,11 @@ def decode_step_batched(x_pe: torch.Tensor, write_row: int, valid: torch.Tensor,
     hidden_out = torch.empty(B, c.d_model, dtype=torch.float32, device=x_pe.device)
     tensors = {"hidden": (x_pe, (B, c.d_model), torch.float32, False),
                **fsb.decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights,
-                                     c)}
-    fsb.launch(ENTRY, B, tensors, dict(hidden_out=hidden_out), c, x_pe.device, max_seq=S,
-               enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
+                                     c, stream)}
+    fsb.launch(ENTRY, B, tensors, dict(hidden_out=hidden_out), c, x_pe.device, stream,
+               max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
                valid_stride=valid.stride(0))
     with _launches_lock:
         launches += 1
+        mode_launches[fsb.MODES[fsb.stream_mode(stream)]] += 1
     return hidden_out

@@ -1,8 +1,11 @@
 """Kernel A: one decode frame (LT sampling + frame embedding + decoder step).
 
 ``frame_step`` replaces the TPU kernel
-magpie_tts_tpu/ops/pallas_kernels/frame_step.py ``frame_step_pallas`` (dense
-float32 stream). On CUDA tensors it launches csrc/frame_step.cu (a fixed
+magpie_tts_tpu/ops/pallas_kernels/frame_step.py ``frame_step_pallas`` with
+its three weight streams: ``stream=None`` (dense float32), an
+``Int8DecoderStream`` or a ``Q8DecoderStream`` supplies the four streamed
+decoder matrices, and the kernel dispatches on the type (``stream_mode``).
+On CUDA tensors it launches csrc/frame_step.cu (a fixed
 sequence of kernels on the current stream, see the source note there) or
 raises; on CPU tensors it runs ``frame_step_reference``, the plain
 composition the TPU kernel is pinned against: the split path's two plain
@@ -12,7 +15,8 @@ versions, ``lt_sampler.sample_frame_codes_reference`` +
 Both update the K/V caches in place (row ``pos`` of every layer). ``launch``
 and the tensor tables here also serve the split path's kernels 4 and 5
 (ops/kernels/lt_sampler.py, ops/kernels/decoder_step.py), entry points of
-the same source.
+the same source. A stream of the wrong type or shape raises: no path
+dequantizes a stream and runs the dense kernel in its place.
 """
 
 from __future__ import annotations
@@ -23,11 +27,13 @@ from typing import Optional, Tuple
 import torch
 
 from ...config import MagpieConfig
-from ...io.magpie_weights import MagpieWeights
+from ...io.magpie_weights import Int8DecoderStream, MagpieWeights, Q8DecoderStream
 from ..attention import attn_scale
 from . import build
 
+MODES = ("dense", "int8", "q8")  # the weight streams, by stream_mode
 launches = 0  # kernel launches (one per frame) since the last reset
+mode_launches = dict.fromkeys(MODES, 0)  # the same, by weight stream
 
 _PART_CAP = 32  # most split-K partial rows a GEMV may produce
 
@@ -40,6 +46,7 @@ class FrameStepArgs(ctypes.Structure):
         "lt_ff_proj lt_ff_out lt_out_w lt_out_b audio_emb "
         "pos_emb norm_self qkv sa_out norm_xa_q xa_q xa_out norm_ff ff_proj "
         "ff_out norm_out "
+        "qkv_q qkv_s sa_out_q sa_out_s ff_proj_q ff_proj_s ff_out_q ff_out_s "
         "sampled argmax hidden_out "
         "part x h q attn f xa lt_x lt_h lt_q lt_k lt_v lt_attn lt_f emb_row "
         "emb_acc").split()
@@ -47,7 +54,7 @@ class FrameStepArgs(ctypes.Structure):
         "d_model d_ffn n_layers max_seq enc_rows d_xa n_heads xa_heads "
         "lt_dim lt_ffn n_cb vocab part_cap "
         "pos enc_len seed top_k forbid_eos audio_bos_id audio_eos_id "
-        "gelu_tanh").split()
+        "gelu_tanh stream_mode").split()
     _floats = "temperature eps sa_scale xa_scale lt_scale".split()
     _fields_ = ([(n, ctypes.c_void_p) for n in _ptrs] +
                 [(n, ctypes.c_int) for n in _ints] +
@@ -64,8 +71,9 @@ def frame_step_reference(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor,
                          xa_v: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          weights: MagpieWeights, config: MagpieConfig, seed: int,
                          temperature: float, top_k: int, forbid_eos: bool,
-                         enc_length: Optional[int] = None):
-    """Plain PyTorch frame: LT sampling, mean code embedding, decoder step."""
+                         enc_length: Optional[int] = None, stream=None):
+    """Plain PyTorch frame: LT sampling, mean code embedding, decoder step
+    (the four streamed matrices from ``stream`` when given)."""
     from ...models.magpie import audio_frame_embedding
     from .decoder_step import decode_step_reference
     from .lt_sampler import sample_frame_codes_reference
@@ -74,7 +82,7 @@ def frame_step_reference(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor,
                                                    top_k, forbid_eos)
     emb = audio_frame_embedding(sampled, weights, config)
     hidden = decode_step_reference(emb, pos, xa_k, xa_v, k_cache, v_cache, weights, config,
-                                   enc_length=enc_length)
+                                   enc_length=enc_length, stream=stream)
     return sampled, argmax, hidden, k_cache, v_cache
 
 
@@ -88,6 +96,55 @@ def check_tensor(who: str, name: str, t: torch.Tensor, shape: Tuple[int, ...]) -
         raise ValueError(f"{who}: {name} must be contiguous and 16-byte aligned")
 
 
+def stream_mode(stream) -> int:
+    """The kernels' ``stream_mode`` of a stream slot: 0 dense (None), 1
+    ``Int8DecoderStream``, 2 ``Q8DecoderStream``; anything else raises."""
+    if stream is None:
+        return 0
+    if isinstance(stream, Int8DecoderStream):
+        return 1
+    if isinstance(stream, Q8DecoderStream):
+        return 2
+    raise TypeError(f"stream must be None, an Int8DecoderStream or a Q8DecoderStream, "
+                    f"got {type(stream).__name__}")
+
+
+def streamed_shapes(config: MagpieConfig) -> dict:
+    """{name: (K, N)} of the four streamed decoder matrices (per layer)."""
+    D, F = config.d_model, config.d_ffn
+    return {"qkv": (D, 3 * D), "sa_out": (D, D), "ff_proj": (D, F), "ff_out": (F, D)}
+
+
+def stream_tensors(who: str, stream, config: MagpieConfig) -> dict:
+    """{argument name: tensor} of a quantized stream, checked: int8 values
+    [L, K, N] (contiguous, 4-byte aligned for the kernels' char4 loads) and
+    float32 scales [L, N] (int8 columns) or [L, K / 32, N] (Q8_0 blocks).
+    Empty for the dense stream (None)."""
+    mode = stream_mode(stream)
+    if mode == 0:
+        return {}
+    L = config.dec_layers
+    out = {}
+    for name, (K, N) in streamed_shapes(config).items():
+        q = getattr(stream, f"{name}_q")
+        if q.device.type != "cuda" or q.dtype != torch.int8:
+            raise ValueError(f"{who}: {name}_q must be an int8 CUDA tensor, "
+                             f"got {q.dtype} on {q.device}")
+        if tuple(q.shape) != (L, K, N):
+            raise ValueError(f"{who}: {name}_q has shape {tuple(q.shape)}, want {(L, K, N)}")
+        if not q.is_contiguous() or q.data_ptr() % 4:
+            raise ValueError(f"{who}: {name}_q must be contiguous and 4-byte aligned")
+        if mode == 1:
+            scale, shape = getattr(stream, f"{name}_s"), (L, N)
+        elif K % 32:
+            raise ValueError(f"{who}: a Q8_0 stream needs {name}'s K % 32 == 0, got {K}")
+        else:
+            scale, shape = getattr(stream, f"{name}_bs"), (L, K // 32, N)
+        check_tensor(who, f"{name}_s", scale, shape)
+        out[f"{name}_q"], out[f"{name}_s"] = q, scale
+    return out
+
+
 def check_config(who: str, config: MagpieConfig, top_k: int = 1) -> None:
     """What the frame sequences take: vocab <= 4096 (one sampling block),
     top_k >= 1, and GEMV / GEMM widths that are multiples of 4 (float4)."""
@@ -95,7 +152,7 @@ def check_config(who: str, config: MagpieConfig, top_k: int = 1) -> None:
     if c.vocab_per_cb > 4096 or top_k < 1 or c.num_codebooks > c.lt_max_pos:
         raise ValueError(f"{who}: needs vocab_per_cb <= 4096, top_k >= 1 and "
                          f"num_codebooks <= lt_max_pos")
-    for n in (3 * c.d_model, c.d_ffn, c.d_xa, c.lt_dim, 3 * c.lt_dim, c.lt_ffn_dim,
+    for n in (c.d_model, 3 * c.d_model, c.d_ffn, c.d_xa, c.lt_dim, 3 * c.lt_dim, c.lt_ffn_dim,
               c.vocab_per_cb):
         if n % 4:
             raise ValueError(f"{who}: GEMV width {n} is not a multiple of 4")
@@ -132,25 +189,25 @@ def lt_weight_tensors(weights: MagpieWeights, config: MagpieConfig) -> dict:
     }
 
 
-def decoder_weight_tensors(weights: MagpieWeights, config: MagpieConfig) -> dict:
-    """{argument name: (tensor, required shape)} of the decoder-layer weights
-    the decoder sequence reads."""
+def decoder_weight_tensors(weights: MagpieWeights, config: MagpieConfig,
+                           stream=None) -> dict:
+    """{argument name: (tensor, required shape)} of the dense decoder-layer
+    weights the decoder sequence reads: with a quantized ``stream`` the four
+    streamed matrices come from it (``stream_tensors``), and their dense
+    pointers stay null."""
     c = config
     dec = weights.decoder
-    L, D, F, X = c.dec_layers, c.d_model, c.d_ffn, c.d_xa
-    return {
+    L, D, X = c.dec_layers, c.d_model, c.d_xa
+    out = {
         "norm_self": (dec.norm_self, (L, D)),
-        "qkv": (dec.qkv, (L, D, 3 * D)), "sa_out": (dec.sa_out, (L, D, D)),
         "norm_xa_q": (dec.norm_xa_q, (L, D)), "xa_q": (dec.xa_q, (L, D, X)),
         "xa_out": (dec.xa_out, (L, X, D)), "norm_ff": (dec.norm_ff, (L, D)),
-        "ff_proj": (dec.ff_proj, (L, D, F)), "ff_out": (dec.ff_out, (L, F, D)),
         "norm_out": (dec.norm_out, (D,)),
     }
-
-
-def weight_tensors(weights: MagpieWeights, config: MagpieConfig) -> dict:
-    """Both tables: what a fused frame reads."""
-    return {**lt_weight_tensors(weights, config), **decoder_weight_tensors(weights, config)}
+    if stream_mode(stream) == 0:
+        out.update({name: (getattr(dec, name), (L, K, N))
+                    for name, (K, N) in streamed_shapes(c).items()})
+    return out
 
 
 def cache_tensors(k_cache, v_cache, xa_k, xa_v, config: MagpieConfig) -> dict:
@@ -163,16 +220,19 @@ def cache_tensors(k_cache, v_cache, xa_k, xa_v, config: MagpieConfig) -> dict:
 
 
 def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, device,
-           **scalars) -> None:
-    """Validate ``tensors`` ({name: (tensor, shape)}), allocate a workspace on
-    ``device`` and call the library's ``entry`` with a FrameStepArgs of the
-    tensors, the workspace, ``outputs`` ({name: tensor}) and the config's
-    dims; ``scalars`` fill the remaining fields (unset pointers are null)."""
+           stream=None, **scalars) -> None:
+    """Validate ``tensors`` ({name: (tensor, shape)}) and the weight
+    ``stream``, allocate a workspace on ``device`` and call the library's
+    ``entry`` with a FrameStepArgs of the tensors, the stream's tensors and
+    mode, the workspace, ``outputs`` ({name: tensor}) and the config's dims;
+    ``scalars`` fill the remaining fields (unset pointers are null)."""
     c = config
     for name, (t, shape) in tensors.items():
         check_tensor(entry, name, t, shape)
+    quantized = stream_tensors(entry, stream, c)
     lib = build.load_library()
     ptrs = {name: t.data_ptr() for name, (t, _) in tensors.items()}
+    ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
     ptrs.update({k: v.data_ptr() for k, v in _workspace(c, device).items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
     args = FrameStepArgs(
@@ -182,9 +242,9 @@ def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, devic
         audio_bos_id=c.audio_bos_id, audio_eos_id=c.audio_eos_id, gelu_tanh=int(c.gelu_tanh),
         eps=float(c.eps), sa_scale=attn_scale(c.d_model // c.dec_sa_heads),
         xa_scale=attn_scale(c.d_xa // c.dec_xa_heads), lt_scale=attn_scale(c.lt_dim),
-        **scalars)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    build.check(getattr(lib, entry)(ctypes.addressof(args), stream), entry)
+        stream_mode=stream_mode(stream), **scalars)
+    cuda_stream = torch.cuda.current_stream(device).cuda_stream
+    build.check(getattr(lib, entry)(ctypes.addressof(args), cuda_stream), entry)
 
 
 def sampling_scalars(config: MagpieConfig, seed: int, temperature: float, top_k: int,
@@ -206,15 +266,17 @@ def step_scalars(who: str, config: MagpieConfig, pos: int, k_cache, xa_k,
 def frame_step(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor, weights: MagpieWeights,
                config: MagpieConfig, seed: int, temperature: float, top_k: int,
-               forbid_eos: bool, enc_length: Optional[int] = None):
+               forbid_eos: bool, enc_length: Optional[int] = None, stream=None):
     """One full frame: sample 8 codes from ``hidden``, embed them, run the
-    decoder at ``pos``. Returns (sampled [8] int32, argmax [8] int32,
-    new hidden [d_model], k_cache, v_cache); the caches update in place."""
+    decoder at ``pos`` (qkv / sa_out / ff_proj / ff_out from ``stream``, an
+    Int8DecoderStream or Q8DecoderStream, when given). Returns (sampled [8]
+    int32, argmax [8] int32, new hidden [d_model], k_cache, v_cache); the
+    caches update in place."""
     global launches
     if hidden.device.type == "cpu":
         return frame_step_reference(hidden, pos, xa_k, xa_v, k_cache, v_cache, weights,
                                     config, seed, temperature, top_k, forbid_eos,
-                                    enc_length)
+                                    enc_length, stream)
     if hidden.device.type != "cuda":
         raise ValueError(f"frame_step: unsupported device {hidden.device}")
     c = config
@@ -226,9 +288,11 @@ def frame_step(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.T
     hidden_out = torch.empty(c.d_model, dtype=torch.float32, device=dev)
     tensors = {"hidden": (hidden, (c.d_model,)),
                "pos_emb": (weights.decoder.pos_emb, (c.max_pos, c.d_model)),
-               **cache_tensors(k_cache, v_cache, xa_k, xa_v, c), **weight_tensors(weights, c)}
+               **cache_tensors(k_cache, v_cache, xa_k, xa_v, c),
+               **lt_weight_tensors(weights, c), **decoder_weight_tensors(weights, c, stream)}
     launch("magpie_frame_step_f32", tensors,
-           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, **scalars,
-           **sampling_scalars(c, seed, temperature, top_k, forbid_eos))
+           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream,
+           **scalars, **sampling_scalars(c, seed, temperature, top_k, forbid_eos))
     launches += 1
+    mode_launches[MODES[stream_mode(stream)]] += 1
     return sampled, argmax, hidden_out, k_cache, v_cache

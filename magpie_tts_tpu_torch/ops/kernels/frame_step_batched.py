@@ -2,7 +2,9 @@
 
 ``frame_step_batched`` replaces the TPU kernel
 magpie_tts_tpu/ops/pallas_kernels/frame_step_batched.py
-``frame_step_batched_pallas`` (dense float32 stream). On CUDA tensors it
+``frame_step_batched_pallas`` with its three weight streams (``stream``:
+None, an Int8DecoderStream or a Q8DecoderStream, as for kernel A). On CUDA
+tensors it
 launches csrc/frame_step_batched.cu (a fixed sequence of kernels on the
 current stream that reads every weight once per frame for all B slots, see
 the source note there) or raises; on CPU tensors it runs
@@ -28,9 +30,11 @@ from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from ..attention import attn_scale
 from . import build
-from .frame_step import check_config, decoder_weight_tensors, lt_weight_tensors
+from .frame_step import (MODES, check_config, decoder_weight_tensors, lt_weight_tensors,
+                         stream_mode, stream_tensors)
 
 launches = 0  # kernel launches (one per frame) since the last reset
+mode_launches = dict.fromkeys(MODES, 0)  # the same, by weight stream
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
 
 MAX_SLOTS = 64  # the kernel's shared-memory slot tile
@@ -45,6 +49,7 @@ class FrameStepBatchedArgs(ctypes.Structure):
         "lt_in_w lt_in_b lt_pos lt_norm_self lt_qkv lt_sa_out lt_norm_ff "
         "lt_ff_proj lt_ff_out lt_out_w lt_out_b audio_emb "
         "norm_self qkv sa_out norm_xa_q xa_q xa_out norm_ff ff_proj ff_out norm_out "
+        "qkv_q qkv_s sa_out_q sa_out_s ff_proj_q ff_proj_s ff_out_q ff_out_s "
         "sampled argmax hidden_out "
         "part x h q attn f xa lt_x lt_h lt_q lt_k lt_v lt_attn lt_f emb_row emb_acc "
         "new_valid").split()
@@ -52,7 +57,7 @@ class FrameStepBatchedArgs(ctypes.Structure):
         "batch d_model d_ffn n_layers max_seq enc_rows d_xa n_heads xa_heads "
         "lt_dim lt_ffn n_cb vocab part_cap "
         "write_row rows valid_stride posemb_stride top_k audio_bos_id audio_eos_id "
-        "gelu_tanh").split()
+        "gelu_tanh stream_mode").split()
     _floats = "temperature eps sa_scale xa_scale lt_scale".split()
     _fields_ = ([(n, ctypes.c_void_p) for n in _ptrs] +
                 [(n, ctypes.c_int) for n in _ints] +
@@ -71,7 +76,7 @@ def frame_step_batched_reference(
         xa_v: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         weights: MagpieWeights, config: MagpieConfig, enc_lengths: torch.Tensor,
         seeds: torch.Tensor, temperature: float, top_k: int, forbid_eos: torch.Tensor,
-        rows: Optional[int] = None):
+        rows: Optional[int] = None, stream=None):
     """Plain PyTorch batched frame, one slot at a time. ``rows`` only bounds
     the kernel's attention window; rows past it must hold no valid row, so
     the plain version attends over the whole masked cache."""
@@ -87,7 +92,7 @@ def frame_step_batched_reference(
     mask[:, write_row] = new_valid
     x_pe = audio_frame_embedding(sampled, weights, config) + posemb
     out = decode_step_batched_reference(x_pe, write_row, mask, xa_k, xa_v, k_cache, v_cache,
-                                        weights, config, enc_lengths, rows)
+                                        weights, config, enc_lengths, rows, stream)
     return sampled, argmax, out, k_cache, v_cache
 
 
@@ -151,9 +156,10 @@ def sampler_tensors(hidden, forbid_eos, seeds, weights: MagpieWeights,
 
 
 def decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights: MagpieWeights,
-                    config: MagpieConfig) -> dict:
+                    config: MagpieConfig, stream=None) -> dict:
     """{argument name: (tensor, shape, dtype, broadcast_ok)} of what the
-    decoder sequence reads for B slots (besides its input rows)."""
+    decoder sequence reads for B slots (besides its input rows and the
+    quantized ``stream``'s tensors)."""
     B, L, S, D = k_cache.shape
     E, X = xa_k.shape[2], config.d_xa
     f32 = torch.float32
@@ -163,21 +169,24 @@ def decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights: M
             "v_cache": (v_cache, (B, L, S, D), f32, False),
             "xa_k": (xa_k, (B, L, E, X), f32, False), "xa_v": (xa_v, (B, L, E, X), f32, False),
             **{name: (t, shape, f32, False)
-               for name, (t, shape) in decoder_weight_tensors(weights, config).items()}}
+               for name, (t, shape) in decoder_weight_tensors(weights, config, stream).items()}}
 
 
 def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfig, device,
-           **scalars) -> None:
-    """Validate ``tensors`` ({name: (tensor, shape, dtype, broadcast_ok)}),
-    allocate a B-slot workspace on ``device`` and call the library's ``entry``
-    on that card with a FrameStepBatchedArgs of the tensors, the workspace,
-    ``outputs`` ({name: tensor}) and the config's dims; ``scalars`` fill the
-    remaining fields (unset pointers are null)."""
+           stream=None, **scalars) -> None:
+    """Validate ``tensors`` ({name: (tensor, shape, dtype, broadcast_ok)}) and
+    the weight ``stream``, allocate a B-slot workspace on ``device`` and call
+    the library's ``entry`` on that card with a FrameStepBatchedArgs of the
+    tensors, the stream's tensors and mode, the workspace, ``outputs``
+    ({name: tensor}) and the config's dims; ``scalars`` fill the remaining
+    fields (unset pointers are null)."""
     c = config
     for name, (t, shape, dtype, broadcast_ok) in tensors.items():
         check_tensor(entry, name, t, shape, dtype, broadcast_ok)
+    quantized = stream_tensors(entry, stream, c)
     lib = build.load_library()
     ptrs = {name: t.data_ptr() for name, (t, *_) in tensors.items()}
+    ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
     ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, device).items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
     args = FrameStepBatchedArgs(
@@ -187,10 +196,10 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
         audio_bos_id=c.audio_bos_id, audio_eos_id=c.audio_eos_id, gelu_tanh=int(c.gelu_tanh),
         eps=float(c.eps), sa_scale=attn_scale(c.d_model // c.dec_sa_heads),
         xa_scale=attn_scale(c.d_xa // c.dec_xa_heads), lt_scale=attn_scale(c.lt_dim),
-        **scalars)
-    stream = torch.cuda.current_stream(device).cuda_stream
+        stream_mode=stream_mode(stream), **scalars)
+    cuda_stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the launch goes to the caches' card
-        err = getattr(lib, entry)(ctypes.addressof(args), stream)
+        err = getattr(lib, entry)(ctypes.addressof(args), cuda_stream)
     build.check(err, entry)
 
 
@@ -199,7 +208,8 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
                        xa_v: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                        weights: MagpieWeights, config: MagpieConfig,
                        enc_lengths: torch.Tensor, seeds: torch.Tensor, temperature: float,
-                       top_k: int, forbid_eos: torch.Tensor, rows: Optional[int] = None):
+                       top_k: int, forbid_eos: torch.Tensor, rows: Optional[int] = None,
+                       stream=None):
     """One full frame for B slots: sample 8 codes per slot, embed them, add
     the slot's position-embedding row, run the decoder at ``write_row``.
 
@@ -209,7 +219,8 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     posemb [B, d_model] rows (broadcast allowed); enc_lengths, seeds [B]
     int32; caches [B, L, max_seq, d_model]; xa_k/xa_v [B, L, enc, d_xa].
     ``rows`` (host int, default max_seq) bounds self-attention to rows
-    [0, rows): no valid row may lie past it. No value is read back to the
+    [0, rows): no valid row may lie past it. ``stream`` supplies the four
+    streamed decoder matrices when given. No value is read back to the
     host. Returns (sampled [B, 8] int32, argmax [B, 8] int32,
     hidden [B, d_model], k_cache, v_cache); the caches update in place.
     """
@@ -218,7 +229,7 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
         return frame_step_batched_reference(hidden, write_row, valid, may_continue, posemb,
                                             xa_k, xa_v, k_cache, v_cache, weights, config,
                                             enc_lengths, seeds, temperature, top_k, forbid_eos,
-                                            rows)
+                                            rows, stream)
     if hidden.device.type != "cuda":
         raise ValueError(f"frame_step_batched: unsupported device {hidden.device}")
     c = config
@@ -231,14 +242,16 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     argmax = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
     hidden_out = torch.empty(B, c.d_model, dtype=torch.float32, device=dev)
     tensors = {**sampler_tensors(hidden, forbid_eos, seeds, weights, c),
-               **decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights, c),
+               **decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights, c,
+                                 stream),
                "may_continue": (may_continue, (B,), torch.bool, False),
                "posemb": (posemb, (B, c.d_model), torch.float32, True)}
     launch("magpie_frame_step_batched_f32", B, tensors,
-           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev,
+           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream,
            max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
            valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
            top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
     with _launches_lock:
         launches += 1
+        mode_launches[MODES[stream_mode(stream)]] += 1
     return sampled, argmax, hidden_out, k_cache, v_cache

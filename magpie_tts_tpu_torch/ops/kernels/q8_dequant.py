@@ -1,0 +1,93 @@
+"""Kernel 10: the Q8_0 dequant of a block-stored weight (``--serve-q8``).
+
+``dequantize`` replaces the TPU's in-kernel Q8_0 dequant tile
+(tests/test_pallas_kernels.py ``test_q8_in_kernel_dequant_tile_bitexact``,
+``repeat(s, 32, in-axis) * q``), as ``Q8Blocks.materialize`` runs it once per
+program for every block-stored tensor. On CUDA tensors it launches
+csrc/q8_dequant.cu, which writes the loader's layout directly (a tiled
+transpose), or raises; on CPU tensors it runs ``dequantize_reference``: the
+f32 product, a reshape to the GGUF shape and the loader's transform. Both are
+bit-identical to the dense load of the same file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from . import build
+
+launches = 0  # kernel launches since the last reset
+QK = 32
+
+
+def declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.magpie_q8_dequant_f32.argtypes = [p, p, p, i, i, i, i, p]
+    lib.magpie_q8_dequant_f32.restype = ctypes.c_int
+
+
+def _dims(torch_shape, transform: str) -> Tuple[int, int, int]:
+    """(A, B, Kk) of the GGUF tensor [out, in(, k)]: every transform maps
+    [A, B, Kk] to [Kk, B, A], with the unit Kk dropped for linear / conv1."""
+    if transform == "linear" and len(torch_shape) == 2:
+        return torch_shape[0], torch_shape[1], 1
+    if transform == "conv1" and len(torch_shape) == 3 and torch_shape[2] == 1:
+        return torch_shape[0], torch_shape[1], 1
+    if transform == "conv_ffn" and len(torch_shape) == 3:
+        return tuple(torch_shape)
+    raise ValueError(f"q8 dequant: transform {transform!r} does not fit shape {torch_shape}")
+
+
+def out_shape(lead, torch_shape, transform: str) -> Tuple[int, ...]:
+    A, B, Kk = _dims(torch_shape, transform)
+    return (*lead, *((Kk,) if transform == "conv_ffn" else ()), B, A)
+
+
+def dequantize_reference(q: torch.Tensor, s: torch.Tensor, torch_shape,
+                         transform: str) -> torch.Tensor:
+    """Plain version: ``s * q`` in f32, the GGUF shape, the loader's layout."""
+    _dims(torch_shape, transform)
+    w = (s.float() * q.float()).reshape(*q.shape[:-2], *torch_shape)
+    if transform == "linear":
+        w = w.transpose(-1, -2)
+    elif transform == "conv1":
+        w = w[..., 0].transpose(-1, -2)
+    else:
+        w = w.transpose(-1, -3)
+    return w.contiguous()
+
+
+def dequantize(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str) -> torch.Tensor:
+    """q [*lead, n_blocks, 32] int8 and s [*lead, n_blocks, 1] f32 (one
+    f16-valued scale per block, GGUF order) -> the float32 tensor of the
+    loader's ``transform`` of ``torch_shape``, for every lead index."""
+    global launches
+    if q.device.type == "cpu":
+        return dequantize_reference(q, s, torch_shape, transform)
+    if q.device.type != "cuda":
+        raise ValueError(f"q8 dequant: unsupported device {q.device}")
+    A, B, Kk = _dims(torch_shape, transform)
+    lead = tuple(q.shape[:-2])
+    n_blocks = A * B * Kk // QK
+    if A * B * Kk % QK or tuple(q.shape) != (*lead, n_blocks, QK):
+        raise ValueError(f"q8 dequant: q has shape {tuple(q.shape)}, want {(*lead, n_blocks, QK)}")
+    if q.dtype != torch.int8 or not q.is_contiguous():
+        raise ValueError(f"q8 dequant: q must be a contiguous int8 tensor, got {q.dtype}")
+    if (s.device != q.device or s.dtype != torch.float32 or not s.is_contiguous()
+            or tuple(s.shape) != (*lead, n_blocks, 1)):
+        raise ValueError(f"q8 dequant: s must be a contiguous float32 {(*lead, n_blocks, 1)} "
+                         f"tensor on {q.device}, got {s.dtype} {tuple(s.shape)} on {s.device}")
+    out = torch.empty(out_shape(lead, torch_shape, transform), dtype=torch.float32,
+                      device=q.device)
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.magpie_q8_dequant_f32(q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                        math.prod(lead), A, B, Kk, stream)
+    build.check(err, "q8_dequant")
+    launches += 1
+    return out

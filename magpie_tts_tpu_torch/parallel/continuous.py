@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..config import MagpieConfig
-from ..io.magpie_weights import MagpieWeights
+from ..io.magpie_weights import MagpieWeights, materialize_weights
 from ..models import magpie as magpie_mod
 from ..ops import sampling
 from ..ops.kernels.decoder_step_batched import decode_step_batched
@@ -65,7 +65,9 @@ class ContinuousBatchingEngine:
         self.segment_frames = segment_frames
         self.token_buckets = tuple(token_buckets)
         self.device = resolve_device(device)
-        self.weights = weights.to(device=self.device, dtype=compute_dtype)
+        # Q8_0 blocks (--serve-q8 loads) dequantize once here: this engine
+        # serves dense weights (the per-frame stream is a MagpieEngine surface).
+        self.weights = materialize_weights(weights.to(device=self.device, dtype=compute_dtype))
 
         B, L = n_slots, config.dec_layers
         S, D = config.max_seq, config.d_model

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import MagpieConfig
-from ..io.magpie_weights import MagpieWeights
+from ..io.magpie_weights import MagpieWeights, materialize_weights
 from ..models import magpie as magpie_mod
 from ..ops import sampling
 from ..runtime.engine import check_dtype, pick_bucket, resolve_device, split_to_buckets
@@ -46,7 +46,9 @@ class BatchedMagpieEngine:
         self.use_fused = use_fused
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        self.weights = weights.to(device=self.device, dtype=compute_dtype)
+        # Q8_0 blocks (--serve-q8 loads) dequantize once here: this engine
+        # serves dense weights (the per-frame stream is a MagpieEngine surface).
+        self.weights = materialize_weights(weights.to(device=self.device, dtype=compute_dtype))
         self.token_buckets = tuple(token_buckets)
         self.split_token_id = split_token_id
 

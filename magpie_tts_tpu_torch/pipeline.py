@@ -11,7 +11,7 @@ import torch
 from .config import MagpieConfig
 from .io.codec_weights import load_codec_weights
 from .io.gguf import GGUFReader
-from .io.magpie_weights import load_magpie_weights
+from .io.magpie_weights import load_magpie_weights, q8_stream_from_gguf
 from .runtime.engine import CodecEngine, MagpieEngine, check_dtype
 from .text.tokenizer import MagpieTokenizer
 
@@ -27,19 +27,29 @@ class MagpiePipeline:
     def from_gguf(cls, model_path: str, codec_path: Optional[str] = None,
                   device="cuda", compute_dtype=torch.float32,
                   gelu_flavor: Optional[str] = None,
-                  use_fused: Optional[bool] = None) -> "MagpiePipeline":
+                  use_fused: Optional[bool] = None, serve_int8: bool = False,
+                  serve_q8: bool = False) -> "MagpiePipeline":
         """Load the model (and codec) GGUFs onto ``device``; the tokenizer comes
         from the model GGUF's metadata. ``gelu_flavor`` ("erf" / "tanh")
         overrides the config's GELU in every FFN; ``use_fused`` goes to the
-        engine (False: the split decode path)."""
+        engine (False: the split decode path).
+
+        ``serve_int8``: stream the four per-frame decoder matrices as
+        per-column int8. ``serve_q8`` (needs a Q8_0 GGUF, else ValueError):
+        serve the file's own Q8_0 blocks, with no requantization error. The
+        four per-frame decoder matrices stream natively in the kernels
+        (Q8DecoderStream), and every other allowlisted tensor stays as its
+        blocks (Q8Blocks), dequantized at program entry."""
         check_dtype(compute_dtype)
         reader = GGUFReader(model_path)
-        config, weights = load_magpie_weights(model_path, reader=reader)
+        config, weights = load_magpie_weights(model_path, reader=reader, q8_native=serve_q8)
         if gelu_flavor is not None:
             config = dataclasses.replace(config, gelu_flavor=gelu_flavor)
         tokenizer = MagpieTokenizer.from_gguf_metadata(reader.metadata)
+        q8_stream = q8_stream_from_gguf(reader, config) if serve_q8 else None
         engine = MagpieEngine(weights, config, device=device, compute_dtype=compute_dtype,
-                              split_token_id=tokenizer.space_id, use_fused=use_fused)
+                              split_token_id=tokenizer.space_id, use_fused=use_fused,
+                              serve_int8=serve_int8, q8_stream=q8_stream)
         codec = None
         if codec_path:
             codec_config, codec_weights = load_codec_weights(codec_path)

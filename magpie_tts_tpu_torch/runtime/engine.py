@@ -20,7 +20,8 @@ import torch
 
 from ..config import CodecConfig, MagpieConfig
 from ..io.codec_weights import CodecWeights
-from ..io.magpie_weights import MagpieWeights
+from ..io.magpie_weights import (MagpieWeights, Q8DecoderStream, materialize_weights,
+                                 quantize_decoder_stream)
 from ..models import codec as codec_mod
 from ..models import magpie as magpie_mod
 from ..ops import sampling
@@ -75,17 +76,34 @@ class SynthesisResult:
 class MagpieEngine:
     """TTS code generation for one model instance on one device.
     ``use_fused`` (None: fused unless MAGPIE_NO_FUSED; the CLI's --no-fused
-    passes False) picks the fused frame kernel or the split path."""
+    passes False) picks the fused frame kernel or the split path.
+
+    The four decoder matrices a frame streams can be served quantized, through
+    the kernels' one stream slot: ``serve_int8`` quantizes them per column
+    (a serving requantization, ~Q8 error), ``q8_stream`` serves a Q8_0
+    checkpoint's own blocks (``io.magpie_weights.q8_stream_from_gguf``: codes
+    exactly equal to the dequantize-at-load path). The two exclude each
+    other."""
 
     def __init__(self, weights: MagpieWeights, config: MagpieConfig, device="cuda",
                  compute_dtype=torch.float32,
                  token_buckets: Sequence[int] = DEFAULT_TOKEN_BUCKETS,
-                 split_token_id: int = 93, use_fused: Optional[bool] = None):
+                 split_token_id: int = 93, use_fused: Optional[bool] = None,
+                 serve_int8: bool = False, q8_stream: Optional[Q8DecoderStream] = None):
         check_dtype(compute_dtype)
+        if serve_int8 and q8_stream is not None:
+            raise ValueError("serve_int8 and q8_stream are mutually exclusive")
         self.config = config
         self.use_fused = use_fused
         self.device = resolve_device(device)
         self.weights = weights.to(device=self.device, dtype=compute_dtype)
+        self.int8_stream = None
+        if q8_stream is not None:
+            self.int8_stream = q8_stream.to(self.device)
+        elif serve_int8:
+            with torch.no_grad():
+                dec = materialize_weights(self.weights).decoder
+                self.int8_stream = quantize_decoder_stream(dec)
         self.token_buckets = tuple(token_buckets)
         # Inter-word space token used to split over-long inputs.
         self.split_token_id = split_token_id
@@ -114,7 +132,7 @@ class MagpieEngine:
                 key = sampling.fold_in(key, i)
             codes, n_frames = magpie_mod.synthesize_codes_program(
                 tokens, enc_length, speaker_id, key, temperature, self.weights,
-                self.config, top_k, use_fused=self.use_fused)
+                self.config, top_k, use_fused=self.use_fused, int8_stream=self.int8_stream)
             parts.append(codes[:n_frames])
         codes = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
         return SynthesisResult(codes=codes, n_frames=codes.shape[0])

@@ -7,13 +7,16 @@ neither jax nor the JAX package, so it also runs where jax is not installed:
 (``MAGPIE_TEST_TPU=1`` keeps tests/conftest.py from importing jax.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from magpie_tts_tpu_torch.config import CodecConfig, MagpieConfig
 from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
-from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
+from magpie_tts_tpu_torch.io.magpie_weights import (q8_dequantized_decoder, q8_stream_from_arrays,
+                                                     quantize_decoder_stream, random_magpie_weights)
 from magpie_tts_tpu_torch.models import magpie as magpie_mod
 from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
 from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
@@ -22,6 +25,7 @@ from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
 from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
 from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
 from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+from magpie_tts_tpu_torch.ops.kernels import q8_dequant
 from magpie_tts_tpu_torch.parallel import continuous as continuous_mod
 from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
 from magpie_tts_tpu_torch.parallel.serving import BatchedMagpieEngine
@@ -359,3 +363,118 @@ def test_wrappers_reject_bad_inputs(cuda):
     x["valid"] = x["valid"].to(torch.int32)          # must be bool
     with pytest.raises(ValueError):
         fsb.frame_step_batched(weights=w, config=SMALL, temperature=0.0, top_k=8, **x)
+
+
+# ------------------------------------------------ quantized weight streams
+
+@pytest.mark.parametrize("torch_shape,transform,lead", [
+    ((40, 64), "linear", (3,)), ((96, 32, 1), "conv1", ()), ((64, 40, 3), "conv_ffn", (2,)),
+    ((2024, 768), "linear", ())])
+def test_q8_dequant_kernel_matches_plain(cuda, torch_shape, transform, lead):
+    """Kernel 10 against its plain version, bit for bit, for each loader
+    transform (edges that are not multiples of the 32 x 32 tile included)."""
+    rng = np.random.default_rng(len(lead))
+    n_blocks = int(np.prod(torch_shape)) // 32
+    q = torch.tensor(rng.integers(-127, 128, (*lead, n_blocks, 32)), dtype=torch.int8,
+                     device=cuda)
+    s = torch.tensor(rng.normal(0, 0.01, (*lead, n_blocks, 1)).astype(np.float16),
+                     dtype=torch.float32, device=cuda)
+    q8_dequant.launches = 0
+    got = q8_dequant.dequantize(q, s, torch_shape, transform)
+    want = q8_dequant.dequantize_reference(q, s, torch_shape, transform)
+    torch.cuda.synchronize()
+    assert q8_dequant.launches == 1 and got.shape == want.shape and torch.equal(got, want)
+
+
+def _streams(w):
+    """(Q8 stream, weights whose decoder holds its dequantized matrices,
+    int8 stream) on w's device."""
+    q8 = q8_stream_from_arrays(w.decoder).to(w.text_emb.device)
+    deq = dataclasses.replace(w, decoder=q8_dequantized_decoder(w.decoder, q8))
+    return q8, deq, quantize_decoder_stream(w.decoder)
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_single_stream_kernels_q8_bit_equal_dense_int8_match_plain(prepared, temperature):
+    """Kernels A and 5: with the Q8 stream, bit-equal to the same kernel dense
+    on the dequantized weights (codes, hidden, caches); with the int8 stream,
+    codes exact against the plain int8 version, floats to TOL."""
+    w, xa_k, xa_v, st = prepared
+    q8, deq, int8 = _streams(w)
+    args = dict(hidden=st.hidden, pos=st.pos, xa_k=xa_k, xa_v=xa_v, config=SMALL, seed=5,
+                temperature=temperature, top_k=8, forbid_eos=False, enc_length=6)
+    codes = torch.arange(8, dtype=torch.int32, device=st.hidden.device) * 3
+    emb = magpie_mod.audio_frame_embedding(codes, w, SMALL)
+    dec = dict(x=emb, pos=st.pos, xa_k=xa_k, xa_v=xa_v, config=SMALL, enc_length=6)
+    runs = {}
+    for name, (weights, stream, fn_a, fn_5) in {
+            "q8": (deq, q8, fs.frame_step, ds.decode_step),
+            "dense": (deq, None, fs.frame_step, ds.decode_step),
+            "int8": (w, int8, fs.frame_step, ds.decode_step),
+            "int8_plain": (w, int8, fs.frame_step_reference, ds.decode_step_reference)}.items():
+        ka, va, k5, v5 = (st.k_cache.clone() for _ in range(4))
+        with torch.no_grad():
+            sa, aa, ha, _, _ = fn_a(k_cache=ka, v_cache=va, weights=weights, stream=stream, **args)
+            h5 = fn_5(k_cache=k5, v_cache=v5, weights=weights, stream=stream, **dec)
+        runs[name] = (sa, aa, ha, ka, va, h5, k5, v5)
+    torch.cuda.synchronize()
+    assert _same(runs["q8"], runs["dense"])
+    got, want = runs["int8"], runs["int8_plain"]
+    assert _same(got[:2], want[:2])
+    for a, b in zip(got[2:], want[2:]):
+        assert float((a - b).abs().max()) < TOL
+    assert fs.mode_launches["q8"] >= 1 and ds.mode_launches["int8"] >= 1
+
+
+@pytest.mark.parametrize("B,write_row,temperature", [(3, 5, 0.0), (8, 30, 0.7)])
+def test_batched_kernels_q8_bit_equal_dense_int8_match_plain(cuda, B, write_row, temperature):
+    """Kernels C and 8 with ring masks: the Q8 stream bit-equal to the dense
+    kernel on the dequantized weights; the int8 stream's codes exact against
+    plain, floats to TOL on slots with a valid row."""
+    w = random_magpie_weights(SMALL, seed=11).to(device=cuda)
+    q8, deq, int8 = _streams(w)
+    x = _batched_inputs(w, B, write_row, cuda)
+    k0, v0 = x.pop("k_cache"), x.pop("v_cache")
+    valid8 = x["valid"].clone()
+    valid8[:, write_row] = x["may_continue"]
+    x_pe = x["hidden"] * 0.1 + x["posemb"]
+    runs = {}
+    for name, (weights, stream, fn_c, fn_8) in {
+            "q8": (deq, q8, fsb.frame_step_batched, dsb.decode_step_batched),
+            "dense": (deq, None, fsb.frame_step_batched, dsb.decode_step_batched),
+            "int8": (w, int8, fsb.frame_step_batched, dsb.decode_step_batched),
+            "int8_plain": (w, int8, fsb.frame_step_batched_reference,
+                           dsb.decode_step_batched_reference)}.items():
+        kc, vc, k8, v8 = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+        with torch.no_grad():
+            sc, ac, hc, _, _ = fn_c(k_cache=kc, v_cache=vc, weights=weights, config=SMALL,
+                                    temperature=temperature, top_k=8, stream=stream, **x)
+            h8 = fn_8(x_pe, write_row, valid8, x["xa_k"], x["xa_v"], k8, v8, weights, SMALL,
+                      x["enc_lengths"], stream=stream)
+        runs[name] = (sc, ac, hc, kc, vc, h8, k8, v8)
+    torch.cuda.synchronize()
+    assert _same(runs["q8"], runs["dense"])
+    got, want = runs["int8"], runs["int8_plain"]
+    assert _same(got[:2], want[:2])
+    live = slice(0, B - 1)
+    for a, b in zip(got[2:], want[2:]):
+        assert float((a[live] - b[live]).abs().max()) < TOL
+
+
+def test_stream_wrappers_reject_bad_streams(prepared):
+    w, xa_k, xa_v, st = prepared
+    q8, _, int8 = _streams(w)
+    args = (st.hidden, st.pos, xa_k, xa_v, st.k_cache.clone(), st.v_cache.clone(), w, SMALL, 5,
+            0.0, 8, False)
+    with pytest.raises(TypeError):     # not a stream
+        fs.frame_step(*args, stream=w.decoder)
+    with pytest.raises(ValueError):    # stream on the CPU
+        fs.frame_step(*args, stream=int8.to("cpu"))
+    with pytest.raises(ValueError):    # values must be int8
+        fs.frame_step(*args, stream=dataclasses.replace(q8, qkv_q=q8.qkv_q.float()))
+    with pytest.raises(ValueError):    # block scales [L, K / 32, N]
+        fs.frame_step(*args, stream=dataclasses.replace(q8, ff_out_bs=q8.ff_out_bs[:, :1]))

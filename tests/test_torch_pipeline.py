@@ -100,7 +100,8 @@ def test_cli_without_cuda_exits_1(paths, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv,rc", [
     (["serve", "--dtype", "bfloat16", "--device", "cpu"], 1), (["warmup"], 2),
-    (["--stream"], 2), (["--serve-q8"], 2), (["--dtype", "bfloat16", "--device", "cpu"], 1)])
+    (["--stream"], 2), (["--serve-q8", "--stream"], 2),
+    (["--dtype", "bfloat16", "--device", "cpu"], 1)])
 def test_cli_rejects_what_is_not_ported(argv, rc, capsys):
     assert cli.main(argv) == rc
     assert "not ported" in capsys.readouterr().err
