@@ -33,9 +33,21 @@ Phases (each raises on failure, so the process exits non-zero):
    (the WAV at temp 0 byte-identical to serving the file without the flag),
    and with ``--serve-int8`` on the float32 file, fused and ``--no-fused``;
    and ``synthesize_codes_batched_program`` with each stream, fused and split
-   (kernels C and 8 in stream mode; their only caller).
+   (kernels C and 8 in stream mode; their only caller);
+6. bfloat16: kernels A, 4, 5, C, 7 and 8 (dense and both streams), B and 10
+   in bf16 against their plain versions at 357M (codes equal or near-ties,
+   floats in scaled bf16 ulps, ULP_SHARE / ULP_MAX; the Q8_0 stream bit for
+   bit against dense on the weights dequantized in bf16, kernel 10 bit for
+   bit); then ``cli.main`` synth with ``--dtype bfloat16`` fused,
+   ``--no-fused``, ``--serve-int8`` and ``--serve-q8`` (its WAV at temp 0
+   byte-identical to the file dequantized in bf16), ``cli.main serve`` at
+   its bfloat16 default fused and under ``MAGPIE_NO_FUSED=1``, and the
+   batched program with each stream in bf16, every launch checked to be a
+   bfloat16 one (the wrappers' ``dtype_launches``). The float32 paths of
+   phases 3-5 run after them, as before.
 
-The line before last is a JSON summary of the kernels; the last line is
+The line before last is a JSON summary of the kernels (float32 rows, then
+the ``[bf16]`` rows, then the weight streams); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -64,7 +76,16 @@ CONV_RTOL = 1e-5
 # rate, and float32 outside the tensor cores (every kernel here is SIMT f32).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-F32 = 4
+BF16_FLOPS_PER_S = 989e12   # dense bf16 on the tensor cores: the rate for bf16 inputs
+F32, BF16 = 4, 2
+# bf16 floats vs plain, in bf16 ulps of max(|value|, its row's RMS) (scaled_ulps).
+# A frame kernel's outputs pass 12 layers of bf16 roundings: its float32 sums
+# run in another order than torch's, which moves a rounded value by one ulp
+# now and then, and every later rounding spreads that step (a whole row
+# after the next product). Measured at 357M (H100): 96.3-100% within 1 ulp
+# per case, at most 5.1. A single rounding (the codec conv) stays within 1.
+ULP_SHARE, ULP_MAX = 0.95, 8          # frame kernels: 95% within 1 ulp, none past 8
+CONV_ULP_SHARE, CONV_ULP_MAX = 1.0, 1.0   # the codec conv: every value within 1 ulp
 
 
 def log(msg: str) -> None:
@@ -95,57 +116,70 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S) -> dict:
     """The least time the card could take for a function: the larger of the
     bytes it must move over the memory rate and its operations over the
-    float32 peak."""
+    peak for its inputs' type (float32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def lt_work(c, B: int):
+def lt_work(c, B: int, elt: int = F32):
     """(bytes, flops) of B slots' LT sampling: every LT weight and output head
     read once, each slot's hidden row and its 8 sampled embedding rows read,
     its codes written; the matrix products' flops (the 9-row attention and the
-    sampling passes are small beside them)."""
+    sampling passes are small beside them). ``elt``: bytes per weight / row
+    element (4 float32, 2 bfloat16)."""
     D, LT, LF, V, n = c.d_model, c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb, c.num_codebooks
     weights = D * LT + LT + n * LT + 2 * LT + 4 * LT * LT + 2 * LT * LF + n * (LT * V + V)
-    nbytes = F32 * (weights + B * (D + n * D)) + B * 2 * n * 4
+    nbytes = elt * (weights + B * (D + n * D)) + B * 2 * n * 4
     flops = B * n * 2 * (D * LT + 4 * LT * LT + 2 * LT * LF + LT * V)
     return nbytes, flops
 
 
-def dec_work(c, kv_rows, enc_rows, input_rows: int = 2, stream: str = "dense"):
+def dec_work(c, kv_rows, enc_rows, input_rows: int = 2, stream: str = "dense",
+             elt: int = F32):
     """(bytes, flops) of one decoder step for slots attending kv_rows[b]
     existing cache rows and enc_rows[b] cross-attention rows: every decoder
     weight read once (the four streamed matrices as 1-byte int8 values plus
     their float32 scales with an ``int8`` or ``q8`` stream: one per column,
     or one per 32 rows of a column); per slot its rows of K and V, its
     cross-attention K/V rows and ``input_rows`` rows of input (the embedding
-    and its posemb row) read, its new K/V rows and hidden written."""
+    and its posemb row) read, its new K/V rows and hidden written; ``elt``
+    bytes per weight / cache / row element (4 float32, 2 bfloat16)."""
     D, F, X, L = c.d_model, c.d_ffn, c.d_xa, c.dec_layers
     mats = 3 * D * D + D * D + D * X + X * D + 2 * D * F
     streamed = 3 * D * D + D * D + 2 * D * F
     scales = {"dense": 0, "int8": 3 * D + D + F + D,
               "q8": streamed // 32}[stream]
-    weight_bytes = F32 * mats if stream == "dense" else (
-        F32 * (mats - streamed) + streamed + F32 * scales)
-    nbytes = L * (weight_bytes + F32 * 3 * D) + F32 * D
+    weight_bytes = elt * mats if stream == "dense" else (
+        elt * (mats - streamed) + streamed + F32 * scales)
+    nbytes = L * (weight_bytes + elt * 3 * D) + elt * D
     flops = 0
     for r, e in zip(kv_rows, enc_rows):
-        nbytes += F32 * (2 * L * r * D + 2 * L * e * X + input_rows * D + 2 * L * D + D)
+        nbytes += elt * (2 * L * r * D + 2 * L * e * X + input_rows * D + 2 * L * D + D)
         flops += 2 * L * mats + 4 * L * (r + 1) * D + 4 * L * e * X
     return nbytes, flops
 
 
-@functools.lru_cache(maxsize=1)
-def prod_weights(dev):
-    """Random 357M weights (seed 0) on the card, made once for every phase."""
+def prod_weights(dev, dtype: str = "float32"):
+    """Random 357M weights (seed 0) on the card in ``dtype``, made once for
+    every phase."""
+    return _prod_weights(dev, dtype)
+
+
+@functools.lru_cache(maxsize=2)
+def _prod_weights(dev, dtype: str):
+    import torch
+
     from magpie_tts_tpu_torch.config import MagpieConfig
     from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
 
+    if dtype != "float32":
+        c, w = prod_weights(dev)
+        return c, w.to(dtype=getattr(torch, dtype))
     c = MagpieConfig()
     return c, random_magpie_weights(c, seed=0).to(device=dev)
 
@@ -310,22 +344,28 @@ def write_codec_gguf(path: str, config, seed: int) -> None:
 SINGLE_ENC = 20
 
 
-@functools.lru_cache(maxsize=1)
-def single_state(dev):
-    """One stream after prepare() at 357M width, and K/V caches whose rows
-    past the speaker context hold random K/V of the prefill's scale."""
+def single_state(dev, dtype: str = "float32"):
+    """One stream after prepare() at 357M width in ``dtype``, and K/V caches
+    whose rows past the speaker context hold random K/V of the prefill's
+    scale."""
+    return _single_state(dev, dtype)
+
+
+@functools.lru_cache(maxsize=2)
+def _single_state(dev, dtype: str):
     import torch
 
     from magpie_tts_tpu_torch.models import magpie as magpie_mod
 
-    c, w = prod_weights(dev)
+    c, w = prod_weights(dev, dtype)
     rng = np.random.default_rng(0)
     tokens = torch.tensor(rng.integers(2, c.text_vocab_size - 2, size=32), device=dev)
     with torch.no_grad():
         xa_k, xa_v, st = magpie_mod.prepare(tokens, SINGLE_ENC, 0, w, c)
-    scale = float(st.k_cache[:, :c.context_frames].std())
+    scale = float(st.k_cache[:, :c.context_frames].float().std())
     gen = torch.Generator(device=dev).manual_seed(0)
-    filler = lambda: torch.randn(st.k_cache.shape, generator=gen, device=dev) * scale
+    filler = lambda: (torch.randn(st.k_cache.shape, generator=gen, device=dev) * scale).to(
+        st.k_cache.dtype)
     ctx = torch.arange(c.max_seq, device=dev)[None, :, None] < c.context_frames + 1
     k_base = torch.where(ctx, st.k_cache, filler())
     v_base = torch.where(ctx, st.v_cache, filler())
@@ -440,15 +480,19 @@ def check_engine_arguments(fsb, kind: str, x: dict, k_base, v_base, temp: float,
 BATCH_MAX, BATCH_ENC = 32, 128
 
 
-@functools.lru_cache(maxsize=1)
-def batched_state(dev):
-    """BATCH_MAX prepared streams at 357M width (xa padded to BATCH_ENC rows)
-    and K/V caches of random rows at the prefill's scale."""
+def batched_state(dev, dtype: str = "float32"):
+    """BATCH_MAX prepared streams at 357M width in ``dtype`` (xa padded to
+    BATCH_ENC rows) and K/V caches of random rows at the prefill's scale."""
+    return _batched_state(dev, dtype)
+
+
+@functools.lru_cache(maxsize=2)
+def _batched_state(dev, dtype: str):
     import torch
 
     from magpie_tts_tpu_torch.models import magpie as magpie_mod
 
-    c, w = prod_weights(dev)
+    c, w = prod_weights(dev, dtype)
     rng = np.random.default_rng(1)
     Bmax, E = BATCH_MAX, BATCH_ENC
     with torch.no_grad():
@@ -459,20 +503,20 @@ def batched_state(dev):
     pad = (0, 0, 0, E - xa_k.shape[2])
     xa_k = torch.nn.functional.pad(xa_k, pad).contiguous()
     xa_v = torch.nn.functional.pad(xa_v, pad).contiguous()
-    scale = float(k_ctx[:, :, :c.context_frames].std())
+    scale = float(k_ctx[:, :, :c.context_frames].float().std())
     gen = torch.Generator(device=dev).manual_seed(2)
-    k_base = torch.randn(k_ctx.shape, generator=gen, device=dev) * scale
-    v_base = torch.randn(v_ctx.shape, generator=gen, device=dev) * scale
+    k_base = (torch.randn(k_ctx.shape, generator=gen, device=dev) * scale).to(k_ctx.dtype)
+    v_base = (torch.randn(v_ctx.shape, generator=gen, device=dev) * scale).to(k_ctx.dtype)
     return c, w, hidden, xa_k, xa_v, k_base, v_base, enc
 
 
-def batched_inputs(dev, B: int, write_row: int, rng) -> dict:
+def batched_inputs(dev, B: int, write_row: int, rng, dtype: str = "float32") -> dict:
     """Kernel C's arguments for B slots of batched_state: ring-style masks
     (the last slot empty), random may_continue / posemb rows / seeds /
     forbid_eos."""
     import torch
 
-    c, w, hidden, xa_k, xa_v, _, _, enc = batched_state(dev)
+    c, w, hidden, xa_k, xa_v, _, _, enc = batched_state(dev, dtype)
     return dict(
         hidden=hidden[:B].contiguous(), write_row=write_row,
         valid=torch.tensor(_ring_valid(B, c.max_seq, write_row, rng), device=dev),
@@ -557,9 +601,11 @@ def check_frame_step_batched(dev) -> dict:
             "temp07_code_flips": flips, **bound(lt_b + dec_b, lt_f + dec_f)}
 
 
-def check_codec_conv(dev, frames: int = 32) -> dict:
+def check_codec_conv(dev, frames: int = 32, dtype: str = "float32") -> dict:
     """Kernel B vs the plain HalfSnake + conv for every conv class of a decode
-    of ``frames`` frames; times are summed over the 92 convs of that decode."""
+    of ``frames`` frames, in ``dtype`` (bfloat16: every value within
+    CONV_ULP_MAX scaled bf16 ulps); times are summed over the 92 convs of
+    that decode."""
     import torch
 
     from magpie_tts_tpu_torch.config import CodecConfig
@@ -567,7 +613,9 @@ def check_codec_conv(dev, frames: int = 32) -> dict:
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
 
     cfg = CodecConfig()
-    cw = random_codec_weights(cfg, seed=0).to(device=dev)
+    dt = getattr(torch, dtype)
+    elt = F32 if dtype == "float32" else BF16
+    cw = random_codec_weights(cfg, seed=0).to(device=dev, dtype=dt)
     gen = torch.Generator(device=dev).manual_seed(1)
     # (name, T, w, b, alpha, dilation, residual?, multiplicity per decode)
     classes = [("pre", frames, cw.pre_conv_w, cw.pre_conv_b, None, 1, False, 1)]
@@ -586,17 +634,23 @@ def check_codec_conv(dev, frames: int = 32) -> dict:
         raise AssertionError("conv classes do not add up to 92 convs per decode")
 
     worst, total_ms, total_plain, total_lib, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0, 0
+    ulps = []
     with torch.no_grad():
         for name, T, wt, b, alpha, d, res, mult in classes:
             k, c_in, c_out = wt.shape
-            x = torch.randn(1, T, c_in, generator=gen, device=dev) * 0.5
-            r = torch.randn(1, T, c_out, generator=gen, device=dev) * 0.5 if res else None
+            x = (torch.randn(1, T, c_in, generator=gen, device=dev) * 0.5).to(dt)
+            r = (torch.randn(1, T, c_out, generator=gen, device=dev) * 0.5).to(dt) if res else None
             got = cc.snake_causal_conv(x, wt, b, alpha, d, cfg.leaky_slope, residual=r)
             want = cc.snake_causal_conv_reference(x, wt, b, alpha, d, cfg.leaky_slope, r)
-            err = float((got - want).abs().max())
-            if not torch.allclose(got, want, atol=CONV_ATOL, rtol=CONV_RTOL):
-                raise AssertionError(f"codec conv {name} ({c_in}->{c_out}, k{k}, d{d}, T{T}) "
-                                     f"disagrees: max abs err {err}")
+            err = float((got.float() - want.float()).abs().max())
+            if dtype == "float32":
+                ok = torch.allclose(got, want, atol=CONV_ATOL, rtol=CONV_RTOL)
+            else:
+                ulps.append(scaled_ulps(got, want).flatten())
+                ok = ulp_ok(ulps[-1], CONV_ULP_SHARE, CONV_ULP_MAX)
+            if not ok:
+                raise AssertionError(f"codec conv {name} ({c_in}->{c_out}, k{k}, d{d}, T{T}, "
+                                     f"{dtype}) disagrees: max abs err {err}")
             t_k = time_ms(lambda: cc.snake_causal_conv(x, wt, b, alpha, d, 0.01, residual=r), 5)
             t_p = time_ms(lambda: cc.snake_causal_conv_reference(x, wt, b, alpha, d, 0.01, r), 5)
             # The library yardstick: one cuDNN conv1d (float32, TF32 off) of the
@@ -604,7 +658,7 @@ def check_codec_conv(dev, frames: int = 32) -> dict:
             x_nct, w_oik = x.transpose(1, 2).contiguous(), wt.permute(2, 1, 0).contiguous()
             t_l = time_ms(lambda: torch.nn.functional.conv1d(x_nct, w_oik, b, dilation=d,
                                                              padding=(k - 1) * d), 5)
-            log(f"codec_conv {name:18s} {c_in:4d}->{c_out:4d} k{k:2d} d{d} T{T:6d} "
+            log(f"codec_conv[{dtype}] {name:18s} {c_in:4d}->{c_out:4d} k{k:2d} d{d} T{T:6d} "
                 f"res={int(res)}: max abs err {err:.3g}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
                 f"conv1d {t_l:.4f} ms")
             worst = max(worst, err)
@@ -612,13 +666,17 @@ def check_codec_conv(dev, frames: int = 32) -> dict:
             total_plain += t_p * mult
             total_lib += t_l * mult
             n_alpha = 0 if alpha is None else alpha.numel()
-            nbytes += mult * F32 * (T * c_in + k * c_in * c_out + c_out + n_alpha
+            nbytes += mult * elt * (T * c_in + k * c_in * c_out + c_out + n_alpha
                                     + T * c_out * (2 if res else 1))
             flops += mult * 2 * T * k * c_in * c_out
-    log(f"codec_conv: 92 convs of a {frames}-frame decode: kernel {total_ms:.4f} ms, "
+    log(f"codec_conv[{dtype}]: 92 convs of a {frames}-frame decode: kernel {total_ms:.4f} ms, "
         f"plain {total_plain:.4f} ms, conv1d {total_lib:.4f} ms")
-    return {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
-            "library_ms": total_lib, **bound(nbytes, flops)}
+    out = {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
+           "library_ms": total_lib,
+           **bound(nbytes, flops, FP32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S)}
+    if ulps:
+        out.update(ulp_summary(torch.cat(ulps)))
+    return out
 
 
 def _eos(sampled, argmax, c):
@@ -855,6 +913,14 @@ def prod_streams(dev):
     return q8, deq, int8
 
 
+def stream_variants(deq, q8, w, int8):
+    """(name, weights, stream, plain?) of a stream comparison: the Q8_0
+    stream and dense on the dequantized weights, each stream's kernel and
+    plain version."""
+    return (("q8", deq, q8, False), ("dense", deq, None, False), ("q8_plain", deq, q8, True),
+            ("int8", w, int8, False), ("int8_plain", w, int8, True))
+
+
 def _compare_stream_runs(out: dict, who: str, n_codes: int, live=slice(None)) -> dict:
     """The Q8_0 kernel against the dense kernel on the dequantized weights (bit
     for bit), and each stream's kernel against its plain version (codes
@@ -896,8 +962,7 @@ def check_stream_single(dev) -> dict:
     enc_len = SINGLE_ENC
     codes = (torch.arange(c.num_codebooks, device=dev, dtype=torch.int32) * 37) % c.codebook_size
     emb = audio_frame_embedding(codes, w, c)
-    variants = (("q8", deq, q8, False), ("dense", deq, None, False), ("q8_plain", deq, q8, True),
-                ("int8", w, int8, False), ("int8_plain", w, int8, True))
+    variants = stream_variants(deq, q8, w, int8)
     worst = {m: {"A": 0.0, "5": 0.0} for m in STREAMS}
     with torch.no_grad():
         for pos in positions:
@@ -969,8 +1034,7 @@ def check_stream_batched(dev) -> dict:
     c, w, _, _, _, k_base, v_base, _ = batched_state(dev)
     q8, deq, int8 = prod_streams(dev)
     rng = np.random.default_rng(4)
-    variants = (("q8", deq, q8, False), ("dense", deq, None, False), ("q8_plain", deq, q8, True),
-                ("int8", w, int8, False), ("int8_plain", w, int8, True))
+    variants = stream_variants(deq, q8, w, int8)
     worst = {m: {"C": 0.0, "8": 0.0} for m in STREAMS}
 
     def step8(x):
@@ -1049,6 +1113,412 @@ def check_stream_batched(dev) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ bfloat16
+
+BF = "bfloat16"  # the compute dtype of the bf16 phases
+
+
+def scaled_ulps(got, want):
+    """|got - want| in bf16 ulps of max(|want|, the RMS of want's row): an
+    element's own ulp, or the ulp at its row's scale when it is smaller (a
+    near-zero result of cancellation carries the float32 noise of its terms,
+    many of its own ulps). Rows are the last axis (the whole tensor when that
+    axis has one element)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    rows = w.pow(2).mean(-1, keepdim=True) if w.shape[-1] > 1 else w.pow(2).mean()
+    ref = torch.maximum(w.abs(), rows.sqrt()).clamp_min(1e-30)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(ref)) - 7)
+
+
+def ulp_ok(d, share: float = None, most: float = None) -> bool:
+    share = ULP_SHARE if share is None else share
+    most = ULP_MAX if most is None else most
+    return d.numel() == 0 or (float((d <= 1).float().mean()) >= share
+                              and float(d.max()) <= most)
+
+
+def ulp_summary(d) -> dict:
+    return {"within_1ulp": float((d <= 1).float().mean()), "max_ulps": float(d.max())}
+
+
+def ulp_pairs(pairs) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([scaled_ulps(a, b).flatten() for a, b in pairs])
+
+
+def lt_flips(hidden, sampled, argmax, w, c, seed, temp, top_k, forbid):
+    """The codes of one slot's frame (a kernel's ``sampled`` / ``argmax``) that
+    differ from the plain LT sampler fed the kernel's earlier codes, as
+    (phase, gap, ulp): the plain winner's score minus the kernel's code's
+    (in logits; at temp >= 0.01 the Gumbel score times temp) and one bf16
+    ulp of the winner's logit. A flip is a near-tie when gap < ulp."""
+    import math
+
+    import torch
+
+    from magpie_tts_tpu_torch.models import local_transformer as lt_mod
+    from magpie_tts_tpu_torch.ops import sampling
+    from magpie_tts_tpu_torch.ops.precision import matmul_f32
+
+    lt, dev = w.lt, hidden.device
+    mask = sampling.forbidden_token_mask(c.vocab_per_cb, c.audio_bos_id, device=dev)
+    seq = torch.zeros(9, c.lt_dim, dtype=hidden.dtype, device=dev)
+    seq[0] = lt_mod._in_proj(hidden, lt)
+    cols = torch.arange(c.vocab_per_cb, device=dev)
+    flips = []
+    for cb in range(c.num_codebooks):
+        hid = lt_mod._lt_layer_f32(seq, lt, c)[cb]
+        logits = matmul_f32(hid.to(hidden.dtype), lt.out_proj_w[cb]) + lt.out_proj_b[cb].float()
+        logits = sampling.mask_logits(logits, mask, bool(forbid), c.audio_eos_id)
+        scored = [(logits, int(argmax[cb]), 1.0)]
+        if temp >= 0.01:
+            in_topk = sampling.exact_topk_mask(logits, min(top_k, c.vocab_per_cb))
+            g = sampling.gumbel_from_seed(sampling.phase_seed(int(seed), cb).to(dev), cols)
+            z = torch.where(in_topk, logits / temp + g, torch.full_like(logits, sampling.NEG_INF))
+            scored.append((z, int(sampled[cb]), temp))
+        for z, got, scale in scored:
+            want = int(torch.argmax(z))
+            if got != want:
+                lw = abs(float(logits[want]))
+                ulp = 2.0 ** (math.floor(math.log2(lw)) - 7) if lw > 0 else 0.0
+                flips.append((cb, float(z[want] - z[got]) * scale, ulp))
+        if cb < c.num_codebooks - 1:
+            seq[cb + 1] = lt_mod._in_proj(w.audio_emb[cb, int(sampled[cb])], lt)
+    return flips
+
+
+def codes_agree(who, got, want, hidden, w, c, seeds, temp, forbid) -> list:
+    """A bf16 kernel's codes (sampled, argmax) [B, 8] against plain: equal, or
+    every differing code a near-tie of the plain scores (lt_flips). Returns
+    the slots whose codes differ (their later floats follow other codes)."""
+    import torch
+
+    slots = [b for b in range(got[0].shape[0])
+             if not (torch.equal(got[0][b], want[0][b]) and torch.equal(got[1][b], want[1][b]))]
+    for b in slots:
+        flips = lt_flips(hidden[b], got[0][b].tolist(), got[1][b].tolist(), w, c,
+                         int(seeds[b]), temp, 80, bool(forbid[b]))
+        log(f"{who}: slot {b} codes differ from plain; flips (phase, gap, ulp) {flips}")
+        if not flips or any(gap >= ulp for _, gap, ulp in flips):
+            raise AssertionError(f"{who}: slot {b} codes differ from plain past a near-tie "
+                                 f"({flips})")
+    return slots
+
+
+def bf16_streams(dev):
+    """The Q8_0 and int8 streams of prod_streams, and the bf16 weights whose
+    decoder holds the Q8_0 stream dequantized at load in bf16 (the exact f32
+    product rounded once)."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.magpie_weights import STREAMED, q8_dequantized_decoder
+
+    q8, _, int8 = prod_streams(dev)
+    _, w = prod_weights(dev, BF)
+    deq = q8_dequantized_decoder(w.decoder, q8)
+    deq = dataclasses.replace(deq, **{n: getattr(deq, n).to(torch.bfloat16) for n in STREAMED})
+    return q8, dataclasses.replace(w, decoder=deq), int8
+
+
+def check_bf16_single(dev) -> dict:
+    """Kernels A, 4 and 5 in bfloat16 against their plain versions at full
+    width, positions 111 / 300 / 610, temperatures 0 / 0.7 (codes equal or
+    near-ties; hidden and the new K/V rows within ULP_SHARE / ULP_MAX bf16
+    ulps), and with the weight streams at pos 300: the Q8_0 stream bit-equal
+    to the same kernel dense on the weights dequantized in bf16, the Q8_0 and
+    int8 streams against plain. CUDA-event times at pos 300."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
+
+    c, w, xa_k, xa_v, hidden, k_base, v_base, positions = single_state(dev, BF)
+    q8, deq, int8 = bf16_streams(dev)
+    enc = SINGLE_ENC
+    d = {k: [] for k in ("A", "5", "A_q8", "5_q8", "A_int8", "5_int8")}
+    err = dict.fromkeys(d, 0.0)
+    flipped = 0
+
+    def rows(kc, vc, pos):
+        return kc[:, pos], vc[:, pos]
+
+    def add(key, pairs):
+        d[key].append(ulp_pairs(pairs))
+        err[key] = max(err[key], max(float((a.float() - b.float()).abs().max()) for a, b in pairs))
+
+    with torch.no_grad():
+        for pos in positions:
+            for temp in (0.0, 0.7):
+                seed, forbid = 4000 + pos, pos == positions[0]
+                (kk, vk), (kr, vr), (k5, v5), (k5r, v5r) = [(k_base.clone(), v_base.clone())
+                                                            for _ in range(4)]
+                frame = (xa_k, xa_v)
+                sk, ak, hk, _, _ = fs.frame_step(hidden, pos, *frame, kk, vk, w, c, seed, temp, 80,
+                                                 forbid, enc_length=enc)
+                sr, ar, hr, _, _ = fs.frame_step_reference(hidden, pos, *frame, kr, vr, w, c, seed,
+                                                           temp, 80, forbid, enc_length=enc)
+                s4, a4 = lts.sample_frame_codes(hidden, w, c, seed, temp, 80, forbid)
+                emb = audio_frame_embedding(sr, w, c)
+                h5 = ds.decode_step(emb, pos, *frame, k5, v5, w, c, enc_length=enc)
+                h5r = ds.decode_step_reference(emb, pos, *frame, k5r, v5r, w, c, enc_length=enc)
+                torch.cuda.synchronize()
+                who = f"bf16 pos {pos} temp {temp}"
+                one = lambda t: t[None]
+                bad = codes_agree(f"frame_step {who}", (one(sk), one(ak)), (one(sr), one(ar)),
+                                  one(hidden), w, c, [seed], temp, [forbid])
+                codes_agree(f"lt_sampler {who}", (one(s4), one(a4)), (one(sr), one(ar)),
+                            one(hidden), w, c, [seed], temp, [forbid])
+                flipped += len(bad)
+                if not bad:
+                    add("A", ((hk, hr), *zip(rows(kk, vk, pos), rows(kr, vr, pos))))
+                add("5", ((h5, h5r), *zip(rows(k5, v5, pos), rows(k5r, v5r, pos))))
+                log(f"{who}: frame_step codes {'differ (near-ties)' if bad else 'equal'}, "
+                    f"lt_sampler codes checked; decoder_step max ulps "
+                    f"{float(d['5'][-1].max()):.3f}, within 1 ulp "
+                    f"{float((d['5'][-1] <= 1).float().mean()):.6f}")
+        pos, temp, seed = positions[1], 0.7, 7
+        codes = (torch.arange(c.num_codebooks, device=dev, dtype=torch.int32) * 37
+                 ) % c.codebook_size
+        emb = audio_frame_embedding(codes, w, c)
+        for t in (0.0, 0.7):
+            out = {}
+            for name, weights, stream, plain in stream_variants(deq, q8, w, int8):
+                fa = fs.frame_step_reference if plain else fs.frame_step
+                f5 = ds.decode_step_reference if plain else ds.decode_step
+                ka, va, k5, v5 = (k_base.clone(), v_base.clone(), k_base.clone(), v_base.clone())
+                sa, aa, ha, _, _ = fa(hidden, pos, xa_k, xa_v, ka, va, weights, c, seed, t, 80,
+                                      False, enc_length=enc, stream=stream)
+                h5 = f5(emb, pos, xa_k, xa_v, k5, v5, weights, c, enc_length=enc, stream=stream)
+                out[name] = (sa, aa, ha, ka, va, h5, k5, v5)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(out["q8"], out["dense"])):
+                raise AssertionError(f"bf16 frame_step / decoder_step: the Q8_0 stream differs "
+                                     f"from dense on the bf16-dequantized weights (temp {t})")
+            for m in ("q8", "int8"):
+                got, want = out[m], out[m + "_plain"]
+                bad = codes_agree(f"bf16 frame_step[{m}] temp {t}", (got[0][None], got[1][None]),
+                                  (want[0][None], want[1][None]), hidden[None], w if m == "int8"
+                                  else deq, c, [seed], t, [False])
+                if not bad:
+                    add(f"A_{m}", ((got[2], want[2]), (got[3][:, pos], want[3][:, pos]),
+                                   (got[4][:, pos], want[4][:, pos])))
+                add(f"5_{m}", ((got[5], want[5]), (got[6][:, pos], want[6][:, pos]),
+                               (got[7][:, pos], want[7][:, pos])))
+        log(f"bf16 streams at pos {pos}: Q8_0 bit-equal to dense on the bf16-dequantized "
+            f"weights (frame_step, decoder_step, temp 0 / 0.7)")
+        res = {}
+        for key, pairs in d.items():
+            if not pairs:
+                raise AssertionError(f"bf16 {key}: no case compared")
+            u = torch.cat(pairs)
+            log(f"bf16 {key}: {u.numel()} floats vs plain, within 1 ulp "
+                f"{float((u <= 1).float().mean()):.6f}, max {float(u.max()):.3f} ulps, max abs err "
+                f"{err[key]:.3g}")
+            if not ulp_ok(u):
+                raise AssertionError(f"bf16 {key} disagrees with plain: {ulp_summary(u)}")
+            res[key] = {"max_abs_err": err[key], **ulp_summary(u)}
+        # Times at pos 300, temp 0.7 (the cache row is rewritten per call).
+        kt, vt = k_base.clone(), v_base.clone()
+        frame = (hidden, pos, xa_k, xa_v, kt, vt)
+        step = (emb, pos, xa_k, xa_v, kt, vt)
+        lt_args = (hidden, w, c, seed, temp, 80, False)
+        runs = {"A": (lambda: fs.frame_step(*frame, w, c, seed, temp, 80, False, enc_length=enc),
+                      lambda: fs.frame_step_reference(*frame, w, c, seed, temp, 80, False,
+                                                      enc_length=enc)),
+                "4": (lambda: lts.sample_frame_codes(*lt_args),
+                      lambda: lts.sample_frame_codes_reference(*lt_args)),
+                "5": (lambda: ds.decode_step(*step, w, c, enc_length=enc),
+                      lambda: ds.decode_step_reference(*step, w, c, enc_length=enc))}
+        for m, weights, stream in (("q8", deq, q8), ("int8", w, int8)):
+            runs[f"A_{m}"] = (
+                functools.partial(fs.frame_step, *frame, weights, c, seed, temp, 80, False,
+                                  enc_length=enc, stream=stream),
+                functools.partial(fs.frame_step_reference, *frame, weights, c, seed, temp, 80,
+                                  False, enc_length=enc, stream=stream))
+            runs[f"5_{m}"] = (
+                functools.partial(ds.decode_step, *step, weights, c, enc_length=enc,
+                                  stream=stream),
+                functools.partial(ds.decode_step_reference, *step, weights, c, enc_length=enc,
+                                  stream=stream))
+        times = {k: (time_ms(f, reps=50), time_ms(p, reps=5)) for k, (f, p) in runs.items()}
+    log("bf16 single-stream times at pos {} (temp 0.7), CUDA-event ms kernel / plain: ".format(pos)
+        + "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items()))
+    lt_b, lt_f = lt_work(c, 1, elt=2)
+    res["4"] = {"max_abs_err": 0.0}
+    for key in res:
+        ms, plain_ms = times[key]
+        m = key.split("_")[1] if "_" in key else "dense"
+        if key.startswith("A"):
+            b, f = dec_work(c, [pos], [enc], input_rows=1, stream=m, elt=2)
+            b, f = b + lt_b, f + lt_f
+        elif key.startswith("5"):
+            b, f = dec_work(c, [pos], [enc], stream=m, elt=2)
+        else:
+            b, f = lt_b, lt_f
+        res[key].update(ms=ms, plain_ms=plain_ms, **bound(b, f, BF16_FLOPS_PER_S))
+    res["temp07_code_flips"] = flipped
+    return res
+
+
+def check_bf16_batched(dev) -> dict:
+    """Kernels C, 7 and 8 in bfloat16 against their plain versions at full
+    width, B = 8 and 32 with ring masks (the last slot empty), write rows
+    111 / 300 / 610, temperatures 0 / 0.7 (codes equal or near-ties; hidden
+    and the new K/V rows of the live slots within ULP_SHARE / ULP_MAX bf16
+    ulps); C and 8 with the weight streams at B = 8, row 300 (the Q8_0 stream
+    bit-equal to dense on the bf16-dequantized weights, both streams against
+    plain). CUDA-event times at B = 8, row 300 (C also at B = 32)."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+
+    c, w, _, _, _, k_base, v_base, _ = batched_state(dev, BF)
+    q8, deq, int8 = bf16_streams(dev)
+    rng = np.random.default_rng(5)
+    rows_of = (c.context_frames + 1, c.max_seq // 2 - 20, c.max_seq - 30)
+    d = {k: [] for k in ("C", "8", "C_q8", "8_q8", "C_int8", "8_int8")}
+    err = dict.fromkeys(d, 0.0)
+    flipped = 0
+
+    def add(key, got, want, r, live):
+        hk, kk, vk = got
+        hr, kr, vr = want
+        pairs = ((hk[live], hr[live]), (kk[live][:, :, r], kr[live][:, :, r]),
+                 (vk[live][:, :, r], vr[live][:, :, r]))
+        d[key].append(ulp_pairs(pairs))
+        err[key] = max(err[key], max(float((a.float() - b.float()).abs().max()) for a, b in pairs))
+
+    def step8(x, sampled, argmax, weights):
+        """Kernel 8's inputs after a frame's codes: embedding + posemb, the
+        write row valid as kernel C decides it."""
+        r = x["write_row"]
+        valid = x["valid"].clone()
+        valid[:, r] = x["may_continue"] & ~_eos(sampled, argmax, c)
+        return (audio_frame_embedding(sampled, weights, c) + x["posemb"], r, valid, x["xa_k"],
+                x["xa_v"])
+
+    def codes(who, got, want, x, temp, weights):
+        return codes_agree(who, got, want, x["hidden"], weights, c, x["seeds"].tolist(), temp,
+                           x["forbid_eos"].tolist())
+
+    with torch.no_grad():
+        for B in (8, BATCH_MAX):
+            for r in rows_of:
+                for temp in (0.0, 0.7):
+                    x = batched_inputs(dev, B, r, rng, BF)
+                    (kk, vk), (kr, vr), (k8, v8), (k8r, v8r) = [
+                        (k_base[:B].clone(), v_base[:B].clone()) for _ in range(4)]
+                    sk, ak, hk, _, _ = fsb.frame_step_batched(k_cache=kk, v_cache=vk,
+                                                              temperature=temp, **x)
+                    sr, ar, hr, _, _ = fsb.frame_step_batched_reference(
+                        k_cache=kr, v_cache=vr, temperature=temp, **x)
+                    s7, a7 = ltsb.sample_frame_codes_batched(x["hidden"], w, c, x["seeds"], temp,
+                                                            80, x["forbid_eos"])
+                    step = step8(x, sr, ar, w)
+                    h8 = dsb.decode_step_batched(*step, k8, v8, w, c, x["enc_lengths"])
+                    h8r = dsb.decode_step_batched_reference(*step, k8r, v8r, w, c,
+                                                            x["enc_lengths"])
+                    torch.cuda.synchronize()
+                    who = f"bf16 B {B} row {r} temp {temp}"
+                    bad = codes(f"frame_step_batched {who}", (sk, ak), (sr, ar), x, temp, w)
+                    codes(f"lt_sampler_batched {who}", (s7, a7), (sr, ar), x, temp, w)
+                    flipped += len(bad)
+                    live = [b for b in range(B - 1) if b not in bad]
+                    add("C", (hk, kk, vk), (hr, kr, vr), r, live)
+                    add("8", (h8, k8, v8), (h8r, k8r, v8r), r, list(range(B - 1)))
+                    log(f"{who}: frame_step_batched codes differing in slots {bad}; "
+                        f"decoder_step_batched max ulps {float(d['8'][-1].max()):.3f}, "
+                        f"within 1 ulp {float((d['8'][-1] <= 1).float().mean()):.6f}")
+        r = rows_of[1]
+        x = batched_inputs(dev, 8, r, rng, BF)
+        fixed = (torch.arange(8 * c.num_codebooks, device=dev, dtype=torch.int32)
+                 .reshape(8, -1) * 37) % c.codebook_size
+        for temp in (0.0, 0.7):
+            out = {}
+            for name, weights, stream, plain in stream_variants(deq, q8, w, int8):
+                fc = fsb.frame_step_batched_reference if plain else fsb.frame_step_batched
+                f8 = dsb.decode_step_batched_reference if plain else dsb.decode_step_batched
+                kc, vc, k8, v8 = k_base[:8].clone(), v_base[:8].clone(), k_base[:8].clone(), \
+                    v_base[:8].clone()
+                sc, ac, hc, _, _ = fc(k_cache=kc, v_cache=vc, temperature=temp, stream=stream,
+                                      **dict(x, weights=weights))
+                step = step8(x, fixed, fixed, weights)
+                h8 = f8(*step, k8, v8, weights, c, x["enc_lengths"], stream=stream)
+                out[name] = (sc, ac, hc, kc, vc, h8, k8, v8)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(out["q8"], out["dense"])):
+                raise AssertionError(f"bf16 frame_step_batched / decoder_step_batched: the Q8_0 "
+                                     f"stream differs from dense on the bf16-dequantized weights")
+            for m in ("q8", "int8"):
+                got, want = out[m], out[m + "_plain"]
+                bad = codes(f"bf16 frame_step_batched[{m}] temp {temp}", got[:2], want[:2], x,
+                            temp, w if m == "int8" else deq)
+                add(f"C_{m}", got[2:5], want[2:5], r, [b for b in range(7) if b not in bad])
+                add(f"8_{m}", got[5:8], want[5:8], r, list(range(7)))
+        log(f"bf16 batched streams at B 8 row {r}: Q8_0 bit-equal to dense on the "
+            f"bf16-dequantized weights (frame_step_batched, decoder_step_batched)")
+        res = {}
+        for key, pairs in d.items():
+            u = torch.cat(pairs)
+            log(f"bf16 {key}: {u.numel()} floats vs plain (live slots), within 1 ulp "
+                f"{float((u <= 1).float().mean()):.6f}, max {float(u.max()):.3f} ulps, max abs err "
+                f"{err[key]:.3g}")
+            if not ulp_ok(u):
+                raise AssertionError(f"bf16 {key} disagrees with plain: {ulp_summary(u)}")
+            res[key] = {"max_abs_err": err[key], **ulp_summary(u)}
+        kt, vt = k_base[:8].clone(), v_base[:8].clone()
+        sample = (x["hidden"], w, c, x["seeds"], 0.7, 80, x["forbid_eos"])
+        runs = {"7": (lambda: ltsb.sample_frame_codes_batched(*sample),
+                      lambda: ltsb.sample_frame_codes_batched_reference(*sample))}
+        for m, weights, stream in (("", w, None), ("_q8", deq, q8), ("_int8", w, int8)):
+            args = dict(x, weights=weights, k_cache=kt, v_cache=vt, temperature=0.7,
+                        stream=stream)
+            step = step8(x, fixed, fixed, weights)
+            runs["C" + m] = (functools.partial(fsb.frame_step_batched, **args),
+                             functools.partial(fsb.frame_step_batched_reference, **args))
+            runs["8" + m] = (
+                functools.partial(dsb.decode_step_batched, *step, kt, vt, weights, c,
+                                  x["enc_lengths"], stream=stream),
+                functools.partial(dsb.decode_step_batched_reference, *step, kt, vt, weights, c,
+                                  x["enc_lengths"], stream=stream))
+        times = {k: (time_ms(f, reps=30), time_ms(p, reps=3, warmup=1))
+                 for k, (f, p) in runs.items()}
+        x32 = batched_inputs(dev, BATCH_MAX, r, rng, BF)
+        k32, v32 = k_base.clone(), v_base.clone()
+        ms_b32 = time_ms(lambda: fsb.frame_step_batched(k_cache=k32, v_cache=v32,
+                                                        temperature=0.7, **x32), reps=30)
+    log(f"bf16 batched times at B 8 row {r} (temp 0.7), CUDA-event ms kernel / plain: " +
+        "; ".join(f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in times.items()) +
+        f"; frame_step_batched B={BATCH_MAX} {ms_b32:.4f}")
+    lt_b, lt_f = lt_work(c, 8, elt=2)
+    res["7"] = {"max_abs_err": 0.0}
+    valid_c = x["valid"].sum(-1).tolist()
+    valid_8 = step8(x, fixed, fixed, w)[2].sum(-1).tolist()
+    for key in res:
+        ms, plain_ms = times[key]
+        m = key.split("_")[1] if "_" in key else "dense"
+        if key.startswith("C"):
+            b, f = dec_work(c, valid_c, x["enc_lengths"].tolist(), input_rows=1, stream=m, elt=2)
+            b, f = b + lt_b, f + lt_f
+        elif key.startswith("8"):
+            b, f = dec_work(c, valid_8, x["enc_lengths"].tolist(), input_rows=1, stream=m, elt=2)
+            b += 8 * c.max_seq
+        else:
+            b, f = lt_b, lt_f
+        res[key].update(ms=ms, plain_ms=plain_ms, **bound(b, f, BF16_FLOPS_PER_S))
+    res["C"]["ms_b32"] = ms_b32
+    res["temp07_code_flips"] = flipped
+    return res
+
+
 def write_ggufs(tmp: Path):
     """Production-width random GGUFs (max_dec_steps cut to 128 frames)."""
     from magpie_tts_tpu_torch.config import CodecConfig, MagpieConfig
@@ -1065,11 +1535,12 @@ def write_ggufs(tmp: Path):
     return mcfg, ccfg
 
 
-def check_q8_dequant(tmp: Path, dev) -> dict:
+def check_q8_dequant(tmp: Path, dev, dtype: str = "float32") -> dict:
     """Kernel 10 for every block-stored tensor of the production-width Q8_0
-    GGUF (``load_magpie_weights(q8_native=True)``): bit for bit against its
-    plain version on the card and against the dense load of the same file;
-    times summed over the tensors (one program entry's materialize)."""
+    GGUF (``load_magpie_weights(q8_native=True)``), writing ``dtype``: bit
+    for bit against its plain version on the card and against the dense load
+    of the same file cast to ``dtype``; times summed over the tensors (one
+    program entry's materialize)."""
     import torch
 
     from magpie_tts_tpu_torch.io.magpie_weights import load_magpie_weights, q8_blocks
@@ -1079,6 +1550,7 @@ def check_q8_dequant(tmp: Path, dev) -> dict:
     _, native = load_magpie_weights(path, q8_native=True)
     _, dense = load_magpie_weights(path)
     found = q8_blocks(native)
+    dt = getattr(torch, dtype)
     total = {"ms": 0.0, "plain_ms": 0.0}
     nbytes = 0
     with torch.no_grad():
@@ -1087,8 +1559,8 @@ def check_q8_dequant(tmp: Path, dev) -> dict:
             want = dense
             for part in name.split("."):
                 want = getattr(want, part)
-            want = want.to(dev)
-            args = (blk.q, blk.s, blk.torch_shape, blk.transform)
+            want = want.to(device=dev, dtype=dt)
+            args = (blk.q, blk.s, blk.torch_shape, blk.transform, dt)
             got = q8_dequant.dequantize(*args)
             plain = q8_dequant.dequantize_reference(*args)
             torch.cuda.synchronize()
@@ -1097,24 +1569,41 @@ def check_q8_dequant(tmp: Path, dev) -> dict:
                                      f"differs from plain or from the dense load")
             total["ms"] += time_ms(lambda: q8_dequant.dequantize(*args), reps=10)
             total["plain_ms"] += time_ms(lambda: q8_dequant.dequantize_reference(*args), reps=5)
-            nbytes += blk.q.numel() + F32 * (blk.s.numel() + got.numel())
-            log(f"q8_dequant {name} {tuple(blk.q.shape)} -> {tuple(got.shape)} "
+            nbytes += blk.q.numel() + F32 * blk.s.numel() + got.element_size() * got.numel()
+            log(f"q8_dequant[{dtype}] {name} {tuple(blk.q.shape)} -> {tuple(got.shape)} "
                 f"({blk.transform}): equal to plain and to the dense load bit for bit")
-    log(f"q8_dequant: {len(found)} block-stored tensors, {nbytes / 1e6:.1f} MB moved: kernel "
-        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms per materialize")
+    log(f"q8_dequant[{dtype}]: {len(found)} block-stored tensors, {nbytes / 1e6:.1f} MB moved: "
+        f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms per materialize")
     return {"max_abs_err": 0.0, **total, "nodes": len(found), **bound(nbytes, 0)}
+
+
+def check_dtype_launches(kernels, dtype: str, who: str) -> None:
+    """Every launch of each kernel module was in ``dtype``: no float32 kernel
+    ran on a bfloat16 path, nor the other way round."""
+    for k in kernels:
+        if k.dtype_launches[dtype] != k.launches or sum(k.dtype_launches.values()) != k.launches:
+            raise AssertionError(f"{who}: {k.__name__} launches {k.launches}, by dtype "
+                                 f"{k.dtype_launches}, want all {dtype}")
+
+
+def reset_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+        k.dtype_launches = dict.fromkeys(k.dtype_launches, 0)
+        if hasattr(k, "mode_launches"):
+            k.mode_launches = dict.fromkeys(k.mode_launches, 0)
 
 
 def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
                   model: str = "magpie.gguf", flags=(), temp: float = 0.7,
-                  q8_nodes: int = 0) -> dict:
-    """cli.main at full width on random GGUFs; checks the WAV and launch
-    counts: kernel A once per loop step, or with ``split`` (``--no-fused``)
-    kernels 4 and 5 once per step and kernel A never; every launch in the
-    weight stream that ``flags`` ask for (``--serve-q8`` / ``--serve-int8``,
-    else dense), and with ``--serve-q8`` kernel 10 once for each of the
-    ``q8_nodes`` block-stored tensors. Returns the counts, frames/s and the
-    WAV's bytes."""
+                  q8_nodes: int = 0, dtype: str = "float32") -> dict:
+    """cli.main at full width on random GGUFs with ``--dtype dtype``; checks
+    the WAV and launch counts: kernel A once per loop step, or with ``split``
+    (``--no-fused``) kernels 4 and 5 once per step and kernel A never; every
+    launch in the weight stream that ``flags`` ask for (``--serve-q8`` /
+    ``--serve-int8``, else dense) and in ``dtype``, and with ``--serve-q8``
+    kernel 10 once for each of the ``q8_nodes`` block-stored tensors. Returns
+    the counts, frames/s and the WAV's bytes."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
@@ -1125,17 +1614,15 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
 
     hop = ccfg.hop_length
     mode = "q8" if "--serve-q8" in flags else "int8" if "--serve-int8" in flags else "dense"
-    tag = " ".join([model, *flags, *(["--no-fused"] if split else []), f"--temp {temp}"])
+    tag = " ".join([model, *flags, *(["--no-fused"] if split else []), f"--temp {temp}",
+                    f"--dtype {dtype}"])
     out = tmp / (tag.replace(" ", "_").replace("-", "") + ".wav")
     argv = ["-m", str(tmp / model), "-c", str(tmp / "codec.gguf"),
-            "-t", "hello world", "-o", str(out), "--device", "cuda",
+            "-t", "hello world", "-o", str(out), "--device", "cuda", "--dtype", dtype,
             "--temp", str(temp), "--seed", "0", *flags] + (["--no-fused"] if split else [])
     err = io.StringIO()
     kernels = (fs, lts, ds, cc, q8_dequant)
-    for k in kernels:
-        k.launches = 0
-    for k in (fs, ds):
-        k.mode_launches = dict.fromkeys(k.mode_launches, 0)
+    reset_counts(kernels)
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         rc = cli.main(argv)
@@ -1169,47 +1656,55 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     if deq_launches != (q8_nodes if mode == "q8" else 0):
         raise AssertionError(f"q8 dequant launched {deq_launches}x, want "
                              f"{q8_nodes if mode == 'q8' else 0} ({tag})")
+    check_dtype_launches(kernels, dtype, tag)
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) fps", err.getvalue())
     synth_s, fps = (float(m.group(1)), float(m.group(2))) if m else (float("nan"),) * 2
     log(f"main path {tag}: {n_frames} frames, {len(samples)} samples, frame_step / lt_sampler / "
         f"decoder_step launches {frame_launches} / {lt_launches} / {dec_launches} (all "
-        f"{mode}), conv launches {conv_launches}, q8_dequant launches {deq_launches}, synth "
-        f"{synth_s} s = {fps} fps (cli.main wall {wall:.2f} s incl. load) on {card}")
+        f"{mode}, all {dtype}), conv launches {conv_launches}, q8_dequant launches "
+        f"{deq_launches}, synth {synth_s} s = {fps} fps (cli.main wall {wall:.2f} s incl. "
+        f"load) on {card}")
     return {"frame_launches": frame_launches, "lt_launches": lt_launches,
             "dec_launches": dec_launches, "conv_launches": conv_launches,
             "deq_launches": deq_launches, "n_frames": n_frames, "fps": fps,
             "wav": out.read_bytes()}
 
 
-def run_quantized_main_paths(tmp: Path, mcfg, ccfg, card: str, q8_nodes: int) -> dict:
+def run_quantized_main_paths(tmp: Path, mcfg, ccfg, card: str, q8_nodes: int,
+                             dtype: str = "float32", splits=(False, True)) -> dict:
     """``--serve-q8`` on the Q8_0 GGUF, fused and ``--no-fused``, each at temp
     0 against the same file served without the flag (WAV byte-identical);
-    ``--serve-int8`` on the float32 GGUF, fused and ``--no-fused``."""
+    ``--serve-int8`` on the float32 GGUF, fused and ``--no-fused``; all with
+    ``--dtype dtype``."""
     runs = {}
-    for split in (False, True):
+    for split in splits:
         key = "split" if split else "fused"
         q8 = run_main_path(tmp, mcfg, ccfg, card, split, "magpie_q8.gguf", ["--serve-q8"], 0.0,
-                           q8_nodes)
-        dense = run_main_path(tmp, mcfg, ccfg, card, split, "magpie_q8.gguf", (), 0.0)
+                           q8_nodes, dtype)
+        dense = run_main_path(tmp, mcfg, ccfg, card, split, "magpie_q8.gguf", (), 0.0,
+                              dtype=dtype)
         same = q8["wav"] == dense["wav"]
-        log(f"--serve-q8{' --no-fused' if split else ''} at temp 0: WAV byte-identical to the "
-            f"Q8_0 file served without the flag: {same} ({len(q8['wav'])} bytes)")
+        log(f"--serve-q8{' --no-fused' if split else ''} --dtype {dtype} at temp 0: WAV "
+            f"byte-identical to the Q8_0 file served without the flag: {same} "
+            f"({len(q8['wav'])} bytes)")
         if not same:
-            raise AssertionError(f"--serve-q8 ({key}) WAV differs from dequantized serving")
+            raise AssertionError(f"--serve-q8 ({key}, {dtype}) WAV differs from dequantized "
+                                 f"serving")
         runs[f"q8_{key}"], runs[f"q8_dense_{key}"] = q8, dense
         runs[f"int8_{key}"] = run_main_path(tmp, mcfg, ccfg, card, split, "magpie.gguf",
-                                            ["--serve-int8"], 0.7)
+                                            ["--serve-int8"], 0.7, dtype=dtype)
     return runs
 
 
-def run_batched_streams(tmp: Path, dev, q8_nodes: int) -> dict:
+def run_batched_streams(tmp: Path, dev, q8_nodes: int, dtype: str = "float32") -> dict:
     """``synthesize_codes_batched_program(int8_stream=...)``, the batched
     kernels' only caller with a stream, at full width on the GGUFs' weights,
     B = 8, 24 frames, temp 0.7: the Q8_0 stream of ``from_gguf(serve_q8=True)``
     (block-stored weights, so kernel 10 runs at program entry) against the
     dense program on the materialized weights, codes equal, fused (kernel C)
-    and split (kernels 7 + 8); and the int8 stream of ``serve_int8=True``.
-    Counts each batched kernel's launches by weight stream."""
+    and split (kernels 7 + 8); and the int8 stream of ``serve_int8=True``; in
+    compute ``dtype``. Counts each batched kernel's launches by weight stream
+    and dtype."""
     import torch
 
     from magpie_tts_tpu_torch.io.magpie_weights import materialize_weights
@@ -1220,8 +1715,11 @@ def run_batched_streams(tmp: Path, dev, q8_nodes: int) -> dict:
     from magpie_tts_tpu_torch.ops.kernels import q8_dequant
     from magpie_tts_tpu_torch.pipeline import MagpiePipeline
 
-    q8_pipe = MagpiePipeline.from_gguf(str(tmp / "magpie_q8.gguf"), device=dev, serve_q8=True)
-    int8_pipe = MagpiePipeline.from_gguf(str(tmp / "magpie.gguf"), device=dev, serve_int8=True)
+    dt = getattr(torch, dtype)
+    q8_pipe = MagpiePipeline.from_gguf(str(tmp / "magpie_q8.gguf"), device=dev, serve_q8=True,
+                                       compute_dtype=dt)
+    int8_pipe = MagpiePipeline.from_gguf(str(tmp / "magpie.gguf"), device=dev, serve_int8=True,
+                                         compute_dtype=dt)
     c = q8_pipe.config
     B, steps = 8, 24
     rng = np.random.default_rng(7)
@@ -1240,13 +1738,12 @@ def run_batched_streams(tmp: Path, dev, q8_nodes: int) -> dict:
                     ("q8", q8_pipe.engine.weights, q8_pipe.engine.int8_stream),
                     ("dense", dense_w, None),
                     ("int8", int8_pipe.engine.weights, int8_pipe.engine.int8_stream)):
-                for k in (fsb, dsb, q8_dequant):
-                    k.launches = 0
-                for k in (fsb, dsb):
-                    k.mode_launches = dict.fromkeys(k.mode_launches, 0)
+                reset_counts((fsb, dsb, q8_dequant))
                 codes, n_frames = synthesize_codes_batched_program(
                     weights=weights, use_fused=fused, int8_stream=stream, **common)
                 torch.cuda.synchronize()
+                check_dtype_launches((fsb, dsb, q8_dequant), dtype,
+                                     f"batched program {fused} {mode} {dtype}")
                 kernel = fsb if fused else dsb
                 other = dsb if fused else fsb
                 n = kernel.launches
@@ -1258,7 +1755,7 @@ def run_batched_streams(tmp: Path, dev, q8_nodes: int) -> dict:
                         f"q8 dequant {q8_dequant.launches}")
                 got[mode] = (codes, n_frames)
                 runs[f"{mode}_{key}"] = {"launches": n, "deq_launches": q8_dequant.launches}
-                log(f"batched program {key}, {mode} stream: {n} "
+                log(f"batched program {key}, {mode} stream, {dtype}: {n} "
                     f"{kernel.__name__.rsplit('.', 1)[1]} launches "
                     f"(all {mode}), q8_dequant launches {q8_dequant.launches}, frames "
                     f"{n_frames.tolist()}")
@@ -1270,17 +1767,43 @@ def run_batched_streams(tmp: Path, dev, q8_nodes: int) -> dict:
     return runs
 
 
+def time_prepare(tmp: Path, dev) -> dict:
+    """CUDA-event ms of ``prepare`` (serve's admission: encoder, prefill, BOS
+    step; plain PyTorch) for a 32-token request on the GGUF's weights, in
+    bfloat16 and float32, alternating (bf16, f32, f32, bf16), 10 calls
+    each."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.magpie_weights import load_magpie_weights
+    from magpie_tts_tpu_torch.models import magpie as magpie_mod
+
+    c, w = load_magpie_weights(str(tmp / "magpie.gguf"))
+    tokens = torch.tensor(np.random.default_rng(9).integers(2, c.text_vocab_size - 2, 32),
+                          device=dev)
+    out = {"bfloat16": [], "float32": []}
+    with torch.no_grad():
+        for dtype in ("bfloat16", "float32", "float32", "bfloat16"):
+            wd = w.to(device=dev, dtype=getattr(torch, dtype))
+            out[dtype].append(time_ms(lambda: magpie_mod.prepare(tokens, 20, 0, wd, c), reps=10))
+    log(f"prepare of a 32-token request (serve's admission), CUDA-event ms, in the order "
+        f"bf16 / f32 / f32 / bf16: {out['bfloat16'][0]:.3f} / {out['float32'][0]:.3f} / "
+        f"{out['float32'][1]:.3f} / {out['bfloat16'][1]:.3f}")
+    return out
+
+
 SERVE_SLOTS, SERVE_SEGMENT = 8, 16  # serve's default slots
 SERVE_TEXTS = ["hello world", "hello, world!", "world hello.", "abc def", "hello abc world",
                "def, hello"]
 
 
-def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict:
+def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
+              dtype: str = "bfloat16") -> dict:
     """cli.main serve at full width: six JSONL requests and a malformed line on
     a stdin stand-in; checks every result, the error line, the WAVs, and the
     launch counts: kernel C once per segment frame, or with ``split``
     (``MAGPIE_NO_FUSED=1``) kernels 7 and 8 once per segment frame and kernel
-    C never; codec conv 92 per ``decode_batch``."""
+    C never; codec conv 92 per ``decode_batch``; every launch in ``dtype``
+    (bfloat16: serve's default, no ``--dtype`` given)."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
@@ -1302,10 +1825,12 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict:
             return fn(*a, **k)
         return wrapper
 
-    out_dir = tmp / ("serve_split" if split else "serve")
+    out_dir = tmp / f"serve_{dtype}{'_split' if split else ''}"
     argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
             "--out-dir", str(out_dir), "--slots", str(SERVE_SLOTS),
             "--segment-frames", str(SERVE_SEGMENT), "--temp", "0.7", "--device", "cuda"]
+    if dtype != "bfloat16":
+        argv += ["--dtype", dtype]
     out, err = io.StringIO(), io.StringIO()
     seg_fn, dec_fn, stdin = ContinuousBatchingEngine._segment, CodecEngine.decode_batch, sys.stdin
     ContinuousBatchingEngine._segment = counted(seg_fn, "segments")
@@ -1315,8 +1840,7 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict:
     if split:
         os.environ["MAGPIE_NO_FUSED"] = "1"
     try:
-        for k in kernels:
-            k.launches = 0
+        reset_counts(kernels)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.main(argv)
@@ -1351,11 +1875,13 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False) -> dict:
     if conv_launches == 0 or conv_launches != 92 * counts["decode_batch"]:
         raise AssertionError(f"codec conv launched {conv_launches}x for "
                              f"{counts['decode_batch']} decode_batch calls")
+    check_dtype_launches(kernels, dtype, f"serve {dtype} split {split}")
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) aggregate fps", err.getvalue())
     fps = float(m.group(2)) if m else float("nan")
-    log(f"serve path{' MAGPIE_NO_FUSED=1' if split else ''}: {len(done)} requests, {frames} "
-        f"frames, {counts['segments']} segments, frame_step_batched / lt_sampler_batched / "
-        f"decoder_step_batched launches {batched_launches} / {lt_launches} / {dec_launches}, "
+    log(f"serve path {dtype}{' MAGPIE_NO_FUSED=1' if split else ''}: {len(done)} requests, "
+        f"{frames} frames, {counts['segments']} segments, frame_step_batched / "
+        f"lt_sampler_batched / decoder_step_batched launches {batched_launches} / {lt_launches} / "
+        f"{dec_launches}, "
         f"conv launches {conv_launches} ({counts['decode_batch']} decode_batch calls), {fps} "
         f"aggregate fps (cli.main serve wall {wall:.2f} s incl. load) on {card}")
     return {"batched_launches": batched_launches, "lt_launches": lt_launches,
@@ -1395,15 +1921,30 @@ def main() -> int:
     splitb_res = check_split_batched(dev)
     stream_res = check_stream_single(dev)
     streamb_res = check_stream_batched(dev)
+    bf_single = check_bf16_single(dev)
+    bf_batched = check_bf16_batched(dev)
+    bf_conv = check_codec_conv(dev, dtype=BF)
     with tempfile.TemporaryDirectory() as tmp:
-        mcfg, ccfg = write_ggufs(Path(tmp))
-        deq_res = check_q8_dequant(Path(tmp), dev)
-        main_res = run_main_path(Path(tmp), mcfg, ccfg, card)
-        split_main = run_main_path(Path(tmp), mcfg, ccfg, card, split=True)
-        serve_res = run_serve(Path(tmp), mcfg, ccfg, card)
-        split_serve = run_serve(Path(tmp), mcfg, ccfg, card, split=True)
-        quant_main = run_quantized_main_paths(Path(tmp), mcfg, ccfg, card, deq_res["nodes"])
-        quant_batched = run_batched_streams(Path(tmp), dev, deq_res["nodes"])
+        tmp = Path(tmp)
+        mcfg, ccfg = write_ggufs(tmp)
+        deq_res = check_q8_dequant(tmp, dev)
+        bf_deq = check_q8_dequant(tmp, dev, BF)
+        nodes = deq_res["nodes"]
+        # bfloat16: synth (fused, --no-fused, both streams), serve at its default
+        bf_main = run_main_path(tmp, mcfg, ccfg, card, dtype=BF)
+        bf_split_main = run_main_path(tmp, mcfg, ccfg, card, split=True, dtype=BF)
+        bf_quant = run_quantized_main_paths(tmp, mcfg, ccfg, card, nodes, BF)
+        bf_serve = run_serve(tmp, mcfg, ccfg, card, dtype=BF)
+        bf_split_serve = run_serve(tmp, mcfg, ccfg, card, split=True, dtype=BF)
+        bf_quant_batched = run_batched_streams(tmp, dev, nodes, BF)
+        prep_ms = time_prepare(tmp, dev)
+        # float32, as before
+        main_res = run_main_path(tmp, mcfg, ccfg, card)
+        split_main = run_main_path(tmp, mcfg, ccfg, card, split=True)
+        serve_res = run_serve(tmp, mcfg, ccfg, card, dtype="float32")
+        split_serve = run_serve(tmp, mcfg, ccfg, card, split=True, dtype="float32")
+        quant_main = run_quantized_main_paths(tmp, mcfg, ccfg, card, nodes)
+        quant_batched = run_batched_streams(tmp, dev, nodes)
 
     log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames, --no-fused "
         f"{split_main['fps']} fps over {split_main['n_frames']} frames; serve {serve_res['fps']} "
@@ -1422,14 +1963,29 @@ def main() -> int:
         f"{stream_res['q8']['A']['dense_ms']} / {stream_res['q8']['A']['ms']} / "
         f"{stream_res['int8']['A']['ms']} ms at pos 300; q8_dequant {deq_res['ms']} ms per "
         f"materialize of {deq_res['nodes']} tensors; on {card}")
+    log(f"summary, bfloat16: synth {bf_main['fps']} fps over {bf_main['n_frames']} frames, "
+        f"--no-fused {bf_split_main['fps']} over {bf_split_main['n_frames']}; --serve-q8 "
+        f"{bf_quant['q8_fused']['fps']} / {bf_quant['q8_split']['fps']} fps (dequantized at load "
+        f"{bf_quant['q8_dense_fused']['fps']} / {bf_quant['q8_dense_split']['fps']}), "
+        f"--serve-int8 {bf_quant['int8_fused']['fps']} / {bf_quant['int8_split']['fps']}; serve "
+        f"{bf_serve['fps']} aggregate fps over {bf_serve['frames']} frames, MAGPIE_NO_FUSED=1 "
+        f"{bf_split_serve['fps']} over {bf_split_serve['frames']}; kernel A {bf_single['A']['ms']} "
+        f"ms (float32 {fs_res['ms']}), C at B=8 {bf_batched['C']['ms']} ms (float32 "
+        f"{fsb_res['ms']}), codec conv {bf_conv['ms']} ms per 32-frame decode (float32 "
+        f"{cc_res['ms']}); codes differing from plain (near-ties) A "
+        f"{bf_single['temp07_code_flips']}, C {bf_batched['temp07_code_flips']}; prepare bf16 "
+        f"{prep_ms['bfloat16']} ms, float32 "
+        f"{prep_ms['float32']} ms; on {card}")
     pk = "magpie_tts_tpu/ops/pallas_kernels/"
     src = "magpie_tts_tpu_torch/csrc/"
 
     def entry(name, source, replaces, launches, res):
-        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-                "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
+        row = {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+               "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+               "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+               "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
+        row.update({k: res[k] for k in ("max_ulps", "within_1ulp") if k in res})
+        return row
 
     streams = []
     for m in STREAMS:
@@ -1444,6 +2000,35 @@ def main() -> int:
             entry(f"decoder_step_batched[{m}]", "frame_step_batched.cu",
                   pk + "decoder_step_batched.py:280", quant_batched[f"{m}_split"]["launches"],
                   streamb_res[m]["8"])]
+    for m in STREAMS:
+        streams += [
+            entry(f"frame_step[bf16 {m}]", "frame_step.cu", pk + "frame_step.py:352",
+                  bf_quant[f"{m}_fused"]["frame_launches"], bf_single[f"A_{m}"]),
+            entry(f"decoder_step[bf16 {m}]", "frame_step.cu", pk + "decoder_step.py:212",
+                  bf_quant[f"{m}_split"]["dec_launches"], bf_single[f"5_{m}"]),
+            entry(f"frame_step_batched[bf16 {m}]", "frame_step_batched.cu",
+                  pk + "frame_step_batched.py:591", bf_quant_batched[f"{m}_fused"]["launches"],
+                  bf_batched[f"C_{m}"]),
+            entry(f"decoder_step_batched[bf16 {m}]", "frame_step_batched.cu",
+                  pk + "decoder_step_batched.py:280", bf_quant_batched[f"{m}_split"]["launches"],
+                  bf_batched[f"8_{m}"])]
+    bf16_rows = [
+        entry("frame_step[bf16]", "frame_step.cu", pk + "frame_step.py:352",
+              bf_main["frame_launches"], bf_single["A"]),
+        entry("frame_step_batched[bf16]", "frame_step_batched.cu",
+              pk + "frame_step_batched.py:591", bf_serve["batched_launches"], bf_batched["C"]),
+        entry("codec_conv[bf16]", "codec_conv.cu", pk + "codec_conv.py:157",
+              bf_main["conv_launches"], bf_conv),
+        entry("lt_sampler[bf16]", "frame_step.cu", pk + "lt_sampler.py:174",
+              bf_split_main["lt_launches"], bf_single["4"]),
+        entry("decoder_step[bf16]", "frame_step.cu", pk + "decoder_step.py:212",
+              bf_split_main["dec_launches"], bf_single["5"]),
+        entry("lt_sampler_batched[bf16]", "frame_step_batched.cu",
+              pk + "lt_sampler_batched.py:259", bf_split_serve["lt_launches"], bf_batched["7"]),
+        entry("decoder_step_batched[bf16]", "frame_step_batched.cu",
+              pk + "decoder_step_batched.py:280", bf_split_serve["dec_launches"], bf_batched["8"]),
+        entry("q8_dequant[bf16]", "q8_dequant.cu", "tests/test_pallas_kernels.py:443",
+              bf_quant["q8_fused"]["deq_launches"], bf_deq)]
     log(json.dumps({"kernels": [
         entry("frame_step", "frame_step.cu", pk + "frame_step.py:352",
               main_res["frame_launches"], fs_res),
@@ -1461,6 +2046,7 @@ def main() -> int:
               pk + "decoder_step_batched.py:280", split_serve["dec_launches"], splitb_res["dec"]),
         entry("q8_dequant", "q8_dequant.cu", "tests/test_pallas_kernels.py:443",
               quant_main["q8_fused"]["deq_launches"], deq_res),
+        *bf16_rows,
         *streams,
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """Command-line interface of the PyTorch/CUDA port, argv-compatible with the
 JAX package's ``magpie-tts``: the synth command (-m/-c/-t/-o/-s/--temp/
---top-k/--seed/--serve-int8/--serve-q8/--gelu/--no-fused/-q) and ``serve`` (-m/-c/--out-dir/--slots/
---segment-frames/--temp/--top-k/--dtype/--gelu/-q), each plus
---device {cuda,cpu}.
+--top-k/--seed/--dtype/--serve-int8/--serve-q8/--gelu/--no-fused/-q) and
+``serve`` (-m/-c/--out-dir/--slots/--segment-frames/--temp/--top-k/--dtype/
+--gelu/-q), each plus --device {cuda,cpu}.
 
 There is no device fallback: without a CUDA device a command fails unless
 ``--device cpu`` is given.
@@ -36,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (no fallback: cuda needs a CUDA device)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                   help="compute dtype (only float32 is ported)")
+                   help="on-device compute dtype")
     quant = p.add_mutually_exclusive_group()
     quant.add_argument("--serve-int8", action="store_true",
                        help="stream decoder weights as per-column int8 (half "
@@ -75,9 +75,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (no fallback: cuda needs a CUDA device; "
                         "serves on the first card, also where there are several)")
-    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                   help="compute dtype (only float32 is ported; the JAX serve defaults "
-                        "to bfloat16)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="bfloat16",
+                   help="on-device compute dtype (bfloat16, as the JAX serve)")
     p.add_argument("--gelu", choices=("erf", "tanh"), default=None,
                    help="GELU flavor for every FFN (see `magpie-tts-torch --help`)")
     p.add_argument("-q", "--quiet", action="store_true")
@@ -115,9 +114,7 @@ def serve(argv) -> int:
         if not args.quiet:
             print(msg, file=sys.stderr)
 
-    if args.dtype != "float32":
-        print(f"error: --dtype {args.dtype} is not ported yet (float32 only)", file=sys.stderr)
-        return 1
+    dtype = getattr(torch, args.dtype)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device available (pass --device cpu to run on the CPU)",
               file=sys.stderr)
@@ -143,11 +140,11 @@ def serve(argv) -> int:
     # but its engines' per-frame Python loops share one interpreter lock, and
     # on four cards it served slower than one engine on one card.
     engine = ContinuousBatchingEngine(weights, config, n_slots=args.slots, device=args.device,
-                                      segment_frames=args.segment_frames)
+                                      compute_dtype=dtype, segment_frames=args.segment_frames)
     engine.split_token_id = tokenizer.space_id
     log(f"serve: {args.slots} slots, segment={args.segment_frames} frames "
-        f"(device={engine.device})")
-    codec = CodecEngine(codec_weights, codec_config, device=args.device)
+        f"(device={engine.device}, dtype={args.dtype})")
+    codec = CodecEngine(codec_weights, codec_config, device=args.device, compute_dtype=dtype)
     os.makedirs(args.out_dir, exist_ok=True)
     names = {}
 
@@ -251,18 +248,17 @@ def main(argv=None) -> int:
         if not args.quiet:
             print(msg, file=sys.stderr)
 
-    if args.dtype != "float32":
-        print(f"error: --dtype {args.dtype} is not ported yet (float32 only)", file=sys.stderr)
-        return 1
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device available (pass --device cpu to run on the CPU)",
               file=sys.stderr)
         return 1
 
-    log(f"loading model {args.model} + codec {args.codec} (device={args.device})...")
+    log(f"loading model {args.model} + codec {args.codec} (device={args.device}, "
+        f"dtype={args.dtype})...")
     t0 = time.perf_counter()
     try:
         pipeline = MagpiePipeline.from_gguf(args.model, args.codec, device=args.device,
+                                            compute_dtype=getattr(torch, args.dtype),
                                             gelu_flavor=args.gelu,
                                             use_fused=False if args.no_fused else None,
                                             serve_int8=args.serve_int8,

@@ -5,6 +5,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -101,10 +102,31 @@ __device__ __forceinline__ int block_max_int(int v, int* red) {
   return t;
 }
 
+// The compute dtypes: a kernel templated on T stores weights, caches and its
+// rows in T (float or __nv_bfloat16) and computes in float32. ld widens a
+// stored value (exact), st<T> narrows with round-to-nearest-even (torch's
+// .to(torch.bfloat16)), and rnd<T>(v) is the value v takes in T: the
+// JAX source's .astype(wdt), the identity for float.
+__device__ __forceinline__ float ld(float v) { return v; }
+__device__ __forceinline__ float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T st(float v);
+template <>
+__device__ __forceinline__ float st<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 st<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <class T>
+__device__ __forceinline__ float rnd(float v) { return ld(st<T>(v)); }
+
 // LayerNorm without bias over x[0:N] (float32 statistics, the plain version's
-// op order: mean = sum/N, var = sum(c*c)/N, (x - mean) / sqrt(var + eps) * w).
-// Each thread reads only the x[n] it may have just written itself.
-__device__ __forceinline__ void block_layer_norm(const float* x, const float* w, float* out,
+// op order: mean = sum/N, var = sum(c*c)/N, (x - mean) / sqrt(var + eps) * w),
+// rounded to T (the JAX source's .astype(wdt) after every norm) and stored
+// as O (float workspace or a T row). Each thread reads only the x[n] it may
+// have just written itself.
+template <class T, class O>
+__device__ __forceinline__ void block_layer_norm(const float* x, const T* w, O* out,
                                                  int N, float eps, float* red) {
   float s = 0.f;
   for (int n = threadIdx.x; n < N; n += blockDim.x) s += x[n];
@@ -116,7 +138,9 @@ __device__ __forceinline__ void block_layer_norm(const float* x, const float* w,
   }
   const float var = block_sum(v, red) / (float)N;
   const float denom = sqrtf(var + eps);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) out[n] = ((x[n] - mean) / denom) * w[n];
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    out[n] = st<O>(rnd<T>(((x[n] - mean) / denom) * ld(w[n])));
+  }
 }
 
 constexpr float kNegBig = -1e30f;          // masked score / logit (jnp's _NEG)

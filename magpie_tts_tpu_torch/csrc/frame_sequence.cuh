@@ -5,7 +5,9 @@
 // batched GEMM. A fused frame is lt_phases + decoder_layers; the split path's
 // LT sampler runs lt_phases alone, its decoder step decoder_input +
 // decoder_layers. Both entry points of a pair therefore launch the same
-// kernels in the same order with the same arguments.
+// kernels in the same order with the same arguments. Everything is templated
+// on the compute dtype T of the weights, caches and hidden rows (float or
+// __nv_bfloat16); a frame's float32 workspace is the same in both.
 
 #pragma once
 
@@ -14,20 +16,22 @@
 namespace {
 
 // One of the four decoder matrices a frame streams (qkv, sa_out, ff_proj,
-// ff_out), [L, K, N] in the frame's stream mode: dense w, or int8 q with
-// per-column scales s [L, N] (int8) or block scales s [L, K / 32, N] (Q8_0).
+// ff_out), [L, K, N] in the frame's stream mode: dense w (T), or int8 q with
+// float32 per-column scales s [L, N] (int8) or block scales s [L, K / 32, N]
+// (Q8_0).
+template <class T>
 struct StreamW {
-  const float* w;
+  const T* w;
   const signed char* q;
   const float* s;
   int mode;
 
   // Layer l's [K, N] matrix.
-  WeightRef layer(int l, int K, int N) const {
+  WeightRef<T> layer(int l, int K, int N) const {
     const size_t kn = (size_t)K * N;
-    if (mode == kStreamDense) return WeightRef{w + l * kn, nullptr, nullptr, mode};
+    if (mode == kStreamDense) return WeightRef<T>{w + l * kn, nullptr, nullptr, mode};
     const size_t sl = mode == kStreamInt8 ? (size_t)N : (size_t)(K / 32) * N;
-    return WeightRef{nullptr, q + l * kn, s + l * sl, mode};
+    return WeightRef<T>{nullptr, q + l * kn, s + l * sl, mode};
   }
   // The reducer's column scale of layer l (int8 only).
   const float* col_scale(int l, int N) const {
@@ -37,13 +41,15 @@ struct StreamW {
 
 // Everything one frame's sequence reads and writes, for B slots. A per-slot
 // array that is null stands for the scalar beside it (forbid_eos1, seed1,
-// enc_len), as kernel A passes them.
+// enc_len), as kernel A passes them. Weights, caches and hidden rows are T;
+// the workspace is float32 but for the LT's K / V rows (T, as the caches).
+template <class T>
 struct FrameSeq {
   int B, D, F, L, NS, E, X, n_heads, xa_heads, LT, LF, ncb, V, part_cap;
   // local transformer: input rows hidden [B, D], outputs codes [B, ncb]
-  const float* hidden;
-  const float *lt_in_w, *lt_in_b, *lt_pos, *lt_norm_self, *lt_qkv, *lt_sa_out, *lt_norm_ff;
-  const float *lt_ff_proj, *lt_ff_out, *lt_out_w, *lt_out_b, *audio_emb;
+  const T* hidden;
+  const T *lt_in_w, *lt_in_b, *lt_pos, *lt_norm_self, *lt_qkv, *lt_sa_out, *lt_norm_ff;
+  const T *lt_ff_proj, *lt_ff_out, *lt_out_w, *lt_out_b, *audio_emb;
   const unsigned char* forbid_eos;
   int forbid_eos1;
   const int* seeds;
@@ -52,21 +58,22 @@ struct FrameSeq {
   int *sampled, *argmax;
   // the fused seam: the last LT phase's decoder input (posemb rows, stride
   // posemb_stride) and, with new_valid, the new row's validity
-  const float* posemb;
+  const T* posemb;
   int posemb_stride;
   const unsigned char* may_continue;
   int* new_valid;
   // decoder: caches [B, L, NS, D], xa [B, L, E, X]; rows [0, rows) attended
-  const float *norm_self, *norm_xa_q, *xa_q, *xa_out, *norm_ff, *norm_out;
-  StreamW qkv, sa_out, ff_proj, ff_out;
-  float *k_cache, *v_cache;
-  const float *xa_k, *xa_v;
+  const T *norm_self, *norm_xa_q, *xa_q, *xa_out, *norm_ff, *norm_out;
+  StreamW<T> qkv, sa_out, ff_proj, ff_out;
+  T *k_cache, *v_cache;
+  const T *xa_k, *xa_v;
   int write_row, rows, valid_stride, enc_len;
   const unsigned char* valid;
   const int* enc_lengths;
-  float* hidden_out;
+  T* hidden_out;
   // workspace
-  float *part, *x, *h, *q, *attn, *f, *xa, *lt_x, *lt_h, *lt_q, *lt_k, *lt_v, *lt_attn, *lt_f;
+  float *part, *x, *h, *q, *attn, *f, *xa, *lt_x, *lt_h, *lt_q, *lt_attn, *lt_f;
+  T *lt_k, *lt_v;
   float *emb_row, *emb_acc;
   float eps, sa_scale, xa_scale, lt_scale;
   int gelu_tanh;
@@ -76,47 +83,49 @@ struct FrameSeq {
 // phase also writes the decoder's input x = mean code embedding + posemb,
 // h = LayerNorm_0(x) and, with new_valid, the new row's validity.
 // mm(X, W, part, K, N) launches the [B, K] @ [K, N] split-K product of a
-// WeightRef W and returns its split count.
-template <class Matmul>
-int lt_phases(const FrameSeq& s, const Matmul& mm, bool seed_decoder, cudaStream_t st) {
+// WeightRef<T> W, X rounded to T as it is read (X is a T row, or a float row
+// the JAX source rounds before its product), and returns its split count.
+template <class T, class Matmul>
+int lt_phases(const FrameSeq<T>& s, const Matmul& mm, bool seed_decoder, cudaStream_t st) {
   const int B = s.B, LT = s.LT, LF = s.LF, V = s.V;
   const size_t lt_slot = (size_t)s.ncb * LT;
   int S;
   for (int cb = 0; cb < s.ncb; ++cb) {
-    S = mm(cb == 0 ? s.hidden : s.emb_row, dense_ref(s.lt_in_w), s.part, s.D, LT, st);
+    S = cb == 0 ? mm(s.hidden, dense_ref(s.lt_in_w), s.part, s.D, LT, st)
+                : mm(s.emb_row, dense_ref(s.lt_in_w), s.part, s.D, LT, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, s.lt_in_b,
-                                         s.lt_pos + (size_t)cb * LT, s.lt_x, 0, s.lt_norm_self,
-                                         s.eps, s.lt_h);
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, s.lt_in_b,
+                                                   s.lt_pos + (size_t)cb * LT, s.lt_x, 0,
+                                                   s.lt_norm_self, s.eps, s.lt_h);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.lt_h, dense_ref(s.lt_qkv), s.part, LT, 3 * LT, st);
     MAGPIE_CHECK_LAUNCH();
-    qkv_scatter_kernel<<<dim3((3 * LT + kRt - 1) / kRt, B), kRt, 0, st>>>(
+    qkv_scatter_kernel<T><<<dim3((3 * LT + kRt - 1) / kRt, B), kRt, 0, st>>>(
         s.part, S, LT, nullptr, s.lt_q, s.lt_k + (size_t)cb * LT, s.lt_v + (size_t)cb * LT,
         lt_slot);
     MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<dim3(1, B), kRt, attention_smem(LT, cb + 1), st>>>(
+    attention_kernel<T><<<dim3(1, B), kRt, attention_smem(LT, cb + 1), st>>>(
         s.lt_q, 1, LT, s.lt_k, s.lt_v, lt_slot, LT, cb + 1, nullptr, nullptr, 0, 0, nullptr, LT,
         s.lt_scale, s.lt_attn);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.lt_attn, dense_ref(s.lt_sa_out), s.part, LT, LT, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr, s.lt_x, 1,
-                                         s.lt_norm_ff, s.eps, s.lt_h);
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr,
+                                                   s.lt_x, 1, s.lt_norm_ff, s.eps, s.lt_h);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.lt_h, dense_ref(s.lt_ff_proj), s.part, LT, LF, st);
     MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<dim3((LF + kRt - 1) / kRt, B), kRt, 0, st>>>(s.part, S, LF, nullptr, 1,
-                                                                   s.gelu_tanh, s.lt_f);
+    reduce_act_kernel<T><<<dim3((LF + kRt - 1) / kRt, B), kRt, 0, st>>>(
+        s.part, S, LF, nullptr, 1, s.gelu_tanh, s.lt_f);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.lt_f, dense_ref(s.lt_ff_out), s.part, LF, LT, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr, s.lt_x, 1,
-                                         nullptr, s.eps, nullptr);
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr,
+                                                   s.lt_x, 1, nullptr, s.eps, nullptr);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.lt_x, dense_ref(s.lt_out_w + (size_t)cb * LT * V), s.part, LT, V, st);
     MAGPIE_CHECK_LAUNCH();
-    lt_sample_kernel<<<B, kSampleThreads, 0, st>>>(
+    lt_sample_kernel<T><<<B, kSampleThreads, 0, st>>>(
         s.part, S, V, s.lt_out_b + (size_t)cb * V, cb, s.ncb, s.forbid_eos, s.forbid_eos1,
         s.bos_id, s.eos_id, s.seeds, s.seed1, s.temperature, s.top_k,
         s.audio_emb + (size_t)cb * V * s.D, s.D, s.sampled, s.argmax, s.emb_row, s.emb_acc,
@@ -127,13 +136,12 @@ int lt_phases(const FrameSeq& s, const Matmul& mm, bool seed_decoder, cudaStream
   return 0;
 }
 
-// The split path's decoder input: x[b] = x_in[b] (+ add, one row for all
-// slots), h[b] = LayerNorm_0(x[b]) (what the fused frame's last LT phase
-// writes).
-inline int decoder_input(const FrameSeq& s, const float* x_in, const float* add,
-                         cudaStream_t st) {
-  combine_ln_kernel<<<s.B, kRt, 0, st>>>(x_in, 1, s.D, nullptr, nullptr, add, s.x, 0,
-                                         s.norm_self, s.eps, s.h);
+// The split path's decoder input: x[b] = x_in[b] (or rnd(x_in[b] + add),
+// one add row for all slots), h[b] = LayerNorm_0(x[b]) (what the fused
+// frame's last LT phase writes).
+template <class T>
+int decoder_input(const FrameSeq<T>& s, const T* x_in, const T* add, cudaStream_t st) {
+  decoder_input_kernel<T><<<s.B, kRt, 0, st>>>(x_in, add, s.D, s.x, s.norm_self, s.eps, s.h);
   MAGPIE_CHECK_LAUNCH();
   return 0;
 }
@@ -142,8 +150,8 @@ inline int decoder_input(const FrameSeq& s, const float* x_in, const float* add,
 // write_row of every slot before attending; hidden_out = final norm of x.
 // qkv / sa_out / ff_proj / ff_out come in the frame's stream mode (their
 // int8 column scales go to the reducers); xa_q / xa_out are always dense.
-template <class Matmul>
-int decoder_layers(const FrameSeq& s, const Matmul& mm, cudaStream_t st) {
+template <class T, class Matmul>
+int decoder_layers(const FrameSeq<T>& s, const Matmul& mm, cudaStream_t st) {
   const int B = s.B, D = s.D, F = s.F, X = s.X, E = s.E, NS = s.NS;
   const int dh = D / s.n_heads;
   const int dxh = X / s.xa_heads;
@@ -152,50 +160,56 @@ int decoder_layers(const FrameSeq& s, const Matmul& mm, cudaStream_t st) {
   const int xa_rows = s.enc_lengths ? E : s.enc_len;
   int S;
   for (int l = 0; l < s.L; ++l) {
-    float* kc = s.k_cache + (size_t)l * NS * D;
-    float* vc = s.v_cache + (size_t)l * NS * D;
-    const float* xk = s.xa_k + (size_t)l * E * X;
-    const float* xv = s.xa_v + (size_t)l * E * X;
+    T* kc = s.k_cache + (size_t)l * NS * D;
+    T* vc = s.v_cache + (size_t)l * NS * D;
+    const T* xk = s.xa_k + (size_t)l * E * X;
+    const T* xv = s.xa_v + (size_t)l * E * X;
 
     S = mm(s.h, s.qkv.layer(l, D, 3 * D), s.part, D, 3 * D, st);
     MAGPIE_CHECK_LAUNCH();
-    qkv_scatter_kernel<<<dim3((3 * D + kRt - 1) / kRt, B), kRt, 0, st>>>(
+    qkv_scatter_kernel<T><<<dim3((3 * D + kRt - 1) / kRt, B), kRt, 0, st>>>(
         s.part, S, D, s.qkv.col_scale(l, 3 * D), s.q, kc + (size_t)s.write_row * D,
         vc + (size_t)s.write_row * D, cache_slot);
     MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<dim3(s.n_heads, B), kRt, attention_smem(dh, s.rows), st>>>(
+    attention_kernel<T><<<dim3(s.n_heads, B), kRt, attention_smem(dh, s.rows), st>>>(
         s.q, 1, D, kc, vc, cache_slot, D, s.rows, nullptr, s.valid, s.valid_stride, s.write_row,
         s.new_valid, dh, s.sa_scale, s.attn);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.attn, s.sa_out.layer(l, D, D), s.part, D, D, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, s.sa_out.col_scale(l, D), nullptr,
-                                         nullptr, s.x, 1, s.norm_xa_q + (size_t)l * D, s.eps,
-                                         s.h);
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, D, s.sa_out.col_scale(l, D),
+                                                   nullptr, nullptr, s.x, 1,
+                                                   s.norm_xa_q + (size_t)l * D, s.eps, s.h);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.h, dense_ref(s.xa_q + (size_t)l * D * X), s.part, D, X, st);
     MAGPIE_CHECK_LAUNCH();
-    attention_kernel<<<dim3(s.xa_heads, B), kRt, attention_smem(dxh, xa_rows), st>>>(
+    attention_kernel<T><<<dim3(s.xa_heads, B), kRt, attention_smem(dxh, xa_rows), st>>>(
         s.part, S, X, xk, xv, xa_slot, X, xa_rows, s.enc_lengths, nullptr, 0, 0, nullptr, dxh,
         s.xa_scale, s.xa);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.xa, dense_ref(s.xa_out + (size_t)l * X * D), s.part, X, D, st);
     MAGPIE_CHECK_LAUNCH();
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, nullptr, nullptr, nullptr, s.x, 1,
-                                         s.norm_ff + (size_t)l * D, s.eps, s.h);
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, D, nullptr, nullptr, nullptr,
+                                                   s.x, 1, s.norm_ff + (size_t)l * D, s.eps,
+                                                   s.h);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.h, s.ff_proj.layer(l, D, F), s.part, D, F, st);
     MAGPIE_CHECK_LAUNCH();
-    reduce_act_kernel<<<dim3((F + kRt - 1) / kRt, B), kRt, 0, st>>>(
+    reduce_act_kernel<T><<<dim3((F + kRt - 1) / kRt, B), kRt, 0, st>>>(
         s.part, S, F, s.ff_proj.col_scale(l, F), 1, s.gelu_tanh, s.f);
     MAGPIE_CHECK_LAUNCH();
     S = mm(s.f, s.ff_out.layer(l, F, D), s.part, F, D, st);
     MAGPIE_CHECK_LAUNCH();
-    const bool last = l + 1 == s.L;
-    combine_ln_kernel<<<B, kRt, 0, st>>>(s.part, S, D, s.ff_out.col_scale(l, D), nullptr,
-                                         nullptr, s.x, 1,
-                                         last ? s.norm_out : s.norm_self + (size_t)(l + 1) * D,
-                                         s.eps, last ? s.hidden_out : s.h);
+    if (l + 1 == s.L) {
+      combine_ln_kernel<T, T><<<B, kRt, 0, st>>>(s.part, S, D, s.ff_out.col_scale(l, D),
+                                                 nullptr, nullptr, s.x, 1, s.norm_out, s.eps,
+                                                 s.hidden_out);
+    } else {
+      combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, D, s.ff_out.col_scale(l, D),
+                                                     nullptr, nullptr, s.x, 1,
+                                                     s.norm_self + (size_t)(l + 1) * D, s.eps,
+                                                     s.h);
+    }
     MAGPIE_CHECK_LAUNCH();
   }
   return 0;

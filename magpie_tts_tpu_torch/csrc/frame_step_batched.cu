@@ -1,5 +1,5 @@
-// One decode frame for B slots of Magpie TTS on Hopper, float32, and its two
-// halves:
+// One decode frame for B slots of Magpie TTS on Hopper, and its two halves,
+// each in float32 (_f32) and bfloat16 (_bf16):
 // - magpie_frame_step_batched_f32 (kernel C): per-slot local-transformer (LT)
 //   sampling of 8 codebook codes, the frame embedding plus each slot's
 //   position-embedding row, the new cache row's validity, and the 12-layer
@@ -53,7 +53,9 @@
 // - The new K/V row is written at write_row for every slot, dead ones too.
 // - Numerics follow frame_step_batched_reference: float32 residual carry,
 //   erff GELU, softmax as exp(s - max) / sum, argmax ties to the lowest
-//   index, the exact top-k bisection and the Gumbel draw of frame_step.cu.
+//   index, the exact top-k bisection and the Gumbel draw of frame_step.cu;
+//   the bf16 entry points round where the Pallas kernels do
+//   (frame_kernels.cuh), the GEMM stage widens bf16 weights to float32.
 
 #include "frame_sequence.cuh"
 
@@ -66,17 +68,18 @@ constexpr int kGemmThreads = 256;
 constexpr int kSlotGroups = kGemmThreads / kTileN;  // threads sharing a column
 constexpr int kTargetBlocks = 264;                 // 2 blocks per SM on 132 SMs
 
-// part[(s * B + b) * N + n] = sum over k in split s of X[b, k] * W[k, n].
-// W is row-major [K, N] with N % 4 == 0 in mode MODE, X is [B, K]. Thread
-// (n, g) owns column n of the block's tile and the slots b = g + kSlotGroups
-// * j. The [kTileK x kTileN] stage holds float32 weights in every mode
-// (load_w4): with kchunk a multiple of 32, a stage is one Q8_0 block row per
-// column, dequantized exactly, so a Q8_0 stream gives the bits of its
-// dequantized float32 copy; an int8 stream's column scale waits for the
-// reducer. Every weight byte is still read once for all B slots.
-template <int BPT, int MODE>
+// part[(s * B + b) * N + n] = sum over k in split s of rnd<T>(X[b, k]) *
+// W[k, n]. W is row-major [K, N] with N % 4 == 0 in mode MODE, X is [B, K].
+// Thread (n, g) owns column n of the block's tile and the slots b = g +
+// kSlotGroups * j. The [kTileK x kTileN] stage holds float32 weights in
+// every mode and dtype (load_w4): with kchunk a multiple of 32, a stage is
+// one Q8_0 block row per column, dequantized exactly as at load, so a Q8_0
+// stream gives the bits of its dequantized copy; an int8 stream's column
+// scale waits for the reducer. Every weight byte is still read once for all
+// B slots.
+template <int BPT, int MODE, class XT, class T>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_splitk_kernel(const float* __restrict__ X, int B, const WeightRef W,
+gemm_splitk_kernel(const XT* __restrict__ X, int B, const WeightRef<T> W,
                    float* __restrict__ part, int K, int N, int kchunk) {
   __shared__ __align__(16) float ws[kTileK][kTileN];
   __shared__ float xs[kMaxSlots][kTileK];
@@ -101,7 +104,7 @@ gemm_splitk_kernel(const float* __restrict__ X, int B, const WeightRef W,
     for (int i = tid; i < B * kTileK; i += kGemmThreads) {
       const int b = i / kTileK, r = i % kTileK;
       const int k = kt + r;
-      xs[b][r] = k < k1 ? X[(size_t)b * K + k] : 0.f;
+      xs[b][r] = k < k1 ? rnd<T>(ld(X[(size_t)b * K + k])) : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -124,8 +127,8 @@ gemm_splitk_kernel(const float* __restrict__ X, int B, const WeightRef W,
   }
 }
 
-template <int MODE>
-void launch_gemm_mode(const dim3& grid, int bpt, const float* X, int B, const WeightRef& W,
+template <int MODE, class XT, class T>
+void launch_gemm_mode(const dim3& grid, int bpt, const XT* X, int B, const WeightRef<T>& W,
                       float* part, int K, int N, int kchunk, cudaStream_t st) {
   if (bpt <= 1) {
     gemm_splitk_kernel<1, MODE><<<grid, kGemmThreads, 0, st>>>(X, B, W, part, K, N, kchunk);
@@ -142,7 +145,8 @@ void launch_gemm_mode(const dim3& grid, int bpt, const float* X, int B, const We
 
 // Launches the split-K GEMM of X[B, K] @ W[K, N]; returns the split count S,
 // which depends on K, N and part_cap only (not on W's mode).
-int launch_gemm(const float* X, int B, const WeightRef& W, float* part, int K, int N,
+template <class XT, class T>
+int launch_gemm(const XT* X, int B, const WeightRef<T>& W, float* part, int K, int N,
                 int part_cap, cudaStream_t st) {
   const int tiles = (N + kTileN - 1) / kTileN;
   int S = (kTargetBlocks + tiles - 1) / tiles;
@@ -165,44 +169,45 @@ int launch_gemm(const float* X, int B, const WeightRef& W, float* part, int K, i
 }  // namespace
 
 // Field order and types mirror FrameStepBatchedArgs in
-// ops/kernels/frame_step_batched.py.
+// ops/kernels/frame_step_batched.py. The void pointers hold the entry
+// point's compute dtype (float for _f32, __nv_bfloat16 for _bf16).
 struct FrameStepBatchedArgs {
   // per-slot state
-  const float* hidden;
+  const void* hidden;
   const unsigned char* valid;
   const unsigned char* may_continue;
-  const float* posemb;
+  const void* posemb;
   const unsigned char* forbid_eos;
   const int* seeds;
   const int* enc_lengths;
-  float* k_cache;
-  float* v_cache;
-  const float* xa_k;
-  const float* xa_v;
+  void* k_cache;
+  void* v_cache;
+  const void* xa_k;
+  const void* xa_v;
   // local transformer
-  const float* lt_in_w;
-  const float* lt_in_b;
-  const float* lt_pos;
-  const float* lt_norm_self;
-  const float* lt_qkv;
-  const float* lt_sa_out;
-  const float* lt_norm_ff;
-  const float* lt_ff_proj;
-  const float* lt_ff_out;
-  const float* lt_out_w;
-  const float* lt_out_b;
-  const float* audio_emb;
+  const void* lt_in_w;
+  const void* lt_in_b;
+  const void* lt_pos;
+  const void* lt_norm_self;
+  const void* lt_qkv;
+  const void* lt_sa_out;
+  const void* lt_norm_ff;
+  const void* lt_ff_proj;
+  const void* lt_ff_out;
+  const void* lt_out_w;
+  const void* lt_out_b;
+  const void* audio_emb;
   // decoder
-  const float* norm_self;
-  const float* qkv;
-  const float* sa_out;
-  const float* norm_xa_q;
-  const float* xa_q;
-  const float* xa_out;
-  const float* norm_ff;
-  const float* ff_proj;
-  const float* ff_out;
-  const float* norm_out;
+  const void* norm_self;
+  const void* qkv;
+  const void* sa_out;
+  const void* norm_xa_q;
+  const void* xa_q;
+  const void* xa_out;
+  const void* norm_ff;
+  const void* ff_proj;
+  const void* ff_out;
+  const void* norm_out;
   // quantized stream of qkv / sa_out / ff_proj / ff_out (stream_mode 1:
   // int8 with column scales [L, N]; 2: Q8_0 blocks, scales [L, K / 32, N])
   const signed char* qkv_q;
@@ -216,7 +221,7 @@ struct FrameStepBatchedArgs {
   // outputs
   int* sampled;
   int* argmax;
-  float* hidden_out;
+  void* hidden_out;
   // workspace
   float* part;
   float* x;
@@ -245,81 +250,110 @@ struct FrameStepBatchedArgs {
 
 namespace {
 
-FrameSeq seq_of(const FrameStepBatchedArgs& a) {
-  FrameSeq s{};
+template <class T>
+FrameSeq<T> seq_of(const FrameStepBatchedArgs& a) {
+  const auto c = [](const void* p) { return static_cast<const T*>(p); };
+  FrameSeq<T> s{};
   s.B = a.batch;
   s.D = a.d_model, s.F = a.d_ffn, s.L = a.n_layers, s.NS = a.max_seq, s.E = a.enc_rows;
   s.X = a.d_xa, s.n_heads = a.n_heads, s.xa_heads = a.xa_heads, s.LT = a.lt_dim;
   s.LF = a.lt_ffn, s.ncb = a.n_cb, s.V = a.vocab, s.part_cap = a.part_cap;
-  s.hidden = a.hidden;
-  s.lt_in_w = a.lt_in_w, s.lt_in_b = a.lt_in_b, s.lt_pos = a.lt_pos;
-  s.lt_norm_self = a.lt_norm_self, s.lt_qkv = a.lt_qkv, s.lt_sa_out = a.lt_sa_out;
-  s.lt_norm_ff = a.lt_norm_ff, s.lt_ff_proj = a.lt_ff_proj, s.lt_ff_out = a.lt_ff_out;
-  s.lt_out_w = a.lt_out_w, s.lt_out_b = a.lt_out_b, s.audio_emb = a.audio_emb;
+  s.hidden = c(a.hidden);
+  s.lt_in_w = c(a.lt_in_w), s.lt_in_b = c(a.lt_in_b), s.lt_pos = c(a.lt_pos);
+  s.lt_norm_self = c(a.lt_norm_self), s.lt_qkv = c(a.lt_qkv), s.lt_sa_out = c(a.lt_sa_out);
+  s.lt_norm_ff = c(a.lt_norm_ff), s.lt_ff_proj = c(a.lt_ff_proj);
+  s.lt_ff_out = c(a.lt_ff_out), s.lt_out_w = c(a.lt_out_w), s.lt_out_b = c(a.lt_out_b);
+  s.audio_emb = c(a.audio_emb);
   s.forbid_eos = a.forbid_eos, s.seeds = a.seeds, s.top_k = a.top_k;
   s.bos_id = a.audio_bos_id, s.eos_id = a.audio_eos_id, s.temperature = a.temperature;
   s.sampled = a.sampled, s.argmax = a.argmax;
-  s.posemb = a.posemb, s.posemb_stride = a.posemb_stride, s.may_continue = a.may_continue;
-  s.new_valid = a.new_valid;
-  s.norm_self = a.norm_self, s.norm_xa_q = a.norm_xa_q, s.xa_q = a.xa_q, s.xa_out = a.xa_out;
-  s.norm_ff = a.norm_ff, s.norm_out = a.norm_out;
-  s.qkv = StreamW{a.qkv, a.qkv_q, a.qkv_s, a.stream_mode};
-  s.sa_out = StreamW{a.sa_out, a.sa_out_q, a.sa_out_s, a.stream_mode};
-  s.ff_proj = StreamW{a.ff_proj, a.ff_proj_q, a.ff_proj_s, a.stream_mode};
-  s.ff_out = StreamW{a.ff_out, a.ff_out_q, a.ff_out_s, a.stream_mode};
-  s.k_cache = a.k_cache, s.v_cache = a.v_cache, s.xa_k = a.xa_k, s.xa_v = a.xa_v;
+  s.posemb = c(a.posemb), s.posemb_stride = a.posemb_stride;
+  s.may_continue = a.may_continue, s.new_valid = a.new_valid;
+  s.norm_self = c(a.norm_self), s.norm_xa_q = c(a.norm_xa_q), s.xa_q = c(a.xa_q);
+  s.xa_out = c(a.xa_out), s.norm_ff = c(a.norm_ff), s.norm_out = c(a.norm_out);
+  s.qkv = StreamW<T>{c(a.qkv), a.qkv_q, a.qkv_s, a.stream_mode};
+  s.sa_out = StreamW<T>{c(a.sa_out), a.sa_out_q, a.sa_out_s, a.stream_mode};
+  s.ff_proj = StreamW<T>{c(a.ff_proj), a.ff_proj_q, a.ff_proj_s, a.stream_mode};
+  s.ff_out = StreamW<T>{c(a.ff_out), a.ff_out_q, a.ff_out_s, a.stream_mode};
+  s.k_cache = static_cast<T*>(a.k_cache), s.v_cache = static_cast<T*>(a.v_cache);
+  s.xa_k = c(a.xa_k), s.xa_v = c(a.xa_v);
   s.write_row = a.write_row, s.rows = a.rows, s.valid = a.valid;
   s.valid_stride = a.valid_stride, s.enc_lengths = a.enc_lengths;
-  s.hidden_out = a.hidden_out;
+  s.hidden_out = static_cast<T*>(a.hidden_out);
   s.part = a.part, s.x = a.x, s.h = a.h, s.q = a.q, s.attn = a.attn, s.f = a.f, s.xa = a.xa;
-  s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q, s.lt_k = a.lt_k, s.lt_v = a.lt_v;
+  s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q;
+  s.lt_k = reinterpret_cast<T*>(a.lt_k), s.lt_v = reinterpret_cast<T*>(a.lt_v);
   s.lt_attn = a.lt_attn, s.lt_f = a.lt_f, s.emb_row = a.emb_row, s.emb_acc = a.emb_acc;
   s.eps = a.eps, s.sa_scale = a.sa_scale, s.xa_scale = a.xa_scale, s.lt_scale = a.lt_scale;
   s.gelu_tanh = a.gelu_tanh;
   return s;
 }
 
+template <class T>
 struct Gemm {
   int B, cap;
-  int operator()(const float* X, const WeightRef& W, float* part, int K, int N,
+  template <class XT>
+  int operator()(const XT* X, const WeightRef<T>& W, float* part, int K, int N,
                  cudaStream_t st) const {
     return launch_gemm(X, B, W, part, K, N, cap, st);
   }
 };
 
-}  // namespace
-
 // Kernel C: one fused frame for B slots.
-extern "C" int magpie_frame_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+template <class T>
+int frame_step_batched(const FrameStepBatchedArgs* a, void* stream) {
   if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const FrameSeq s = seq_of(*a);
-  const Gemm mm{a->batch, a->part_cap};
+  const FrameSeq<T> s = seq_of<T>(*a);
+  const Gemm<T> mm{a->batch, a->part_cap};
   int err = lt_phases(s, mm, true, st);
   if (!err) err = decoder_layers(s, mm, st);
   return err ? err : (int)cudaGetLastError();
 }
 
 // Kernel 7 (the split path's batched LT sampler): the codes of B slots.
-extern "C" int magpie_lt_sample_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+template <class T>
+int lt_sample_batched(const FrameStepBatchedArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = lt_phases(seq_of(*a), Gemm{a->batch, a->part_cap}, false, st);
+  const int err = lt_phases(seq_of<T>(*a), Gemm<T>{a->batch, a->part_cap}, false, st);
   return err ? err : (int)cudaGetLastError();
 }
 
 // Kernel 8 (the split path's batched decoder step): `hidden` holds x_pe, the
 // frame embeddings with their position embeddings; `valid` already holds
 // every slot's write row (new_valid is null).
-extern "C" int magpie_decode_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+template <class T>
+int decode_step_batched(const FrameStepBatchedArgs* a, void* stream) {
   if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FrameSeq s = seq_of(*a);
+  FrameSeq<T> s = seq_of<T>(*a);
   s.new_valid = nullptr;  // attention reads row write_row from valid like any row
-  int err = decoder_input(s, a->hidden, nullptr, st);
-  if (!err) err = decoder_layers(s, Gemm{a->batch, a->part_cap}, st);
+  int err = decoder_input(s, s.hidden, static_cast<const T*>(nullptr), st);
+  if (!err) err = decoder_layers(s, Gemm<T>{a->batch, a->part_cap}, st);
   return err ? err : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int magpie_frame_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+  return frame_step_batched<float>(a, stream);
+}
+extern "C" int magpie_frame_step_batched_bf16(const FrameStepBatchedArgs* a, void* stream) {
+  return frame_step_batched<__nv_bfloat16>(a, stream);
+}
+extern "C" int magpie_lt_sample_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+  return lt_sample_batched<float>(a, stream);
+}
+extern "C" int magpie_lt_sample_batched_bf16(const FrameStepBatchedArgs* a, void* stream) {
+  return lt_sample_batched<__nv_bfloat16>(a, stream);
+}
+extern "C" int magpie_decode_step_batched_f32(const FrameStepBatchedArgs* a, void* stream) {
+  return decode_step_batched<float>(a, stream);
+}
+extern "C" int magpie_decode_step_batched_bf16(const FrameStepBatchedArgs* a, void* stream) {
+  return decode_step_batched<__nv_bfloat16>(a, stream);
 }

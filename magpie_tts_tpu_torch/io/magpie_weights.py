@@ -284,9 +284,11 @@ class Q8Blocks:
         return dataclasses.replace(self, q=self.q.to(device=device), s=self.s.to(device=device))
 
     def materialize(self, dtype=torch.float32) -> torch.Tensor:
+        """The dense tensor in ``dtype``: the exact f32 product rounded once
+        (kernel 10 writes float32 or bfloat16 directly)."""
         from ..ops.kernels.q8_dequant import dequantize
 
-        return dequantize(self.q, self.s, self.torch_shape, self.transform).to(dtype)
+        return dequantize(self.q, self.s, self.torch_shape, self.transform, dtype)
 
 
 def _is_q8_blocks(x) -> bool:

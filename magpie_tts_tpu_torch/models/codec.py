@@ -45,12 +45,16 @@ def half_snake(x: torch.Tensor, alpha: torch.Tensor, leaky_slope: float = 0.01) 
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                  dilation: int = 1) -> torch.Tensor:
-    """x: [N, T, C_in]; w: [K, C_in, C_out] (WIO); left-pad (K-1)*dilation."""
+                  dilation: int = 1, residual=None) -> torch.Tensor:
+    """x: [N, T, C_in]; w: [K, C_in, C_out] (WIO); left-pad (K-1)*dilation.
+    The conv, + b and + ``residual`` run in float32 and the sum rounds once
+    to x's dtype (the Pallas kernel's rounding points, codec_conv.py:149-154)."""
     k = w.shape[0]
-    xt = F.pad(x.transpose(1, 2), ((k - 1) * dilation, 0))
-    out = F.conv1d(xt, w.permute(2, 1, 0), dilation=dilation)
-    return (out.transpose(1, 2) + b).to(x.dtype)
+    xt = F.pad(x.transpose(1, 2).float(), ((k - 1) * dilation, 0))
+    out = F.conv1d(xt, w.permute(2, 1, 0).float(), dilation=dilation).transpose(1, 2) + b.float()
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(x.dtype)
 
 
 def grouped_conv_transpose1d(x: torch.Tensor, w_pt: torch.Tensor, b: torch.Tensor,

@@ -30,23 +30,26 @@ from ..io.magpie_weights import DecoderWeights, Int8DecoderStream, MagpieWeights
 from ..ops.attention import attend, cross_attention, precompute_cross_attention_kv
 from ..ops.conv_ffn import conv_ffn, gelu
 from ..ops.norms import layer_norm
+from ..ops.precision import matmul_f32
 
 
 def stream_matmul(x: torch.Tensor, dec: DecoderWeights, stream, name: str,
                   layer: int) -> torch.Tensor:
-    """``x @ W`` of streamed matrix ``name`` at ``layer``, float32: dense
-    ``x @ W``; int8 ``(x @ q) * s`` (the TPU kernels' out_scale order); Q8
-    ``x @ (repeat(s, 32, in-axis) * q)``, an exact dequant first, so the
-    product equals the dense one on the dequantized weights."""
+    """``x @ W`` of streamed matrix ``name`` at ``layer``, float32 (products
+    and sum, unrounded): dense ``x @ W``; int8 ``(x @ q) * s`` (the TPU
+    kernels' out_scale order; int8 values are exact in x's dtype); Q8
+    ``x @ (repeat(s, 32, in-axis) * q)`` with the exact f32 dequant rounded to
+    x's dtype first (the kernels' stream_w), so the product equals the dense
+    one on the weights dequantized at load in that dtype."""
     if stream is None:
-        return torch.matmul(x, getattr(dec, name)[layer]).float()
+        return matmul_f32(x, getattr(dec, name)[layer])
     if isinstance(stream, Int8DecoderStream):
-        q = getattr(stream, f"{name}_q")[layer].float()
-        return torch.matmul(x, q) * getattr(stream, f"{name}_s")[layer]
+        q = getattr(stream, f"{name}_q")[layer]
+        return matmul_f32(x, q) * getattr(stream, f"{name}_s")[layer]
     if isinstance(stream, Q8DecoderStream):
         q = getattr(stream, f"{name}_q")[layer].float()
         s = getattr(stream, f"{name}_bs")[layer]
-        return torch.matmul(x, torch.repeat_interleave(s, 32, dim=0) * q)
+        return matmul_f32(x, (torch.repeat_interleave(s, 32, dim=0) * q).to(x.dtype))
     raise TypeError(f"not a decoder stream: {type(stream).__name__}")
 
 
@@ -78,14 +81,14 @@ def prefill(context: torch.Tensor, xa_k: torch.Tensor, xa_v: torch.Tensor,
     mask = (idx[None, :] <= idx[:, None])[None]
     for l in range(dec.qkv.shape[0]):
         h = layer_norm(x, dec.norm_self[l], config.eps)
-        qkv = torch.matmul(h, dec.qkv[l]).to(x.dtype)
+        qkv = matmul_f32(h, dec.qkv[l]).to(x.dtype)
         q, k_new, v_new = qkv.chunk(3, dim=-1)
         k_cache[l, :t_ctx] = k_new
         v_cache[l, :t_ctx] = v_new
         qh, kh, vh = (t.reshape(t_ctx, n_heads, d_head).transpose(0, 1)
                       for t in (q, k_new, v_new))
         attn = attend(qh, kh, vh, mask).transpose(0, 1).reshape(t_ctx, config.d_model)
-        x = x + torch.matmul(attn, dec.sa_out[l]).to(x.dtype)
+        x = x + matmul_f32(attn, dec.sa_out[l]).to(x.dtype)
         qn = layer_norm(x, dec.norm_xa_q[l], config.eps)
         x = x + cross_attention(qn, xa_k[l], xa_v[l], dec.xa_q[l], dec.xa_out[l],
                                 config.dec_xa_heads, enc_length=enc_length).to(x.dtype)
@@ -163,7 +166,7 @@ def decode_rows(x_pe: torch.Tensor, write_row: int, valid_mask: torch.Tensor,
         q = layer_norm(xf, dec.norm_xa_q[l], config.eps).to(wdt)
         xf = xf + cross_attention(q[None, :], xa_k[l], xa_v[l], dec.xa_q[l],
                                   dec.xa_out[l], config.dec_xa_heads,
-                                  enc_length=enc_length)[0].float()
+                                  enc_length=enc_length, out_dtype=torch.float32)[0]
 
         h = layer_norm(xf, dec.norm_ff[l], config.eps).to(wdt)
         f = gelu(stream_matmul(h, dec, stream, "ff_proj", l),

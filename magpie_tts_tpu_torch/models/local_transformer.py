@@ -3,8 +3,9 @@ autoregressive sampling of the 8 codebook codes, plain PyTorch.
 
 The growing sequence lives in a fixed [9, lt_dim] buffer; the single LT layer
 is causal, so row ``cb`` only attends to the filled prefix. The layer keeps
-the frame-step kernel's rounding points (float32 residual carry, f32
-accumulation).
+the frame-step kernel's rounding points (float32 residual carry, float32
+products and sums, a round to the weight dtype only where the JAX source
+writes ``.astype(wdt)``).
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from ..ops import sampling
 from ..ops.attention import attn_scale
 from ..ops.conv_ffn import gelu
 from ..ops.norms import layer_norm
+from ..ops.precision import matmul_f32
 
 _MAX_SEQ = 9  # decoder hidden + up to 8 code embeddings
 
 
 def _in_proj(x: torch.Tensor, lt: LocalTransformerWeights) -> torch.Tensor:
     """768 -> lt_dim projection with the bias added in float32."""
-    return (torch.matmul(x, lt.in_proj_w).float() + lt.in_proj_b.float()).to(x.dtype)
+    return (matmul_f32(x, lt.in_proj_w) + lt.in_proj_b.float()).to(x.dtype)
 
 
 def _lt_layer_f32(seq_buf: torch.Tensor, lt: LocalTransformerWeights,
@@ -34,21 +36,21 @@ def _lt_layer_f32(seq_buf: torch.Tensor, lt: LocalTransformerWeights,
     wdt = seq_buf.dtype
     x = seq_buf.float() + lt.pos_emb[:_MAX_SEQ].float()
     h = layer_norm(x, lt.norm_self, config.eps).to(wdt)
-    qkv = torch.matmul(h, lt.qkv).float()
+    qkv = matmul_f32(h, lt.qkv)
     d = config.lt_dim
     q, k, v = (qkv[:, i * d:(i + 1) * d].to(wdt) for i in range(3))
-    scores = torch.matmul(q, k.T).float() * attn_scale(d)  # single head, d_head = lt_dim
+    scores = matmul_f32(q, k.T) * attn_scale(d)  # single head, d_head = lt_dim
     idx = torch.arange(_MAX_SEQ, device=x.device)
     scores = torch.where(idx[None, :] <= idx[:, None], scores,
                          torch.full_like(scores, sampling.NEG_INF))
     scores = scores - scores.amax(dim=-1, keepdim=True)
     probs = torch.exp(scores)
     probs = (probs / probs.sum(dim=-1, keepdim=True)).to(wdt)
-    attn = torch.matmul(probs, v).float()
-    x = x + torch.matmul(attn.to(wdt), lt.sa_out).float()
+    attn = matmul_f32(probs, v)
+    x = x + matmul_f32(attn.to(wdt), lt.sa_out)
     h2 = layer_norm(x, lt.norm_ff, config.eps).to(wdt)
-    ff = gelu(torch.matmul(h2, lt.ff_proj).float(), approximate=config.gelu_tanh).to(wdt)
-    return x + torch.matmul(ff, lt.ff_out).float()
+    ff = gelu(matmul_f32(h2, lt.ff_proj), approximate=config.gelu_tanh).to(wdt)
+    return x + matmul_f32(ff, lt.ff_out)
 
 
 def sample_frame_codes(decoder_hidden: torch.Tensor, weights: MagpieWeights,
@@ -68,7 +70,7 @@ def sample_frame_codes(decoder_hidden: torch.Tensor, weights: MagpieWeights,
     sampled, argmaxed = [], []
     for cb in range(config.num_codebooks):
         hidden = _lt_layer_f32(seq_buf, lt, config)[cb]
-        logits = (torch.matmul(hidden.to(decoder_hidden.dtype), lt.out_proj_w[cb]).float()
+        logits = (matmul_f32(hidden.to(decoder_hidden.dtype), lt.out_proj_w[cb])
                   + lt.out_proj_b[cb].float())
         logits = sampling.mask_logits(logits, static_forbidden_mask, forbid_eos,
                                       config.audio_eos_id)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .precision import matmul_f32
+
 _SQRT_HALF = 0.7071067811865476
 _TANH_C = 0.7978845608028654  # sqrt(2/pi)
 
@@ -27,13 +29,14 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
 
 
 def conv1d_causal_shifted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Causal conv via shifted matmuls. x: [..., seq, in]; w: [k, in, out]."""
+    """Causal conv via shifted matmuls. x: [..., seq, in]; w: [k, in, out].
+    The k terms are summed in float32 and returned unrounded."""
     k = w.shape[0]
     seq = x.shape[-2]
     xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
     out = None
     for i in range(k):
-        term = torch.matmul(xp[..., i:i + seq, :], w[i])
+        term = matmul_f32(xp[..., i:i + seq, :], w[i])
         out = term if out is None else out + term
     return out
 
@@ -43,8 +46,8 @@ def conv_ffn(x: torch.Tensor, proj_w: torch.Tensor, out_w: torch.Tensor,
     """x: [..., seq, d_model]; proj_w: [k, d_model, d_ffn] or [d_model, d_ffn];
     out_w: [k, d_ffn, d_model] or [d_ffn, d_model]."""
     if proj_w.dim() == 2:  # pointwise (decoder / local transformer)
-        h = gelu(torch.matmul(x, proj_w).to(x.dtype), approximate=gelu_tanh)
-        return torch.matmul(h, out_w).to(x.dtype)
+        h = gelu(matmul_f32(x, proj_w).to(x.dtype), approximate=gelu_tanh)
+        return matmul_f32(h, out_w).to(x.dtype)
     h = gelu(conv1d_causal_shifted(x, proj_w).to(x.dtype), approximate=gelu_tanh)
     return conv1d_causal_shifted(h, out_w).to(x.dtype)
 

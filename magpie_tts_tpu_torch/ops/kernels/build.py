@@ -22,10 +22,16 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "magpie_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# The compute dtypes every kernel takes, with their entry points' suffixes
+# (magpie_frame_step_f32 / magpie_frame_step_bf16, ...).
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()  # engines on several cards load from a thread pool
@@ -106,6 +112,11 @@ def load_library() -> ctypes.CDLL:
             lib.magpie_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def count_dtype(counts: dict, dtype: torch.dtype) -> None:
+    """Add one launch to a wrapper's ``dtype_launches`` under ``dtype``."""
+    counts[str(dtype).replace("torch.", "")] += 1
 
 
 def check(err: int, what: str) -> None:

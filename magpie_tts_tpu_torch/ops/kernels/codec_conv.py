@@ -5,7 +5,9 @@ magpie_tts_tpu/ops/pallas_kernels/codec_conv.py ``snake_causal_conv`` and
 ``snake_causal_conv_packed`` (one unpacked kernel serves every channel
 count). On CUDA tensors it launches csrc/codec_conv.cu or raises; on CPU
 tensors it runs ``snake_causal_conv_reference`` (plain ``half_snake`` +
-``causal_conv1d`` + residual, from models/codec.py).
+``causal_conv1d`` with the residual, from models/codec.py). Both run in
+float32 or bfloat16, x's dtype; every other tensor must have it, and any
+other dtype raises.
 """
 
 from __future__ import annotations
@@ -16,15 +18,18 @@ from typing import Optional
 import torch
 
 from . import build
+from .build import DTYPES, count_dtype
 
 launches = 0  # kernel launches since the last reset
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 
 
 def declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.magpie_snake_conv_f32.argtypes = [p, p, p, p, i, i, ctypes.c_float, p, p,
-                                          i, i, i, i, i, i, p]
-    lib.magpie_snake_conv_f32.restype = ctypes.c_int
+    for suffix in DTYPES.values():
+        fn = getattr(lib, f"magpie_snake_conv_{suffix}")
+        fn.argtypes = [p, p, p, p, i, i, ctypes.c_float, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
 
 
 def snake_causal_conv_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -39,15 +44,13 @@ def snake_causal_conv_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tenso
         x = x[None]
         residual = None if residual is None else residual[None]
     h = x if alpha is None else half_snake(x, alpha, leaky_slope)
-    out = causal_conv1d(h, w, b, dilation)
-    if residual is not None:
-        out = out + residual
+    out = causal_conv1d(h, w, b, dilation, residual)
     return out[0] if squeeze else out
 
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise ValueError(f"snake_causal_conv: {name} must be a float32 CUDA tensor, "
+def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
+    if t.device.type != "cuda" or t.dtype != dtype:
+        raise ValueError(f"snake_causal_conv: {name} must be a {dtype} CUDA tensor, "
                          f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"snake_causal_conv: {name} has shape {tuple(t.shape)}, "
@@ -81,22 +84,26 @@ def snake_causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     k, _, c_out = w.shape
     if dilation < 1 or (k - 1) * dilation > 512:
         raise ValueError(f"snake_causal_conv: unsupported dilation {dilation} for k {k}")
-    _check("x", x3, (n, T, c_in))
-    _check("w", w, (k, c_in, c_out))
-    _check("b", b, (c_out,))
+    dtype = x.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"snake_causal_conv: dtype {dtype} is not one the kernel takes "
+                         f"(float32, bfloat16)")
+    _check("x", x3, (n, T, c_in), dtype)
+    _check("w", w, (k, c_in, c_out), dtype)
+    _check("b", b, (c_out,), dtype)
     if alpha is not None:
         if alpha.dim() != 1 or alpha.shape[0] > c_in:
             raise ValueError(f"snake_causal_conv: alpha {tuple(alpha.shape)} vs C_in {c_in}")
-        _check("alpha", alpha, tuple(alpha.shape))
+        _check("alpha", alpha, tuple(alpha.shape), dtype)
     res3 = None
     if residual is not None:
         res3 = residual[None] if squeeze else residual
-        _check("residual", res3, (n, T, c_out))
-    out = torch.empty(n, T, c_out, dtype=torch.float32, device=x.device)
+        _check("residual", res3, (n, T, c_out), dtype)
+    out = torch.empty(n, T, c_out, dtype=dtype, device=x.device)
     if T > 0:
         lib = build.load_library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.magpie_snake_conv_f32(
+        err = getattr(lib, f"magpie_snake_conv_{DTYPES[dtype]}")(
             x3.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if alpha is None else alpha.data_ptr(),
             0 if alpha is None else alpha.shape[0], int(alpha is not None),
@@ -104,4 +111,5 @@ def snake_causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             n, T, c_in, c_out, k, dilation, stream)
         build.check(err, "snake_causal_conv")
         launches += 1
+        count_dtype(dtype_launches, dtype)
     return out[0] if squeeze else out

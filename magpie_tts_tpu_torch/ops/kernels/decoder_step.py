@@ -6,8 +6,9 @@ with its three weight streams (``stream``: None, an Int8DecoderStream or a
 Q8DecoderStream, as for kernel A): the 12 cached decoder layers at one
 position, from a frame embedding to which the position embedding is added
 inside. On CUDA
-tensors it launches the ``magpie_decode_step_f32`` entry point of
-csrc/frame_step.cu (kernel A's decoder sequence) or raises; on CPU tensors
+tensors it launches the ``magpie_decode_step_f32`` / ``_bf16`` entry point
+of csrc/frame_step.cu (kernel A's decoder sequence; x's dtype picks one) or
+raises; on CPU tensors
 it runs ``decode_step_reference``, the plain ``models.decoder.decode_step``.
 
 Both write the new K/V row ``pos`` of every layer into the caches in place.
@@ -23,9 +24,10 @@ from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from . import frame_step as fs
 
-ENTRY = "magpie_decode_step_f32"
+ENTRY = "magpie_decode_step"
 launches = 0  # kernel launches (one per frame) since the last reset
 mode_launches = dict.fromkeys(fs.MODES, 0)  # the same, by weight stream
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 
 
 def declare(lib) -> None:
@@ -60,14 +62,17 @@ def decode_step(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tenso
     if x.device.type != "cuda":
         raise ValueError(f"decode_step: unsupported device {x.device}")
     c = config
+    dtype = fs.compute_dtype(ENTRY, x)
     fs.check_config(ENTRY, c)
     scalars = fs.step_scalars(ENTRY, c, pos, k_cache, xa_k, enc_length)
-    hidden_out = torch.empty(c.d_model, dtype=torch.float32, device=x.device)
+    hidden_out = torch.empty(c.d_model, dtype=dtype, device=x.device)
     tensors = {"hidden": (x, (c.d_model,)),
                "pos_emb": (weights.decoder.pos_emb, (c.max_pos, c.d_model)),
                **fs.cache_tensors(k_cache, v_cache, xa_k, xa_v, c),
                **fs.decoder_weight_tensors(weights, c, stream)}
-    fs.launch(ENTRY, tensors, dict(hidden_out=hidden_out), c, x.device, stream, **scalars)
+    fs.launch(fs.entry_name(ENTRY, dtype), tensors, dict(hidden_out=hidden_out), c, x.device,
+              stream, dtype, **scalars)
     launches += 1
     mode_launches[fs.MODES[fs.stream_mode(stream)]] += 1
+    fs.count_dtype(dtype_launches, dtype)
     return hidden_out

@@ -6,8 +6,9 @@ magpie_tts_tpu/ops/pallas_kernels/decoder_step_batched.py
 None, an Int8DecoderStream or a Q8DecoderStream): the 12 cached decoder
 layers for B slots that share one cache write row, each attending to the
 rows its validity mask admits, every weight read once for all slots. On CUDA
-tensors it launches the ``magpie_decode_step_batched_f32`` entry point of
-csrc/frame_step_batched.cu (kernel C's decoder sequence) or raises; on CPU
+tensors it launches the ``magpie_decode_step_batched_f32`` / ``_bf16`` entry
+point of csrc/frame_step_batched.cu (kernel C's decoder sequence; x_pe's dtype
+picks one) or raises; on CPU
 tensors it runs ``decode_step_batched_reference``: per slot, the plain
 ``models.decoder.decode_rows``.
 
@@ -27,9 +28,10 @@ from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from . import frame_step_batched as fsb
 
-ENTRY = "magpie_decode_step_batched_f32"
+ENTRY = "magpie_decode_step_batched"
 launches = 0  # kernel launches (one per frame) since the last reset
 mode_launches = dict.fromkeys(fsb.MODES, 0)  # the same, by weight stream
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
 
 
@@ -80,18 +82,21 @@ def decode_step_batched(x_pe: torch.Tensor, write_row: int, valid: torch.Tensor,
     if x_pe.device.type != "cuda":
         raise ValueError(f"decode_step_batched: unsupported device {x_pe.device}")
     c = config
+    dtype = fsb.compute_dtype(ENTRY, x_pe)
     B, S = k_cache.shape[0], k_cache.shape[2]
     fsb.check_batch(ENTRY, B)
     rows = fsb.check_rows(ENTRY, c, write_row, rows, S)
     fsb.check_config(ENTRY, c)
-    hidden_out = torch.empty(B, c.d_model, dtype=torch.float32, device=x_pe.device)
-    tensors = {"hidden": (x_pe, (B, c.d_model), torch.float32, False),
+    hidden_out = torch.empty(B, c.d_model, dtype=dtype, device=x_pe.device)
+    tensors = {"hidden": (x_pe, (B, c.d_model), dtype, False),
                **fsb.decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights,
-                                     c, stream)}
-    fsb.launch(ENTRY, B, tensors, dict(hidden_out=hidden_out), c, x_pe.device, stream,
+                                     c, stream, dtype)}
+    fsb.launch(fsb.entry_name(ENTRY, dtype), B, tensors, dict(hidden_out=hidden_out), c,
+               x_pe.device, stream,
                max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
                valid_stride=valid.stride(0))
     with _launches_lock:
         launches += 1
         mode_launches[fsb.MODES[fsb.stream_mode(stream)]] += 1
+        fsb.count_dtype(dtype_launches, dtype)
     return hidden_out

@@ -17,6 +17,13 @@ and the tensor tables here also serve the split path's kernels 4 and 5
 (ops/kernels/lt_sampler.py, ops/kernels/decoder_step.py), entry points of
 the same source. A stream of the wrong type or shape raises: no path
 dequantizes a stream and runs the dense kernel in its place.
+
+Every entry point comes in the two compute dtypes, float32 (``_f32``) and
+bfloat16 (``_bf16``): the hidden row's dtype picks one, and every weight,
+cache and row the kernel reads must have it (a quantized stream keeps its
+int8 values and float32 scales). Any other dtype raises; ``dtype_launches``
+counts the launches by dtype, so a bfloat16 run that went through float32
+shows.
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ from ..attention import attn_scale
 from . import build
 
 MODES = ("dense", "int8", "q8")  # the weight streams, by stream_mode
+DTYPES, count_dtype = build.DTYPES, build.count_dtype
 launches = 0  # kernel launches (one per frame) since the last reset
 mode_launches = dict.fromkeys(MODES, 0)  # the same, by weight stream
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 
 _PART_CAP = 32  # most split-K partial rows a GEMV may produce
 
@@ -61,10 +70,24 @@ class FrameStepArgs(ctypes.Structure):
                 [(n, ctypes.c_float) for n in _floats])
 
 
-def declare(lib: ctypes.CDLL, entry: str = "magpie_frame_step_f32") -> None:
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def declare(lib: ctypes.CDLL, base: str = "magpie_frame_step") -> None:
+    for suffix in DTYPES.values():
+        fn = getattr(lib, f"{base}_{suffix}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+
+def compute_dtype(who: str, t: torch.Tensor) -> torch.dtype:
+    """The compute dtype a kernel runs in: that of ``t`` (its input row),
+    float32 or bfloat16; any other raises."""
+    if t.dtype not in DTYPES:
+        raise ValueError(f"{who}: compute dtype {t.dtype} is not one the kernels take "
+                         f"(float32, bfloat16)")
+    return t.dtype
+
+
+def entry_name(base: str, dtype: torch.dtype) -> str:
+    return f"{base}_{DTYPES[dtype]}"
 
 
 def frame_step_reference(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor,
@@ -86,9 +109,10 @@ def frame_step_reference(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor,
     return sampled, argmax, hidden, k_cache, v_cache
 
 
-def check_tensor(who: str, name: str, t: torch.Tensor, shape: Tuple[int, ...]) -> None:
-    if t.device.type != "cuda" or t.dtype != torch.float32:
-        raise ValueError(f"{who}: {name} must be a float32 CUDA tensor, "
+def check_tensor(who: str, name: str, t: torch.Tensor, shape: Tuple[int, ...],
+                 dtype=torch.float32) -> None:
+    if t.device.type != "cuda" or t.dtype != dtype:
+        raise ValueError(f"{who}: {name} must be a {dtype} CUDA tensor, "
                          f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, want {shape}")
@@ -220,15 +244,16 @@ def cache_tensors(k_cache, v_cache, xa_k, xa_v, config: MagpieConfig) -> dict:
 
 
 def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, device,
-           stream=None, **scalars) -> None:
-    """Validate ``tensors`` ({name: (tensor, shape)}) and the weight
-    ``stream``, allocate a workspace on ``device`` and call the library's
-    ``entry`` with a FrameStepArgs of the tensors, the stream's tensors and
-    mode, the workspace, ``outputs`` ({name: tensor}) and the config's dims;
-    ``scalars`` fill the remaining fields (unset pointers are null)."""
+           stream=None, dtype=torch.float32, **scalars) -> None:
+    """Validate ``tensors`` ({name: (tensor, shape)}, all in the compute
+    ``dtype``) and the weight ``stream``, allocate a workspace on ``device``
+    and call the library's ``entry`` with a FrameStepArgs of the tensors, the
+    stream's tensors and mode, the workspace, ``outputs`` ({name: tensor})
+    and the config's dims; ``scalars`` fill the remaining fields (unset
+    pointers are null)."""
     c = config
     for name, (t, shape) in tensors.items():
-        check_tensor(entry, name, t, shape)
+        check_tensor(entry, name, t, shape, dtype)
     quantized = stream_tensors(entry, stream, c)
     lib = build.load_library()
     ptrs = {name: t.data_ptr() for name, (t, _) in tensors.items()}
@@ -280,19 +305,21 @@ def frame_step(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.T
     if hidden.device.type != "cuda":
         raise ValueError(f"frame_step: unsupported device {hidden.device}")
     c = config
+    dtype = compute_dtype("frame_step", hidden)
     check_config("frame_step", c, top_k)
     scalars = step_scalars("frame_step", c, pos, k_cache, xa_k, enc_length)
     dev = hidden.device
     sampled = torch.empty(c.num_codebooks, dtype=torch.int32, device=dev)
     argmax = torch.empty(c.num_codebooks, dtype=torch.int32, device=dev)
-    hidden_out = torch.empty(c.d_model, dtype=torch.float32, device=dev)
+    hidden_out = torch.empty(c.d_model, dtype=dtype, device=dev)
     tensors = {"hidden": (hidden, (c.d_model,)),
                "pos_emb": (weights.decoder.pos_emb, (c.max_pos, c.d_model)),
                **cache_tensors(k_cache, v_cache, xa_k, xa_v, c),
                **lt_weight_tensors(weights, c), **decoder_weight_tensors(weights, c, stream)}
-    launch("magpie_frame_step_f32", tensors,
-           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream,
+    launch(entry_name("magpie_frame_step", dtype), tensors,
+           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream, dtype,
            **scalars, **sampling_scalars(c, seed, temperature, top_k, forbid_eos))
     launches += 1
     mode_launches[MODES[stream_mode(stream)]] += 1
+    count_dtype(dtype_launches, dtype)
     return sampled, argmax, hidden_out, k_cache, v_cache

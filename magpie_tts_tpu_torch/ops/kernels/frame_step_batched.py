@@ -16,6 +16,8 @@ decode_step_batched_reference`` with the new row's validity decided between.
 Both update the K/V caches ``[B, L, max_seq, d_model]`` in place (row
 ``write_row`` of every layer and slot). ``launch`` and the tensor tables here
 also serve the split path's kernels 7 and 8, entry points of the same source.
+As for kernel A, the hidden rows' dtype (float32 or bfloat16) picks the entry
+point and every weight, cache and row must have it.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from ..attention import attn_scale
 from . import build
-from .frame_step import (MODES, check_config, decoder_weight_tensors, lt_weight_tensors,
-                         stream_mode, stream_tensors)
+from .frame_step import (DTYPES, MODES, check_config, compute_dtype, count_dtype,
+                         decoder_weight_tensors, entry_name, lt_weight_tensors, stream_mode,
+                         stream_tensors)
 
 launches = 0  # kernel launches (one per frame) since the last reset
 mode_launches = dict.fromkeys(MODES, 0)  # the same, by weight stream
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
 
 MAX_SLOTS = 64  # the kernel's shared-memory slot tile
@@ -64,10 +68,11 @@ class FrameStepBatchedArgs(ctypes.Structure):
                 [(n, ctypes.c_float) for n in _floats])
 
 
-def declare(lib: ctypes.CDLL, entry: str = "magpie_frame_step_batched_f32") -> None:
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def declare(lib: ctypes.CDLL, base: str = "magpie_frame_step_batched") -> None:
+    for suffix in DTYPES.values():
+        fn = getattr(lib, f"{base}_{suffix}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def frame_step_batched_reference(
@@ -107,8 +112,8 @@ def check_tensor(who: str, name: str, t: torch.Tensor, shape: Tuple[int, ...],
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, want {shape}")
     rows_ok = t.is_contiguous() or (broadcast_ok and t.dim() == 2 and t.stride(0) == 0
                                     and t.stride(1) == 1)
-    if not rows_ok or (dtype == torch.float32 and t.data_ptr() % 16):
-        raise ValueError(f"{who}: {name} must be contiguous (float32: 16-byte aligned)")
+    if not rows_ok or (dtype in DTYPES and t.data_ptr() % 16):
+        raise ValueError(f"{who}: {name} must be contiguous (float: 16-byte aligned)")
 
 
 def check_batch(who: str, B: int) -> None:
@@ -145,30 +150,30 @@ def _workspace(config: MagpieConfig, B: int, device) -> dict:
 def sampler_tensors(hidden, forbid_eos, seeds, weights: MagpieWeights,
                     config: MagpieConfig) -> dict:
     """{argument name: (tensor, shape, dtype, broadcast_ok)} of what the LT
-    sampling sequence reads for B slots."""
+    sampling sequence reads for B slots, in the hidden rows' dtype."""
     B, D = hidden.shape[0], config.d_model
-    f32 = torch.float32
-    return {"hidden": (hidden, (B, D), f32, False),
+    dt = hidden.dtype
+    return {"hidden": (hidden, (B, D), dt, False),
             "forbid_eos": (forbid_eos, (B,), torch.bool, False),
             "seeds": (seeds, (B,), torch.int32, False),
-            **{name: (t, shape, f32, False)
+            **{name: (t, shape, dt, False)
                for name, (t, shape) in lt_weight_tensors(weights, config).items()}}
 
 
 def decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights: MagpieWeights,
-                    config: MagpieConfig, stream=None) -> dict:
+                    config: MagpieConfig, stream=None, dtype=torch.float32) -> dict:
     """{argument name: (tensor, shape, dtype, broadcast_ok)} of what the
     decoder sequence reads for B slots (besides its input rows and the
-    quantized ``stream``'s tensors)."""
+    quantized ``stream``'s tensors), in the compute ``dtype``."""
     B, L, S, D = k_cache.shape
     E, X = xa_k.shape[2], config.d_xa
-    f32 = torch.float32
+    dt = dtype
     return {"valid": (valid, (B, S), torch.bool, True),
             "enc_lengths": (enc_lengths, (B,), torch.int32, False),
-            "k_cache": (k_cache, (B, L, S, D), f32, False),
-            "v_cache": (v_cache, (B, L, S, D), f32, False),
-            "xa_k": (xa_k, (B, L, E, X), f32, False), "xa_v": (xa_v, (B, L, E, X), f32, False),
-            **{name: (t, shape, f32, False)
+            "k_cache": (k_cache, (B, L, S, D), dt, False),
+            "v_cache": (v_cache, (B, L, S, D), dt, False),
+            "xa_k": (xa_k, (B, L, E, X), dt, False), "xa_v": (xa_v, (B, L, E, X), dt, False),
+            **{name: (t, shape, dt, False)
                for name, (t, shape) in decoder_weight_tensors(weights, config, stream).items()}}
 
 
@@ -233,6 +238,7 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     if hidden.device.type != "cuda":
         raise ValueError(f"frame_step_batched: unsupported device {hidden.device}")
     c = config
+    dtype = compute_dtype("frame_step_batched", hidden)
     B, S = k_cache.shape[0], k_cache.shape[2]
     check_batch("frame_step_batched", B)
     rows = check_rows("frame_step_batched", c, write_row, rows, S)
@@ -240,13 +246,13 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     dev = hidden.device
     sampled = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
     argmax = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
-    hidden_out = torch.empty(B, c.d_model, dtype=torch.float32, device=dev)
+    hidden_out = torch.empty(B, c.d_model, dtype=dtype, device=dev)
     tensors = {**sampler_tensors(hidden, forbid_eos, seeds, weights, c),
                **decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights, c,
-                                 stream),
+                                 stream, dtype),
                "may_continue": (may_continue, (B,), torch.bool, False),
-               "posemb": (posemb, (B, c.d_model), torch.float32, True)}
-    launch("magpie_frame_step_batched_f32", B, tensors,
+               "posemb": (posemb, (B, c.d_model), dtype, True)}
+    launch(entry_name("magpie_frame_step_batched", dtype), B, tensors,
            dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream,
            max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
            valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
@@ -254,4 +260,5 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     with _launches_lock:
         launches += 1
         mode_launches[MODES[stream_mode(stream)]] += 1
+        count_dtype(dtype_launches, dtype)
     return sampled, argmax, hidden_out, k_cache, v_cache

@@ -4,8 +4,9 @@
 magpie_tts_tpu/ops/pallas_kernels/lt_sampler.py ``sample_frame_codes_pallas``:
 the 8 local-transformer phases of a frame, each sampling one codebook's code
 from the decoder's hidden state. On CUDA tensors it launches the
-``magpie_lt_sample_f32`` entry point of csrc/frame_step.cu (kernel A's LT
-sequence, stopping at the codes) or raises; on CPU tensors it runs
+``magpie_lt_sample_f32`` / ``_bf16`` entry point of csrc/frame_step.cu
+(kernel A's LT sequence, stopping at the codes; the hidden row's dtype picks
+one) or raises; on CPU tensors it runs
 ``sample_frame_codes_reference``, the plain ``models.local_transformer.
 sample_frame_codes``.
 """
@@ -18,8 +19,9 @@ from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from . import frame_step as fs
 
-ENTRY = "magpie_lt_sample_f32"
+ENTRY = "magpie_lt_sample"
 launches = 0  # kernel launches (one per frame) since the last reset
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 
 
 def declare(lib) -> None:
@@ -50,12 +52,14 @@ def sample_frame_codes(hidden: torch.Tensor, weights: MagpieWeights, config: Mag
     if hidden.device.type != "cuda":
         raise ValueError(f"sample_frame_codes: unsupported device {hidden.device}")
     c = config
+    dtype = fs.compute_dtype(ENTRY, hidden)
     fs.check_config(ENTRY, c, top_k)
     dev = hidden.device
     sampled = torch.empty(c.num_codebooks, dtype=torch.int32, device=dev)
     argmax = torch.empty(c.num_codebooks, dtype=torch.int32, device=dev)
     tensors = {"hidden": (hidden, (c.d_model,)), **fs.lt_weight_tensors(weights, c)}
-    fs.launch(ENTRY, tensors, dict(sampled=sampled, argmax=argmax), c, dev,
-              **fs.sampling_scalars(c, seed, temperature, top_k, forbid_eos))
+    fs.launch(fs.entry_name(ENTRY, dtype), tensors, dict(sampled=sampled, argmax=argmax), c, dev,
+              dtype=dtype, **fs.sampling_scalars(c, seed, temperature, top_k, forbid_eos))
     launches += 1
+    fs.count_dtype(dtype_launches, dtype)
     return sampled, argmax

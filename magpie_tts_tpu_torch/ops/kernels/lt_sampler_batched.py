@@ -4,9 +4,9 @@
 magpie_tts_tpu/ops/pallas_kernels/lt_sampler_batched.py
 ``sample_frame_codes_batched_pallas``: each slot's 8 local-transformer
 phases with its own seed and EOS flag, every LT weight read once for all
-slots. On CUDA tensors it launches the ``magpie_lt_sample_batched_f32`` entry
-point of csrc/frame_step_batched.cu (kernel C's LT sequence, stopping at the
-codes) or raises; on CPU tensors it runs
+slots. On CUDA tensors it launches the ``magpie_lt_sample_batched_f32`` /
+``_bf16`` entry point of csrc/frame_step_batched.cu (kernel C's LT sequence,
+stopping at the codes; the hidden rows' dtype picks one) or raises; on CPU tensors it runs
 ``sample_frame_codes_batched_reference``: per slot, the plain
 ``models.local_transformer.sample_frame_codes``.
 
@@ -25,8 +25,9 @@ from ...io.magpie_weights import MagpieWeights
 from . import frame_step_batched as fsb
 from .lt_sampler import sample_frame_codes_reference
 
-ENTRY = "magpie_lt_sample_batched_f32"
+ENTRY = "magpie_lt_sample_batched"
 launches = 0  # kernel launches (one per frame) since the last reset
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
 
 
@@ -60,15 +61,18 @@ def sample_frame_codes_batched(hidden: torch.Tensor, weights: MagpieWeights,
     if hidden.device.type != "cuda":
         raise ValueError(f"sample_frame_codes_batched: unsupported device {hidden.device}")
     c = config
+    dtype = fsb.compute_dtype(ENTRY, hidden)
     B = hidden.shape[0]
     fsb.check_batch(ENTRY, B)
     fsb.check_config(ENTRY, c, top_k)
     dev = hidden.device
     sampled = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
     argmax = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
-    fsb.launch(ENTRY, B, fsb.sampler_tensors(hidden, forbid_eos, seeds, weights, c),
+    fsb.launch(fsb.entry_name(ENTRY, dtype), B,
+               fsb.sampler_tensors(hidden, forbid_eos, seeds, weights, c),
                dict(sampled=sampled, argmax=argmax), c, dev,
                top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
     with _launches_lock:
         launches += 1
+        fsb.count_dtype(dtype_launches, dtype)
     return sampled, argmax

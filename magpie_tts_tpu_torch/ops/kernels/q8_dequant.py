@@ -7,7 +7,8 @@ program for every block-stored tensor. On CUDA tensors it launches
 csrc/q8_dequant.cu, which writes the loader's layout directly (a tiled
 transpose), or raises; on CPU tensors it runs ``dequantize_reference``: the
 f32 product, a reshape to the GGUF shape and the loader's transform. Both are
-bit-identical to the dense load of the same file.
+bit-identical to the dense load of the same file, in float32 or, rounded to
+nearest even, in bfloat16 (the kernel writes bf16 directly).
 """
 
 from __future__ import annotations
@@ -19,15 +20,19 @@ from typing import Tuple
 import torch
 
 from . import build
+from .build import DTYPES, count_dtype
 
 launches = 0  # kernel launches since the last reset
+dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by output dtype
 QK = 32
 
 
 def declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.magpie_q8_dequant_f32.argtypes = [p, p, p, i, i, i, i, p]
-    lib.magpie_q8_dequant_f32.restype = ctypes.c_int
+    for suffix in DTYPES.values():
+        fn = getattr(lib, f"magpie_q8_dequant_{suffix}")
+        fn.argtypes = [p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
 
 
 def _dims(torch_shape, transform: str) -> Tuple[int, int, int]:
@@ -48,8 +53,9 @@ def out_shape(lead, torch_shape, transform: str) -> Tuple[int, ...]:
 
 
 def dequantize_reference(q: torch.Tensor, s: torch.Tensor, torch_shape,
-                         transform: str) -> torch.Tensor:
-    """Plain version: ``s * q`` in f32, the GGUF shape, the loader's layout."""
+                         transform: str, dtype=torch.float32) -> torch.Tensor:
+    """Plain version: ``s * q`` in f32, the GGUF shape, the loader's layout,
+    then ``dtype``."""
     _dims(torch_shape, transform)
     w = (s.float() * q.float()).reshape(*q.shape[:-2], *torch_shape)
     if transform == "linear":
@@ -58,18 +64,23 @@ def dequantize_reference(q: torch.Tensor, s: torch.Tensor, torch_shape,
         w = w[..., 0].transpose(-1, -2)
     else:
         w = w.transpose(-1, -3)
-    return w.contiguous()
+    return w.contiguous().to(dtype)
 
 
-def dequantize(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str) -> torch.Tensor:
+def dequantize(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str,
+               dtype=torch.float32) -> torch.Tensor:
     """q [*lead, n_blocks, 32] int8 and s [*lead, n_blocks, 1] f32 (one
-    f16-valued scale per block, GGUF order) -> the float32 tensor of the
-    loader's ``transform`` of ``torch_shape``, for every lead index."""
+    f16-valued scale per block, GGUF order) -> the ``dtype`` (float32 or
+    bfloat16) tensor of the loader's ``transform`` of ``torch_shape``, for
+    every lead index."""
     global launches
     if q.device.type == "cpu":
-        return dequantize_reference(q, s, torch_shape, transform)
+        return dequantize_reference(q, s, torch_shape, transform, dtype)
     if q.device.type != "cuda":
         raise ValueError(f"q8 dequant: unsupported device {q.device}")
+    if dtype not in DTYPES:
+        raise ValueError(f"q8 dequant: dtype {dtype} is not one the kernel writes "
+                         f"(float32, bfloat16)")
     A, B, Kk = _dims(torch_shape, transform)
     lead = tuple(q.shape[:-2])
     n_blocks = A * B * Kk // QK
@@ -81,13 +92,13 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str) ->
             or tuple(s.shape) != (*lead, n_blocks, 1)):
         raise ValueError(f"q8 dequant: s must be a contiguous float32 {(*lead, n_blocks, 1)} "
                          f"tensor on {q.device}, got {s.dtype} {tuple(s.shape)} on {s.device}")
-    out = torch.empty(out_shape(lead, torch_shape, transform), dtype=torch.float32,
-                      device=q.device)
+    out = torch.empty(out_shape(lead, torch_shape, transform), dtype=dtype, device=q.device)
     lib = build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.magpie_q8_dequant_f32(q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                                        math.prod(lead), A, B, Kk, stream)
+        err = getattr(lib, f"magpie_q8_dequant_{DTYPES[dtype]}")(
+            q.data_ptr(), s.data_ptr(), out.data_ptr(), math.prod(lead), A, B, Kk, stream)
     build.check(err, "q8_dequant")
     launches += 1
+    count_dtype(dtype_launches, dtype)
     return out

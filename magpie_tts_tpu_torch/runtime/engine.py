@@ -45,10 +45,14 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)  # what the engines and kernels take
+
+
 def check_dtype(dtype) -> None:
-    if dtype != torch.float32:
+    if dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"compute dtype {dtype} is not ported yet: the PyTorch port runs float32 only")
+            f"compute dtype {dtype} is not ported: the PyTorch port runs float32 and "
+            f"bfloat16")
 
 
 def pick_bucket(buckets: Sequence[int], n: int) -> int:
@@ -164,8 +168,9 @@ class CodecEngine:
             audio = codec_mod.codec_decode(torch.from_numpy(padded).to(self.device),
                                            self.weights, self.config)
             audio = audio[: n * self.config.hop_length]
+            audio = audio.float()
             if pcm16:
-                audio = (torch.clamp(audio.float(), -1.0, 1.0) * 32767.0).to(torch.int16)
+                audio = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
         return audio.cpu().numpy()
 
     def decode_batch(self, codes_list) -> list:

@@ -478,3 +478,215 @@ def test_stream_wrappers_reject_bad_streams(prepared):
         fs.frame_step(*args, stream=dataclasses.replace(q8, qkv_q=q8.qkv_q.float()))
     with pytest.raises(ValueError):    # block scales [L, K / 32, N]
         fs.frame_step(*args, stream=dataclasses.replace(q8, ff_out_bs=q8.ff_out_bs[:, :1]))
+
+
+# ------------------------------------------------------------- bfloat16
+
+BF = torch.bfloat16
+
+
+def _scaled_ulps(got, want):
+    """|got - want| in bf16 ulps of max(|want|, its row's RMS) (as
+    chip_smoke.scaled_ulps)."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt() if w.shape[-1] > 1 else w.abs()
+    ref = torch.maximum(w.abs(), rms).clamp_min(1e-30)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(ref)) - 7)
+
+
+def _bf16_close(pairs, share=0.95, most=8.0):
+    """The bf16 frame kernels' bar (chip_smoke.ULP_SHARE / ULP_MAX): the
+    float32 sums run in another order than torch's and the decoder's later
+    roundings spread a one-ulp step, so 95% within 1 scaled ulp, none past 8."""
+    d = torch.cat([_scaled_ulps(a, b).flatten() for a, b in pairs])
+    assert float((d <= 1).float().mean()) >= share and float(d.max()) <= most, \
+        (float((d <= 1).float().mean()), float(d.max()))
+
+
+@pytest.fixture
+def prepared_bf16(cuda):
+    w = random_magpie_weights(SMALL, seed=11).to(device=cuda, dtype=BF)
+    tokens = torch.tensor(np.random.default_rng(7).integers(2, 96, size=8), device=cuda)
+    with torch.no_grad():
+        xa_k, xa_v, st = magpie_mod.prepare(tokens, 6, 0, w, SMALL)
+    return w, xa_k, xa_v, st
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_bf16_single_stream_kernels_match_plain(prepared_bf16, temperature):
+    """Kernels A, 4 and 5 in bf16 against their plain versions: codes exact,
+    hidden and the new K/V row within the bf16 bar; every launch counted as
+    bfloat16."""
+    w, xa_k, xa_v, st = prepared_bf16
+    for m in (fs, lts, ds):
+        m.dtype_launches = dict.fromkeys(m.dtype_launches, 0)
+    (kk, vk), (kr, vr), (k5, v5), (k5r, v5r) = [(st.k_cache.clone(), st.v_cache.clone())
+                                                for _ in range(4)]
+    args = dict(seed=5, temperature=temperature, top_k=8, forbid_eos=False, enc_length=6)
+    with torch.no_grad():
+        sk, ak, hk, _, _ = fs.frame_step(st.hidden, st.pos, xa_k, xa_v, kk, vk, w, SMALL, **args)
+        sr, ar, hr, _, _ = fs.frame_step_reference(st.hidden, st.pos, xa_k, xa_v, kr, vr, w,
+                                                   SMALL, **args)
+        s4, a4 = lts.sample_frame_codes(st.hidden, w, SMALL, 5, temperature, 8, False)
+        emb = magpie_mod.audio_frame_embedding(sr, w, SMALL)
+        h5 = ds.decode_step(emb, st.pos, xa_k, xa_v, k5, v5, w, SMALL, enc_length=6)
+        h5r = ds.decode_step_reference(emb, st.pos, xa_k, xa_v, k5r, v5r, w, SMALL, enc_length=6)
+    torch.cuda.synchronize()
+    assert hk.dtype == h5.dtype == BF
+    assert torch.equal(sk, sr) and torch.equal(ak, ar)
+    assert torch.equal(s4, sr) and torch.equal(a4, ar)
+    p = st.pos
+    _bf16_close(((hk, hr), (kk[:, p], kr[:, p]), (vk[:, p], vr[:, p])))
+    _bf16_close(((h5, h5r), (k5[:, p], k5r[:, p]), (v5[:, p], v5r[:, p])))
+    assert fs.dtype_launches == {"float32": 0, "bfloat16": 1}
+    assert lts.dtype_launches == ds.dtype_launches == {"float32": 0, "bfloat16": 1}
+
+
+@pytest.mark.parametrize("B,write_row,temperature", [(8, 30, 0.0), (32, 47, 0.7)])
+def test_bf16_batched_kernels_match_plain(cuda, B, write_row, temperature):
+    """Kernels C, 7 and 8 in bf16 at B = 8 and 32 with ring masks: codes
+    exact, hidden and new K/V rows of the live slots within the bf16 bar."""
+    w = random_magpie_weights(SMALL, seed=11).to(device=cuda, dtype=BF)
+    x = _batched_inputs(w, B, write_row, cuda)
+    for key in ("hidden", "xa_k", "xa_v", "k_cache", "v_cache"):
+        x[key] = x[key].to(BF)
+    (kk, vk), (kr, vr), (k8, v8), (k8r, v8r) = [(x["k_cache"].clone(), x["v_cache"].clone())
+                                                for _ in range(4)]
+    del x["k_cache"], x["v_cache"]
+    args = dict(x, weights=w, config=SMALL, temperature=temperature, top_k=8)
+    with torch.no_grad():
+        sk, ak, hk, _, _ = fsb.frame_step_batched(k_cache=kk, v_cache=vk, **args)
+        sr, ar, hr, _, _ = fsb.frame_step_batched_reference(k_cache=kr, v_cache=vr, **args)
+        sample = (x["hidden"], w, SMALL, x["seeds"], temperature, 8, x["forbid_eos"])
+        s7, a7 = ltsb.sample_frame_codes_batched(*sample)
+        valid = x["valid"].clone()
+        valid[:, write_row] = x["may_continue"] & ~_eos(sr, ar)
+        step = (magpie_mod.audio_frame_embedding(sr, w, SMALL) + x["posemb"], write_row, valid,
+                x["xa_k"], x["xa_v"])
+        h8 = dsb.decode_step_batched(*step, k8, v8, w, SMALL, x["enc_lengths"])
+        h8r = dsb.decode_step_batched_reference(*step, k8r, v8r, w, SMALL, x["enc_lengths"])
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sr) and torch.equal(ak, ar)
+    assert torch.equal(s7, sr) and torch.equal(a7, ar)
+    live, r = slice(0, B - 1), write_row
+    _bf16_close(((hk[live], hr[live]), (kk[live, :, r], kr[live, :, r]),
+                 (vk[live, :, r], vr[live, :, r])))
+    _bf16_close(((h8[live], h8r[live]), (k8[live, :, r], k8r[live, :, r]),
+                 (v8[live, :, r], v8r[live, :, r])))
+
+
+@pytest.mark.parametrize("cin,cout,k,d,residual,act", [
+    (32, 64, 7, 1, False, False), (54, 54, 11, 5, False, True), (108, 108, 7, 3, True, True),
+    (27, 1, 3, 1, False, True)])
+def test_bf16_conv_kernel_matches_plain(cuda, cin, cout, k, d, residual, act):
+    """Kernel B in bf16 (one rounding per output): every value within 1
+    scaled bf16 ulp of the plain version."""
+    rng = np.random.default_rng(cin)
+    bf = lambda *shape, s=0.5: torch.tensor(rng.normal(0, s, shape), dtype=BF, device=cuda)
+    x, wt, b = bf(2, 500, cin), bf(k, cin, cout, s=0.1), bf(cout, s=1.0)
+    alpha = torch.tensor(rng.uniform(0.4, 1.4, cin // 2), dtype=BF, device=cuda) if act else None
+    r = bf(2, 500, cout) if residual else None
+    cc.dtype_launches = dict.fromkeys(cc.dtype_launches, 0)
+    got = cc.snake_causal_conv(x, wt, b, alpha, d, 0.01, residual=r)
+    want = cc.snake_causal_conv_reference(x, wt, b, alpha, d, 0.01, r)
+    torch.cuda.synchronize()
+    assert got.dtype == BF and cc.dtype_launches == {"float32": 0, "bfloat16": 1}
+    d_ulps = _scaled_ulps(got, want) if cout > 1 else _scaled_ulps(got.flatten(), want.flatten())
+    assert float(d_ulps.max()) <= 1.0
+
+
+@pytest.mark.parametrize("torch_shape,transform,lead", [
+    ((40, 64), "linear", (3,)), ((96, 32, 1), "conv1", ()), ((64, 40, 3), "conv_ffn", (2,))])
+def test_bf16_q8_dequant_kernel_matches_plain(cuda, torch_shape, transform, lead):
+    """Kernel 10 writing bf16: bit-equal to its plain version and to the
+    float32 dequant rounded to bf16."""
+    rng = np.random.default_rng(len(lead) + 7)
+    n_blocks = int(np.prod(torch_shape)) // 32
+    q = torch.tensor(rng.integers(-127, 128, (*lead, n_blocks, 32)), dtype=torch.int8,
+                     device=cuda)
+    s = torch.tensor(rng.normal(0, 0.01, (*lead, n_blocks, 1)).astype(np.float16),
+                     dtype=torch.float32, device=cuda)
+    got = q8_dequant.dequantize(q, s, torch_shape, transform, BF)
+    want = q8_dequant.dequantize_reference(q, s, torch_shape, transform, BF)
+    f32 = q8_dequant.dequantize(q, s, torch_shape, transform)
+    torch.cuda.synchronize()
+    assert got.dtype == BF and torch.equal(got, want) and torch.equal(got, f32.to(BF))
+
+
+def test_bf16_streams_q8_bit_equal_dense_int8_match_plain(prepared_bf16):
+    """Kernels A and 5 in bf16 with the Q8 stream bit-equal to the dense
+    kernel on the weights dequantized in bf16; the int8 stream against plain."""
+    w, xa_k, xa_v, st = prepared_bf16
+    q8 = q8_stream_from_arrays(w.decoder).to(st.hidden.device)
+    dec = q8_dequantized_decoder(w.decoder, q8)
+    dec = dataclasses.replace(dec, qkv=dec.qkv.to(BF), sa_out=dec.sa_out.to(BF),
+                              ff_proj=dec.ff_proj.to(BF), ff_out=dec.ff_out.to(BF))
+    deq = dataclasses.replace(w, decoder=dec)
+    int8 = quantize_decoder_stream(w.decoder)
+    runs = {}
+    for name, (weights, stream, fn) in {"q8": (deq, q8, fs.frame_step),
+                                        "dense": (deq, None, fs.frame_step),
+                                        "int8": (w, int8, fs.frame_step),
+                                        "int8_plain": (w, int8, fs.frame_step_reference)}.items():
+        k, v = st.k_cache.clone(), st.v_cache.clone()
+        with torch.no_grad():
+            out = fn(st.hidden, st.pos, xa_k, xa_v, k, v, weights, SMALL, 5, 0.7, 8, False,
+                     enc_length=6, stream=stream)
+        runs[name] = (*out[:3], k[:, st.pos], v[:, st.pos])
+    torch.cuda.synchronize()
+    assert _same(runs["q8"], runs["dense"])
+    assert _same(runs["int8"][:2], runs["int8_plain"][:2])
+    _bf16_close(list(zip(runs["int8"][2:], runs["int8_plain"][2:])))
+
+
+def test_bf16_paths_launch_only_bf16_kernels(prepared_bf16):
+    """A bf16 decode loop (fused and split), lockstep and continuous engine:
+    every launch of every wrapper is a bfloat16 one."""
+    w, xa_k, xa_v, st = prepared_bf16
+    mods = (fs, lts, ds, fsb, ltsb, dsb)
+    for m in mods:
+        m.dtype_launches = dict.fromkeys(m.dtype_launches, 0)
+    with torch.no_grad():
+        for fused in (True, False):
+            s = dataclasses.replace(st, k_cache=st.k_cache.clone(), v_cache=st.v_cache.clone(),
+                                    codes=st.codes.copy())
+            magpie_mod.decode_loop(xa_k, xa_v, s, 6, w, SMALL, (0, 3), 0.7, 8, use_fused=fused)
+    rng = np.random.default_rng(5)
+    reqs = [[98] + [int(t) for t in rng.integers(2, 30, size=n)] + [99] for n in (4, 9, 6)]
+    wf = random_magpie_weights(SMALL, seed=11)
+    for fused in (True, False):
+        BatchedMagpieEngine(wf, SMALL, batch_size=3, device="cuda", compute_dtype=BF,
+                            token_buckets=(16,), use_fused=fused).synthesize_batch(
+            reqs, temperature=0.7, top_k=8, seed=1)
+        cont = ContinuousBatchingEngine(wf, SMALL, n_slots=2, device="cuda", compute_dtype=BF,
+                                        token_buckets=(16,), segment_frames=4, use_fused=fused)
+        cont.synthesize_all(reqs, temperature=0.7, top_k=8)
+    torch.cuda.synchronize()
+    for m in mods:
+        assert m.dtype_launches["float32"] == 0 and m.dtype_launches["bfloat16"] > 0, m.__name__
+
+
+def test_wrappers_reject_other_dtypes(prepared_bf16):
+    """float16 (not a compute dtype) raises in every wrapper; so does a bf16
+    row with float32 weights (no conversion, no fallback)."""
+    w, xa_k, xa_v, st = prepared_bf16
+    dev = st.hidden.device
+    with pytest.raises(ValueError):
+        fs.frame_step(st.hidden.half(), st.pos, xa_k, xa_v, st.k_cache, st.v_cache, w, SMALL,
+                      5, 0.0, 8, False)
+    with pytest.raises(ValueError):
+        lts.sample_frame_codes(st.hidden, random_magpie_weights(SMALL, seed=1).to(device=dev),
+                               SMALL, 1, 0.0, 8, False)
+    with pytest.raises(ValueError):
+        ds.decode_step(st.hidden, st.pos, xa_k.float(), xa_v.float(), st.k_cache, st.v_cache, w,
+                       SMALL)
+    with pytest.raises(ValueError):
+        cc.snake_causal_conv(torch.zeros(1, 8, 4, device=dev, dtype=torch.float16),
+                             torch.zeros(3, 4, 4, device=dev, dtype=torch.float16),
+                             torch.zeros(4, device=dev, dtype=torch.float16), None)
+    with pytest.raises(ValueError):
+        cc.snake_causal_conv(torch.zeros(1, 8, 4, device=dev, dtype=BF),
+                             torch.zeros(3, 4, 4, device=dev), torch.zeros(4, device=dev), None)
+    with pytest.raises(ValueError):
+        q8_dequant.dequantize(torch.zeros(1, 32, dtype=torch.int8, device=dev),
+                              torch.ones(1, 1, device=dev), (1, 32), "linear", torch.float16)

@@ -399,7 +399,8 @@ def test_env_switch_reaches_every_split_branch(weights, paths, monkeypatch, tmp_
     assert lockstep > 0 and calls.n["decode_step_batched"] == lockstep
     monkeypatch.setattr("sys.stdin", io.StringIO('{"id": "a", "text": "hello world"}\n'))
     rc = cli.main(["serve", "-m", paths[0], "-c", paths[1], "--out-dir", str(tmp_path),
-                   "--slots", "3", "--segment-frames", "4", "--device", "cpu", "-q"])
+                   "--slots", "3", "--segment-frames", "4", "--device", "cpu", "--dtype",
+                   "float32", "-q"])
     assert rc == 0 and (tmp_path / "a.wav").exists()
     served = calls.n["sample_frame_codes_batched"] - lockstep
     assert served > 0 and served % 4 == 0
