@@ -44,10 +44,20 @@ Phases (each raises on failure, so the process exits non-zero):
    its bfloat16 default fused and under ``MAGPIE_NO_FUSED=1``, and the
    batched program with each stream in bf16, every launch checked to be a
    bfloat16 one (the wrappers' ``dtype_launches``). The float32 paths of
-   phases 3-5 run after them, as before.
+   phases 3-5 run after them, as before;
+7. kernel 9 (the fused codec res layer) against its plain version on the
+   three layers of <= 128 channels of a 32-frame decode, N = 1 and 3, with
+   its time beside kernel B's 54 launches on the same layers, in float32 and
+   bf16; then, in bf16 and float32, ``cli.main`` synth at temp 0 with and
+   without ``MAGPIE_FUSED_CODEC=1`` (3 kernel-9 and 38 conv launches per
+   decode, codes identical, the waveform difference), ``cli.main --stream``
+   on each (time to first audio, real-time factor, the WAV byte-identical to
+   the offline synth's), ``cli.main serve`` at bf16 with the switch
+   (``decode_batch`` with N > 1), and ``cli.main warmup --surfaces all``.
 
 The line before last is a JSON summary of the kernels (float32 rows, then
-the ``[bf16]`` rows, then the weight streams); the last line is
+the ``[bf16]`` rows, then the weight streams; kernel 9's rows also carry
+``kernel_b_ms``, kernel B's time on the same layers); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -673,6 +683,113 @@ def check_codec_conv(dev, frames: int = 32, dtype: str = "float32") -> dict:
         f"plain {total_plain:.4f} ms, conv1d {total_lib:.4f} ms")
     out = {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
            "library_ms": total_lib,
+           **bound(nbytes, flops, FP32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S)}
+    if ulps:
+        out.update(ulp_summary(torch.cat(ulps)))
+    return out
+
+
+# Kernel 9 in bf16 against plain, in scaled ulps: a branch chains 6 convs,
+# each rounding to bf16, and float32 sums in another order than torch's move a
+# rounding by one ulp now and then, which the later convs spread (94.95%
+# within 1 ulp at C = 108, T = 1000 on an H100, where the frame kernels' 95%
+# failed).
+RES_ULP_SHARE, RES_ULP_MAX = 0.90, 8
+RES_REL = 1e-5     # kernel 9 in float32: max abs err <= 1e-5 x max |plain|
+
+
+def check_res_layer_fused(dev, frames: int = 32, dtype: str = "float32") -> dict:
+    """Kernel 9 vs its plain version on the three res layers of <= 128
+    channels of a ``frames``-frame decode (C = 108 / 54 / 27 at T = 256 /
+    512 / 1024 rows per frame), at N = 1 and N = 3 (decode_batch), plus a T
+    that is not a multiple of any tile and one below the halo; then CUDA-event
+    ms of the three layers: the kernel, its plain version, kernel B's 54
+    per-conv launches (the A/B, in the order fused / B / B / fused) and the
+    same 54 convs as bare ``conv1d`` calls (the library yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from magpie_tts_tpu_torch.config import CodecConfig
+    from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
+    from magpie_tts_tpu_torch.models import codec as codec_mod
+    from magpie_tts_tpu_torch.ops.kernels import codec_res_fused as crf
+
+    cfg = CodecConfig()
+    dt = getattr(torch, dtype)
+    elt = F32 if dtype == "float32" else BF16
+    cw = random_codec_weights(cfg, seed=0).to(device=dev, dtype=dt)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    layers, T = [], frames
+    for stage, rate in zip(cw.stages, cfg.up_sample_rates):
+        T *= rate
+        C = stage.convt_b.shape[0]
+        if C <= crf.MAX_CHANNELS:
+            layers.append((stage, T, crf.stack_res_layer(stage.resblocks,
+                                                         cfg.resblock_dilations)))
+    if [la.channels for _, _, la in layers] != [108, 54, 27]:
+        raise AssertionError("kernel 9 serves the 108-, 54- and 27-channel stages")
+    cases = [(stage, la, n, T_) for stage, T_, la in layers for n in (1, 3)]
+    cases += [(layers[0][0], layers[0][2], 1, layers[0][1] + 13),
+              (layers[2][0], layers[2][2], 3, 100)]
+    worst, ulps = 0.0, []
+    with torch.no_grad():
+        for _, la, n, T_ in cases:
+            x = (torch.randn(n, T_, la.channels, generator=gen, device=dev) * 0.5).to(dt)
+            got = crf.res_layer_fused(x, la)
+            want = crf.res_layer_fused_reference(x, la)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            if dtype == "float32":
+                ok = bool(torch.isfinite(got).all()) and err <= RES_REL * scale
+                note = f"max abs err {err:.3g} of max |plain| {scale:.4g} ({err / scale:.2e})"
+            else:
+                ulps.append(scaled_ulps(got, want).flatten())
+                ok = ulp_ok(ulps[-1], RES_ULP_SHARE, RES_ULP_MAX)
+                note = (f"max abs err {err:.3g}, {ulp_summary(ulps[-1])} (bar "
+                        f"{RES_ULP_SHARE} within 1 ulp, none past {RES_ULP_MAX})")
+            log(f"res_layer_fused[{dtype}] C{la.channels} N{n} T{T_}: {note}")
+            if not ok:
+                raise AssertionError(f"kernel 9 (C={la.channels}, N={n}, T={T_}, {dtype}) "
+                                     f"disagrees with its plain version: {note}")
+            worst = max(worst, err)
+        xs = [(torch.randn(1, T_, la.channels, generator=gen, device=dev) * 0.5).to(dt)
+              for _, T_, la in layers]
+        dil = cfg.resblock_dilations
+
+        def fused():
+            for x, (_, _, la) in zip(xs, layers):
+                crf.res_layer_fused(x, la)
+
+        def per_conv():   # kernel B, 18 launches a layer (MAGPIE_FUSED_CODEC unset)
+            for x, (stage, _, _) in zip(xs, layers):
+                codec_mod.res_layer(x, stage.resblocks, dil, cfg.leaky_slope)
+
+        def plain():
+            for x, (_, _, la) in zip(xs, layers):
+                crf.res_layer_fused_reference(x, la)
+
+        convs = [(x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(), b, d)
+                 for x, (_, _, la) in zip(xs, layers) for w, b, _, d in la.convs]
+
+        def library():  # the 54 convs alone, cuDNN (TF32 off), no HalfSnake or residual
+            for xt, wt, b, d in convs:
+                F.conv1d(xt, wt, b, dilation=d, padding=(wt.shape[-1] - 1) * d)
+
+        t_f = [time_ms(fused, 5)]
+        t_b = [time_ms(per_conv, 5), time_ms(per_conv, 5)]
+        t_f.append(time_ms(fused, 5))
+        t_p = time_ms(plain, 3)
+        t_l = time_ms(library, 5)
+    flops = sum(2 * T_ * la.w.numel() for _, T_, la in layers)
+    nbytes = sum(elt * (2 * T_ * la.channels + la.w.numel() + la.bias.numel() + la.alpha.numel())
+                 for _, T_, la in layers)
+    ms, b_ms = sum(t_f) / 2, sum(t_b) / 2
+    log(f"res_layer_fused[{dtype}]: the 3 layers of a {frames}-frame decode ({flops / 1e9:.1f} "
+        f"GFLOP): kernel 9 {t_f[0]:.4f} / {t_f[1]:.4f} ms, kernel B (54 launches) {t_b[0]:.4f} "
+        f"/ {t_b[1]:.4f} ms (order 9 / B / B / 9), plain {t_p:.4f} ms, conv1d x54 {t_l:.4f} ms")
+    out = {"max_abs_err": worst, "ms": ms, "plain_ms": t_p, "library_ms": t_l,
+           "kernel_b_ms": b_ms, "gflop": flops / 1e9,
            **bound(nbytes, flops, FP32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S)}
     if ulps:
         out.update(ulp_summary(torch.cat(ulps)))
@@ -1586,6 +1703,38 @@ def check_dtype_launches(kernels, dtype: str, who: str) -> None:
                                  f"{k.dtype_launches}, want all {dtype}")
 
 
+@contextlib.contextmanager
+def fused_codec_env(on: bool):
+    """MAGPIE_FUSED_CODEC=1 inside the block when ``on`` (kernel 9 for the res
+    layers of <= 128 channels); unset otherwise and afterwards."""
+    if os.environ.get("MAGPIE_FUSED_CODEC"):
+        raise AssertionError("MAGPIE_FUSED_CODEC is set outside a fused-codec phase")
+    if on:
+        os.environ["MAGPIE_FUSED_CODEC"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("MAGPIE_FUSED_CODEC", None)
+
+
+@contextlib.contextmanager
+def recording_decodes(record: list):
+    """Append the codes of every ``CodecEngine.decode`` call to ``record``."""
+    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
+
+    real = CodecEngine.decode
+
+    def decode(self, codes, *a, **k):
+        record.append(np.array(codes))
+        return real(self, codes, *a, **k)
+
+    CodecEngine.decode = decode
+    try:
+        yield
+    finally:
+        CodecEngine.decode = real
+
+
 def reset_counts(kernels) -> None:
     for k in kernels:
         k.launches = 0
@@ -1596,17 +1745,21 @@ def reset_counts(kernels) -> None:
 
 def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
                   model: str = "magpie.gguf", flags=(), temp: float = 0.7,
-                  q8_nodes: int = 0, dtype: str = "float32") -> dict:
+                  q8_nodes: int = 0, dtype: str = "float32",
+                  fused_codec: bool = False) -> dict:
     """cli.main at full width on random GGUFs with ``--dtype dtype``; checks
     the WAV and launch counts: kernel A once per loop step, or with ``split``
     (``--no-fused``) kernels 4 and 5 once per step and kernel A never; every
     launch in the weight stream that ``flags`` ask for (``--serve-q8`` /
     ``--serve-int8``, else dense) and in ``dtype``, and with ``--serve-q8``
-    kernel 10 once for each of the ``q8_nodes`` block-stored tensors. Returns
-    the counts, frames/s and the WAV's bytes."""
+    kernel 10 once for each of the ``q8_nodes`` block-stored tensors; codec
+    conv 92 per decode, or with ``fused_codec`` (MAGPIE_FUSED_CODEC=1) 38 and
+    kernel 9 three times. Returns the counts, frames/s, the WAV's bytes and
+    the codes the codec decoded."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import codec_res_fused as crf
     from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
     from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
     from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
@@ -1615,19 +1768,20 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     hop = ccfg.hop_length
     mode = "q8" if "--serve-q8" in flags else "int8" if "--serve-int8" in flags else "dense"
     tag = " ".join([model, *flags, *(["--no-fused"] if split else []), f"--temp {temp}",
-                    f"--dtype {dtype}"])
-    out = tmp / (tag.replace(" ", "_").replace("-", "") + ".wav")
+                    f"--dtype {dtype}", *(["MAGPIE_FUSED_CODEC=1"] if fused_codec else [])])
+    out = tmp / (tag.replace(" ", "_").replace("-", "").replace("=", "") + ".wav")
     argv = ["-m", str(tmp / model), "-c", str(tmp / "codec.gguf"),
             "-t", "hello world", "-o", str(out), "--device", "cuda", "--dtype", dtype,
             "--temp", str(temp), "--seed", "0", *flags] + (["--no-fused"] if split else [])
     err = io.StringIO()
-    kernels = (fs, lts, ds, cc, q8_dequant)
+    kernels = (fs, lts, ds, cc, q8_dequant, crf)
     reset_counts(kernels)
+    decoded = []
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
+    with contextlib.redirect_stderr(err), fused_codec_env(fused_codec), recording_decodes(decoded):
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
-    frame_launches, lt_launches, dec_launches, conv_launches, deq_launches = (
+    frame_launches, lt_launches, dec_launches, conv_launches, deq_launches, res_launches = (
         k.launches for k in kernels)
     by_mode = {"frame_step": dict(fs.mode_launches), "decoder_step": dict(ds.mode_launches)}
     log(err.getvalue().rstrip())
@@ -1651,8 +1805,10 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     if by_mode[stream_kernel][mode] != want_steps:
         raise AssertionError(f"{stream_kernel} launched {by_mode[stream_kernel]} by weight "
                              f"stream, want {want_steps} {mode} ({tag})")
-    if conv_launches != 92:
-        raise AssertionError(f"codec conv launched {conv_launches}x, want 92 per decode")
+    want_codec = (38, 3) if fused_codec else (92, 0)
+    if len(decoded) != 1 or (conv_launches, res_launches) != want_codec:
+        raise AssertionError(f"codec conv / kernel 9 launched {conv_launches} / {res_launches}x "
+                             f"for {len(decoded)} decodes, want {want_codec} per decode ({tag})")
     if deq_launches != (q8_nodes if mode == "q8" else 0):
         raise AssertionError(f"q8 dequant launched {deq_launches}x, want "
                              f"{q8_nodes if mode == 'q8' else 0} ({tag})")
@@ -1661,13 +1817,120 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     synth_s, fps = (float(m.group(1)), float(m.group(2))) if m else (float("nan"),) * 2
     log(f"main path {tag}: {n_frames} frames, {len(samples)} samples, frame_step / lt_sampler / "
         f"decoder_step launches {frame_launches} / {lt_launches} / {dec_launches} (all "
-        f"{mode}, all {dtype}), conv launches {conv_launches}, q8_dequant launches "
-        f"{deq_launches}, synth {synth_s} s = {fps} fps (cli.main wall {wall:.2f} s incl. "
-        f"load) on {card}")
+        f"{mode}, all {dtype}), conv launches {conv_launches}, res_layer_fused launches "
+        f"{res_launches}, q8_dequant launches {deq_launches}, synth {synth_s} s = {fps} fps "
+        f"(cli.main wall {wall:.2f} s incl. load) on {card}")
     return {"frame_launches": frame_launches, "lt_launches": lt_launches,
             "dec_launches": dec_launches, "conv_launches": conv_launches,
-            "deq_launches": deq_launches, "n_frames": n_frames, "fps": fps,
-            "wav": out.read_bytes()}
+            "deq_launches": deq_launches, "res_launches": res_launches, "n_frames": n_frames,
+            "fps": fps, "wav": out.read_bytes(), "codes": decoded[0]}
+
+
+def compare_fused_codec(tmp: Path, ccfg, card: str, plain: dict, fused: dict,
+                        dtype: str = "float32") -> dict:
+    """The synth run under MAGPIE_FUSED_CODEC=1 against the same run without
+    it: codes identical, the WAVs' largest sample difference, and (the
+    float32 bar, <= 1e-4) the largest difference of ``CodecEngine.decode``'s
+    floats for those codes, kernel 9 against kernel B."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.codec_weights import load_codec_weights
+    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
+
+    if not np.array_equal(plain["codes"], fused["codes"]):
+        raise AssertionError(f"MAGPIE_FUSED_CODEC=1 changed the codes ({dtype})")
+    pcm = [np.frombuffer(r["wav"][44:], "<i2").astype(np.float32) / 32767.0  # 44-byte header
+           for r in (plain, fused)]
+    wav_diff = float(np.abs(pcm[0] - pcm[1]).max())
+    _, cw = load_codec_weights(str(tmp / "codec.gguf"))
+    codec = CodecEngine(cw, ccfg, device="cuda", compute_dtype=getattr(torch, dtype))
+    with fused_codec_env(False):
+        per_conv = codec.decode(plain["codes"])
+    with fused_codec_env(True):
+        fused_f = codec.decode(plain["codes"])
+    float_diff = float(np.abs(per_conv - fused_f).max())
+    log(f"synth --dtype {dtype} MAGPIE_FUSED_CODEC=1 against without: codes identical "
+        f"({plain['codes'].shape[0]} frames), WAV max sample difference {wav_diff:.3g}, "
+        f"CodecEngine.decode floats max difference {float_diff:.3g} on {card}")
+    if dtype == "float32" and float_diff > 1e-4:
+        raise AssertionError(f"kernel 9 moved the float32 waveform by {float_diff} (> 1e-4)")
+    return {"wav_max_diff": wav_diff, "float_max_diff": float_diff}
+
+
+def run_stream(tmp: Path, mcfg, ccfg, card: str, offline: dict, dtype: str = "float32",
+               fused_codec: bool = False) -> dict:
+    """cli.main --stream at temp 0 on the one-sentence text of ``offline``
+    (the synth run at temp 0 with the same dtype and codec path): its WAV
+    byte-identical to that run's; the time to first audio and the real-time
+    factor from its log; kernel A once per frame step, and per chunk one
+    vocode of its 36-frame window: 92 conv launches, or with ``fused_codec``
+    38 and kernel 9 three times, every launch in ``dtype``."""
+    from magpie_tts_tpu_torch import cli
+    from magpie_tts_tpu_torch.io.wav import read_wav
+    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import codec_res_fused as crf
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.runtime.streaming import StreamParams
+
+    tag = f"--stream --temp 0 --dtype {dtype}{' MAGPIE_FUSED_CODEC=1' if fused_codec else ''}"
+    out = tmp / f"stream_{dtype}{'_fc' if fused_codec else ''}.wav"
+    argv = ["-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"), "-t", "hello world",
+            "-o", str(out), "--device", "cuda", "--dtype", dtype, "--temp", "0", "--seed", "0",
+            "--stream"]
+    kernels = (fs, cc, crf)
+    reset_counts(kernels)
+    err, decoded = io.StringIO(), []
+    with contextlib.redirect_stderr(err), fused_codec_env(fused_codec), recording_decodes(decoded):
+        rc = cli.main(argv)
+    log(err.getvalue().rstrip())
+    if rc != 0:
+        raise AssertionError(f"cli.main {tag} returned {rc}")
+    same = out.read_bytes() == offline["wav"]
+    samples, _ = read_wav(str(out))
+    n_frames = len(samples) // ccfg.hop_length
+    params = StreamParams()
+    win = min(params.codec_context_frames + params.frames_per_chunk, mcfg.max_dec_steps)
+    chunks = -(-n_frames // params.frames_per_chunk)
+    want_steps = n_frames + (1 if n_frames < mcfg.max_dec_steps else 0)
+    per_chunk = (38, 3) if fused_codec else (92, 0)
+    counts = (fs.launches, cc.launches, crf.launches)
+    want = (want_steps, per_chunk[0] * chunks, per_chunk[1] * chunks)
+    if not same or n_frames != offline["n_frames"]:
+        raise AssertionError(f"{tag}: WAV ({n_frames} frames) is not byte-identical to the "
+                             f"offline synth's ({offline['n_frames']} frames)")
+    if len(decoded) != chunks or any(d.shape[0] != win for d in decoded) or counts != want:
+        raise AssertionError(f"{tag}: {len(decoded)} vocodes of {[d.shape[0] for d in decoded]} "
+                             f"frames, frame_step / conv / res_layer_fused launches {counts}, "
+                             f"want {chunks} of {win} and {want}")
+    check_dtype_launches(kernels, dtype, tag)
+    ttfa = float(re.search(r"time to first audio: ([0-9.]+) ms", err.getvalue()).group(1))
+    rtf = float(re.search(r"([0-9.]+)x real-time", err.getvalue()).group(1))
+    log(f"stream path {tag}: {n_frames} frames in {chunks} chunks, WAV byte-identical to the "
+        f"offline synth; time to first audio {ttfa} ms, {rtf}x real-time; frame_step / conv / "
+        f"res_layer_fused launches {counts} on {card}")
+    return {"ttfa_ms": ttfa, "rtf": rtf, "n_frames": n_frames, "chunks": chunks,
+            "res_launches": crf.launches, "conv_launches": cc.launches}
+
+
+def run_warmup(tmp: Path, card: str) -> dict:
+    """cli.main warmup --surfaces all --buckets 16 on the float32 GGUFs: rc 0,
+    the kernel library's path on stdout, and each stage's seconds."""
+    from magpie_tts_tpu_torch import cli
+    from magpie_tts_tpu_torch.ops.kernels import build
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["warmup", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
+                       "--surfaces", "all", "--buckets", "16", "--device", "cuda"])
+    log(err.getvalue().rstrip())
+    if rc != 0 or out.getvalue().strip() != str(build.library_path()):
+        raise AssertionError(f"cli.main warmup returned {rc}, stdout {out.getvalue()!r}")
+    stages = {m.group(1): float(m.group(2))
+              for m in re.finditer(r"warmup: (\w+)\s+([0-9.]+)s", err.getvalue())}
+    if set(stages) != {"kernels", "offline", "codec", "fused", "stream", "serve", "total"}:
+        raise AssertionError(f"warmup stages {stages}")
+    log(f"warmup --surfaces all --buckets 16: rc 0, stage seconds {stages} on {card}")
+    return stages
 
 
 def run_quantized_main_paths(tmp: Path, mcfg, ccfg, card: str, q8_nodes: int,
@@ -1797,16 +2060,18 @@ SERVE_TEXTS = ["hello world", "hello, world!", "world hello.", "abc def", "hello
 
 
 def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
-              dtype: str = "bfloat16") -> dict:
+              dtype: str = "bfloat16", fused_codec: bool = False) -> dict:
     """cli.main serve at full width: six JSONL requests and a malformed line on
     a stdin stand-in; checks every result, the error line, the WAVs, and the
     launch counts: kernel C once per segment frame, or with ``split``
     (``MAGPIE_NO_FUSED=1``) kernels 7 and 8 once per segment frame and kernel
-    C never; codec conv 92 per ``decode_batch``; every launch in ``dtype``
-    (bfloat16: serve's default, no ``--dtype`` given)."""
+    C never; codec conv 92 per ``decode_batch`` (N utterances a call), or with
+    ``fused_codec`` (MAGPIE_FUSED_CODEC=1) 38 and kernel 9 three times; every
+    launch in ``dtype`` (bfloat16: serve's default, no ``--dtype`` given)."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import codec_res_fused as crf
     from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
     from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
     from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
@@ -1825,7 +2090,7 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
             return fn(*a, **k)
         return wrapper
 
-    out_dir = tmp / f"serve_{dtype}{'_split' if split else ''}"
+    out_dir = tmp / f"serve_{dtype}{'_split' if split else ''}{'_fc' if fused_codec else ''}"
     argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
             "--out-dir", str(out_dir), "--slots", str(SERVE_SLOTS),
             "--segment-frames", str(SERVE_SEGMENT), "--temp", "0.7", "--device", "cuda"]
@@ -1836,16 +2101,18 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     ContinuousBatchingEngine._segment = counted(seg_fn, "segments")
     CodecEngine.decode_batch = counted(dec_fn, "decode_batch")
     sys.stdin = io.StringIO("\n".join(lines) + "\n")
-    kernels = (fsb, ltsb, dsb, cc)
+    kernels = (fsb, ltsb, dsb, cc, crf)
     if split:
         os.environ["MAGPIE_NO_FUSED"] = "1"
     try:
         reset_counts(kernels)
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+                fused_codec_env(fused_codec):
             rc = cli.main(argv)
         wall = time.perf_counter() - t0
-        batched_launches, lt_launches, dec_launches, conv_launches = (k.launches for k in kernels)
+        batched_launches, lt_launches, dec_launches, conv_launches, res_launches = (
+            k.launches for k in kernels)
     finally:
         ContinuousBatchingEngine._segment, CodecEngine.decode_batch = seg_fn, dec_fn
         sys.stdin = stdin
@@ -1872,21 +2139,26 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
         raise AssertionError(f"frame_step_batched / lt_sampler_batched / decoder_step_batched "
                              f"launched {batched_launches} / {lt_launches} / {dec_launches}x for "
                              f"{counts['segments']} segments of {SERVE_SEGMENT} (split {split})")
-    if conv_launches == 0 or conv_launches != 92 * counts["decode_batch"]:
-        raise AssertionError(f"codec conv launched {conv_launches}x for "
-                             f"{counts['decode_batch']} decode_batch calls")
+    per_call = (38, 3) if fused_codec else (92, 0)
+    if conv_launches == 0 or (conv_launches, res_launches) != tuple(
+            n * counts["decode_batch"] for n in per_call):
+        raise AssertionError(f"codec conv / kernel 9 launched {conv_launches} / {res_launches}x "
+                             f"for {counts['decode_batch']} decode_batch calls, want {per_call} "
+                             f"per call")
     check_dtype_launches(kernels, dtype, f"serve {dtype} split {split}")
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) aggregate fps", err.getvalue())
     fps = float(m.group(2)) if m else float("nan")
-    log(f"serve path {dtype}{' MAGPIE_NO_FUSED=1' if split else ''}: {len(done)} requests, "
+    log(f"serve path {dtype}{' MAGPIE_NO_FUSED=1' if split else ''}"
+        f"{' MAGPIE_FUSED_CODEC=1' if fused_codec else ''}: {len(done)} requests, "
         f"{frames} frames, {counts['segments']} segments, frame_step_batched / "
         f"lt_sampler_batched / decoder_step_batched launches {batched_launches} / {lt_launches} / "
         f"{dec_launches}, "
-        f"conv launches {conv_launches} ({counts['decode_batch']} decode_batch calls), {fps} "
-        f"aggregate fps (cli.main serve wall {wall:.2f} s incl. load) on {card}")
+        f"conv / res_layer_fused launches {conv_launches} / {res_launches} "
+        f"({counts['decode_batch']} decode_batch calls), {fps} aggregate fps (cli.main serve "
+        f"wall {wall:.2f} s incl. load) on {card}")
     return {"batched_launches": batched_launches, "lt_launches": lt_launches,
-            "dec_launches": dec_launches, "conv_launches": conv_launches, "frames": frames,
-            "fps": fps}
+            "dec_launches": dec_launches, "conv_launches": conv_launches,
+            "res_launches": res_launches, "frames": frames, "fps": fps}
 
 
 def main() -> int:
@@ -1924,6 +2196,8 @@ def main() -> int:
     bf_single = check_bf16_single(dev)
     bf_batched = check_bf16_batched(dev)
     bf_conv = check_codec_conv(dev, dtype=BF)
+    res_res = check_res_layer_fused(dev)
+    bf_res = check_res_layer_fused(dev, dtype=BF)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         mcfg, ccfg = write_ggufs(tmp)
@@ -1937,6 +2211,19 @@ def main() -> int:
         bf_serve = run_serve(tmp, mcfg, ccfg, card, dtype=BF)
         bf_split_serve = run_serve(tmp, mcfg, ccfg, card, split=True, dtype=BF)
         bf_quant_batched = run_batched_streams(tmp, dev, nodes, BF)
+        # streaming and kernel 9 on the main paths (MAGPIE_FUSED_CODEC=1), bf16 then float32:
+        # synth at temp 0 with and without the switch, then --stream against each
+        fc, streams = {}, {}
+        for dt in (BF, "float32"):
+            for on in (False, True):
+                fc[dt, on] = run_main_path(tmp, mcfg, ccfg, card, temp=0.0, dtype=dt,
+                                           fused_codec=on)
+            fc[dt, "diff"] = compare_fused_codec(tmp, ccfg, card, fc[dt, False], fc[dt, True],
+                                                 dt)
+            for on in (False, True):
+                streams[dt, on] = run_stream(tmp, mcfg, ccfg, card, fc[dt, on], dt, on)
+        bf_serve_fc = run_serve(tmp, mcfg, ccfg, card, dtype=BF, fused_codec=True)
+        warm = run_warmup(tmp, card)
         prep_ms = time_prepare(tmp, dev)
         # float32, as before
         main_res = run_main_path(tmp, mcfg, ccfg, card)
@@ -1976,6 +2263,20 @@ def main() -> int:
         f"{bf_single['temp07_code_flips']}, C {bf_batched['temp07_code_flips']}; prepare bf16 "
         f"{prep_ms['bfloat16']} ms, float32 "
         f"{prep_ms['float32']} ms; on {card}")
+    log(f"summary, streaming (--stream, temp 0, 'hello world', 4 frames a chunk, 32 context "
+        f"frames): time to first audio / real-time factor: float32 "
+        f"{streams['float32', False]['ttfa_ms']} ms / {streams['float32', False]['rtf']}x, with "
+        f"MAGPIE_FUSED_CODEC=1 {streams['float32', True]['ttfa_ms']} ms / "
+        f"{streams['float32', True]['rtf']}x; bf16 {streams[BF, False]['ttfa_ms']} ms / "
+        f"{streams[BF, False]['rtf']}x, fused codec {streams[BF, True]['ttfa_ms']} ms / "
+        f"{streams[BF, True]['rtf']}x; every streamed WAV byte-identical to the offline synth; "
+        f"kernel 9 vs kernel B on the 3 layers of a 32-frame decode: float32 {res_res['ms']} / "
+        f"{res_res['kernel_b_ms']} ms, bf16 {bf_res['ms']} / {bf_res['kernel_b_ms']} ms; "
+        f"fused-codec WAV max sample difference float32 "
+        f"{fc['float32', 'diff']['wav_max_diff']} (floats {fc['float32', 'diff']['float_max_diff']}"
+        f"), bf16 {fc[BF, 'diff']['wav_max_diff']}; serve bf16 with the fused codec "
+        f"{bf_serve_fc['fps']} aggregate fps ({bf_serve_fc['res_launches']} kernel 9 launches); "
+        f"warmup stage seconds {warm}; on {card}")
     pk = "magpie_tts_tpu/ops/pallas_kernels/"
     src = "magpie_tts_tpu_torch/csrc/"
 
@@ -1984,7 +2285,7 @@ def main() -> int:
                "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
-        row.update({k: res[k] for k in ("max_ulps", "within_1ulp") if k in res})
+        row.update({k: res[k] for k in ("max_ulps", "within_1ulp", "kernel_b_ms") if k in res})
         return row
 
     streams = []
@@ -2028,7 +2329,9 @@ def main() -> int:
         entry("decoder_step_batched[bf16]", "frame_step_batched.cu",
               pk + "decoder_step_batched.py:280", bf_split_serve["dec_launches"], bf_batched["8"]),
         entry("q8_dequant[bf16]", "q8_dequant.cu", "tests/test_pallas_kernels.py:443",
-              bf_quant["q8_fused"]["deq_launches"], bf_deq)]
+              bf_quant["q8_fused"]["deq_launches"], bf_deq),
+        entry("res_layer_fused[bf16]", "codec_res_fused.cu", pk + "codec_res_fused.py:130",
+              fc[BF, True]["res_launches"], bf_res)]
     log(json.dumps({"kernels": [
         entry("frame_step", "frame_step.cu", pk + "frame_step.py:352",
               main_res["frame_launches"], fs_res),
@@ -2046,6 +2349,8 @@ def main() -> int:
               pk + "decoder_step_batched.py:280", split_serve["dec_launches"], splitb_res["dec"]),
         entry("q8_dequant", "q8_dequant.cu", "tests/test_pallas_kernels.py:443",
               quant_main["q8_fused"]["deq_launches"], deq_res),
+        entry("res_layer_fused", "codec_res_fused.cu", pk + "codec_res_fused.py:130",
+              fc["float32", True]["res_launches"], res_res),
         *bf16_rows,
         *streams,
     ]}))

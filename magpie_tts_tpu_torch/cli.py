@@ -1,8 +1,10 @@
 """Command-line interface of the PyTorch/CUDA port, argv-compatible with the
 JAX package's ``magpie-tts``: the synth command (-m/-c/-t/-o/-s/--temp/
---top-k/--seed/--dtype/--serve-int8/--serve-q8/--gelu/--no-fused/-q) and
-``serve`` (-m/-c/--out-dir/--slots/--segment-frames/--temp/--top-k/--dtype/
---gelu/-q), each plus --device {cuda,cpu}.
+--top-k/--seed/--stream/--dtype/--serve-int8/--serve-q8/--gelu/--no-fused/
+-q), ``serve`` (-m/-c/--out-dir/--slots/--segment-frames/--temp/--top-k/
+--dtype/--gelu/-q) and ``warmup`` (-m/-c/--dtype/--buckets/--surfaces/
+--serve-slots/--segment-frames/--top-k/--gelu/--serve-int8/--serve-q8/-q),
+each plus --device {cuda,cpu}.
 
 There is no device fallback: without a CUDA device a command fails unless
 ``--device cpu`` is given.
@@ -14,9 +16,7 @@ import argparse
 import sys
 import time
 
-# Surfaces of the JAX CLI that this port does not have yet.
-_NOT_PORTED_COMMANDS = ("warmup",)
-_NOT_PORTED_FLAGS = ("--stream",)
+WARMUP_SURFACES = ("offline", "fused", "stream", "serve")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,6 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temp", type=float, default=0.7, help="sampling temperature")
     p.add_argument("--top-k", type=int, default=80, help="top-k for sampling")
     p.add_argument("--seed", type=int, default=0, help="sampling seed")
+    p.add_argument("--stream", action="store_true",
+                   help="stream sentence by sentence, 4 frames a chunk (logs the time "
+                        "to first audio)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (no fallback: cuda needs a CUDA device)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
@@ -81,6 +84,133 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="GELU flavor for every FFN (see `magpie-tts-torch --help`)")
     p.add_argument("-q", "--quiet", action="store_true")
     return p
+
+
+def build_warmup_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="magpie-tts-torch warmup",
+        description="Build the CUDA kernels and run each chosen serving surface once, so "
+                    "that no request pays the nvcc build or a first run. The port has no "
+                    "compilation cache: the kernel library under build/ (printed on "
+                    "stdout) is what a later process reuses.")
+    p.add_argument("-m", "--model", default="weights/magpie-357m-f32.gguf")
+    p.add_argument("-c", "--codec", default="weights/nano-codec-f32.gguf")
+    p.add_argument("--cache-dir", default=None,
+                   help="not supported: the JAX compilation cache has no counterpart here")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="device to run on (no fallback: cuda needs a CUDA device)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    p.add_argument("--buckets", default=None,
+                   help="comma-separated token buckets (default: the engine's)")
+    p.add_argument("--surfaces", default="offline",
+                   help="comma-separated subset of offline,fused,stream,serve, or 'all'. "
+                        "offline = the synth path (+ the codec's frame buckets); fused = "
+                        "synthesize_audio_fused (codes + vocode + PCM16); stream = the "
+                        "streaming chunks; serve = the continuous-batching engine")
+    p.add_argument("--serve-slots", type=int, default=8,
+                   help="slot count for the serve surface")
+    p.add_argument("--segment-frames", type=int, default=32)
+    p.add_argument("--top-k", type=int, default=80)
+    p.add_argument("--gelu", choices=("erf", "tanh"), default=None)
+    quant = p.add_mutually_exclusive_group()
+    quant.add_argument("--serve-int8", action="store_true")
+    quant.add_argument("--serve-q8", action="store_true")
+    p.add_argument("-q", "--quiet", action="store_true")
+    return p
+
+
+def warmup(argv) -> int:
+    """Build the kernels and run every requested surface once."""
+    args = build_warmup_parser().parse_args(argv)
+    if args.cache_dir is not None:
+        print("error: --cache-dir names a JAX compilation cache, which the PyTorch port does "
+              "not have (its kernels are built once under build/magpie_torch_kernels/)",
+              file=sys.stderr)
+        return 2
+    surfaces = (WARMUP_SURFACES if args.surfaces.strip() == "all"
+                else tuple(s.strip() for s in args.surfaces.split(",") if s.strip()))
+    unknown = set(surfaces) - set(WARMUP_SURFACES)
+    if unknown:
+        print(f"error: unknown surface(s): {', '.join(sorted(unknown))}", file=sys.stderr)
+        return 1
+
+    import torch
+
+    from .ops.kernels import build
+    from .pipeline import MagpiePipeline
+
+    def log(msg):
+        if not args.quiet:
+            print(msg, file=sys.stderr)
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("error: no CUDA device available (pass --device cpu to run on the CPU)",
+              file=sys.stderr)
+        return 1
+    dtype = getattr(torch, args.dtype)
+    buckets = tuple(int(b) for b in args.buckets.split(",")) if args.buckets else None
+    t0 = time.perf_counter()
+    try:
+        pipeline = MagpiePipeline.from_gguf(args.model, args.codec, device=args.device,
+                                            compute_dtype=dtype, gelu_flavor=args.gelu,
+                                            serve_int8=args.serve_int8,
+                                            serve_q8=args.serve_q8)
+    except FileNotFoundError as e:
+        print(f"error: model file not found: {e.filename or e}", file=sys.stderr)
+        return 1
+    except (ValueError, OSError) as e:
+        print(f"error: failed to load model: {e}", file=sys.stderr)
+        return 1
+    log(f"warmup: loaded in {time.perf_counter() - t0:.1f}s (device={args.device}, "
+        f"dtype={args.dtype})")
+    if args.device == "cuda":
+        t = time.perf_counter()
+        build.load_library()
+        log(f"warmup: kernels  {time.perf_counter() - t:7.1f}s ({build.library_path()})")
+    if pipeline.codec is None and {"fused", "stream"} & set(surfaces):
+        print("error: the fused and stream surfaces need the codec (-c)", file=sys.stderr)
+        return 1
+
+    config = pipeline.config
+    dummy = [config.text_bos_id, 2, config.text_eos_id]
+
+    def stage(name, fn):
+        t = time.perf_counter()
+        fn()
+        log(f"warmup: {name:8s} {time.perf_counter() - t:7.1f}s")
+
+    if "offline" in surfaces:
+        stage("offline", lambda: pipeline.warmup(token_buckets=buckets, top_k=args.top_k))
+        if pipeline.codec is not None:
+            stage("codec", pipeline.codec.warmup)
+    if "fused" in surfaces:
+        from .runtime.engine import synthesize_audio_fused
+
+        def warm_fused():
+            for bucket in (buckets or pipeline.engine.token_buckets):
+                toks = dummy + [2] * (bucket - len(dummy))
+                synthesize_audio_fused(pipeline.engine, pipeline.codec, toks[:bucket],
+                                       temperature=0.0, top_k=args.top_k)
+        stage("fused", warm_fused)
+    if "stream" in surfaces:
+        stage("stream", lambda: pipeline.warmup(streaming_path=True, token_buckets=buckets))
+    if "serve" in surfaces:
+        from .parallel.continuous import ContinuousBatchingEngine
+
+        def warm_serve():
+            # One engine on one card, as serve runs it.
+            eng = ContinuousBatchingEngine(pipeline.engine.weights, config,
+                                           n_slots=args.serve_slots, device=args.device,
+                                           compute_dtype=dtype,
+                                           segment_frames=args.segment_frames)
+            eng.submit(dummy)
+            while eng.pending:
+                eng.step(temperature=0.0, top_k=args.top_k)
+        stage("serve", warm_serve)
+
+    log(f"warmup: total {time.perf_counter() - t0:.1f}s")
+    print(build.library_path())
+    return 0
 
 
 def serve(argv) -> int:
@@ -228,21 +358,16 @@ def main(argv=None) -> int:
         argv = sys.argv[1:]
     if argv and argv[0] == "serve":
         return serve(argv[1:])
-    if argv and argv[0] in _NOT_PORTED_COMMANDS:
-        print(f"error: '{argv[0]}' is not ported to the PyTorch package yet "
-              f"(use magpie_tts_tpu.cli)", file=sys.stderr)
-        return 2
-    unported = [a for a in argv if a.split("=")[0] in _NOT_PORTED_FLAGS]
-    if unported:
-        print(f"error: {', '.join(unported)} not ported to the PyTorch package yet",
-              file=sys.stderr)
-        return 2
+    if argv and argv[0] == "warmup":
+        return warmup(argv[1:])
     args = build_parser().parse_args(argv)
 
+    import numpy as np
     import torch
 
     from .io.wav import write_wav
     from .pipeline import MagpiePipeline
+    from .runtime.streaming import StreamParams
 
     def log(msg: str):
         if not args.quiet:
@@ -272,13 +397,23 @@ def main(argv=None) -> int:
     log(f"loaded in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
-    codes = pipeline.synthesize_codes(args.text, speaker_id=args.speaker,
-                                      temperature=args.temp, top_k=args.top_k,
-                                      seed=args.seed)
-    samples = pipeline.codec.decode(codes, pcm16=True)
+    if args.stream:
+        chunks = []
+        params = StreamParams(temperature=args.temp, top_k=args.top_k,
+                              speaker_id=args.speaker, seed=args.seed)
+        for chunk in pipeline.stream(args.text, params):
+            if not chunks:
+                log(f"time to first audio: {(time.perf_counter() - t0) * 1000:.1f} ms")
+            chunks.append(chunk.samples)
+        samples = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+    else:
+        codes = pipeline.synthesize_codes(args.text, speaker_id=args.speaker,
+                                          temperature=args.temp, top_k=args.top_k,
+                                          seed=args.seed)
+        samples = pipeline.codec.decode(codes, pcm16=True)
     elapsed = time.perf_counter() - t0
 
-    n_frames = codes.shape[0]
+    n_frames = len(samples) // pipeline.codec.config.hop_length
     seconds = len(samples) / pipeline.config.sample_rate
     fps = n_frames / elapsed if elapsed > 0 else 0.0
     log(f"synthesized {n_frames} frames / {seconds:.2f}s audio in {elapsed:.2f}s "

@@ -4,12 +4,18 @@ causal HiFiGAN vocoder, activations ``[N, T, C]``.
 Every Conv1d (pre-conv, 5 stages x 18 res-block convs, post-conv: 92 per
 decode) goes through ``ops.kernels.codec_conv.snake_causal_conv``, which runs
 the CUDA kernel on a CUDA tensor and the plain ``half_snake`` +
-``causal_conv1d`` below on a CPU tensor. FSQ, the HalfSnake before each
-upsample and the grouped ConvTranspose are plain PyTorch, as the JAX package
-leaves them to XLA.
+``causal_conv1d`` below on a CPU tensor. With ``MAGPIE_FUSED_CODEC`` set (the
+JAX package's opt-in switch), each res layer of at most 128 channels (the
+108-, 54- and 27-channel stages) is instead one launch of
+``ops.kernels.codec_res_fused.res_layer_fused`` (at the production widths:
+38 per-conv launches and 3 fused ones per decode). FSQ, the HalfSnake before each upsample and the
+grouped ConvTranspose are plain PyTorch, as the JAX package leaves them to
+XLA.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +23,14 @@ import torch.nn.functional as F
 from ..config import CodecConfig
 from ..io.codec_weights import CodecWeights, ResBlockWeights
 from ..ops.kernels.codec_conv import snake_causal_conv
+from ..ops.kernels.codec_res_fused import MAX_CHANNELS, res_layer_fused, stack_res_layer
+
+
+def resolve_fused_codec() -> bool:
+    """Whether res layers of <= 128 channels run the fused kernel: the
+    MAGPIE_FUSED_CODEC environment variable is set (any non-empty value, as
+    the JAX package reads it)."""
+    return bool(os.environ.get("MAGPIE_FUSED_CODEC"))
 
 
 def fsq_dequantize(codes: torch.Tensor, config: CodecConfig) -> torch.Tensor:
@@ -92,8 +106,14 @@ def residual_block(x: torch.Tensor, blk: ResBlockWeights, dilation: int,
                              leaky_slope, residual=x)
 
 
-def res_layer(x: torch.Tensor, branches, dilations, leaky_slope: float) -> torch.Tensor:
-    """Mean of 3 parallel kernel branches, each 3 sequential dilated blocks."""
+def res_layer(x: torch.Tensor, branches, dilations, leaky_slope: float,
+              fused=None) -> torch.Tensor:
+    """Mean of 3 parallel kernel branches, each 3 sequential dilated blocks.
+    Under MAGPIE_FUSED_CODEC a layer of <= 128 channels is one fused launch,
+    on ``fused`` (this layer's ``stack_res_layer``; stacked here if None)."""
+    if x.shape[-1] <= MAX_CHANNELS and resolve_fused_codec():
+        layer = fused if fused is not None else stack_res_layer(branches, dilations)
+        return res_layer_fused(x, layer, leaky_slope)
     acc = None
     for branch in branches:
         h = x
@@ -103,22 +123,31 @@ def res_layer(x: torch.Tensor, branches, dilations, leaky_slope: float) -> torch
     return acc / len(branches)
 
 
+def fused_layers(weights: CodecWeights, config: CodecConfig) -> list:
+    """Each stage's res layer stacked for the fused kernel (None for stages
+    wider than it takes)."""
+    return [stack_res_layer(stage.resblocks, config.resblock_dilations)
+            if stage.convt_b.shape[0] <= MAX_CHANNELS else None for stage in weights.stages]
+
+
 def codec_decode_latent(latent: torch.Tensor, weights: CodecWeights,
-                        config: CodecConfig) -> torch.Tensor:
-    """latent: [N, T, latent_dim] -> audio [N, T*hop]."""
+                        config: CodecConfig, fused=None) -> torch.Tensor:
+    """latent: [N, T, latent_dim] -> audio [N, T*hop]. ``fused``: the
+    stages' ``fused_layers``, used under MAGPIE_FUSED_CODEC."""
     x = snake_causal_conv(latent, weights.pre_conv_w, weights.pre_conv_b, None, 1,
                           config.leaky_slope)
-    for stage, stride in zip(weights.stages, config.up_sample_rates):
+    for i, (stage, stride) in enumerate(zip(weights.stages, config.up_sample_rates)):
         x = half_snake(x, stage.act_alpha, config.leaky_slope)
         x = grouped_conv_transpose1d(x, stage.convt_w, stage.convt_b, stride)
-        x = res_layer(x, stage.resblocks, config.resblock_dilations, config.leaky_slope)
+        x = res_layer(x, stage.resblocks, config.resblock_dilations, config.leaky_slope,
+                      fused=None if fused is None else fused[i])
     x = snake_causal_conv(x, weights.post_conv_w, weights.post_conv_b, weights.post_alpha,
                           1, config.leaky_slope)
     return torch.tanh(x)[..., 0]
 
 
 def codec_decode(codes: torch.Tensor, weights: CodecWeights,
-                 config: CodecConfig) -> torch.Tensor:
+                 config: CodecConfig, fused=None) -> torch.Tensor:
     """codes: [8, T] int -> waveform [T*hop] float32 (single utterance)."""
     latent = fsq_dequantize(codes, config).to(weights.pre_conv_w.dtype)
-    return codec_decode_latent(latent[None].contiguous(), weights, config)[0]
+    return codec_decode_latent(latent[None].contiguous(), weights, config, fused)[0]

@@ -109,32 +109,40 @@ def prepare(tokens: torch.Tensor, enc_length: int, speaker_id: int,
 def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
                 enc_length: int, weights: MagpieWeights, config: MagpieConfig,
                 key: Tuple[int, int], temperature: float, top_k: int,
-                use_fused: Optional[bool] = None, int8_stream=None) -> DecodeState:
-    """Sample frames until EOS or ``config.max_dec_steps``.
+                use_fused: Optional[bool] = None, int8_stream=None,
+                target_frames: Optional[int] = None) -> DecodeState:
+    """Sample frames until EOS, ``config.max_dec_steps`` or, when given,
+    ``target_frames`` (streaming: the loop stops once ``frame_idx`` reaches
+    it, keeping all state so a later call continues).
 
     Per frame: split the key (host threefry, as jax.random.split), run one
     frame step (sample 8 codes, embed, decoder step at ``pos``), then stop on
     EOS (any codebook's sampled or argmax code) — one host sync per frame.
+    The key's split chain starts at this call's first frame, as in the JAX
+    loop, which carries ``key`` in its state from the call's start.
     The EOS frame's codes are written but not counted, as in the JAX loop.
     The split path samples, tests EOS on the host, embeds and runs the
     decoder step, the last also on the EOS frame, as the JAX loop does.
     ``int8_stream`` goes to both kernels' stream slot.
     """
     weights = materialize_weights(weights)
-    max_steps = config.max_dec_steps
-    seeds = sampling.frame_seeds(key, max_steps)
+    stop = config.max_dec_steps if target_frames is None else min(target_frames,
+                                                                  config.max_dec_steps)
+    first = state.frame_idx
+    seeds = sampling.frame_seeds(key, max(stop - first, 0))
     fused = resolve_use_fused(use_fused)
     s = state
-    while not s.done and s.frame_idx < max_steps:
+    while not s.done and s.frame_idx < stop:
         forbid_eos = s.frame_idx < config.min_generated_frames
+        seed = seeds[s.frame_idx - first]
         if fused:
             sampled, argmax, s.hidden, s.k_cache, s.v_cache = frame_step(
                 s.hidden, s.pos, xa_k, xa_v, s.k_cache, s.v_cache, weights, config,
-                seeds[s.frame_idx], temperature, top_k, forbid_eos, enc_length=enc_length,
+                seed, temperature, top_k, forbid_eos, enc_length=enc_length,
                 stream=int8_stream)
         else:
-            sampled, argmax = sample_frame_codes(s.hidden, weights, config, seeds[s.frame_idx],
-                                                 temperature, top_k, forbid_eos)
+            sampled, argmax = sample_frame_codes(s.hidden, weights, config, seed, temperature,
+                                                 top_k, forbid_eos)
         sampled_h, argmax_h = sampled.cpu(), argmax.cpu()
         s.codes[s.frame_idx] = sampled_h.numpy()
         s.done = sampling.frame_has_eos(sampled_h, argmax_h, config.audio_eos_id)

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -12,6 +12,8 @@ from .config import MagpieConfig
 from .io.codec_weights import load_codec_weights
 from .io.gguf import GGUFReader
 from .io.magpie_weights import load_magpie_weights, q8_stream_from_gguf
+from .io.wav import write_wav
+from .runtime import streaming
 from .runtime.engine import CodecEngine, MagpieEngine, check_dtype
 from .text.tokenizer import MagpieTokenizer
 
@@ -64,3 +66,40 @@ class MagpiePipeline:
         return self.engine.synthesize_codes(
             token_ids, speaker_id=speaker_id, temperature=temperature,
             top_k=top_k, seed=seed).codes
+
+    def _codec(self) -> CodecEngine:
+        if self.codec is None:
+            raise ValueError("no codec loaded; pass codec_path to from_gguf")
+        return self.codec
+
+    def synthesize(self, text: str, *, speaker_id: int = 0, temperature: float = 0.7,
+                   top_k: int = 80, seed: int = 0) -> np.ndarray:
+        """text -> float32 waveform at config.sample_rate."""
+        codec = self._codec()
+        return codec.decode(self.synthesize_codes(text, speaker_id=speaker_id,
+                                                  temperature=temperature, top_k=top_k,
+                                                  seed=seed))
+
+    def synthesize_to_wav(self, text: str, output_path: str, **kwargs) -> int:
+        """text -> 16-bit PCM WAV (PCM16 made on the device); returns the
+        number of samples."""
+        codec = self._codec()
+        samples = codec.decode(self.synthesize_codes(text, **kwargs), pcm16=True)
+        write_wav(output_path, samples, self.config.sample_rate)
+        return len(samples)
+
+    def warmup(self, *, streaming_path: bool = False, top_k: int = 80,
+               token_buckets: Optional[Sequence[int]] = None,
+               params: Optional[streaming.StreamParams] = None) -> None:
+        """Build the kernels and run the offline path (or, with
+        ``streaming_path``, the streaming chunks) once per token bucket."""
+        if streaming_path:
+            streaming.warmup_streaming(self.engine, self._codec(), params,
+                                       token_buckets=token_buckets)
+        else:
+            self.engine.warmup(token_buckets=token_buckets, top_k=top_k)
+
+    def stream(self, text: str, params: Optional[streaming.StreamParams] = None
+               ) -> Iterator[streaming.AudioChunk]:
+        return streaming.stream_text(self.engine, self._codec(), self.tokenizer, text,
+                                     params or streaming.StreamParams())

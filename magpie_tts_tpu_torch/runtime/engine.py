@@ -141,9 +141,79 @@ class MagpieEngine:
         codes = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
         return SynthesisResult(codes=codes, n_frames=codes.shape[0])
 
+    def warmup(self, *, token_buckets: Optional[Sequence[int]] = None, top_k: int = 80,
+               streaming: bool = False, codec: Optional["CodecEngine"] = None,
+               split_stream: bool = False) -> None:
+        """Build the kernel library (on a CUDA device) and run synthesis once
+        per token bucket (default: all), so no request pays the nvcc build
+        or a first run; the port has no compilation cache.
+
+        ``streaming=True`` runs the streaming path (``runtime.streaming``)
+        instead and needs the ``codec``; ``split_stream=True`` runs
+        ``begin_stream`` + one ``decode_chunk`` frame per bucket."""
+        _load_kernels(self.device)
+        if streaming:
+            if codec is None:
+                raise ValueError("warmup(streaming=True) runs the streaming chunks, which "
+                                 "need the codec: pass codec=<CodecEngine>")
+            from . import streaming as streaming_mod
+
+            streaming_mod.warmup_streaming(self, codec, token_buckets=token_buckets)
+            return
+        for bucket in (token_buckets or self.token_buckets):
+            tokens = [self.config.text_bos_id, self.config.text_eos_id]
+            tokens += [2] * (bucket - len(tokens))
+            if split_stream:
+                stream = self.begin_stream(tokens)
+                self.decode_chunk(stream, n_frames=1, top_k=top_k)
+            else:
+                self.synthesize_codes(tokens, top_k=top_k, temperature=0.0)
+
+    def begin_stream(self, token_ids: Sequence[int], *, speaker_id: int = 0) -> dict:
+        """Prefill for incremental decoding (token_ids must fit a bucket).
+        Returns the stream context ``decode_chunk`` advances; it holds the
+        dense weights (``--serve-q8`` blocks dequantized once per stream)."""
+        tokens, enc_length = self._pad_tokens(token_ids)
+        with torch.no_grad():
+            weights = materialize_weights(self.weights)
+            xa_k, xa_v, state = magpie_mod.prepare(tokens, enc_length, speaker_id, weights,
+                                                   self.config)
+        return {"xa_k": xa_k, "xa_v": xa_v, "state": state, "enc_length": enc_length,
+                "weights": weights, "chunk_idx": 0}
+
+    def decode_chunk(self, stream: dict, *, n_frames: int, temperature: float = 0.7,
+                     top_k: int = 80, seed: int = 0) -> Tuple[np.ndarray, bool]:
+        """Advance the stream by up to ``n_frames`` frames, sampling with
+        ``fold_in(PRNGKey(seed), chunk_idx)`` (the JAX engine's chunk keys).
+
+        Returns (new_codes [m, 8], done), m <= n_frames; done once EOS fired
+        or ``max_dec_steps`` frames were made."""
+        state = stream["state"]
+        start = state.frame_idx
+        key = sampling.fold_in(sampling.prng_key(seed), stream["chunk_idx"])
+        with torch.no_grad():
+            state = magpie_mod.decode_loop(
+                stream["xa_k"], stream["xa_v"], state, stream["enc_length"], stream["weights"],
+                self.config, key, temperature, top_k, use_fused=self.use_fused,
+                int8_stream=self.int8_stream, target_frames=start + n_frames)
+        stream["state"] = state
+        stream["chunk_idx"] += 1
+        end = state.frame_idx
+        return state.codes[start:end].copy(), state.done or end >= self.config.max_dec_steps
+
+
+def _load_kernels(device: torch.device) -> None:
+    """Build (or load) the kernel library when ``device`` is a card."""
+    if device.type == "cuda":
+        from ..ops.kernels import build
+
+        build.load_library()
+
 
 class CodecEngine:
-    """Nano-codec vocoder with frame bucketing on one device."""
+    """Nano-codec vocoder with frame bucketing on one device. Under
+    MAGPIE_FUSED_CODEC its res layers of <= 128 channels run the fused
+    kernel on weights stacked once per engine."""
 
     def __init__(self, weights: CodecWeights, config: CodecConfig, device="cuda",
                  compute_dtype=torch.float32,
@@ -153,20 +223,33 @@ class CodecEngine:
         self.device = resolve_device(device)
         self.weights = weights.to(device=self.device, dtype=compute_dtype)
         self.frame_buckets = tuple(frame_buckets)
+        self._fused_layers = None
 
-    def decode(self, codes: np.ndarray, pcm16: bool = False) -> np.ndarray:
+    def _fused(self):
+        """The stages' stacked res layers when MAGPIE_FUSED_CODEC is set
+        (stacked at the first such call), else None."""
+        if not codec_mod.resolve_fused_codec():
+            return None
+        if self._fused_layers is None:
+            with torch.no_grad():
+                self._fused_layers = codec_mod.fused_layers(self.weights, self.config)
+        return self._fused_layers
+
+    def decode(self, codes: np.ndarray, pcm16: bool = False, bucket: bool = True) -> np.ndarray:
         """codes: [n_frames, 8] int -> waveform [n_frames * hop]: float32 in
-        [-1, 1], or int16 PCM when ``pcm16`` (scaled on the device)."""
+        [-1, 1], or int16 PCM when ``pcm16`` (scaled on the device). The
+        codes are padded to a frame bucket unless ``bucket`` is False
+        (streaming windows: a fixed shape of their own)."""
         codes = np.asarray(codes, np.int32)
         n = codes.shape[0]
         if n == 0:
             return np.zeros(0, np.int16 if pcm16 else np.float32)
-        bucket = pick_bucket(self.frame_buckets, n)
-        padded = np.zeros((self.config.num_codebooks, bucket), np.int64)
+        frames = pick_bucket(self.frame_buckets, n) if bucket else n
+        padded = np.zeros((self.config.num_codebooks, frames), np.int64)
         padded[:, :n] = codes.T
         with torch.no_grad():
             audio = codec_mod.codec_decode(torch.from_numpy(padded).to(self.device),
-                                           self.weights, self.config)
+                                           self.weights, self.config, self._fused())
             audio = audio[: n * self.config.hop_length]
             audio = audio.float()
             if pcm16:
@@ -187,9 +270,23 @@ class CodecEngine:
             codes = torch.from_numpy(padded).to(self.device)
             latent = codec_mod.fsq_dequantize(codes, self.config).to(self.weights.pre_conv_w.dtype)
             audio = codec_mod.codec_decode_latent(latent.contiguous(), self.weights,
-                                                  self.config).float().cpu().numpy()
+                                                  self.config, self._fused())
+            audio = audio.float().cpu().numpy()
         hop = self.config.hop_length
         return [audio[i, :lens[i] * hop] for i in range(len(codes_list))]
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
+        """Build the kernel library (on a CUDA device) and decode once per
+        frame bucket (default: all)."""
+        _load_kernels(self.device)
+        for bucket in (buckets or self.frame_buckets):
+            self.decode(np.zeros((bucket, self.config.num_codebooks), np.int32))
+
+    def decode_with_context(self, codes: np.ndarray, n_context: int) -> np.ndarray:
+        """Decode [context; new] frames and return only the new frames'
+        samples: the vocoder is causal with a bounded left receptive field, so
+        enough context makes them equal to a full decode's."""
+        return self.decode(codes)[n_context * self.config.hop_length:]
 
 
 def synthesize_audio_fused(engine: MagpieEngine, codec: CodecEngine,

@@ -14,11 +14,12 @@ import pytest
 import torch
 
 from magpie_tts_tpu_torch.config import CodecConfig, MagpieConfig
-from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
+from magpie_tts_tpu_torch.io.codec_weights import ResBlockWeights, random_codec_weights
 from magpie_tts_tpu_torch.io.magpie_weights import (q8_dequantized_decoder, q8_stream_from_arrays,
                                                      quantize_decoder_stream, random_magpie_weights)
 from magpie_tts_tpu_torch.models import magpie as magpie_mod
 from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+from magpie_tts_tpu_torch.ops.kernels import codec_res_fused as crf
 from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
 from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
 from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
@@ -690,3 +691,100 @@ def test_wrappers_reject_other_dtypes(prepared_bf16):
     with pytest.raises(ValueError):
         q8_dequant.dequantize(torch.zeros(1, 32, dtype=torch.int8, device=dev),
                               torch.ones(1, 1, device=dev), (1, 32), "linear", torch.float16)
+
+
+# ------------------------------------------------ kernel 9: the fused res layer
+
+PROD_CODEC = CodecConfig()
+# bf16 in scaled ulps: each of a branch's 6 convs rounds to bf16, and float32
+# sums in another order than torch's move a rounding by one ulp now and then,
+# which the later convs spread. Measured on an H100: 94.95% within 1 ulp at
+# C = 108, T = 1000, where the frame kernels' 95% bar failed; none past 8.
+BF16_ULP_SHARE, BF16_ULP_MAX = 0.90, 8
+
+
+def _fused_layer(dev, stage: int, dtype=torch.float32):
+    cw = random_codec_weights(PROD_CODEC, seed=3).to(device=dev, dtype=dtype)
+    return crf.stack_res_layer(cw.stages[stage].resblocks, PROD_CODEC.resblock_dilations)
+
+
+def _scaled_ulps(got, want):
+    g, w = got.float(), want.float()
+    ref = torch.maximum(w.abs(), w.pow(2).mean(-1, keepdim=True).sqrt()).clamp_min(1e-30)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(ref)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("stage,n,T", [(2, 1, 1000), (3, 3, 515), (4, 1, 100), (4, 3, 64)])
+def test_res_layer_fused_kernel_matches_plain(cuda, dtype, stage, n, T):
+    """Kernel 9 against its plain version at the codec's C = 108 / 54 / 27:
+    N = 1 and 3 (decode_batch), T not a multiple of the tile, T below the
+    halo (120). float32 within 1e-5 of the largest value; bf16 in scaled
+    ulps. Any tile gives the same bits."""
+    layer = _fused_layer(cuda, stage, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    x = (torch.randn(n, T, layer.channels, generator=gen, device=cuda) * 0.5).to(dtype)
+    crf.launches = 0
+    got = crf.res_layer_fused(x, layer)
+    want = crf.res_layer_fused_reference(x, layer)
+    assert crf.launches == 1 and got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    else:
+        u = _scaled_ulps(got, want)
+        assert float((u <= 1).float().mean()) >= BF16_ULP_SHARE and float(u.max()) <= BF16_ULP_MAX
+    assert torch.equal(crf.res_layer_fused(x, layer, tile=8), got)
+
+
+def test_res_layer_fused_rejects_bad_inputs(cuda):
+    """float16, a dtype mix, C > 128 and a layer left on the CPU raise."""
+    layer = _fused_layer(cuda, 4)
+    x = torch.zeros(1, 16, 27, device=cuda)
+    with pytest.raises(ValueError):
+        crf.res_layer_fused(x.half(), layer)
+    with pytest.raises(ValueError):
+        crf.res_layer_fused(x.to(BF), layer)
+    with pytest.raises(ValueError):
+        crf.res_layer_fused(x, _fused_layer("cpu", 4))
+    z = lambda *shape: torch.zeros(*shape, device=cuda)
+    wide_layer = crf.stack_res_layer(
+        [[ResBlockWeights(z(65), z(k, 130, 130), z(130), z(65), z(k, 130, 130), z(130))] * 3
+         for k in (3, 7, 11)], PROD_CODEC.resblock_dilations)
+    with pytest.raises(ValueError):
+        crf.res_layer_fused(torch.zeros(1, 16, 130, device=cuda), wide_layer)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_streamed_window_rows_equal_offline_rows(cuda, monkeypatch, fused):
+    """A streaming window [base, base + 36) at full codec width: the rows of
+    its last 4 frames (after 32 context frames) are bit-equal to the offline
+    decode's rows, through kernel B alone and with kernel 9 (every kernel
+    computes a row by the same arithmetic wherever the window starts)."""
+    if fused:
+        monkeypatch.setenv("MAGPIE_FUSED_CODEC", "1")
+    codec = engine_mod.CodecEngine(random_codec_weights(PROD_CODEC, seed=1), PROD_CODEC,
+                                   device="cuda")
+    codes = np.random.default_rng(4).integers(0, 2016, size=(60, 8)).astype(np.int32)
+    crf.launches = 0
+    offline = codec.decode(codes)
+    hop = PROD_CODEC.hop_length
+    for base in (0, 7, 24):
+        window = codec.decode(codes[base:base + 36], bucket=False)
+        np.testing.assert_array_equal(window[32 * hop:],
+                                      offline[(base + 32) * hop:(base + 36) * hop])
+    assert crf.launches == (12 if fused else 0)
+
+
+def test_fused_codec_goes_through_kernel_9(cuda, monkeypatch):
+    """MAGPIE_FUSED_CODEC on the small codec (every stage <= 128 channels):
+    5 fused launches and the pre- and post-conv per decode, none of the 90
+    res-block convs through kernel B; decode_batch launches once per layer."""
+    monkeypatch.setenv("MAGPIE_FUSED_CODEC", "1")
+    codec = engine_mod.CodecEngine(random_codec_weights(SMALL_CODEC, seed=1), SMALL_CODEC,
+                                   device="cuda")
+    codes = np.random.default_rng(2).integers(0, 32, size=(9, 8)).astype(np.int32)
+    crf.launches = cc.launches = 0
+    audio = codec.decode(codes)
+    assert (crf.launches, cc.launches) == (5, 2) and np.all(np.isfinite(audio))
+    codec.decode_batch([codes, codes[:4], codes[:2]])
+    assert (crf.launches, cc.launches) == (10, 4)

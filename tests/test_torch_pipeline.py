@@ -99,19 +99,16 @@ def test_cli_without_cuda_exits_1(paths, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,rc", [
-    (["serve", "--dtype", "bfloat16", "--device", "cpu"], 1), (["warmup"], 2),
-    (["--stream"], 2), (["--serve-q8", "--stream"], 2),
+    (["serve", "--dtype", "bfloat16", "--device", "cpu"], 1), (["warmup", "--device", "cpu"], 1),
+    (["--stream", "--device", "cpu"], 1), (["--serve-q8", "--stream", "--device", "cpu"], 1),
     (["--dtype", "bfloat16", "--device", "cpu"], 1)])
 def test_cli_rejects_what_is_not_ported(argv, rc, capsys):
-    """Unported commands and flags exit 2; ``--dtype bfloat16`` is ported,
-    so it passes the CLI's checks and fails only at the missing default
-    model file (exit 1)."""
+    """Every command and flag of the JAX CLI is ported now (``warmup`` and
+    ``--stream`` the last): each passes the CLI's checks and fails only at
+    the missing default model file (exit 1)."""
     assert cli.main(argv) == rc
     err = capsys.readouterr().err
-    if "--dtype" in argv:
-        assert "not ported" not in err and "model file not found" in err
-    else:
-        assert "not ported" in err
+    assert "not ported" not in err and "model file not found" in err
 
 
 def test_engines_refuse_bfloat16_and_missing_cuda(pipelines, monkeypatch):

@@ -375,7 +375,7 @@ def test_cli_no_fused_writes_wav(paths, monkeypatch, tmp_path, capsys):
 
 def test_cli_no_fused_without_cuda_exits_1(paths, tmp_path, monkeypatch, capsys):
     """The flag is ported (no longer rejected) and has no CPU fallback."""
-    assert "--no-fused" not in cli._NOT_PORTED_FLAGS
+    assert cli.build_parser().parse_args(["--no-fused"]).no_fused
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = tmp_path / "never.wav"
     rc = cli.main(["-m", paths[0], "-c", paths[1], "-t", "hello", "-o", str(out), "--no-fused"])
