@@ -55,10 +55,21 @@ Phases (each raises on failure, so the process exits non-zero):
    the offline synth's), ``cli.main serve`` at bf16 with the switch
    (``decode_batch`` with N > 1), and ``cli.main warmup --surfaces all``.
 
+8. the H100 probes (kernels 11-18, ``magpie_tts_tpu_torch/scripts/``): the
+   int4 / packed-int8 / bf16 GEMV, the five attends and the copy kernels
+   against their plain versions at the probe shapes (bit-equal for the
+   nibble GEMVs and the copies with their checksums, the 764 of the chained
+   bf16 add included; within PROBE_GEMV_REL / PROBE_ATTEND_REL of the
+   largest value elsewhere); then the probe path: every probe module's
+   functions at the reduced counts PROBE_* (CUDA-graph and eager slopes, the
+   L2-resident and HBM figures, the plain versions and the library calls),
+   the port's frame kernels A, C, 7 + 8, 8, 7 and the q8 streams among them
+   as short graph slopes, each probe wrapper's launches counted over it.
+
 The line before last is a JSON summary of the kernels (float32 rows, then
-the ``[bf16]`` rows, then the weight streams; kernel 9's rows also carry
-``kernel_b_ms``, kernel B's time on the same layers); the last line is
-``{"ok": true, "device": {...}}``.
+the ``[bf16]`` rows, then the weight streams, then the probe rows with
+``"path": "probe"``; kernel 9's rows also carry ``kernel_b_ms``, kernel B's
+time on the same layers); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2161,6 +2172,186 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
             "res_launches": res_launches, "frames": frames, "fps": fps}
 
 
+# ------------------------------------------------------ the H100 probes (11-18)
+
+PROBE_ATTEND_REL = 5e-4   # attends: float32 sums in another order move a bf16 probability
+PROBE_GEMV_REL = 1e-5     # bf16 GEMV: float32 sums in another order
+# Reduced counts of the probe path (the entry points' full counts: 50 / 450
+# launches for the copy and GEMV slopes, 64 / 1024 for the attends, 20 / 100
+# frames, 5-6 replays).
+PROBE_N = (10, 50, 2)      # copy and GEMV: n_lo, n_hi, replays
+PROBE_ATTEND_N = (8, 40, 2)
+PROBE_FRAME_N = (2, 6, 1)
+
+
+def _rel(got, want) -> dict:
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return {"max_abs_err": err, "max_abs": scale, "rel_err": err / scale if scale else err}
+
+
+def check_probes(dev) -> dict:
+    """The probe kernels (11-18) against their plain versions at the probe
+    shapes, once each; then the probe path: every probe module's functions
+    on the card at the reduced counts above (PROBE_*), with every probe
+    wrapper's launch count reset before and read after, kernel A's chain among
+    them as one short CUDA-graph slope. Returns {row key: result} for the
+    kernels line."""
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.ops.kernels import probe_attend, probe_copy, probe_gemv
+    from magpie_tts_tpu_torch.scripts import (opt_attend_probe, opt_int8_attend_probe,
+                                              opt_launch_probe, opt_slope_probe, probe_int4)
+
+    t0 = time.perf_counter()
+    err = {}
+    # ---- each kernel against its plain version, once
+    for fmt, (x, w, _, _) in probe_int4.make_inputs(dev).items():
+        got, want = probe_gemv.gemv(x, w, fmt), probe_gemv.gemv_reference(x, w, fmt)
+        torch.cuda.synchronize()
+        r = {**_rel(got, want), "bit_equal": bool(torch.equal(got, want))}
+        log(f"probe gemv [{fmt}] vs plain: max abs err {r['max_abs_err']:.3g} of "
+            f"{r['max_abs']:.4g}, bit-equal {r['bit_equal']}")
+        if (fmt != "bf16" and not r["bit_equal"]) or r["rel_err"] > PROBE_GEMV_REL:
+            raise AssertionError(f"probe gemv [{fmt}] disagrees with its plain version")
+        err[f"gemv_{fmt}"] = r
+    i8 = opt_int8_attend_probe.make_inputs(dev)
+    orient = opt_attend_probe.make_inputs(dev)
+    attend_x = {m: opt_int8_attend_probe.inputs_for(m, i8) for m in ("bf16", "i8mixed", "i8cast")}
+    attend_x.update(cur=orient, tr=orient)
+    for mode, x in attend_x.items():
+        checks = [opt_attend_probe.agreement(mode, rows, 2, x) for rows in (320, 640)]
+        for r in checks:
+            log(f"probe attend [{mode}] rows {r['rows']} iters 2 vs plain: max abs err "
+                f"{r['max_abs_err']:.3g} of {r['max_abs']:.4g} ({r['rel_err']:.3g} of the largest, "
+                f"bar {PROBE_ATTEND_REL})")
+        worst = max(checks, key=lambda r: r["rel_err"])
+        if not worst["rel_err"] <= PROBE_ATTEND_REL:
+            raise AssertionError(f"probe attend [{mode}] disagrees with its plain version")
+        err[f"attend_{mode}"] = worst
+    randn = lambda *s: torch.randn(*s, device=dev).to(torch.bfloat16)
+    copies = {"minimal": (8, {}, 3), "constblk": (8, {"consts": [randn(*s) for s in
+                                                                 opt_slope_probe.WSHAPES]}, 3),
+              "grid1": (1, {}, 100), "grid8": (8, {}, 100), "grid20": (20, {}, 100),
+              "streamed": (8, {"slab": randn(8, 512, 1024)}, 3)}
+    for name, (g, kw, n) in copies.items():
+        h = hr = torch.zeros(32, 768, dtype=torch.bfloat16, device=dev)
+        same = True
+        for _ in range(n):
+            h, cs = probe_copy.copy(h, g, **kw)
+            hr, csr = probe_copy.copy_reference(hr, g, **kw)
+            same = same and bool(torch.equal(cs, csr))
+        torch.cuda.synchronize()
+        same = same and bool(torch.equal(h, hr))
+        log(f"probe copy [{name}] grid {g}, {n} chained launches: output and per-block "
+            f"checksums bit-equal to plain: {same}; value {float(h.float()[0, 0])}")
+        if not same or (name == "grid8" and not bool((h == 764).all())):
+            raise AssertionError(f"probe copy [{name}] disagrees with its plain version")
+        err[f"copy_{name}"] = {"max_abs_err": 0.0}
+    # ---- the probe path: the probe modules' functions, counts reset before, read after
+    probe_gemv.launches = probe_attend.launches = probe_copy.launches = 0
+    probe_gemv.format_launches = dict.fromkeys(probe_gemv.FORMATS, 0)
+    probe_attend.mode_launches = dict.fromkeys(probe_attend.MODES, 0)
+    probe_copy.variant_launches = dict.fromkeys(probe_copy.VARIANTS, 0)
+    fs.launches = 0
+    n_lo, n_hi, reps = PROBE_N
+    a_lo, a_hi, a_reps = PROBE_ATTEND_N
+    f_lo, f_hi, f_reps = PROBE_FRAME_N
+    log(f"probe path at reduced counts: copy / GEMV slopes over {n_lo} / {n_hi} launches, "
+        f"attends {a_lo} / {a_hi}, frames {f_lo} / {f_hi}; best of {reps} / {a_reps} / {f_reps} "
+        f"replays")
+    t1 = time.perf_counter()
+    res = {}
+    with torch.no_grad():
+        for fmt in probe_gemv.FORMATS:
+            r = probe_int4.probe(fmt, dev, n_lo, n_hi, reps, timed_n=10)
+            log("probe_int4 " + probe_int4.report(r))
+            res[f"gemv_{fmt}"] = {**r, **err[f"gemv_{fmt}"]}
+        for mode, x in attend_x.items():
+            r = opt_attend_probe.slopes(mode, 320, x, dev, a_lo, a_hi, a_reps)
+            log("attend probe " + opt_attend_probe.report(r))
+            res[f"attend_{mode}"] = {**r, "max_abs_err": err[f"attend_{mode}"]["max_abs_err"],
+                                     "rel_err": err[f"attend_{mode}"]["rel_err"]}
+        res["copy_minimal"] = opt_slope_probe.probe_minimal(dev, n_lo, n_hi, reps)
+        res["copy_constblk"] = opt_slope_probe.probe_constblk(dev, n_lo, n_hi, reps)
+        for g in (1, 8, 20):
+            res[f"copy_grid{g}"] = opt_launch_probe.run(f"minimal copy kernel grid=({g},)", 32, g,
+                                                        0, dev, n_lo, n_hi, reps)
+        res["copy_streamed"] = opt_launch_probe.run(
+            "minimal + 1MB streamed block/step grid=(8,)", 32, 8, 1, dev, n_lo, n_hi, reps)
+        t2 = time.perf_counter()
+        frames = {"single": opt_slope_probe.probe_single(dev, 40, f_lo, f_hi, f_reps)}
+        a_launches = fs.launches
+        for name in ("fused", "dec", "split"):
+            frames[name] = opt_slope_probe.PROBES[name](dev, 40, f_lo, f_hi, f_reps)
+        frames["lt"] = opt_slope_probe.probe_lt(dev, f_lo, f_hi, f_reps)
+        frames["q8"] = opt_slope_probe.probe_q8(dev, f_lo, f_hi, f_reps, pos_offs=(40,))
+    launches = {"gemv": dict(probe_gemv.format_launches),
+                "attend": dict(probe_attend.mode_launches),
+                "copy": dict(probe_copy.variant_launches)}
+    log(f"probe path launches: {launches}; kernel A {a_launches} in its captured slope (graph "
+        f"{frames['single']['graph_ms']:.4f} ms / eager {frames['single']['eager_ms']:.4f} ms a "
+        f"frame); probes {t2 - t1:.1f} s, frame probes {time.perf_counter() - t2:.1f} s")
+    missing = [f"{k}[{m}]" for k, d in launches.items() for m, v in d.items() if v == 0]
+    if missing or a_launches == 0:
+        raise AssertionError(f"the probe path launched no {missing or 'kernel A'}")
+    res["launches"], res["frames"] = launches, frames
+    for fn in (opt_slope_probe._weights, opt_slope_probe._state, opt_slope_probe._streams):
+        fn.cache_clear()
+    torch.cuda.empty_cache()
+    log(f"probe phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def probe_rows(res: dict) -> list:
+    """Rows 11-18 of the kernels line: ms is the CUDA-graph slope a launch
+    with the data L2-resident (graph_hbm_ms: rotated past the L2; eager_ms:
+    issued from Python), plain_ms the plain version's CUDA-event mean,
+    library_ms the library call's graph slope (cuBLAS bf16 matmul, SDPA,
+    torch.add), launches the probe path's."""
+    src = "magpie_tts_tpu_torch/csrc/"
+    launches = res["launches"]
+    rows = []
+
+    def row(name, source, replaces, n, r, ms, library_ms, bound, **extra):
+        rows.append({"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                     "launches": n, "max_abs_err": r["max_abs_err"], "ms": ms,
+                     "plain_ms": r["plain_ms"], "bound_ms": bound["bound_ms"],
+                     "bound_by": bound["bound_by"], "library_ms": library_ms, "path": "probe",
+                     **extra})
+
+    for fmt, line in (("native_int4", 42), ("packed_int8", 71), ("bf16", 110)):
+        r = res[f"gemv_{fmt}"]
+        row(f"probe_gemv[{fmt}]", "probe_gemv.cu", f"scripts/probe_int4.py:{line}",
+            launches["gemv"][fmt], r, r["graph_l2_ms"], r["library_graph_l2_ms"], r,
+            graph_hbm_ms=r["graph_hbm_ms"], event_ms=r["ms"],
+            library_graph_hbm_ms=r["library_graph_hbm_ms"])
+    for mode, replaces in (("bf16", "scripts/opt_int8_attend_probe.py:106"),
+                           ("i8mixed", "scripts/opt_int8_attend_probe.py:106"),
+                           ("i8cast", "scripts/opt_int8_attend_probe.py:106"),
+                           ("cur", "scripts/opt_attend_probe.py:83"),
+                           ("tr", "scripts/opt_attend_probe.py:83")):
+        r = res[f"attend_{mode}"]
+        row(f"probe_attend[{mode}]", "probe_attend.cu", replaces, launches["attend"][mode], r,
+            r["graph_l2_ms"], r["library_ms"], r, graph_hbm_ms=r["graph_hbm_ms"],
+            eager_ms=r["eager_ms"], rows=r["rows"], rel_err=r["rel_err"])
+    for name, replaces, variant in (("minimal", "scripts/opt_slope_probe.py:69", "minimal"),
+                                    ("constblk", "scripts/opt_slope_probe.py:89", "constblk"),
+                                    ("grid1", "scripts/opt_launch_probe.py:43", "minimal"),
+                                    ("grid8", "scripts/opt_launch_probe.py:43", "minimal"),
+                                    ("grid20", "scripts/opt_launch_probe.py:43", "minimal"),
+                                    ("streamed", "scripts/opt_launch_probe.py:43", "streamed")):
+        r = res[f"copy_{name}"]
+        extra = {"eager_ms": r["eager"]["per_launch_ms"]}
+        if "graph_hbm" in r:
+            extra["graph_hbm_ms"] = r["graph_hbm"]["per_launch_ms"]
+        row(f"probe_copy[{name}]", "probe_copy.cu", replaces, launches["copy"][variant],
+            {"max_abs_err": 0.0, **r}, r["graph"]["per_launch_ms"],
+            r["library"]["per_launch_ms"], r["bound"], **extra)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2198,6 +2389,7 @@ def main() -> int:
     bf_conv = check_codec_conv(dev, dtype=BF)
     res_res = check_res_layer_fused(dev)
     bf_res = check_res_layer_fused(dev, dtype=BF)
+    probes = check_probes(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         mcfg, ccfg = write_ggufs(tmp)
@@ -2277,6 +2469,15 @@ def main() -> int:
         f"), bf16 {fc[BF, 'diff']['wav_max_diff']}; serve bf16 with the fused codec "
         f"{bf_serve_fc['fps']} aggregate fps ({bf_serve_fc['res_launches']} kernel 9 launches); "
         f"warmup stage seconds {warm}; on {card}")
+    fr = probes["frames"]
+    log(f"summary, probes (device-only frame times by CUDA-graph slope, bf16, pos "
+        f"context_frames + 40, {PROBE_FRAME_N[0]} / {PROBE_FRAME_N[1]} frames): kernel A "
+        f"{fr['single']['graph_ms']:.4f} ms (eager {fr['single']['eager_ms']:.4f}), C at "
+        f"B={fr['fused']['B']} {fr['fused']['graph_ms']:.4f} ({fr['fused']['eager_ms']:.4f}), "
+        f"7 + 8 with glue {fr['split']['graph_ms']:.4f} ({fr['split']['eager_ms']:.4f}), 8 "
+        f"{fr['dec']['graph_ms']:.4f}, 7 {fr['lt']['graph_ms']:.4f}; copy kernel a launch: graph "
+        f"{probes['copy_minimal']['graph_ms'] * 1e3:.3f} us, eager "
+        f"{probes['copy_minimal']['eager_ms'] * 1e3:.3f} us; on {card}")
     pk = "magpie_tts_tpu/ops/pallas_kernels/"
     src = "magpie_tts_tpu_torch/csrc/"
 
@@ -2353,6 +2554,7 @@ def main() -> int:
               fc["float32", True]["res_launches"], res_res),
         *bf16_rows,
         *streams,
+        *probe_rows(probes),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

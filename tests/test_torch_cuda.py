@@ -788,3 +788,152 @@ def test_fused_codec_goes_through_kernel_9(cuda, monkeypatch):
     assert (crf.launches, cc.launches) == (5, 2) and np.all(np.isfinite(audio))
     codec.decode_batch([codes, codes[:4], codes[:2]])
     assert (crf.launches, cc.launches) == (10, 4)
+
+
+# ---------------------------------------------- the H100 probes (kernels 11-18)
+
+from magpie_tts_tpu_torch.ops.kernels import probe_attend, probe_copy, probe_gemv  # noqa: E402
+from magpie_tts_tpu_torch.scripts import (opt_attend_probe, opt_int8_attend_probe,  # noqa: E402
+                                          opt_launch_probe, opt_slope_probe, probe_int4, timing)
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
+def test_probe_gemv_kernel_matches_plain(cuda, fmt):
+    """Kernels 11-13 at the probe's shapes: the nibble formats bit-equal to
+    plain (x = ones, and small integer x: every sum an exact integer), bf16
+    within 1e-5 of the largest value (float32 sums in another order)."""
+    x, w, _, _ = probe_int4.make_inputs(cuda)[fmt]
+    xs = [x]
+    if fmt != "bf16":
+        xi = np.random.default_rng(2).integers(-3, 4, size=tuple(x.shape)).astype(np.float32)
+        xs.append(torch.from_numpy(xi).to(device=cuda, dtype=BF))
+    else:
+        xs.append(torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                              device=cuda).to(BF))
+    for xx in xs:
+        got, want = probe_gemv.gemv(xx, w, fmt), probe_gemv.gemv_reference(xx, w, fmt)
+        torch.cuda.synchronize()
+        if fmt == "bf16":
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("rows", [320, 640])
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_probe_attend_kernel_matches_plain(cuda, mode, rows, iters):
+    """Kernels 14 and 18 against plain within 5e-4 of the largest value."""
+    if mode in ("bf16", "i8mixed", "i8cast"):
+        x = opt_int8_attend_probe.inputs_for(mode, opt_int8_attend_probe.make_inputs(cuda))
+    else:
+        x = opt_attend_probe.make_inputs(cuda)
+    args = [x[n] for n in ("q", "k", "v", "sk", "sv")]
+    got = probe_attend.attend(*args, rows, iters, mode)
+    want = probe_attend.attend_reference(*args, rows, iters, mode)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 5e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("grid_n,variant", [(1, "minimal"), (8, "minimal"), (20, "minimal"),
+                                            (8, "constblk"), (8, "streamed"), (3, "streamed")])
+def test_probe_copy_kernel_bit_equal_plain(cuda, grid_n, variant):
+    """Kernels 15-17: chained launches and every block's checksum bit-equal
+    to plain (at grid 8 from zeros, 764 after 100 launches)."""
+    gen = torch.Generator(device=cuda).manual_seed(grid_n)
+    kw = {}
+    if variant == "constblk":
+        kw["consts"] = opt_slope_probe.const_blocks(cuda)
+    elif variant == "streamed":
+        kw["slab"] = torch.randn(grid_n, 512, 1024, generator=gen, device=cuda).to(BF)
+    h = torch.zeros(32, 768, dtype=BF, device=cuda)
+    hr = h.clone()
+    for _ in range(100 if variant == "minimal" else 3):
+        h, cs = probe_copy.copy(h, grid_n, **kw)
+        hr_next, csr = probe_copy.copy_reference(hr, grid_n, **kw)
+        assert torch.equal(cs, csr)
+        hr = hr_next
+    torch.cuda.synchronize()
+    assert torch.equal(h, hr)
+    if (grid_n, variant) == (8, "minimal"):
+        assert bool((h == 764).all())
+
+
+def test_probe_wrappers_reject_bad_inputs(cuda):
+    x, w, _, _ = probe_int4.make_inputs(cuda)["native_int4"]
+    bad_gemv = [(x.float(), w, "native_int4"), (x, w.to(torch.int8), "native_int4"),
+                (x[:, :512].contiguous(), w, "native_int4"), (x, w, "int3"),
+                (x, w[:, :1000].contiguous(), "native_int4")]
+    for args in bad_gemv:
+        with pytest.raises(ValueError):
+            probe_gemv.gemv(*args)
+    a = opt_attend_probe.make_inputs(cuda)
+    out = torch.zeros(8, 768, device=cuda)
+    with pytest.raises(ValueError):
+        probe_attend.attend_accumulate(out, a["q"], a["k"], a["v"], None, None, 641, "tr")
+    with pytest.raises(ValueError):
+        probe_attend.attend_accumulate(out, a["q"], a["k"], a["v"], None, None, 320, "i8mixed")
+    with pytest.raises(ValueError):
+        probe_attend.attend_accumulate(out.double(), a["q"], a["k"], a["v"], None, None, 320,
+                                       "cur")
+    with pytest.raises(ValueError):
+        probe_attend.attend(a["q"], a["k"], a["v"], None, None, 320, 1, "flash")
+    h = torch.zeros(32, 768, dtype=BF, device=cuda)
+    for kw in ({"grid_n": 0}, {"grid_n": 8, "slab": torch.zeros(4, 16, dtype=BF, device=cuda)}):
+        with pytest.raises(ValueError):
+            probe_copy.copy(h, **kw)
+    with pytest.raises(ValueError):
+        probe_copy.copy(h.float(), 8)
+    with pytest.raises(ValueError):
+        probe_copy.copy(torch.zeros(3, dtype=BF, device=cuda), 1)
+
+
+def test_graph_slope_times_the_copy_kernel(cuda):
+    """graph_slope captures the chained copy kernel and returns a positive
+    per-launch time; the graph's chain equals the eager chain."""
+    body = lambda i, h: probe_copy.copy(h, 8)[0]
+    x0 = torch.zeros(32, 768, dtype=BF, device=cuda)
+    res = timing.graph_slope(body, x0, 5, 25, reps=2)
+    assert res["clock"] == "cuda graph" and res["per_launch_ms"] > 0
+    assert timing.eager_slope(body, x0, 5, 25, reps=2)["per_launch_ms"] > 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = timing.chain(body, x0, 10)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, timing.chain(body, x0, 10))
+
+
+def test_frame_kernel_chain_captures_in_a_cuda_graph(prepared):
+    """Kernel A's chain captured in a CUDA graph gives the eager chain's bits:
+    its wrapper reads nothing back to the host."""
+    w, xa_k, xa_v, st = prepared
+
+    def body(i, carry):
+        h, kc, vc = carry
+        _, _, h2, kc, vc = fs.frame_step(h, st.pos, xa_k, xa_v, kc, vc, w, SMALL, i, 0.7, 8,
+                                         False, enc_length=6)
+        return h2, kc, vc
+
+    ke, ve = st.k_cache.clone(), st.v_cache.clone()
+    kg, vg = st.k_cache.clone(), st.v_cache.clone()
+    with torch.no_grad():
+        want = timing.chain(body, (st.hidden, ke, ve), 4)[0]
+        body(0, (st.hidden, kg.clone(), vg.clone()))  # warm-up
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = timing.chain(body, (st.hidden, kg, vg), 4)[0]
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(kg, ke)
+
+
+def test_probe_scripts_run_on_the_card(cuda):
+    """Each probe module's path at tiny counts on the card."""
+    assert probe_int4.probe("packed_int8", cuda, n_lo=2, n_hi=4, reps=1, timed_n=2)[
+        "bit_equal_plain"]
+    x = opt_attend_probe.make_inputs(cuda)
+    assert opt_attend_probe.slopes("cur", 320, x, cuda, i_lo=2, i_hi=4, reps=1)["graph_l2_ms"] > 0
+    assert opt_launch_probe.run("grid 20", 32, 20, 0, cuda, n_lo=2, n_hi=6, reps=1, iters=10)[
+        "bit_equal_plain"]
+    assert opt_slope_probe.probe_constblk(cuda, n_lo=2, n_hi=6, reps=1)["graph_ms"] > 0
