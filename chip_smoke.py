@@ -4,13 +4,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (each raises on failure, so the process exits non-zero):
 1. the card (nvidia-smi name + power limit), torch / CUDA versions, and the
-   build of the hand-written kernels from csrc/ (nvcc, sm_90a);
+   build of the hand-written kernels from csrc/ (nvcc, sm_90a), with the
+   codec kernels' -Xptxas -v lines (registers, shared memory, spills);
 2. each kernel against its plain PyTorch version on the card at full 357M
    width: the frame step at several cache positions and temperatures, the
    batched frame step at B=8 and B=32 with ring-style masks and at serve's B
    with its arguments as the continuous and lockstep engines pass them
    (attention bound, broadcast rows), the codec conv for every (C_in, C_out,
-   k, dilation, residual) class a decode runs, and the split path's four
+   k, dilation, residual) class a decode runs (each class timed by CUDA-graph
+   slope beside one cuDNN conv1d of its shapes, in turns, and summed over
+   the 92 convs of a 32-frame decode), and the split path's four
    kernels (LT sampler and decoder step, single-stream and batched, the
    batched decoder step also with the engines' arguments); the split path
    also against the fused kernels on the same state; with both times, each
@@ -47,8 +50,10 @@ Phases (each raises on failure, so the process exits non-zero):
    phases 3-5 run after them, as before;
 7. kernel 9 (the fused codec res layer) against its plain version on the
    three layers of <= 128 channels of a 32-frame decode, N = 1 and 3, with
-   its time beside kernel B's 54 launches on the same layers, in float32 and
-   bf16; then, in bf16 and float32, ``cli.main`` synth at temp 0 with and
+   its time beside kernel B's 54 launches on the same layers (CUDA-graph
+   slopes, in turns), in float32 and bf16; the wall time (host clock) and
+   device time (profiler) of one 32-frame ``CodecEngine.decode`` in each
+   dtype; then, in bf16 and float32, ``cli.main`` synth at temp 0 with and
    without ``MAGPIE_FUSED_CODEC=1`` (3 kernel-9 and 38 conv launches per
    decode, codes identical, the waveform difference), ``cli.main --stream``
    on each (time to first audio, real-time factor, the WAV byte-identical to
@@ -94,10 +99,13 @@ SPLIT_TOL = 1e-5   # the split kernels: against plain, and split against fused
 CONV_ATOL = 1e-4   # conv outputs of O(1): summation order differs from F.conv1d
 CONV_RTOL = 1e-5
 # An H100 SXM's published peaks (NVIDIA's datasheet): device memory
-# rate, and float32 outside the tensor cores (every kernel here is SIMT f32).
+# rate, float32 outside the tensor cores (the frame kernels' SIMT float32;
+# the bound of a float32 function), dense bf16 and TF32 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12   # dense bf16 on the tensor cores: the rate for bf16 inputs
+TF32_FLOPS_PER_S = 495e12   # the codec convs' float32 runs 3 TF32 products per product
+CODEC_SLOPE_N = (2, 8, 3)   # codec graph slopes: launches per graph, lo / hi, and replays
 F32, BF16 = 4, 2
 # bf16 floats vs plain, in bf16 ulps of max(|value|, its row's RMS) (scaled_ulps).
 # A frame kernel's outputs pass 12 layers of bf16 roundings: its float32 sums
@@ -145,6 +153,16 @@ def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S) ->
     t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def codec_bound(nbytes: float, flops: float, dtype: str) -> dict:
+    """The codec kernels' bound: bf16 at the tensor cores' bf16 rate; float32
+    as the design runs it, 3 TF32 products per product on the tensor cores,
+    with the SIMT float32 bound beside it (``bound_simt_ms``)."""
+    if dtype != "float32":
+        return bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return {**bound(nbytes, 3 * flops, TF32_FLOPS_PER_S),
+            "bound_simt_ms": bound(nbytes, flops)["bound_ms"]}
 
 
 def lt_work(c, B: int, elt: int = F32):
@@ -622,23 +640,9 @@ def check_frame_step_batched(dev) -> dict:
             "temp07_code_flips": flips, **bound(lt_b + dec_b, lt_f + dec_f)}
 
 
-def check_codec_conv(dev, frames: int = 32, dtype: str = "float32") -> dict:
-    """Kernel B vs the plain HalfSnake + conv for every conv class of a decode
-    of ``frames`` frames, in ``dtype`` (bfloat16: every value within
-    CONV_ULP_MAX scaled bf16 ulps); times are summed over the 92 convs of
-    that decode."""
-    import torch
-
-    from magpie_tts_tpu_torch.config import CodecConfig
-    from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
-    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
-
-    cfg = CodecConfig()
-    dt = getattr(torch, dtype)
-    elt = F32 if dtype == "float32" else BF16
-    cw = random_codec_weights(cfg, seed=0).to(device=dev, dtype=dt)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    # (name, T, w, b, alpha, dilation, residual?, multiplicity per decode)
+def codec_conv_classes(cw, cfg, frames: int):
+    """(name, T, w, b, alpha, dilation, residual?, multiplicity) of every conv
+    class of a ``frames``-frame decode: 92 convs."""
     classes = [("pre", frames, cw.pre_conv_w, cw.pre_conv_b, None, 1, False, 1)]
     T = frames
     for s, (stage, rate) in enumerate(zip(cw.stages, cfg.up_sample_rates)):
@@ -653,9 +657,51 @@ def check_codec_conv(dev, frames: int = 32, dtype: str = "float32") -> dict:
     classes.append(("post", T, cw.post_conv_w, cw.post_conv_b, cw.post_alpha, 1, False, 1))
     if sum(m for *_, m in classes) != 92:
         raise AssertionError("conv classes do not add up to 92 convs per decode")
+    return classes
 
-    worst, total_ms, total_plain, total_lib, nbytes, flops = 0.0, 0.0, 0.0, 0.0, 0, 0
-    ulps = []
+
+def slope_in_turns(fns: dict, n=CODEC_SLOPE_N) -> dict:
+    """Per-call device ms of each zero-argument function by CUDA-graph slope
+    (scripts/timing.graph_slope), in turns: a, b, ..., then the reverse
+    order; the mean of the two turns."""
+    from magpie_tts_tpu_torch.scripts import timing
+    import torch
+
+    out = {k: [] for k in fns}
+    for key in list(fns) + list(fns)[::-1]:
+        fn = fns[key]
+        out[key].append(timing.graph_slope(lambda i, h, fn=fn: (fn(), h)[1],
+                                           torch.zeros(1, device="cuda"), n[0], n[1],
+                                           n[2])["per_launch_ms"])
+    return {k: sum(v) / len(v) for k, v in out.items()}
+
+
+def check_codec_conv(dev, frames: int = 32, dtype: str = "float32") -> dict:
+    """Kernel B vs the plain HalfSnake + conv for every conv class of a decode
+    of ``frames`` frames, in ``dtype`` (bfloat16: every value within
+    CONV_ULP_MAX scaled bf16 ulps); then each class's device time by
+    CUDA-graph slope beside one cuDNN ``conv1d`` of the same shapes (TF32
+    off), in turns, and their CUDA-event means, summed over the 92 convs of
+    that decode."""
+    import torch
+
+    from magpie_tts_tpu_torch.config import CodecConfig
+    from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
+    from magpie_tts_tpu_torch.models.codec import half_snake
+    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+
+    cfg = CodecConfig()
+    dt = getattr(torch, dtype)
+    elt = F32 if dtype == "float32" else BF16
+    cw = random_codec_weights(cfg, seed=0).to(device=dev, dtype=dt)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    classes = codec_conv_classes(cw, cfg, frames)
+
+    worst, nbytes, flops = 0.0, 0, 0
+    f64 = [0.0, 0.0]  # float32: max abs err of the kernel, of plain, against float64
+    signed = {"kernel": [], "plain": []}  # bf16: signed ulps against float64
+    tot = dict.fromkeys(("graph", "lib_graph", "event", "lib_event", "plain"), 0.0)
+    stages, ulps = {}, []
     with torch.no_grad():
         for name, T, wt, b, alpha, d, res, mult in classes:
             k, c_in, c_out = wt.shape
@@ -664,40 +710,128 @@ def check_codec_conv(dev, frames: int = 32, dtype: str = "float32") -> dict:
             got = cc.snake_causal_conv(x, wt, b, alpha, d, cfg.leaky_slope, residual=r)
             want = cc.snake_causal_conv_reference(x, wt, b, alpha, d, cfg.leaky_slope, r)
             err = float((got.float() - want.float()).abs().max())
+            # both against the same conv in float64, of the same activated
+            # (and, in bf16, rounded) input: cuDNN's float32 has its own error
+            h = (x if alpha is None else half_snake(x, alpha, cfg.leaky_slope)).double()
+            conv = torch.nn.functional.conv1d(
+                torch.nn.functional.pad(h.transpose(1, 2), ((k - 1) * d, 0)),
+                wt.double().permute(2, 1, 0), dilation=d).transpose(1, 2)
+            exact = conv + b.double() + (0.0 if r is None else r.double())
             if dtype == "float32":
                 ok = torch.allclose(got, want, atol=CONV_ATOL, rtol=CONV_RTOL)
+                f64[0] = max(f64[0], float((got.double() - exact).abs().max()))
+                f64[1] = max(f64[1], float((want.double() - exact).abs().max()))
             else:
                 ulps.append(scaled_ulps(got, want).flatten())
                 ok = ulp_ok(ulps[-1], CONV_ULP_SHARE, CONV_ULP_MAX)
+                # a bias of the sums shows as a mean error toward zero of the conv's sum
+                for who, v in (("kernel", got), ("plain", want)):
+                    signed[who].append(signed_ulps(v, exact, conv.sign()).flatten())
             if not ok:
                 raise AssertionError(f"codec conv {name} ({c_in}->{c_out}, k{k}, d{d}, T{T}, "
                                      f"{dtype}) disagrees: max abs err {err}")
-            t_k = time_ms(lambda: cc.snake_causal_conv(x, wt, b, alpha, d, 0.01, residual=r), 5)
-            t_p = time_ms(lambda: cc.snake_causal_conv_reference(x, wt, b, alpha, d, 0.01, r), 5)
-            # The library yardstick: one cuDNN conv1d (float32, TF32 off) of the
-            # same shapes; it leaves out the HalfSnake and the residual add.
+            kernel = lambda: cc.snake_causal_conv(x, wt, b, alpha, d, 0.01, residual=r)
+            # The library yardstick: one cuDNN conv1d (TF32 off) of the same
+            # shapes; it leaves out the HalfSnake and the residual add.
             x_nct, w_oik = x.transpose(1, 2).contiguous(), wt.permute(2, 1, 0).contiguous()
-            t_l = time_ms(lambda: torch.nn.functional.conv1d(x_nct, w_oik, b, dilation=d,
-                                                             padding=(k - 1) * d), 5)
+            library = lambda: torch.nn.functional.conv1d(x_nct, w_oik, b, dilation=d,
+                                                         padding=(k - 1) * d)
+            slopes = slope_in_turns({"kernel": kernel, "library": library})
+            t_k, t_l = time_ms(kernel, 5), time_ms(library, 5)
+            t_p = time_ms(lambda: cc.snake_causal_conv_reference(x, wt, b, alpha, d, 0.01, r), 3)
+            plan = cc.plan_conv(1, T, c_in, c_out, k, d, dt, act=alpha is not None)
+            f = 2 * T * k * c_in * c_out
             log(f"codec_conv[{dtype}] {name:18s} {c_in:4d}->{c_out:4d} k{k:2d} d{d} T{T:6d} "
-                f"res={int(res)}: max abs err {err:.3g}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                f"conv1d {t_l:.4f} ms")
+                f"res={int(res)} x{mult}: max abs err {err:.3g}; graph slope kernel "
+                f"{slopes['kernel']:.5f} ms ({f / slopes['kernel'] / 1e9:.1f} TFLOP/s), conv1d "
+                f"{slopes['library']:.5f} ms; events kernel {t_k:.4f} ms, conv1d {t_l:.4f} ms, "
+                f"plain {t_p:.4f} ms; plan {plan.tile_m}x{plan.tile_n}, {plan.blocks} blocks, "
+                f"{plan.smem} B smem")
             worst = max(worst, err)
-            total_ms += t_k * mult
-            total_plain += t_p * mult
-            total_lib += t_l * mult
+            for key, v in (("graph", slopes["kernel"]), ("lib_graph", slopes["library"]),
+                           ("event", t_k), ("lib_event", t_l), ("plain", t_p)):
+                tot[key] += v * mult
+            st = stages.setdefault(name.split(".")[0], [0.0, 0.0, 0.0])
+            st[0] += slopes["kernel"] * mult
+            st[1] += slopes["library"] * mult
+            st[2] += f * mult
             n_alpha = 0 if alpha is None else alpha.numel()
             nbytes += mult * elt * (T * c_in + k * c_in * c_out + c_out + n_alpha
                                     + T * c_out * (2 if res else 1))
-            flops += mult * 2 * T * k * c_in * c_out
-    log(f"codec_conv[{dtype}]: 92 convs of a {frames}-frame decode: kernel {total_ms:.4f} ms, "
-        f"plain {total_plain:.4f} ms, conv1d {total_lib:.4f} ms")
-    out = {"max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
-           "library_ms": total_lib,
-           **bound(nbytes, flops, FP32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S)}
+            flops += mult * f
+    for name, (t_k, t_l, f) in stages.items():
+        log(f"codec_conv[{dtype}] {name}: {f / 1e9:.2f} GFLOP, kernel {t_k:.4f} ms "
+            f"({f / t_k / 1e9:.1f} TFLOP/s), conv1d {t_l:.4f} ms (graph slopes)")
+    log(f"codec_conv[{dtype}]: 92 convs of a {frames}-frame decode ({flops / 1e9:.1f} GFLOP): "
+        f"graph slope kernel {tot['graph']:.4f} ms, conv1d {tot['lib_graph']:.4f} ms; CUDA-event "
+        f"means kernel {tot['event']:.4f} ms, conv1d {tot['lib_event']:.4f} ms, plain "
+        f"{tot['plain']:.4f} ms")
+    out = {"max_abs_err": worst, "ms": tot["graph"], "plain_ms": tot["plain"],
+           "library_ms": tot["lib_graph"], "event_ms": tot["event"],
+           "library_event_ms": tot["lib_event"], "gflop": flops / 1e9,
+           **codec_bound(nbytes, flops, dtype)}
+    if dtype == "float32":
+        out["f64_err"], out["plain_f64_err"] = f64
+        log(f"codec_conv[float32]: against a float64 conv, max abs err kernel {f64[0]:.3g}, "
+            f"plain (cuDNN float32) {f64[1]:.3g}")
+    else:
+        out.update(signed_summary(signed, "codec_conv[bfloat16]", "a float64 conv"))
     if ulps:
         out.update(ulp_summary(torch.cat(ulps)))
     return out
+
+
+def time_codec_decode(dev, dtype: str, frames: int = 32) -> dict:
+    """One ``CodecEngine.decode`` of ``frames`` frames at full width: its wall
+    time (host clock, the result on the host), and its device time (the
+    union of the kernels' intervals in a ``torch.profiler`` trace of one
+    more decode), with the kernel-B launches it made."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from magpie_tts_tpu_torch.config import CodecConfig
+    from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
+    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
+
+    cfg = CodecConfig()
+    codec = CodecEngine(random_codec_weights(cfg, seed=1), cfg, device=dev,
+                        compute_dtype=getattr(torch, dtype))
+    codes = np.random.default_rng(5).integers(0, cfg.codebook_size, size=(frames, 8))
+    for _ in range(2):
+        codec.decode(codes, bucket=False)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = codec.decode(codes, bucket=False)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    if audio.shape != (frames * cfg.hop_length,) or not np.all(np.isfinite(audio)):
+        raise AssertionError(f"codec decode [{dtype}]: bad audio {audio.shape}")
+    cc.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        codec.decode(codes, bucket=False)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")
+                   and not e.name.startswith("Memset"))
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    walls.sort()
+    res = {"wall_ms": walls[len(walls) // 2], "device_ms": busy / 1e3, "kernels": len(spans),
+           "conv_launches": cc.launches}
+    log(f"codec decode [{dtype}] of {frames} frames: wall {res['wall_ms']:.4f} ms (median of 5, "
+        f"host clock), device {res['device_ms']:.4f} ms (union of {res['kernels']} kernels, "
+        f"{res['conv_launches']} of them kernel B)")
+    return res
 
 
 # Kernel 9 in bf16 against plain, in scaled ulps: a branch chains 6 convs,
@@ -707,6 +841,32 @@ def check_codec_conv(dev, frames: int = 32, dtype: str = "float32") -> dict:
 # failed).
 RES_ULP_SHARE, RES_ULP_MAX = 0.90, 8
 RES_REL = 1e-5     # kernel 9 in float32: max abs err <= 1e-5 x max |plain|
+
+
+def res_layer_f64_convs(x, layer, leaky_slope: float = 0.01):
+    """res_layer_fused_reference with each conv summed in float64 (then + bias
+    and one rounding to x's dtype): the same rounding points, exact sums."""
+    import torch.nn.functional as F
+
+    from magpie_tts_tpu_torch.models.codec import half_snake
+
+    def conv(h, w, b, d):
+        k = w.shape[0]
+        xt = F.pad(h.transpose(1, 2).double(), ((k - 1) * d, 0))
+        out = F.conv1d(xt, w.permute(2, 1, 0).double(), dilation=d).transpose(1, 2)
+        return (out + b.double()).to(h.dtype)
+
+    per = len(layer.convs) // layer.n_branches
+    acc = None
+    for s in range(0, len(layer.convs), per):
+        h = x
+        for (w1, b1, a1, d1), (w2, b2, a2, d2) in zip(layer.convs[s:s + per:2],
+                                                      layer.convs[s + 1:s + per:2]):
+            r = conv(half_snake(h, a1, leaky_slope), w1, b1, d1)
+            r = conv(half_snake(r, a2, leaky_slope), w2, b2, d2)
+            h = h + r
+        acc = h if acc is None else acc + h
+    return (acc.float() / layer.n_branches).to(x.dtype)
 
 
 def check_res_layer_fused(dev, frames: int = 32, dtype: str = "float32") -> dict:
@@ -743,11 +903,18 @@ def check_res_layer_fused(dev, frames: int = 32, dtype: str = "float32") -> dict
     cases += [(layers[0][0], layers[0][2], 1, layers[0][1] + 13),
               (layers[2][0], layers[2][2], 3, 100)]
     worst, ulps = 0.0, []
+    exact_ulps = {"kernel": [], "plain": []}  # bf16: scaled ulps against float64 convs
+    signed = {"kernel": [], "plain": []}
     with torch.no_grad():
         for _, la, n, T_ in cases:
             x = (torch.randn(n, T_, la.channels, generator=gen, device=dev) * 0.5).to(dt)
             got = crf.res_layer_fused(x, la)
             want = crf.res_layer_fused_reference(x, la)
+            if dtype != "float32":
+                exact = res_layer_f64_convs(x, la, cfg.leaky_slope)
+                for who, v in (("kernel", got), ("plain", want)):
+                    exact_ulps[who].append(scaled_ulps(v, exact).flatten())
+                    signed[who].append(signed_ulps(v, exact, exact.sign()).flatten())
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
@@ -792,16 +959,33 @@ def check_res_layer_fused(dev, frames: int = 32, dtype: str = "float32") -> dict
         t_f.append(time_ms(fused, 5))
         t_p = time_ms(plain, 3)
         t_l = time_ms(library, 5)
+        # device time by CUDA-graph slope, one body = the 3 layers, in turns
+        g = slope_in_turns({"fused": fused, "per_conv": per_conv, "library": library},
+                           (1, 3, CODEC_SLOPE_N[2]))
     flops = sum(2 * T_ * la.w.numel() for _, T_, la in layers)
     nbytes = sum(elt * (2 * T_ * la.channels + la.w.numel() + la.bias.numel() + la.alpha.numel())
                  for _, T_, la in layers)
     ms, b_ms = sum(t_f) / 2, sum(t_b) / 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = [crf.pick_tile(1, T_, la, sms) for _, T_, la in layers]
     log(f"res_layer_fused[{dtype}]: the 3 layers of a {frames}-frame decode ({flops / 1e9:.1f} "
-        f"GFLOP): kernel 9 {t_f[0]:.4f} / {t_f[1]:.4f} ms, kernel B (54 launches) {t_b[0]:.4f} "
-        f"/ {t_b[1]:.4f} ms (order 9 / B / B / 9), plain {t_p:.4f} ms, conv1d x54 {t_l:.4f} ms")
-    out = {"max_abs_err": worst, "ms": ms, "plain_ms": t_p, "library_ms": t_l,
-           "kernel_b_ms": b_ms, "gflop": flops / 1e9,
-           **bound(nbytes, flops, FP32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S)}
+        f"GFLOP), tiles {tiles}: "
+        f"graph slope kernel 9 {g['fused']:.4f} ms, kernel B (54 launches) {g['per_conv']:.4f} "
+        f"ms, conv1d x54 {g['library']:.4f} ms; CUDA-event means kernel 9 {t_f[0]:.4f} / "
+        f"{t_f[1]:.4f} ms, kernel B {t_b[0]:.4f} / {t_b[1]:.4f} ms (order 9 / B / B / 9), plain "
+        f"{t_p:.4f} ms, conv1d x54 {t_l:.4f} ms")
+    out = {"max_abs_err": worst, "ms": g["fused"], "plain_ms": t_p, "library_ms": g["library"],
+           "kernel_b_ms": g["per_conv"], "event_ms": ms, "kernel_b_event_ms": b_ms,
+           "library_event_ms": t_l, "gflop": flops / 1e9, **codec_bound(nbytes, flops, dtype)}
+    if dtype != "float32":
+        who = "res_layer_fused[bfloat16]"
+        k_ulps, p_ulps = torch.cat(exact_ulps["kernel"]), torch.cat(exact_ulps["plain"])
+        out["f64_within_1ulp"] = float((k_ulps <= 1).float().mean())
+        out["plain_f64_within_1ulp"] = float((p_ulps <= 1).float().mean())
+        log(f"{who}: against the same layer with float64 convs (the same bf16 rounding "
+            f"points), within 1 ulp: kernel {out['f64_within_1ulp']:.4f}, plain "
+            f"{out['plain_f64_within_1ulp']:.4f}")
+        out.update(signed_summary(signed, who, "float64 convs"))
     if ulps:
         out.update(ulp_summary(torch.cat(ulps)))
     return out
@@ -1258,6 +1442,33 @@ def scaled_ulps(got, want):
     rows = w.pow(2).mean(-1, keepdim=True) if w.shape[-1] > 1 else w.pow(2).mean()
     ref = torch.maximum(w.abs(), rows.sqrt()).clamp_min(1e-30)
     return (g - w).abs() / torch.exp2(torch.floor(torch.log2(ref)) - 7)
+
+
+def signed_ulps(got, exact, sign):
+    """(got - exact) * sign in the scaled bf16 ulps of ``scaled_ulps``:
+    negative when got lies nearer zero than exact on the side ``sign`` gives."""
+    import torch
+
+    g, w = got.double(), exact.double()
+    rows = w.pow(2).mean(-1, keepdim=True) if w.shape[-1] > 1 else w.pow(2).mean()
+    ref = torch.maximum(w.abs(), rows.sqrt()).clamp_min(1e-30)
+    return (g - w) * sign / torch.exp2(torch.floor(torch.log2(ref)) - 7)
+
+
+def signed_summary(signed: dict, who: str, against: str) -> dict:
+    """Mean signed ulps of the kernel and of plain (``signed_ulps`` lists),
+    each with its standard error, logged."""
+    import torch
+
+    out = {}
+    for k, parts in signed.items():
+        v = torch.cat(parts)
+        out[f"{k}_signed_ulps"] = float(v.mean())
+        out[f"{k}_signed_ulps_se"] = float(v.std() / v.numel() ** 0.5)
+    log(f"{who}: mean signed error against {against} (toward zero < 0), scaled bf16 ulps: "
+        f"kernel {out['kernel_signed_ulps']:+.5f} (s.e. {out['kernel_signed_ulps_se']:.5f}), "
+        f"plain {out['plain_signed_ulps']:+.5f} (s.e. {out['plain_signed_ulps_se']:.5f})")
+    return out
 
 
 def ulp_ok(d, share: float = None, most: float = None) -> bool:
@@ -2352,6 +2563,21 @@ def probe_rows(res: dict) -> list:
     return rows
 
 
+def codec_ptxas(build_log: str) -> list:
+    """The -Xptxas -v lines of the codec kernels (B and 9, both dtypes): each
+    entry function's registers, shared memory, stack and spills."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            name = next((f"{k}<{'bf16' if 'bfloat16' in fn else 'f32'}>"
+                         for k in ("snake_conv_kernel", "res_fused_kernel") if k in fn), None)
+        elif name and ("spill" in line or "registers" in line):
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2376,6 +2602,8 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
+    for line in codec_ptxas(build.build_log):
+        log("  ptxas, codec: " + line)
 
     fs_res = check_frame_step(dev)
     fsb_res = check_frame_step_batched(dev)
@@ -2389,6 +2617,7 @@ def main() -> int:
     bf_conv = check_codec_conv(dev, dtype=BF)
     res_res = check_res_layer_fused(dev)
     bf_res = check_res_layer_fused(dev, dtype=BF)
+    decode_times = {dt: time_codec_decode(dev, dt) for dt in ("float32", BF)}
     probes = check_probes(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2469,6 +2698,16 @@ def main() -> int:
         f"), bf16 {fc[BF, 'diff']['wav_max_diff']}; serve bf16 with the fused codec "
         f"{bf_serve_fc['fps']} aggregate fps ({bf_serve_fc['res_launches']} kernel 9 launches); "
         f"warmup stage seconds {warm}; on {card}")
+    log(f"summary, codec on the tensor cores (CUDA-graph slopes, 92 convs of a 32-frame "
+        f"decode): kernel B float32 {cc_res['ms']:.4f} ms (conv1d {cc_res['library_ms']:.4f}; "
+        f"bound {cc_res['bound_ms']:.4f} as 3 TF32 products, {cc_res['bound_simt_ms']:.4f} SIMT "
+        f"float32), bf16 {bf_conv['ms']:.4f} ms (conv1d {bf_conv['library_ms']:.4f}; bound "
+        f"{bf_conv['bound_ms']:.4f}); kernel 9 on its 3 layers float32 {res_res['ms']:.4f} ms "
+        f"against kernel B's {res_res['kernel_b_ms']:.4f}, bf16 {bf_res['ms']:.4f} against "
+        f"{bf_res['kernel_b_ms']:.4f}; CodecEngine.decode of 32 frames wall / device: float32 "
+        f"{decode_times['float32']['wall_ms']:.4f} / {decode_times['float32']['device_ms']:.4f} "
+        f"ms, bf16 {decode_times[BF]['wall_ms']:.4f} / {decode_times[BF]['device_ms']:.4f} ms; "
+        f"on {card}")
     fr = probes["frames"]
     log(f"summary, probes (device-only frame times by CUDA-graph slope, bf16, pos "
         f"context_frames + 40, {PROBE_FRAME_N[0]} / {PROBE_FRAME_N[1]} frames): kernel A "
@@ -2486,7 +2725,11 @@ def main() -> int:
                "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
-        row.update({k: res[k] for k in ("max_ulps", "within_1ulp", "kernel_b_ms") if k in res})
+        row.update({k: res[k] for k in ("max_ulps", "within_1ulp", "kernel_b_ms", "event_ms",
+                                        "library_event_ms", "kernel_b_event_ms",
+                                        "bound_simt_ms", "f64_err", "plain_f64_err",
+                                        "kernel_signed_ulps", "plain_signed_ulps",
+                                        "f64_within_1ulp", "plain_f64_within_1ulp") if k in res})
         return row
 
     streams = []

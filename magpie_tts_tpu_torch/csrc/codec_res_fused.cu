@@ -13,29 +13,43 @@
 // - a block owns `tile` output rows of one utterance and all C channels; its
 //   window is the H = max branch halo rows before the tile plus the tile
 //   (H = 120 for k = 11: 10 + 10 + 30 + 10 + 50 + 10), recomputed per block;
-// - two float windows stay in shared memory: `h`, the branch carry, and `a`,
-//   the activated conv input (the in-conv's result is written over it, then
-//   activated in place for the sk-conv); the raw input is re-read from global
-//   memory (an L2 hit) at each branch's start, and the branch sum lives in
-//   the output rows in global memory (each element read and written by the
-//   thread that owns it);
-// - the weights stream from global memory (L2: 5.9 MB in f32 at C = 108) in
-//   32-input-channel chunks of one tap, staged in shared memory;
+// - two windows in the operand type (bf16 in bf16: half the bytes, so the
+//   tile can be 2-4x that of float32) stay in shared memory: `h`, the branch
+//   carry, and `a`, the activated conv input; the in-conv's result is written
+//   over `a` and activated in place for the sk-conv; the raw input is re-read
+//   from global memory (an L2 hit) at each branch's start, and the branch sum
+//   lives in the output rows in global memory (each element read and written
+//   by the thread that owns it);
+// - the products run on the tensor cores through conv_mma.cuh, as kernel B's
+//   (mma.sync: bf16 operands with float32 sums, or split TF32 in float32):
+//   the 8 warps cover a pass of `pm` rows x all C channels, and a conv whose
+//   rows do not fit one pass takes several, from the top rows down: a causal
+//   conv's output row r reads input rows <= r only, so writing a pass's
+//   outputs over the input rows it came from never touches a row a lower
+//   pass still reads;
+// - the weights stream (from L2: 2.9 MB in bf16 at C = 108) through the same
+//   ring of [kChunk x C] slices as kernel B, filled by cp.async kStages - 1
+//   slices ahead along the block's whole sequence of (conv, pass, tap,
+//   chunk), across pass and conv boundaries;
 // - each branch starts at the first row it needs (H - its own halo), and
-//   each conv computes only the rows that a later conv reads: at tile 64 and
-//   H = 120 the 18 convs compute 1.7x the tile's rows (1 + 43.9 / tile).
+//   each conv computes only the rows that a later conv reads.
 //
 // What bounds it on the card: a 32-frame decode does 42.1 GFLOP in the three
 // layers (126 taps x 2 T C^2, T = 8192 / 16384 / 32768 at C = 108 / 54 / 27)
-// and moves ~21 MB: compute-bound. This simple version is a register-tiled
-// SIMT product (4 rows x 4 output channels per item, up to 4 items a thread,
-// their sums held in registers through the conv), in full float32, so the
-// float32 FMA rate, not the tensor cores, is its ceiling; wgmma is later work.
+// and moves ~21 MB: compute-bound. On top of kernel B's work it redoes the
+// halo's rows per block, rounds each conv's rows up to whole passes (pm =
+// 128 rows at C = 108 in bf16, 64 in float32), re-streams the weights per
+// pass, and runs one block per SM; between kernel B's launches the stages
+// stay in the 50 MB L2, so the fusion saves no bytes that matter.
 //
 // Every value is computed by the same arithmetic wherever the tile and the
 // window start fall: a conv output sums tap by tap, input channels in
-// ascending order, and every other step is elementwise. So a row of a
-// streamed window equals the row of the offline decode at the same time.
+// ascending kChunk chunks inside a tap (bf16: each mma's 16 channels
+// summed from zero, then added to the total; float32: each tap's sum in its
+// own accumulator, then added to the total), and every other step is
+// elementwise. So a row of a streamed window equals the row of the offline
+// decode at the same time. The warp split (warps side by side, n8 tiles
+// each) is a function of C and the dtype, computed by the wrapper.
 //
 // The rounding points (rnd<T>) are the TPU kernel's, which differ from
 // kernel B's in bf16: HalfSnake in float32, rounded (:80-87); each conv's
@@ -46,203 +60,230 @@
 // The activation is the plain half_snake's: x + sin(a*x)^2 / a with libm
 // sinf on the first n_snake channels, LeakyReLU on the rest.
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "conv_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kRows = 4;      // output rows per item
-constexpr int kCols = 4;      // output channels per item
-constexpr int kMaxItems = 4;  // items per thread
-constexpr int kChunk = 32;    // input channels per staged weight chunk
+using namespace conv_mma;
+
 constexpr int kMaxConvs = 32;
 constexpr int kMaxC = 128;
-constexpr size_t kMaxSmem = 232448;  // an H100 block's dynamic shared memory
+// Input channels per weight slice: 64 in bf16 (half the ring steps); 32 in
+// float32, whose windows take the shared memory a wider slice would need.
+template <class E>
+constexpr int kChunk = std::is_same<E, float>::value ? 32 : 64;
 
 struct LayerMeta {
-  int n_branches, per_branch, halo;
+  int n_branches, per_branch, halo, n_convs;
   int k[kMaxConvs], dil[kMaxConvs], n_snake[kMaxConvs];
   int branch_halo[kMaxConvs];
+  int lo[kMaxConvs];     // window row of conv c's first output row
+  int passes[kMaxConvs]; // passes of pm rows that cover [lo, H + tile)
   long long w_off[kMaxConvs];  // element offset of conv c's [k, C, C] weights
 };
 
-__device__ __forceinline__ float snake_act(float v, int c, const float a, int n_snake,
-                                           float slope) {
-  if (c < n_snake) {
-    const float s = sinf(a * v);
-    return v + (s * s) / a;
-  }
-  return v >= 0.f ? v : slope * v;
-}
-
 // dst[r][c] = rnd(act(src[r][c])) for window rows [r0, W); pad channels 0.
 template <class E>
-__device__ __forceinline__ void activate(const float* src, float* dst, int r0, int W, int C,
-                                         int Cp, const E* __restrict__ alpha, int n_snake,
+__device__ __forceinline__ void activate(const E* src, E* dst, int r0, int W, int C, int S,
+                                         const E* __restrict__ alpha, int n_snake,
                                          float slope) {
-  for (int idx = threadIdx.x; idx < (W - r0) * Cp; idx += kThreads) {
-    const int r = r0 + idx / Cp, c = idx % Cp;
+  for (int idx = threadIdx.x; idx < (W - r0) * S; idx += kThreads) {
+    const int r = r0 + idx / S, c = idx % S;
     float v = 0.f;
-    if (c < C) v = rnd<E>(snake_act(src[r * Cp + c], c, c < n_snake ? ld(alpha[c]) : 1.f,
-                                    n_snake, slope));
-    dst[r * Cp + c] = v;
+    if (c < C)
+      v = rnd<E>(half_snake(ld(src[r * S + c]), c, c < n_snake ? ld(alpha[c]) : 1.f, n_snake,
+                            slope));
+    dst[r * S + c] = st<E>(v);
   }
 }
 
-// acc[it] = sum over taps, then input channels in ascending order, of
-// a[row - (k-1-tap)*dil][c] * w[tap][c][o] for the item's 4 rows (from lo)
-// and 4 output channels. Staging a weight chunk syncs the block.
-template <class E>
-__device__ __forceinline__ void conv_sums(const float* a, float* wsm,
-                                          const E* __restrict__ w, int k, int dil, int lo,
-                                          int W, int C, int Cp,
-                                          float (&acc)[kMaxItems][kRows][kCols]) {
-  const int groups = Cp / kCols;
-  const int n_items = (W - lo + kRows - 1) / kRows * groups;
-#pragma unroll
-  for (int it = 0; it < kMaxItems; ++it)
-#pragma unroll
-    for (int j = 0; j < kRows; ++j)
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) acc[it][j][jj] = 0.f;
-  for (int tap = 0; tap < k; ++tap) {
-    const int shift = (k - 1 - tap) * dil;
-    for (int c0 = 0; c0 < Cp; c0 += kChunk) {
-      const int kc = min(kChunk, Cp - c0);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < kc * Cp; idx += kThreads) {
-        const int c = c0 + idx / Cp, o = idx % Cp;
-        wsm[idx] = (c < C && o < C) ? ld(w[((size_t)tap * C + c) * C + o]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int it = 0; it < kMaxItems; ++it) {
-        const int item = threadIdx.x + it * kThreads;
-        if (item < n_items) {
-          const int rg = item / groups, cg = item % groups;
-          const float* ap = a + (lo + rg * kRows - shift) * Cp + c0;
-          const float4* wp = reinterpret_cast<const float4*>(wsm) + cg;
-#pragma unroll 4
-          for (int cc = 0; cc < kc; ++cc) {
-            const float4 wv = wp[cc * groups];
-            const float wr[kCols] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-            for (int j = 0; j < kRows; ++j) {
-              const float av = ap[j * Cp + cc];
-#pragma unroll
-              for (int jj = 0; jj < kCols; ++jj) acc[it][j][jj] = fmaf(av, wr[jj], acc[it][j][jj]);
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-template <class E>
-__global__ void __launch_bounds__(kThreads)
+template <class E, int NT>
+__global__ void __launch_bounds__(kThreads, 1)
 res_fused_kernel(const E* __restrict__ x, const E* __restrict__ w, const E* __restrict__ bias,
                  const E* __restrict__ alpha, float slope, E* __restrict__ out, int T, int C,
-                 int Cp, int tile, LayerMeta m) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int H = m.halo, W = H + tile, Wr = W + kRows;
-  float* hb = sm;             // [Wr][Cp] branch carry h
-  float* ab = sm + Wr * Cp;   // [Wr][Cp] activated conv input / in-conv result
-  float* wsm = ab + Wr * Cp;  // [kChunk][Cp] one staged weight chunk
+                 int tile, int warps_n, int vec, LayerMeta m) {
+  using Tr = Traits<E>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int H = m.halo, W = H + tile;
+  const int S = window_stride<E>(C);   // window row stride
+  const int Cn = warps_n * NT * 8;     // output channels, padded to the warps' n8 tiles
+  const int sw = ring_stride(Cn);
+  const int Ck = (C + 15) / 16 * 16;         // input channels, padded to the k16 step
+  constexpr int kc = kChunk<E>;
+  const int nchunks = (Ck + kc - 1) / kc;
+  E* hb = reinterpret_cast<E*>(smem_raw);  // [W][S] branch carry h
+  E* ab = hb + W * S;                      // [W][S] activated conv input / in-conv result
+  E* ring = ab + W * S;                    // [kStages][kc][sw] weight slices
   const int t0 = blockIdx.x * tile;
   const int base = t0 - H;  // time of window row 0
   const size_t nb = blockIdx.y;
   x += nb * T * C;
   out += nb * T * C;
-  const int groups = Cp / kCols;
-  float acc[kMaxItems][kRows][kCols];
+  const int warps_m = kWarps / warps_n;
+  const int pm = warps_m * kWarpRows;  // rows a pass covers
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % warps_m, wn = warp / warps_m;
+
+  // The ring's fill cursor walks (conv, pass, tap, chunk) kStages - 1 slices
+  // ahead of the products.
+  int fc = 0, fp = 0, ft = 0, fch = 0;
+  int slot = 0;  // ring slot of the next slice to fill
+  auto fill_next = [&]() {
+    if (fc < m.n_convs) {
+      const int c0 = fch * kc;
+      fill_stage<E>(ring + slot * kc * sw, w + m.w_off[fc] + ((size_t)ft * C + c0) * C, kc,
+                    min(kc, C - c0), C, C, Cn, sw, vec);
+      if (++fch == nchunks) {
+        fch = 0;
+        if (++ft == m.k[fc]) {
+          ft = 0;
+          if (++fp == m.passes[fc]) {
+            fp = 0;
+            ++fc;
+          }
+        }
+      }
+    }
+    cp_async_commit();
+    slot = slot + 1 == kStages ? 0 : slot + 1;
+  };
+  for (int s = 0; s < kStages - 1; ++s) fill_next();
+  int use = 0;  // ring slot of the next slice to multiply
+
+  float acc[2][NT][4];
+  float part[2][NT][4];  // float32: the current tap's sums
+  const int g = lane >> 2, tq = lane & 3;
+
+  // One conv (c, reading `ab` from row lo - its halo) over the rows [lo, W),
+  // pass by pass from the top; epi(r, o, acc) stores an output element.
+  auto conv = [&](int c, auto epi) {
+    const int k = m.k[c], dil = m.dil[c], lo = m.lo[c];
+    for (int q = 0; q < m.passes[c]; ++q) {
+      const int p0 = W - (q + 1) * pm;
+      const int r_warp = p0 + wm * kWarpRows;
+      const bool active = r_warp + kWarpRows > lo;
+      zero(acc);
+      zero(part);
+      for (int tap = 0; tap < k; ++tap) {
+        const int shift = (k - 1 - tap) * dil;
+        const E* a0 = ab + max(r_warp + (lane & 15) - shift, 0) * S;
+        const E* a1 = ab + max(r_warp + 16 + (lane & 15) - shift, 0) * S;
+        for (int ch = 0; ch < nchunks; ++ch) {
+          cp_async_wait<kStages - 2>();
+          __syncthreads();  // this slice is in; the previous slice's slot is free
+          fill_next();
+          const E* ws = ring + use * kc * sw + wn * NT * 8;
+          use = use + 1 == kStages ? 0 : use + 1;
+          if (active) {
+            const int ksteps = min(kc, Ck - ch * kc) / Tr::kStep;
+            StageMma<E, NT>::run(acc, part, a0 + ch * kc, a1 + ch * kc, ksteps, ws, sw);
+          }
+        }
+        if constexpr (std::is_same<E, float>::value) flush(acc, part);
+      }
+      __syncthreads();  // every warp has read the rows this pass overwrites
+      if (active) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int nt = wn * NT + j;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = r_warp + mt * 16 + g + hh * 8;
+              if (r < lo) continue;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int o = nt * 8 + 2 * tq + e;
+                if (o < C) epi(r, o, acc[mt][j][hh * 2 + e]);
+              }
+            }
+          }
+      }
+    }
+  };
 
   for (int b = 0; b < m.n_branches; ++b) {
     int off = H - m.branch_halo[b];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < (W - off) * Cp; idx += kThreads) {
-      const int r = off + idx / Cp, c = idx % Cp, t = base + r;
-      hb[r * Cp + c] = (t >= 0 && t < T && c < C) ? ld(x[(size_t)t * C + c]) : 0.f;
+    __syncthreads();  // the previous branch's sum has read h
+    for (int idx = threadIdx.x; idx < (W - off) * S; idx += kThreads) {
+      const int r = off + idx / S, c = idx % S, t = base + r;
+      hb[r * S + c] = (t >= 0 && t < T && c < C) ? x[(size_t)t * C + c] : st<E>(0.f);
     }
     for (int blk = 0; blk < m.per_branch / 2; ++blk) {
       const int c1 = b * m.per_branch + 2 * blk, c2 = c1 + 1;
       // in-conv: a = act(h); r = conv(a) + b, written over a
       __syncthreads();
-      activate<E>(hb, ab, off, W, C, Cp, alpha + (size_t)c1 * C, m.n_snake[c1], slope);
-      const int lo1 = off + (m.k[c1] - 1) * m.dil[c1];
-      conv_sums<E>(ab, wsm, w + m.w_off[c1], m.k[c1], m.dil[c1], lo1, W, C, Cp, acc);
-      __syncthreads();
-#pragma unroll
-      for (int it = 0; it < kMaxItems; ++it) {
-        const int item = threadIdx.x + it * kThreads;
-        const int rg = item / groups, cg = item % groups;
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const int r = lo1 + rg * kRows + j;
-          if (r >= W) continue;
-#pragma unroll
-          for (int jj = 0; jj < kCols; ++jj) {
-            const int o = cg * kCols + jj;
-            if (o >= C) continue;
-            ab[r * Cp + o] =
-                base + r < 0 ? 0.f : rnd<E>(acc[it][j][jj] + ld(bias[(size_t)c1 * C + o]));
-          }
-        }
-      }
+      activate<E>(hb, ab, off, W, C, S, alpha + (size_t)c1 * C, m.n_snake[c1], slope);
+      const E* b1 = bias + (size_t)c1 * C;
+      conv(c1, [&](int r, int o, float v) {
+        ab[r * S + o] = st<E>(base + r < 0 ? 0.f : rnd<E>(v + ld(b1[o])));
+      });
       // sk-conv: a = act(r) in place; h = h + (conv(a) + b)
       __syncthreads();
-      activate<E>(ab, ab, lo1, W, C, Cp, alpha + (size_t)c2 * C, m.n_snake[c2], slope);
-      const int lo2 = lo1 + (m.k[c2] - 1) * m.dil[c2];
-      conv_sums<E>(ab, wsm, w + m.w_off[c2], m.k[c2], m.dil[c2], lo2, W, C, Cp, acc);
-#pragma unroll
-      for (int it = 0; it < kMaxItems; ++it) {
-        const int item = threadIdx.x + it * kThreads;
-        const int rg = item / groups, cg = item % groups;
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          const int r = lo2 + rg * kRows + j;
-          if (r >= W || base + r < 0) continue;
-#pragma unroll
-          for (int jj = 0; jj < kCols; ++jj) {
-            const int o = cg * kCols + jj;
-            if (o >= C) continue;
-            const float rv = rnd<E>(acc[it][j][jj] + ld(bias[(size_t)c2 * C + o]));
-            hb[r * Cp + o] = rnd<E>(hb[r * Cp + o] + rv);
-          }
-        }
-      }
-      off = lo2;
+      activate<E>(ab, ab, m.lo[c1], W, C, S, alpha + (size_t)c2 * C, m.n_snake[c2], slope);
+      const E* b2 = bias + (size_t)c2 * C;
+      conv(c2, [&](int r, int o, float v) {
+        if (base + r < 0) return;
+        const float rv = rnd<E>(v + ld(b2[o]));
+        hb[r * S + o] = st<E>(rnd<E>(ld(hb[r * S + o]) + rv));
+      });
+      off = m.lo[c2];
     }
     // The branch's rows [H, W) are the tile's: add them to the branch sum.
     __syncthreads();
     for (int idx = threadIdx.x; idx < tile * C; idx += kThreads) {
       const int i = idx / C, o = idx % C, t = t0 + i;
       if (t >= T) continue;
-      float v = hb[(H + i) * Cp + o];
+      float v = ld(hb[(H + i) * S + o]);
       if (b > 0) v = rnd<E>(ld(out[(size_t)t * C + o]) + v);
       if (b == m.n_branches - 1) v = v / (float)m.n_branches;
       out[(size_t)t * C + o] = st<E>(v);
     }
   }
+  cp_async_wait<0>();
 }
 
-size_t smem_bytes(int tile, int halo, int Cp) {
-  return (size_t)(2 * (halo + tile + kRows) * Cp + kChunk * Cp) * sizeof(float);
+// cn: the output channels padded to the warps' n8 tiles (warps_n * nt * 8).
+template <class E>
+size_t smem_bytes(int tile, int halo, int C, int cn) {
+  return sizeof(E) * (2 * (size_t)(halo + tile) * window_stride<E>(C) +
+                      (size_t)kStages * kChunk<E> * ring_stride(cn));
+}
+
+template <class E, int NT>
+int launch(const void* x, const void* w, const void* b, const void* alpha, float slope,
+           void* out, int N, int T, int C, int tile, int warps_n, int vec, const LayerMeta& m,
+           size_t smem, cudaStream_t stream) {
+  static bool opted[64] = {};
+  const cudaError_t err = opt_in_smem(res_fused_kernel<E, NT>, opted);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + tile - 1) / tile, N);
+  res_fused_kernel<E, NT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const E*>(x), static_cast<const E*>(w), static_cast<const E*>(b),
+      static_cast<const E*>(alpha), slope, static_cast<E*>(out), T, C, tile, warps_n, vec, m);
+  return (int)cudaGetLastError();
 }
 
 template <class E>
 int res_fused(const void* x, const void* w, const void* b, const void* alpha, const int* meta,
-              float slope, void* out, int N, int T, int C, int tile, void* stream) {
+              float slope, void* out, int N, int T, int C, int tile, int warps_n, int nt,
+              int smem, void* stream) {
   LayerMeta m = {};
   m.n_branches = meta[0];
   m.per_branch = meta[1];
-  const int n_convs = m.n_branches * m.per_branch;
-  if (C < 1 || C > kMaxC || n_convs < 1 || n_convs > kMaxConvs || m.per_branch % 2 ||
-      tile < 1 || N < 1 || T < 1)
+  m.n_convs = m.n_branches * m.per_branch;
+  // The warp split must be one the kernel takes: warps_n side by side (a
+  // divisor of the 8 warps) times nt n8 tiles each (an instantiated count)
+  // covering the C channels.
+  if (C < 1 || C > kMaxC || m.n_convs < 1 || m.n_convs > kMaxConvs || m.per_branch % 2 ||
+      tile < 1 || N < 1 || T < 1 || warps_n < 1 || kWarps % warps_n || nt < 1 ||
+      nt > Traits<E>::kMaxNT || warps_n * nt * 8 < C)
     return (int)cudaErrorInvalidValue;
   long long off = 0;
-  for (int c = 0; c < n_convs; ++c) {
+  for (int c = 0; c < m.n_convs; ++c) {
     m.k[c] = meta[2 + 3 * c];
     m.dil[c] = meta[3 + 3 * c];
     m.n_snake[c] = meta[4 + 3 * c];
@@ -252,26 +293,42 @@ int res_fused(const void* x, const void* w, const void* b, const void* alpha, co
     m.branch_halo[c / m.per_branch] += (m.k[c] - 1) * m.dil[c];
   }
   for (int br = 0; br < m.n_branches; ++br) m.halo = max(m.halo, m.branch_halo[br]);
-  const int Cp = (C + kCols - 1) / kCols * kCols;
-  // Every conv's items must fit the threads' register sums.
+  const int W = m.halo + tile;
+  const int pm = kWarps / warps_n * kWarpRows;
+  int vec = 16;
   for (int br = 0; br < m.n_branches; ++br) {
     int lo = m.halo - m.branch_halo[br];
     for (int c = br * m.per_branch; c < (br + 1) * m.per_branch; ++c) {
       lo += (m.k[c] - 1) * m.dil[c];
-      const int items = (m.halo + tile - lo + kRows - 1) / kRows * (Cp / kCols);
-      if (items > kMaxItems * kThreads) return (int)cudaErrorInvalidValue;
+      m.lo[c] = lo;
+      m.passes[c] = (W - lo + pm - 1) / pm;
+      const E* wc = static_cast<const E*>(w) + m.w_off[c];
+      vec = min(vec, pick_vec<E>(wc, C, 0));
     }
   }
-  const size_t smem = smem_bytes(tile, m.halo, Cp);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(res_fused_kernel<E>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + tile - 1) / tile, N);
-  res_fused_kernel<E><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const E*>(x), static_cast<const E*>(w), static_cast<const E*>(b),
-      static_cast<const E*>(alpha), slope, static_cast<E*>(out), T, C, Cp, tile, m);
-  return (int)cudaGetLastError();
+  const size_t need = smem_bytes<E>(tile, m.halo, C, warps_n * nt * 8);
+  if ((size_t)smem != need || need > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nt) {
+    case 1:
+      return launch<E, 1>(x, w, b, alpha, slope, out, N, T, C, tile, warps_n, vec, m, need, st);
+    case 2:
+      return launch<E, 2>(x, w, b, alpha, slope, out, N, T, C, tile, warps_n, vec, m, need, st);
+    case 4:
+      return launch<E, 4>(x, w, b, alpha, slope, out, N, T, C, tile, warps_n, vec, m, need, st);
+    case 7:
+    case 8:
+      if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+        if (nt == 7)
+          return launch<E, 7>(x, w, b, alpha, slope, out, N, T, C, tile, warps_n, vec, m, need,
+                              st);
+        return launch<E, 8>(x, w, b, alpha, slope, out, N, T, C, tile, warps_n, vec, m, need,
+                            st);
+      }
+      return (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -280,19 +337,24 @@ int res_fused(const void* x, const void* w, const void* b, const void* alpha, co
 // weights one after another, in branch order, each block's in-conv then its
 // sk-conv; b, alpha [n_convs, C] (alpha read on each conv's first n_snake
 // channels); meta (host memory): n_branches, per_branch, then (k, dilation,
-// n_snake) per conv. All tensors float32 (_f32) or bfloat16 (_bf16). Returns
-// the CUDA error code of the launch (0 = success); a shape the kernel does
-// not take (C > 128, a tile whose windows or sums do not fit) is
-// cudaErrorInvalidValue.
+// n_snake) per conv; tile (output rows a block), warps_n (warps side by
+// side over the channels), nt (n8 tiles a warp holds) and smem (shared
+// memory bytes): the wrapper's launch plan (ops/kernels/codec_res_fused.py).
+// All tensors float32 (_f32) or bfloat16 (_bf16). Returns the CUDA error
+// code of the launch (0 = success); a shape or plan the kernel does not take
+// (C > 128, a warp split it has no instance of, a tile whose windows do not
+// fit, another smem) is cudaErrorInvalidValue.
 extern "C" int magpie_res_layer_fused_f32(const void* x, const void* w, const void* b,
                                           const void* alpha, const int* meta, float slope,
                                           void* out, int N, int T, int C, int tile,
-                                          void* stream) {
-  return res_fused<float>(x, w, b, alpha, meta, slope, out, N, T, C, tile, stream);
+                                          int warps_n, int nt, int smem, void* stream) {
+  return res_fused<float>(x, w, b, alpha, meta, slope, out, N, T, C, tile, warps_n, nt, smem,
+                          stream);
 }
 extern "C" int magpie_res_layer_fused_bf16(const void* x, const void* w, const void* b,
                                            const void* alpha, const int* meta, float slope,
                                            void* out, int N, int T, int C, int tile,
-                                           void* stream) {
-  return res_fused<__nv_bfloat16>(x, w, b, alpha, meta, slope, out, N, T, C, tile, stream);
+                                           int warps_n, int nt, int smem, void* stream) {
+  return res_fused<__nv_bfloat16>(x, w, b, alpha, meta, slope, out, N, T, C, tile, warps_n, nt,
+                                  smem, stream);
 }

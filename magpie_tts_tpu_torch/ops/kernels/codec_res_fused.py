@@ -23,23 +23,24 @@ import torch
 
 from . import build
 from .build import DTYPES, count_dtype
+from .codec_conv import (ELT, MAX_SMEM, STAGES, WARP_NTS, WARP_ROWS, WARPS, ring_stride,
+                         window_stride)
 
 launches = 0  # kernel launches since the last reset
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 
 MAX_CHANNELS = 128
-# The kernel's shapes (csrc/codec_res_fused.cu): threads, rows x channels per
-# item, items per thread, staged input channels, a block's shared memory.
-_THREADS, _ROWS, _COLS, _MAX_ITEMS, _CHUNK = 512, 4, 4, 4, 32
-_MAX_SMEM = 232448
+# Output rows per block the wrapper tries (csrc/codec_res_fused.cu takes any),
+# and the kernel's input channels per weight slice (kChunk).
 _TILES = (256, 128, 64, 32, 16, 8)
+CHUNK = {torch.float32: 32, torch.bfloat16: 64}
 
 
 def declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for suffix in DTYPES.values():
         fn = getattr(lib, f"magpie_res_layer_fused_{suffix}")
-        fn.argtypes = [p, p, p, p, p, ctypes.c_float, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, ctypes.c_float, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
 
 
@@ -109,9 +110,28 @@ def res_layer_fused_reference(x: torch.Tensor, layer: FusedResLayer,
     return (acc.float() / layer.n_branches).to(x.dtype)
 
 
-def smem_bytes(tile: int, halo: int, channels: int) -> int:
-    cp = -(-channels // _COLS) * _COLS
-    return 4 * (2 * (halo + tile + _ROWS) * cp + _CHUNK * cp)
+def warp_split(channels: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(warps side by side over the channels, n8 tiles each) for a pass of
+    the 8 warps: the narrowest cover of the channels by the tiles a warp may
+    hold in ``dtype``, then the fewest warps across (the most rows a pass).
+    The kernel takes it from here and checks it."""
+    n8 = -(-channels // 8)
+    return min(((wn, nt) for wn in (1, 2, 4, 8) for nt in WARP_NTS[dtype] if wn * nt >= n8),
+               key=lambda p: (p[0] * p[1], p[0]))
+
+
+def smem_bytes(tile: int, halo: int, channels: int, dtype: torch.dtype) -> int:
+    """The two windows (halo + tile rows, in the operand type) and the ring
+    of STAGES [CHUNK x the warps' padded width] weight slices."""
+    wn, nt = warp_split(channels, dtype)
+    return ELT[dtype] * (2 * (halo + tile) * window_stride(channels, dtype)
+                         + STAGES * CHUNK[dtype] * ring_stride(wn * nt * 8))
+
+
+def pass_rows(channels: int, dtype: torch.dtype) -> int:
+    """Rows one pass of the 8 warps covers: the warps side by side over the
+    channels (``warp_split``), the rest stacked over rows."""
+    return WARPS // warp_split(channels, dtype)[0] * WARP_ROWS
 
 
 def _conv_rows(tile: int, layer: FusedResLayer):
@@ -128,25 +148,24 @@ def _conv_rows(tile: int, layer: FusedResLayer):
 
 
 def _fits(tile: int, layer: FusedResLayer) -> bool:
-    """Whether the kernel takes ``tile``: its two windows and a weight chunk
-    fit a block's shared memory, and every conv's 4x4 items its threads."""
-    if smem_bytes(tile, layer.halo, layer.channels) > _MAX_SMEM:
-        return False
-    groups = -(-layer.channels // _COLS)
-    return all(-(-rows // _ROWS) * groups <= _MAX_ITEMS * _THREADS
-               for _, rows in _conv_rows(tile, layer))
+    """Whether the kernel takes ``tile``: its two windows and the weight ring
+    fit a block's shared memory (a conv's rows take as many passes as they
+    need)."""
+    return smem_bytes(tile, layer.halo, layer.channels, layer.w.dtype) <= MAX_SMEM
 
 
 def pick_tile(n: int, T: int, layer: FusedResLayer, n_sms: int) -> int:
     """The tile with the least estimated time: waves of one block per SM
-    times a block's tap-rows (the halo recomputed per block costs 1 + ~44 /
-    tile at the codec's halo of 120). Results do not depend on the tile."""
+    times a block's weight slices (each conv's taps times the passes of
+    ``pass_rows`` its rows take: the halo's rows are recomputed per block and
+    the weights re-streamed per pass). Results do not depend on the tile."""
+    pm = pass_rows(layer.channels, layer.w.dtype)
     best, best_cost = None, None
     for t in _TILES:
         if not _fits(t, layer):
             continue
         waves = -(-(n * -(-T // t)) // n_sms)
-        cost = waves * sum(k * rows for k, rows in _conv_rows(t, layer))
+        cost = waves * sum(k * -(-rows // pm) for k, rows in _conv_rows(t, layer))
         if best_cost is None or cost < best_cost:
             best, best_cost = t, cost
     if best is None:
@@ -197,10 +216,12 @@ def res_layer_fused(x: torch.Tensor, layer: FusedResLayer, leaky_slope: float = 
         raise ValueError(f"res_layer_fused: tile {tile} does not fit C={C}, halo {layer.halo}")
     lib = build.load_library()
     meta = (ctypes.c_int * len(layer.meta))(*layer.meta)
+    warps_n, nt = warp_split(C, dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(lib, f"magpie_res_layer_fused_{DTYPES[dtype]}")(
         x.data_ptr(), layer.w.data_ptr(), layer.bias.data_ptr(), layer.alpha.data_ptr(), meta,
-        float(leaky_slope), out.data_ptr(), n, T, C, tile, stream)
+        float(leaky_slope), out.data_ptr(), n, T, C, tile, warps_n, nt,
+        smem_bytes(tile, layer.halo, C, dtype), stream)
     build.check(err, "res_layer_fused")
     launches += 1
     count_dtype(dtype_launches, dtype)

@@ -140,7 +140,7 @@ def test_stacked_layer_and_tiles(prod_codec):
     picks = [crf.pick_tile(1, T_, la, 132) for T_, la in zip((8192, 16384, 32768), layers[2:])]
     assert picks == [64, 128, 256]
     assert crf.pick_tile(3, 8192, layer, 132) == 64
-    assert crf.smem_bytes(64, 120, 108) <= 232448 and not crf._fits(256, layer)
+    assert crf.smem_bytes(64, 120, 108, torch.float32) <= 232448 and not crf._fits(256, layer)
 
 
 def test_codec_decode_with_switch_matches_jax_with_switch(monkeypatch):
