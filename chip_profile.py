@@ -57,7 +57,16 @@ FRAME_CASES = [(1, 0.7, 640), (1, 0.7, 301), (8, 0.0, 301), (8, 0.7, 640), (8, 0
 SERVE_CASES = [(4, 6), (8, 16), (32, 48)]
 SERVE_SEGMENT = 16
 REPS = 20
-FAMILIES = ("attention", "gemm", "gemv", "combine_ln", "lt_sample", "reduce_act", "qkv_scatter")
+# Kernel families by the device kernels' names (csrc/): the split-row
+# attention's two launches, the batched frames' tensor-core GEMM, the
+# single-stream GEMV, the reducers and the LT sampling.
+# A parent checkout's (--root) names from before the split-row attention
+# and the tensor-core GEMM come last: attention_kernel, gemm_splitk_kernel.
+FAMILIES = {"attention": ("attention_scores_kernel", "attention_pv_kernel", "attention_kernel"),
+            "gemm": ("gemm_mma_kernel", "gemm_splitk_kernel"), "gemv": ("gemv_splitk_kernel",),
+            "combine_ln": ("combine_ln_kernel", "decoder_input_kernel"),
+            "lt_sample": ("lt_sample_kernel",), "reduce_act": ("reduce_act_kernel",),
+            "qkv_scatter": ("qkv_scatter_kernel",)}
 
 
 def emit(obj) -> None:
@@ -82,8 +91,8 @@ def _is_copy(name: str) -> bool:
 
 
 def _family(name: str) -> str:
-    for fam in FAMILIES:
-        if fam in name:
+    for fam, kernels in FAMILIES.items():
+        if any(k in name for k in kernels):
             return fam
     return "other"
 

@@ -71,6 +71,14 @@ Phases (each raises on failure, so the process exits non-zero):
    the port's frame kernels A, C, 7 + 8, 8, 7 and the q8 streams among them
    as short graph slopes, each probe wrapper's launches counted over it.
 
+9. the frame families of kernels C and 8 (after phase 6): slots 0..2 of C
+   and 8 bit-equal at B = 3, 8 and 32 in both dtypes; the split-row
+   attention (self, cross and the LT's) and the tensor-core GEMM (every
+   product class over its layers) by CUDA-graph slope at B = 8 / 32, rows
+   300 / 630, both dtypes, beside SDPA on the same caches and cuBLAS
+   ``torch.matmul`` on the same weights (timed only), with their bounds;
+   rows 6 and 8 of the kernels line carry them as ``families``.
+
 The line before last is a JSON summary of the kernels (float32 rows, then
 the ``[bf16]`` rows, then the weight streams, then the probe rows with
 ``"path": "probe"``; kernel 9's rows also carry ``kernel_b_ms``, kernel B's
@@ -1858,6 +1866,195 @@ def check_bf16_batched(dev) -> dict:
     return res
 
 
+FAMILY_B = (8, 32)           # the family slopes: slots, and the rows attended
+FAMILY_ROWS = (300, 630)
+
+
+def family_bodies(dev, dtype: str, B: int, rows: int) -> dict:
+    """Zero-argument functions, each one family's work in one frame of
+    kernels C / 8 at B slots and ``rows`` attended rows: the 12 layers'
+    self-attention (``sa``) and cross-attention (``xa``, each slot's
+    enc_lengths rows of BATCH_ENC) and the 8 LT phases' attention (``lt``),
+    through the frame kernels' attention alone; the decoder's matrix
+    products in the frame's order (``gemm.dec``: per layer qkv, sa_out, xa_q,
+    xa_out, ff_proj, ff_out, 12 layers, every weight read from device memory
+    as in a frame: 349 MB in float32 do not fit the 50 MB L2) and the LT's 8
+    phases (``gemm.lt``) through the batched GEMM alone; and the yardsticks,
+    timed only: SDPA on the same caches with boolean masks (``sdpa.sa``,
+    ``sdpa.xa``) and cuBLAS ``torch.matmul`` on the same weights in the same
+    order (``matmul.dec``). Returns (bodies, {body: (bytes, flops)} for the
+    bounds)."""
+    import torch
+    import torch.nn.functional as F
+
+    from magpie_tts_tpu_torch.ops.attention import attn_scale
+    from magpie_tts_tpu_torch.ops.kernels import batched_gemm as bg
+    from magpie_tts_tpu_torch.ops.kernels import decode_attention as da
+
+    c, w, hidden, xa_k, xa_v, k_base, v_base, enc = batched_state(dev, dtype)
+    T = k_base.dtype
+    elt = F32 if dtype == "float32" else BF16
+    L, S, D, X, LT, H = c.dec_layers, c.max_seq, c.d_model, c.d_xa, c.lt_dim, c.dec_sa_heads
+    dh, E = D // H, xa_k.shape[2]
+    gen = torch.Generator(device=dev).manual_seed(B + rows)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    rng = np.random.default_rng(rows)
+    valid = torch.tensor(_ring_valid(B, S, rows - 1, rng), device=dev)
+    valid[:, rows:] = False
+    new_valid = torch.ones(B, dtype=torch.int32, device=dev)
+    enc_b = torch.tensor(enc[:B], dtype=torch.int32, device=dev)
+    q, q_lt = randn(B, D), randn(B, LT)
+    q_xa = randn(bg.plan_gemm(D, X).splits, B, X) * 0.2
+    k_lt, v_lt = randn(B, c.num_codebooks, LT).to(T), randn(B, c.num_codebooks, LT).to(T)
+    bodies = {
+        "sa": lambda: [da.decode_attention(q, k_base[:B, l], v_base[:B, l], H, attn_scale(dh),
+                                           rows=rows, valid=valid, write_row=rows - 1,
+                                           new_valid=new_valid) for l in range(L)],
+        "xa": lambda: [da.decode_attention(q_xa, xa_k[:B, l], xa_v[:B, l], c.dec_xa_heads,
+                                           attn_scale(X), rows=E, rows_dev=enc_b)
+                       for l in range(L)],
+        "lt": lambda: [da.decode_attention(q_lt, k_lt, v_lt, 1, attn_scale(LT), rows=cb + 1)
+                       for cb in range(c.num_codebooks)]}
+    mask_sa = valid[:, None, None, :rows]
+    mask_xa = (torch.arange(E, device=dev)[None, :] < enc_b[:, None])[:, None, None, :]
+    qh, qx = q.to(T).view(B, H, 1, dh), q_xa.sum(0).to(T).view(B, 1, 1, X)
+    heads = lambda t, n, h: t.reshape(B, n, h, -1).transpose(1, 2)
+    bodies["sdpa.sa"] = lambda: [F.scaled_dot_product_attention(
+        qh, heads(k_base[:B, l, :rows], rows, H), heads(v_base[:B, l, :rows], rows, H),
+        attn_mask=mask_sa) for l in range(L)]
+    bodies["sdpa.xa"] = lambda: [F.scaled_dot_product_attention(
+        qx, heads(xa_k[:B, l], E, 1), heads(xa_v[:B, l], E, 1), attn_mask=mask_xa)
+        for l in range(L)]
+    dec, lt = w.decoder, w.lt
+    shapes = bg.frame_products(c)
+    dec_names = ("qkv", "sa_out", "xa_q", "xa_out", "ff_proj", "ff_out")
+    lt_names = ("lt_in", "lt_qkv", "lt_sa_out", "lt_ff_proj", "lt_ff_out", "lt_out")
+    xs = {name: randn(B, K) for name, (K, _) in shapes.items()}
+    dec_seq = [(name, getattr(dec, name)[l]) for l in range(L) for name in dec_names]
+    lt_w = {"lt_in": lt.in_proj_w, "lt_qkv": lt.qkv, "lt_sa_out": lt.sa_out,
+            "lt_ff_proj": lt.ff_proj, "lt_ff_out": lt.ff_out}
+    lt_seq = [(name, lt_w[name] if name != "lt_out" else lt.out_proj_w[cb])
+              for cb in range(c.num_codebooks) for name in lt_names]
+    run = lambda seq: [bg.batched_gemm(xs[n], *shapes[n], w=wt) for n, wt in seq]
+    bodies["gemm.dec"] = lambda: run(dec_seq)
+    bodies["gemm.lt"] = lambda: run(lt_seq)
+    xs_t = {name: x.to(T) for name, x in xs.items()}
+    bodies["matmul.dec"] = lambda: [torch.matmul(xs_t[n], wt) for n, wt in dec_seq]
+    enc_rows = sum(enc[:B])
+    work = {"sa": (L * 2 * B * rows * D * elt, L * 4 * B * rows * D),
+            "xa": (L * 2 * enc_rows * X * elt, L * 4 * enc_rows * X),
+            "lt": (sum(2 * B * (cb + 1) * LT * elt for cb in range(8)),
+                   sum(4 * B * (cb + 1) * LT for cb in range(8)))}
+    io = lambda seq: sum(B * sum(shapes[n]) * F32 for n, _ in seq)
+    flops = lambda seq: sum(2 * B * shapes[n][0] * shapes[n][1] for n, _ in seq)
+    lt_weights = sum(shapes[n][0] * shapes[n][1] for n in lt_names[:-1]) + \
+        c.num_codebooks * shapes["lt_out"][0] * shapes["lt_out"][1]
+    work["gemm.dec"] = (sum(wt.numel() for _, wt in dec_seq) * elt + io(dec_seq),
+                        flops(dec_seq))
+    work["gemm.lt"] = (lt_weights * elt + io(lt_seq), flops(lt_seq))
+    return bodies, work
+
+
+def time_families(dev) -> dict:
+    """The attention and GEMM families of kernels C and 8, by CUDA-graph
+    slope (CODEC_SLOPE_N, in turns) at FAMILY_B slots x FAMILY_ROWS rows in
+    both dtypes, beside their yardsticks (SDPA, cuBLAS) and bounds. Kernel 8's
+    attention family is the 12 layers' self- and cross-attention, kernel C's
+    adds the LT's 8; its GEMM family the decoder's 6 classes x 12 layers, C's
+    adds the LT's 6 x 8. Returns {dtype: {(B, rows): {kernel: {family:
+    {ms, bound_ms, bound_by, library_ms}}}}} and logs each."""
+    import torch
+
+    out = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for dtype in ("float32", BF):
+            out[dtype] = {}
+            gemm_ms = {}
+            for B in FAMILY_B:
+                for rows in FAMILY_ROWS:
+                    bodies, work = family_bodies(dev, dtype, B, rows)
+                    keys = [k for k in bodies if rows == FAMILY_ROWS[0]
+                            or not k.startswith(("gemm.", "matmul."))]
+                    t = slope_in_turns({k: bodies[k] for k in keys})
+                    if rows == FAMILY_ROWS[0]:
+                        gemm_ms[B] = {k: v for k, v in t.items()
+                                      if k.startswith(("gemm.", "matmul."))}
+                    t.update(gemm_ms[B])
+                    rate = FP32_FLOPS_PER_S if dtype == "float32" else BF16_FLOPS_PER_S
+                    fam = {}
+                    for kernel, lt in (("8", False), ("C", True)):
+                        att = ["sa", "xa"] + (["lt"] if lt else [])
+                        gem = ["gemm.dec"] + (["gemm.lt"] if lt else [])
+                        nb = sum(work[k][0] for k in att)
+                        nf = sum(work[k][1] for k in att)
+                        gb = sum(work[k][0] for k in gem)
+                        gf = sum(work[k][1] for k in gem)
+                        fam[kernel] = {
+                            "attention": {"ms": sum(t[k] for k in att), **bound(nb, nf, rate),
+                                          "library_ms": t["sdpa.sa"] + t["sdpa.xa"],
+                                          "parts_ms": {k: t[k] for k in att}},
+                            "gemm": {"ms": sum(t[k] for k in gem), **codec_bound(gb, gf, dtype),
+                                     "library_ms": t["matmul.dec"],
+                                     "library_covers": "the decoder's 72 products",
+                                     "parts_ms": {k: t[k] for k in gem}}}
+                    out[dtype][B, rows] = fam
+                    for kernel in ("C", "8"):
+                        a, g = fam[kernel]["attention"], fam[kernel]["gemm"]
+                        log(f"families [{dtype}] kernel {kernel}, B {B}, rows {rows} (graph "
+                            f"slopes a frame): attention {a['ms']:.4f} ms (bound "
+                            f"{a['bound_ms']:.4f}, SDPA {a['library_ms']:.4f}; parts "
+                            f"{ {k: round(v, 4) for k, v in a['parts_ms'].items()} }), GEMM "
+                            f"{g['ms']:.4f} ms (bound {g['bound_ms']:.4f}, cuBLAS decoder "
+                            f"products {g['library_ms']:.4f}; parts "
+                            f"{ {k: round(v, 4) for k, v in g['parts_ms'].items()} })")
+                    del bodies
+            torch.cuda.empty_cache()
+    log(f"family slopes: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def family_summary(fam: dict, kernel: str) -> dict:
+    """A kernel row's ``families`` entry: per (B, rows) and family, its ms,
+    bound and library ms."""
+    return {f"B{B}_rows{rows}": {name: {k: v for k, v in f.items() if k != "parts_ms"}
+                                  for name, f in per[kernel].items()}
+            for (B, rows), per in fam.items()}
+
+
+def check_batch_invariance(dev, dtype: str) -> dict:
+    """Kernels C and 8 at 357M: slots 0..2's codes, hidden rows and new
+    cache rows are bit-equal whether they run at B = 3, 8 or 32."""
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+
+    c, w, _, _, _, k_base, v_base, _ = batched_state(dev, dtype)
+    write_row = c.max_seq // 2 - 20
+    full = batched_inputs(dev, BATCH_MAX, write_row, np.random.default_rng(9), dtype)
+    runs = []
+    with torch.no_grad():
+        for B in (3, 8, BATCH_MAX):
+            x = {k: (v[:B].contiguous() if isinstance(v, torch.Tensor) else v)
+                 for k, v in full.items()}
+            kc, vc, k8, v8 = (t[:B].clone() for t in (k_base, v_base, k_base, v_base))
+            s, a, h, _, _ = fsb.frame_step_batched(k_cache=kc, v_cache=vc, temperature=0.7, **x)
+            valid8 = x["valid"].clone()
+            valid8[:, write_row] = True
+            h8 = dsb.decode_step_batched(x["hidden"], write_row, valid8, x["xa_k"], x["xa_v"],
+                                         k8, v8, w, c, x["enc_lengths"])
+            runs.append((s[:3], a[:3], h[:3], kc[:3, :, write_row], vc[:3, :, write_row],
+                         h8[:3], k8[:3, :, write_row], v8[:3, :, write_row]))
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for other in runs[1:] for p, q in zip(runs[0], other))
+    log(f"batch invariance [{dtype}]: slots 0..2 of kernels C and 8 bit-equal at B = 3, 8, "
+        f"{BATCH_MAX}: {same}")
+    if not same:
+        raise AssertionError(f"kernel C / 8 [{dtype}]: a slot's result depends on the batch")
+    return {"bit_equal": same}
+
+
 def write_ggufs(tmp: Path):
     """Production-width random GGUFs (max_dec_steps cut to 128 frames)."""
     from magpie_tts_tpu_torch.config import CodecConfig, MagpieConfig
@@ -2563,16 +2760,22 @@ def probe_rows(res: dict) -> list:
     return rows
 
 
-def codec_ptxas(build_log: str) -> list:
-    """The -Xptxas -v lines of the codec kernels (B and 9, both dtypes): each
-    entry function's registers, shared memory, stack and spills."""
+def kernel_ptxas(build_log: str, kinds) -> list:
+    """The -Xptxas -v lines of the named kernels (both dtypes; the GEMM's
+    stream mode and m16 tiles from its template arguments): each entry
+    function's registers, shared memory, stack and spills."""
     out, name = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = m.group(1)
-            name = next((f"{k}<{'bf16' if 'bfloat16' in fn else 'f32'}>"
-                         for k in ("snake_conv_kernel", "res_fused_kernel") if k in fn), None)
+            kind = next((k for k in kinds if k in fn), None)
+            name = None
+            if kind:
+                name = f"{kind}<{'bf16' if 'bfloat16' in fn else 'f32'}>"
+                t = re.search(r"gemm_mma_kernelI(?:f|13__nv_bfloat16)Li(\d)ELi(\d)E", fn)
+                if t:
+                    name += f"[{('dense', 'int8', 'q8')[int(t.group(1))]}, m16 tiles {t.group(2)}]"
         elif name and ("spill" in line or "registers" in line):
             out.append(f"{name}: {line.strip()}")
     return out
@@ -2602,8 +2805,11 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
-    for line in codec_ptxas(build.build_log):
+    for line in kernel_ptxas(build.build_log, ("snake_conv_kernel", "res_fused_kernel")):
         log("  ptxas, codec: " + line)
+    for line in kernel_ptxas(build.build_log, ("attention_scores_kernel", "attention_pv_kernel",
+                                               "gemm_mma_kernel")):
+        log("  ptxas, frame families: " + line)
 
     fs_res = check_frame_step(dev)
     fsb_res = check_frame_step_batched(dev)
@@ -2614,6 +2820,12 @@ def main() -> int:
     streamb_res = check_stream_batched(dev)
     bf_single = check_bf16_single(dev)
     bf_batched = check_bf16_batched(dev)
+    invariance = {dt: check_batch_invariance(dev, dt) for dt in ("float32", BF)}
+    fam = time_families(dev)
+    fsb_res["families"] = family_summary(fam["float32"], "C")
+    splitb_res["dec"]["families"] = family_summary(fam["float32"], "8")
+    bf_batched["C"]["families"] = family_summary(fam[BF], "C")
+    bf_batched["8"]["families"] = family_summary(fam[BF], "8")
     bf_conv = check_codec_conv(dev, dtype=BF)
     res_res = check_res_layer_fused(dev)
     bf_res = check_res_layer_fused(dev, dtype=BF)
@@ -2717,6 +2929,16 @@ def main() -> int:
         f"{fr['dec']['graph_ms']:.4f}, 7 {fr['lt']['graph_ms']:.4f}; copy kernel a launch: graph "
         f"{probes['copy_minimal']['graph_ms'] * 1e3:.3f} us, eager "
         f"{probes['copy_minimal']['eager_ms'] * 1e3:.3f} us; on {card}")
+    fam_line = "; ".join(
+        f"{dt} B{B} rows{rows}: " + ", ".join(
+            f"{k} attention {fam[dt][B, rows][k]['attention']['ms']:.4f} (SDPA "
+            f"{fam[dt][B, rows][k]['attention']['library_ms']:.4f}) GEMM "
+            f"{fam[dt][B, rows][k]['gemm']['ms']:.4f} (cuBLAS decoder "
+            f"{fam[dt][B, rows][k]['gemm']['library_ms']:.4f})" for k in ("C", "8"))
+        for dt in ("float32", BF) for B in FAMILY_B for rows in FAMILY_ROWS)
+    log(f"summary, frame families (CUDA-graph slopes, ms a frame): {fam_line}; slots bit-equal "
+        f"at B = 3 / 8 / {BATCH_MAX}: {all(v['bit_equal'] for v in invariance.values())}; "
+        f"on {card}")
     pk = "magpie_tts_tpu/ops/pallas_kernels/"
     src = "magpie_tts_tpu_torch/csrc/"
 
@@ -2729,7 +2951,8 @@ def main() -> int:
                                         "library_event_ms", "kernel_b_event_ms",
                                         "bound_simt_ms", "f64_err", "plain_f64_err",
                                         "kernel_signed_ulps", "plain_signed_ulps",
-                                        "f64_within_1ulp", "plain_f64_within_1ulp") if k in res})
+                                        "f64_within_1ulp", "plain_f64_within_1ulp",
+                                        "families") if k in res})
         return row
 
     streams = []

@@ -25,7 +25,7 @@
 
 namespace {
 
-constexpr int kRt = 256;  // threads of the reduce / attention kernels
+constexpr int kRt = 256;  // threads of the reduce kernels
 
 // The weight modes of a matrix product: dense T W [K, N]; int8 q [K, N]
 // with per-column scales s [N] (applied by the reducer, col_scale above); or
@@ -180,97 +180,318 @@ __global__ void qkv_scatter_kernel(const float* __restrict__ part, int S, int D,
   }
 }
 
-// Single-query attention, block (head, slot). q is the sum of Sq partials
-// [Sq, B, Nq] (Sq = 1: a plain [B, Nq] row), rounded to T. K / V (T) of slot
-// b start at b * slot_stride, rows `row_stride` elements apart; the head's
-// columns start at head * d_head. Rows [0, rows) are attended; with rows_dev
-// the slot's own count min(max(rows_dev[b], 1), rows) is used instead. With
-// `valid`, row r of slot b counts when valid[b * valid_stride + r] (row
-// write_row, when new_valid is given: when new_valid[b]); other rows score
-// -1e30. Scores are scaled, softmaxed as exp(s - max) / sum, the
-// probabilities rounded to T weight the V rows, and the output is rounded to
-// T (it feeds the output projection).
-// Dynamic shared memory: attention_smem(d_head, rows).
+// Single-query attention over the rows of a cache, for B slots and `heads`
+// heads (one attention is the two launches of attend() below). q is the sum
+// of Sq partials [Sq, B, Nq] (Sq = 1: a plain [B, Nq] row), rounded to T.
+// K / V (T) of slot b start at b * slot_stride, rows `row_stride` elements
+// apart; the head's columns start at head * d_head. Rows [0, rows) are attended; with rows_dev the slot's own
+// count min(max(rows_dev[b], 1), rows) is used instead. With `valid`, row r
+// of slot b counts when valid[b * valid_stride + r] (row write_row, when
+// new_valid is given: when new_valid[b]); other rows score -1e30. Scores are
+// scaled, softmaxed as exp(s - max) / sum over all the slot's rows, the
+// probabilities rounded to T weight the V rows (float32 sums), and the output
+// is rounded to T (it feeds the output projection): the Pallas kernels'
+// rounding points (decoder_step_batched.py:201-216, frame_step_batched.py:
+// 495-503).
+//
+// What bounds it: the K and V rows, read once (a frame's self-attention at
+// B = 8 and 300 rows reads 14.7 MB in float32), with two flops a byte: bytes.
+// So the rows of a (slot, head) are split into chunks of `chunk` rows, a block
+// each (grid: chunk, head, slot), which fills the card at B = 1 as at B = 64;
+// a chunk's length is the launch plan's (ops/kernels/decode_attention.py
+// plan_attention), a function of d_head alone, so a slot's result never
+// depends on its neighbours, and a bound `rows` gives the bits of all
+// max_seq rows (the masked rows past it add exact zeros in the same order).
+// A lane reads 16 bytes of a row (a row is d_head * sizeof(T) / 16 lanes, at
+// most a warp), a lane group keeps several rows in flight (RowLanes), and a
+// row's dot product ends in a butterfly over its lanes. Because the
+// probabilities are rounded to T only after they are normalised over the
+// whole row, a one-pass (online) softmax cannot give them; the work is two
+// launches:
+// 1. attention_scores_kernel: q, then the scaled, masked scores of the
+//    chunk's rows into the float32 workspace sc [B, heads, rows];
+// 2. attention_pv_kernel: every block of a (slot, head) reduces the same
+//    scores in the same order (so all get the same max and sum), writes the
+//    chunk's probabilities rnd(exp(s - m) / sum) and its float32 partial of
+//    p . V; the last block of the (slot, head) to finish (an integer ticket,
+//    set to 0 by launch 1's chunk-0 block, so no reset is left for the host
+//    and the launches capture in a CUDA graph) sums the partials in chunk
+//    order and writes the output. No float atomics: every sum runs in a fixed
+//    order, so a frame gives the same bits on every run.
+constexpr int kAttnThreads = 128;   // threads of an attention block
+constexpr int kAttnMaxChunk = 64;   // rows of a chunk, at most
+constexpr int kAttnMaxDHead = 256;
+static_assert(kAttnMaxChunk <= kAttnThreads, "a thread writes one probability");
+
 template <class T>
-__global__ void attention_kernel(const float* __restrict__ qpart, int Sq, int Nq,
-                                 const T* __restrict__ K, const T* __restrict__ V,
-                                 size_t slot_stride, int row_stride, int rows,
-                                 const int* __restrict__ rows_dev,
-                                 const unsigned char* __restrict__ valid, int valid_stride,
-                                 int write_row, const int* __restrict__ new_valid, int d_head,
-                                 float scale, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  __shared__ float red[32];
-  const int b = blockIdx.y, B = gridDim.y;
-  const int n_rows = rows_dev ? min(max(rows_dev[b], 1), rows) : rows;
-  float* qs = sm;
-  float* sc = sm + d_head;
-  float* acc = sc + n_rows;
-  const int tid = threadIdx.x, bd = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = bd >> 5;
-  const int off = blockIdx.x * d_head;
-  K += b * slot_stride;
-  V += b * slot_stride;
+struct AttnCall {
+  const float* qpart;
+  int Sq, Nq;
+  const T* K;
+  const T* V;
+  size_t slot_stride;
+  int row_stride, rows;
+  const int* rows_dev;
+  const unsigned char* valid;
+  int valid_stride, write_row;
+  const int* new_valid;
+  int heads, d_head;
+  float scale;
+  float* out;  // [B, Nq]
+};
 
-  for (int d = tid; d < d_head; d += bd) qs[d] = rnd<T>(sum_parts(qpart, Sq, B, Nq, b, off + d));
-  __syncthreads();
-  for (int r = warp; r < n_rows; r += nw) {
-    const T* kr = K + (size_t)r * row_stride + off;
-    float dot = 0.f;
-    for (int d = lane; d < d_head; d += 32) dot = fmaf(qs[d], ld(kr[d]), dot);
-    dot = warp_sum(dot);
-    if (lane == 0) {
-      bool ok = true;
-      if (valid) {
-        ok = new_valid && r == write_row ? new_valid[b] != 0
-                                         : valid[(size_t)b * valid_stride + r] != 0;
-      }
-      sc[r] = ok ? dot * scale : kNegBig;
-    }
-  }
-  __syncthreads();
-  float m = -INFINITY;
-  for (int r = tid; r < n_rows; r += bd) m = fmaxf(m, sc[r]);
-  m = block_max(m, red);
-  float s = 0.f;
-  for (int r = tid; r < n_rows; r += bd) {
-    const float e = expf(sc[r] - m);
-    sc[r] = e;
-    s += e;
-  }
-  s = block_sum(s, red);
-  for (int r = tid; r < n_rows; r += bd) sc[r] = rnd<T>(sc[r] / s);
-  __syncthreads();
+// The float32 workspace of an attention: scores [B, heads, rows], partial
+// outputs [B, heads, chunks, d_head] and one ticket per (slot, head).
+struct AttnWork {
+  float* sc;
+  float* po;
+  int* tk;
+};
 
-  float* ob = out + (size_t)b * Nq + off;
-  if (d_head <= bd) {
-    const int G = bd / d_head;
-    const int d = tid % d_head, gg = tid / d_head;
-    float a = 0.f;
-    if (gg < G) {
-      for (int r = gg; r < n_rows; r += G) {
-        a = fmaf(sc[r], ld(V[(size_t)r * row_stride + off + d]), a);
-      }
-    }
-    acc[tid] = a;
-    __syncthreads();
-    if (tid < d_head) {
-      float o = 0.f;
-      for (int k = 0; k < G; ++k) o += acc[k * d_head + tid];
-      ob[tid] = rnd<T>(o);
-    }
-  } else {
-    for (int d = tid; d < d_head; d += bd) {
-      float a = 0.f;
-      for (int r = 0; r < n_rows; ++r) a = fmaf(sc[r], ld(V[(size_t)r * row_stride + off + d]), a);
-      ob[d] = rnd<T>(a);
+// 16 bytes of T (kept raw in registers until used: 4 registers, not 8
+// floats, for bf16), widened to float.
+__device__ __forceinline__ void widen(const uint4& u, float (&v)[4], float) {
+  v[0] = __uint_as_float(u.x), v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z), v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void widen(const uint4& u, float (&v)[8], __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// The lanes of a row: a row is vpr 16-byte vectors, read by lpr = min(32,
+// vpr) lanes, `per` (at most kPer) vectors each; kAttnThreads / lpr rows are
+// read at once, and a lane group has kUnroll rows in flight (8 vectors a
+// lane: more cost float32 its occupancy, fewer cost bf16 its bandwidth).
+template <class T>
+struct RowLanes {
+  static constexpr int kVE = 16 / (int)sizeof(T);  // elements in 16 bytes
+  static constexpr int kPer = kAttnMaxDHead / kVE / 32;  // float32: 2, bf16: 1
+  static constexpr int kUnroll = 8 / kPer;
+  int lpr, per, groups, g, l;
+  __device__ explicit RowLanes(int d_head) {
+    const int vpr = d_head / kVE;
+    lpr = vpr < 32 ? vpr : 32;
+    per = vpr / lpr;
+    groups = kAttnThreads / lpr;
+    g = threadIdx.x / lpr;
+    l = threadIdx.x - g * lpr;
+  }
+  __device__ int col(int j) const { return (l + j * lpr) * kVE; }
+};
+
+// The 16-byte vectors of rows base + g + u * groups (u < kUnroll, rows < r1)
+// a lane reads; zeros past r1.
+template <class T, int U = RowLanes<T>::kUnroll, int P = RowLanes<T>::kPer>
+__device__ __forceinline__ void load_rows(const T* m, int row_stride, int base, int r1,
+                                          const RowLanes<T>& rl, uint4 (&v)[U][P]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = base + rl.g + u * rl.groups;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      v[u][j] = r < r1 && j < rl.per
+                    ? __ldg(reinterpret_cast<const uint4*>(m + (size_t)r * row_stride +
+                                                           rl.col(j)))
+                    : make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
-// attention_kernel's dynamic shared memory at kRt threads.
-int attention_smem(int d_head, int rows) {
-  return (d_head + rows + kRt) * (int)sizeof(float);
+template <class T>
+__device__ __forceinline__ int attn_rows(const AttnCall<T>& a, int b) {
+  return a.rows_dev ? min(max(a.rows_dev[b], 1), a.rows) : a.rows;
+}
+
+template <class T>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_scores_kernel(const AttnCall<T> a, const AttnWork w, int chunk) {
+  __shared__ __align__(16) float qs[kAttnMaxDHead];
+  constexpr int VE = RowLanes<T>::kVE;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y, B = gridDim.z;
+  const int tid = threadIdx.x;
+  if (c == 0 && tid == 0) w.tk[b * H + h] = 0;
+  const int r0 = c * chunk, r1 = min(attn_rows(a, b), r0 + chunk);
+  if (r0 >= r1) return;
+  const int off = h * a.d_head;
+  const RowLanes<T> rl(a.d_head);
+  const T* kb = a.K + b * a.slot_stride + off;
+  float* sc = w.sc + ((size_t)b * H + h) * a.rows;
+  // The first rows' K loads go out before q is summed: they do not wait on it.
+  constexpr int P = RowLanes<T>::kPer, U = RowLanes<T>::kUnroll;
+  uint4 kv[U][P];
+  load_rows<T>(kb, a.row_stride, r0, r1, rl, kv);
+  for (int d = tid; d < a.d_head; d += kAttnThreads) {
+    qs[d] = rnd<T>(sum_parts(a.qpart, a.Sq, B, a.Nq, b, off + d));
+  }
+  __syncthreads();
+  for (int base = r0; base < r1; base += rl.groups * U) {
+    if (base != r0) load_rows<T>(kb, a.row_stride, base, r1, rl, kv);
+    float dot[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      dot[u] = 0.f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        if (j < rl.per) {
+          float k[VE];
+          widen(kv[u][j], k, T());
+          const float* qv = qs + rl.col(j);
+#pragma unroll
+          for (int e = 0; e < VE; ++e) dot[u] = fmaf(qv[e], k[e], dot[u]);
+        }
+      }
+      for (int o = rl.lpr >> 1; o > 0; o >>= 1) {
+        dot[u] += __shfl_xor_sync(MAGPIE_FULL_MASK, dot[u], o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = base + rl.g + u * rl.groups;
+      if (rl.l == 0 && r < r1) {
+        bool ok = true;
+        if (a.valid) {
+          ok = a.new_valid && r == a.write_row ? a.new_valid[b] != 0
+                                               : a.valid[(size_t)b * a.valid_stride + r] != 0;
+        }
+        sc[r] = ok ? dot[u] * a.scale : kNegBig;
+      }
+    }
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_pv_kernel(const AttnCall<T> a, const AttnWork w, int chunk, int nch) {
+  __shared__ float red[32];
+  __shared__ float pr[kAttnMaxChunk];
+  __shared__ float grp[kAttnThreads * 8];  // [groups][d_head] group sums
+  __shared__ int last;
+  constexpr int VE = RowLanes<T>::kVE;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int tid = threadIdx.x;
+  const int n_rows = attn_rows(a, b);
+  const int nc = (n_rows + chunk - 1) / chunk;
+  if (c >= nc) return;
+  const int r0 = c * chunk, r1 = min(n_rows, r0 + chunk);
+  const float* sc = w.sc + ((size_t)b * H + h) * a.rows;
+  const int off = h * a.d_head;
+  const RowLanes<T> rl(a.d_head);
+  const T* vb = a.V + b * a.slot_stride + off;
+  // The first rows' V loads and the first kScoreRegs * kAttnThreads scores
+  // (thread t: rows t, t + kAttnThreads, ...) go out together; the max and
+  // the sum then run on registers, in the same per-thread order as over
+  // memory.
+  constexpr int P = RowLanes<T>::kPer, U = RowLanes<T>::kUnroll;
+  uint4 vv[U][P];
+  load_rows<T>(vb, a.row_stride, r0, r1, rl, vv);
+  constexpr int kScoreRegs = 8;
+  float sv[kScoreRegs];
+#pragma unroll
+  for (int i = 0; i < kScoreRegs; ++i) {
+    const int r = tid + i * kAttnThreads;
+    sv[i] = r < n_rows ? sc[r] : -INFINITY;
+  }
+  const float mine = r0 + tid < r1 ? sc[r0 + tid] : 0.f;
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kScoreRegs; ++i) m = fmaxf(m, sv[i]);
+  for (int r = tid + kScoreRegs * kAttnThreads; r < n_rows; r += kAttnThreads) {
+    m = fmaxf(m, sc[r]);
+  }
+  m = block_max(m, red);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kScoreRegs; ++i) {
+    if (tid + i * kAttnThreads < n_rows) s += expf(sv[i] - m);
+  }
+  for (int r = tid + kScoreRegs * kAttnThreads; r < n_rows; r += kAttnThreads) {
+    s += expf(sc[r] - m);
+  }
+  s = block_sum(s, red);
+  if (r0 + tid < r1) pr[tid] = rnd<T>(expf(mine - m) / s);
+  __syncthreads();
+
+  float acc[P][VE];
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+#pragma unroll
+    for (int e = 0; e < VE; ++e) acc[j][e] = 0.f;
+  for (int base = r0; base < r1; base += rl.groups * U) {
+    if (base != r0) load_rows<T>(vb, a.row_stride, base, r1, rl, vv);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = base + rl.g + u * rl.groups;
+      if (r < r1) {
+        const float p = pr[r - r0];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          float v[VE];
+          widen(vv[u][j], v, T());
+#pragma unroll
+          for (int e = 0; e < VE; ++e) acc[j][e] = fmaf(p, v[e], acc[j][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (j < rl.per) {
+#pragma unroll
+      for (int e = 0; e < VE; ++e) grp[rl.g * a.d_head + rl.col(j) + e] = acc[j][e];
+    }
+  }
+  __syncthreads();
+  float* ob = a.out + (size_t)b * a.Nq + off;
+  float* po = w.po + ((size_t)b * H + h) * nch * a.d_head;
+  for (int d = tid; d < a.d_head; d += kAttnThreads) {
+    float o = 0.f;
+    for (int gg = 0; gg < rl.groups; ++gg) o += grp[gg * a.d_head + d];
+    if (nc == 1) {
+      ob[d] = rnd<T>(o);
+    } else {
+      po[(size_t)c * a.d_head + d] = o;
+    }
+  }
+  if (nc == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(w.tk + b * H + h, 1) == nc - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int d = tid; d < a.d_head; d += kAttnThreads) {
+    float o = 0.f;
+    for (int cc = 0; cc < nc; ++cc) o += __ldcg(po + (size_t)cc * a.d_head + d);
+    ob[d] = rnd<T>(o);
+  }
+}
+
+// The two launches of one attention for B slots with chunks of `chunk` rows
+// (16 to kAttnMaxChunk, a multiple of 16: the wrapper's plan); refuses a
+// plan or a layout the kernels do not take.
+template <class T>
+int attend(const AttnCall<T>& a, int B, int chunk, const AttnWork& w, cudaStream_t st) {
+  constexpr int VE = RowLanes<T>::kVE;
+  const int vpr = a.d_head / VE;
+  const bool ok = chunk >= 16 && chunk <= kAttnMaxChunk && chunk % 16 == 0 && a.rows >= 1 &&
+                  a.d_head % VE == 0 && vpr >= 1 && vpr <= 32 * RowLanes<T>::kPer &&
+                  (vpr & (vpr - 1)) == 0 &&
+                  a.d_head <= kAttnMaxDHead && a.row_stride % VE == 0 &&
+                  a.slot_stride % VE == 0 && reinterpret_cast<uintptr_t>(a.K) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.V) % 16 == 0;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int nch = (a.rows + chunk - 1) / chunk;
+  const dim3 grid(nch, a.heads, B);
+  attention_scores_kernel<T><<<grid, kAttnThreads, 0, st>>>(a, w, chunk);
+  MAGPIE_CHECK_LAUNCH();
+  attention_pv_kernel<T><<<grid, kAttnThreads, 0, st>>>(a, w, chunk, nch);
+  MAGPIE_CHECK_LAUNCH();
+  return 0;
 }
 
 // One LT phase's sampling, one block of kSampleThreads per slot b: logits =

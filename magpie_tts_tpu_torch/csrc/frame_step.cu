@@ -35,9 +35,10 @@
 // grid covers all SMs with 16-byte loads on consecutive columns, and partial
 // sums are reduced in a fixed order by the next kernel (no atomics, so the
 // bits do not change from run to run). The per-slot kernels (reductions,
-// attention, LT sampling) are frame_kernels.cuh's, launched for one slot; the
-// GEMV is this file's own. Fewer launches (CUDA graphs, fusion) are later
-// work.
+// attention, LT sampling) are frame_kernels.cuh's, launched for one slot (the
+// attention's rows split into chunks, a block each, so 12 heads at 300 rows
+// fill the card); the GEMV is this file's own. Fewer launches (CUDA graphs,
+// fusion) are later work.
 //
 // Numerics follow the plain versions (frame_step_reference, the LT sampler's
 // sample_frame_codes, decode_step): float32 residual carry, exact-erf GELU via
@@ -192,11 +193,14 @@ struct FrameStepArgs {
   float* lt_f;
   float* emb_row;
   float* emb_acc;
+  float* att_sc;
+  float* att_po;
+  int* att_tk;
   // dims and scalars
   int d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
   int lt_dim, lt_ffn, n_cb, vocab, part_cap;
   int pos, enc_len, seed, top_k, forbid_eos, audio_bos_id, audio_eos_id, gelu_tanh;
-  int stream_mode;
+  int stream_mode, sa_chunk, xa_chunk, lt_chunk;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
@@ -211,7 +215,7 @@ FrameSeq<T> seq_of(const FrameStepArgs& a) {
   s.B = 1;
   s.D = a.d_model, s.F = a.d_ffn, s.L = a.n_layers, s.NS = a.max_seq, s.E = a.enc_rows;
   s.X = a.d_xa, s.n_heads = a.n_heads, s.xa_heads = a.xa_heads, s.LT = a.lt_dim;
-  s.LF = a.lt_ffn, s.ncb = a.n_cb, s.V = a.vocab, s.part_cap = a.part_cap;
+  s.LF = a.lt_ffn, s.ncb = a.n_cb, s.V = a.vocab;
   s.hidden = c(a.hidden);
   s.lt_in_w = c(a.lt_in_w), s.lt_in_b = c(a.lt_in_b), s.lt_pos = c(a.lt_pos);
   s.lt_norm_self = c(a.lt_norm_self), s.lt_qkv = c(a.lt_qkv), s.lt_sa_out = c(a.lt_sa_out);
@@ -236,6 +240,8 @@ FrameSeq<T> seq_of(const FrameStepArgs& a) {
   s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q;
   s.lt_k = reinterpret_cast<T*>(a.lt_k), s.lt_v = reinterpret_cast<T*>(a.lt_v);
   s.lt_attn = a.lt_attn, s.lt_f = a.lt_f, s.emb_row = a.emb_row, s.emb_acc = a.emb_acc;
+  s.att = AttnWork{a.att_sc, a.att_po, a.att_tk};
+  s.sa_chunk = a.sa_chunk, s.xa_chunk = a.xa_chunk, s.lt_chunk = a.lt_chunk;
   s.eps = a.eps, s.sa_scale = a.sa_scale, s.xa_scale = a.xa_scale, s.lt_scale = a.lt_scale;
   s.gelu_tanh = a.gelu_tanh;
   return s;

@@ -102,13 +102,15 @@ def load_library() -> ctypes.CDLL:
             if not target.exists():
                 _build(target)
             lib = ctypes.CDLL(str(target))
-            from . import (codec_conv, codec_res_fused, decoder_step, decoder_step_batched,
-                           frame_step, frame_step_batched, lt_sampler, lt_sampler_batched,
-                           probe_attend, probe_copy, probe_gemv, q8_dequant)
+            from . import (batched_gemm, codec_conv, codec_res_fused, decode_attention,
+                           decoder_step, decoder_step_batched, frame_step, frame_step_batched,
+                           lt_sampler, lt_sampler_batched, probe_attend, probe_copy, probe_gemv,
+                           q8_dequant)
 
             for module in (frame_step, frame_step_batched, codec_conv, codec_res_fused,
                            lt_sampler, decoder_step, lt_sampler_batched, decoder_step_batched,
-                           q8_dequant, probe_gemv, probe_attend, probe_copy):
+                           q8_dequant, probe_gemv, probe_attend, probe_copy, decode_attention,
+                           batched_gemm):
                 module.declare(lib)
             lib.magpie_cuda_error_string.argtypes = [ctypes.c_int]
             lib.magpie_cuda_error_string.restype = ctypes.c_char_p

@@ -36,7 +36,7 @@ import torch
 from ...config import MagpieConfig
 from ...io.magpie_weights import Int8DecoderStream, MagpieWeights, Q8DecoderStream
 from ..attention import attn_scale
-from . import build
+from . import build, decode_attention
 
 MODES = ("dense", "int8", "q8")  # the weight streams, by stream_mode
 DTYPES, count_dtype = build.DTYPES, build.count_dtype
@@ -58,12 +58,12 @@ class FrameStepArgs(ctypes.Structure):
         "qkv_q qkv_s sa_out_q sa_out_s ff_proj_q ff_proj_s ff_out_q ff_out_s "
         "sampled argmax hidden_out "
         "part x h q attn f xa lt_x lt_h lt_q lt_k lt_v lt_attn lt_f emb_row "
-        "emb_acc").split()
+        "emb_acc att_sc att_po att_tk").split()
     _ints = (
         "d_model d_ffn n_layers max_seq enc_rows d_xa n_heads xa_heads "
         "lt_dim lt_ffn n_cb vocab part_cap "
         "pos enc_len seed top_k forbid_eos audio_bos_id audio_eos_id "
-        "gelu_tanh stream_mode").split()
+        "gelu_tanh stream_mode sa_chunk xa_chunk lt_chunk").split()
     _floats = "temperature eps sa_scale xa_scale lt_scale".split()
     _fields_ = ([(n, ctypes.c_void_p) for n in _ptrs] +
                 [(n, ctypes.c_int) for n in _ints] +
@@ -171,7 +171,10 @@ def stream_tensors(who: str, stream, config: MagpieConfig) -> dict:
 
 def check_config(who: str, config: MagpieConfig, top_k: int = 1) -> None:
     """What the frame sequences take: vocab <= 4096 (one sampling block),
-    top_k >= 1, and GEMV / GEMM widths that are multiples of 4 (float4)."""
+    top_k >= 1, GEMV / GEMM widths that are multiples of 4 (float4), and
+    attention heads 8 x a power of two wide, at most 256: whole 16-byte
+    vectors for the attention's lanes in both dtypes (csrc/frame_kernels.cuh
+    attend)."""
     c = config
     if c.vocab_per_cb > 4096 or top_k < 1 or c.num_codebooks > c.lt_max_pos:
         raise ValueError(f"{who}: needs vocab_per_cb <= 4096, top_k >= 1 and "
@@ -180,9 +183,14 @@ def check_config(who: str, config: MagpieConfig, top_k: int = 1) -> None:
               c.vocab_per_cb):
         if n % 4:
             raise ValueError(f"{who}: GEMV width {n} is not a multiple of 4")
+    for d_head in (c.d_model // c.dec_sa_heads, c.d_xa // c.dec_xa_heads, c.lt_dim):
+        vectors = d_head // 8
+        if d_head % 8 or d_head > 256 or vectors & (vectors - 1):
+            raise ValueError(f"{who}: attention head width {d_head} is not 8 x a power of two "
+                             f"up to 256")
 
 
-def _workspace(config: MagpieConfig, device) -> dict:
+def _workspace(config: MagpieConfig, device, rows: int, enc_rows: int) -> dict:
     c = config
     n_max = max(3 * c.d_model, c.d_ffn, c.vocab_per_cb, 3 * c.lt_dim, c.lt_ffn_dim, c.d_xa)
     sizes = {"part": _PART_CAP * n_max, "x": c.d_model, "h": c.d_model, "q": c.d_model,
@@ -193,7 +201,8 @@ def _workspace(config: MagpieConfig, device) -> dict:
     # 64-float (256 B) granules keep every buffer aligned for float4 access.
     padded = {k: -(-n // 64) * 64 for k, n in sizes.items()}
     ws = torch.empty(sum(padded.values()), dtype=torch.float32, device=device)
-    return dict(zip(padded, ws.split(list(padded.values()))))
+    return {**dict(zip(padded, ws.split(list(padded.values())))),
+            **decode_attention.frame_workspace(c, 1, rows, enc_rows, device)}
 
 
 def lt_weight_tensors(weights: MagpieWeights, config: MagpieConfig) -> dict:
@@ -258,7 +267,9 @@ def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, devic
     lib = build.load_library()
     ptrs = {name: t.data_ptr() for name, (t, _) in tensors.items()}
     ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
-    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, device).items()})
+    # self-attention covers rows [0, pos], cross-attention enc_len rows
+    rows, enc_rows = scalars.get("pos", 0) + 1, scalars.get("enc_len", 1)
+    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, device, rows, enc_rows).items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
     args = FrameStepArgs(
         **ptrs, d_model=c.d_model, d_ffn=c.d_ffn, n_layers=c.dec_layers, d_xa=c.d_xa,
@@ -267,7 +278,8 @@ def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, devic
         audio_bos_id=c.audio_bos_id, audio_eos_id=c.audio_eos_id, gelu_tanh=int(c.gelu_tanh),
         eps=float(c.eps), sa_scale=attn_scale(c.d_model // c.dec_sa_heads),
         xa_scale=attn_scale(c.d_xa // c.dec_xa_heads), lt_scale=attn_scale(c.lt_dim),
-        stream_mode=stream_mode(stream), **scalars)
+        stream_mode=stream_mode(stream), **decode_attention.frame_chunks(c, rows, enc_rows),
+        **scalars)
     cuda_stream = torch.cuda.current_stream(device).cuda_stream
     build.check(getattr(lib, entry)(ctypes.addressof(args), cuda_stream), entry)
 

@@ -31,7 +31,7 @@ import torch
 from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from ..attention import attn_scale
-from . import build
+from . import batched_gemm, build, decode_attention
 from .frame_step import (DTYPES, MODES, check_config, compute_dtype, count_dtype,
                          decoder_weight_tensors, entry_name, lt_weight_tensors, stream_mode,
                          stream_tensors)
@@ -41,8 +41,8 @@ mode_launches = dict.fromkeys(MODES, 0)  # the same, by weight stream
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
 
-MAX_SLOTS = 64  # the kernel's shared-memory slot tile
-_PART_CAP = 32  # most split-K partial rows a GEMM may produce
+MAX_SLOTS = 64  # the GEMM's slot tiles: 4 m16 tiles
+_PART_CAP = batched_gemm.PART_CAP  # most split-K partial rows a GEMM may produce
 
 
 class FrameStepBatchedArgs(ctypes.Structure):
@@ -56,16 +56,17 @@ class FrameStepBatchedArgs(ctypes.Structure):
         "qkv_q qkv_s sa_out_q sa_out_s ff_proj_q ff_proj_s ff_out_q ff_out_s "
         "sampled argmax hidden_out "
         "part x h q attn f xa lt_x lt_h lt_q lt_k lt_v lt_attn lt_f emb_row emb_acc "
-        "new_valid").split()
+        "new_valid att_sc att_po att_tk").split()
     _ints = (
         "batch d_model d_ffn n_layers max_seq enc_rows d_xa n_heads xa_heads "
-        "lt_dim lt_ffn n_cb vocab part_cap "
+        "lt_dim lt_ffn n_cb vocab "
         "write_row rows valid_stride posemb_stride top_k audio_bos_id audio_eos_id "
-        "gelu_tanh stream_mode").split()
+        "gelu_tanh stream_mode sa_chunk xa_chunk lt_chunk n_gemm_plans").split()
     _floats = "temperature eps sa_scale xa_scale lt_scale".split()
     _fields_ = ([(n, ctypes.c_void_p) for n in _ptrs] +
                 [(n, ctypes.c_int) for n in _ints] +
-                [(n, ctypes.c_float) for n in _floats])
+                [(n, ctypes.c_float) for n in _floats] +
+                [("gemm_plans", batched_gemm.GemmPlanC * batched_gemm.MAX_PLANS)])
 
 
 def declare(lib: ctypes.CDLL, base: str = "magpie_frame_step_batched") -> None:
@@ -131,7 +132,7 @@ def check_rows(who: str, config: MagpieConfig, write_row: int, rows: Optional[in
     return rows
 
 
-def _workspace(config: MagpieConfig, B: int, device) -> dict:
+def _workspace(config: MagpieConfig, B: int, device, rows: int, enc_rows: int) -> dict:
     c = config
     n_max = max(3 * c.d_model, c.d_ffn, c.vocab_per_cb, 3 * c.lt_dim, c.lt_ffn_dim, c.d_xa)
     per_slot = {"part": _PART_CAP * n_max, "x": c.d_model, "h": c.d_model, "q": c.d_model,
@@ -144,6 +145,7 @@ def _workspace(config: MagpieConfig, B: int, device) -> dict:
     ws = torch.empty(sum(padded.values()), dtype=torch.float32, device=device)
     out = dict(zip(padded, ws.split(list(padded.values()))))
     out["new_valid"] = torch.empty(B, dtype=torch.int32, device=device)
+    out.update(decode_attention.frame_workspace(config, B, rows, enc_rows, device))
     return out
 
 
@@ -189,19 +191,24 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
     for name, (t, shape, dtype, broadcast_ok) in tensors.items():
         check_tensor(entry, name, t, shape, dtype, broadcast_ok)
     quantized = stream_tensors(entry, stream, c)
+    batched_gemm.check_widths(entry, c, tensors["hidden"][2], stream_mode(stream))
     lib = build.load_library()
     ptrs = {name: t.data_ptr() for name, (t, *_) in tensors.items()}
     ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
-    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, device).items()})
+    # self-attention covers rows [0, rows), cross-attention enc_rows rows
+    rows, enc_rows = scalars.get("rows", 1), scalars.get("enc_rows", 1)
+    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, device, rows, enc_rows).items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
+    plans, n_plans = batched_gemm.plan_table(c)
     args = FrameStepBatchedArgs(
         **ptrs, batch=B, d_model=c.d_model, d_ffn=c.d_ffn, n_layers=c.dec_layers,
         d_xa=c.d_xa, n_heads=c.dec_sa_heads, xa_heads=c.dec_xa_heads, lt_dim=c.lt_dim,
-        lt_ffn=c.lt_ffn_dim, n_cb=c.num_codebooks, vocab=c.vocab_per_cb, part_cap=_PART_CAP,
+        lt_ffn=c.lt_ffn_dim, n_cb=c.num_codebooks, vocab=c.vocab_per_cb,
         audio_bos_id=c.audio_bos_id, audio_eos_id=c.audio_eos_id, gelu_tanh=int(c.gelu_tanh),
         eps=float(c.eps), sa_scale=attn_scale(c.d_model // c.dec_sa_heads),
         xa_scale=attn_scale(c.d_xa // c.dec_xa_heads), lt_scale=attn_scale(c.lt_dim),
-        stream_mode=stream_mode(stream), **scalars)
+        stream_mode=stream_mode(stream), **decode_attention.frame_chunks(c, rows, enc_rows),
+        gemm_plans=plans, n_gemm_plans=n_plans, **scalars)
     cuda_stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the launch goes to the caches' card
         err = getattr(lib, entry)(ctypes.addressof(args), cuda_stream)
