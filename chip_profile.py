@@ -3,7 +3,7 @@ kernel's time goes, the fused frame against the split path, and where
 ``serve``'s time goes.
 
 Run from the root of a checkout:
-    python3 chip_profile.py [frame|split|fused|stream|serve|all] [--root DIR]
+    python3 chip_profile.py [frame|split|fused|stream|slope|serve|all] [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
     weights, write row 300, for each (B, temperature, rows attended) of
@@ -26,6 +26,15 @@ stream: kernels A and 5 (single stream) and C and 8 (B=8) at 357M width,
     row 300, temp 0.7, with each weight stream (dense float32, int8 columns,
     Q8_0 blocks): host wall ms, device ms in all and by kernel family, and
     launches per frame, as ``split`` reports them.
+slope: kernels A and 5 at 357M width, row 300, temp 0.7, dense float32 and
+    bf16: device ms a frame by CUDA-graph slope (scripts/timing.py
+    graph_slope, SLOPE_N frames a graph); with ``--root DIR`` another
+    checkout's kernels, so parent and change time in turns in one call.
+    The persistent kernels (A, 5 since their redesign) are also broken down
+    in ``frame``, ``split`` and ``stream`` by their phase stamps (block 0's
+    %globaltimer at each phase's start, prologue end and barrier arrival):
+    ms a frame in GEMV work, attention, LayerNorm / epilogue, sampling and
+    barrier wait (``stamp_ms``), and the barriers counted.
 serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
@@ -57,12 +66,14 @@ FRAME_CASES = [(1, 0.7, 640), (1, 0.7, 301), (8, 0.0, 301), (8, 0.7, 640), (8, 0
 SERVE_CASES = [(4, 6), (8, 16), (32, 48)]
 SERVE_SEGMENT = 16
 REPS = 20
+SLOPE_N = (4, 16, 3)   # graph slopes: frames a graph, lo / hi, and replays
 # Kernel families by the device kernels' names (csrc/): the split-row
 # attention's two launches, the batched frames' tensor-core GEMM, the
 # single-stream GEMV, the reducers and the LT sampling.
 # A parent checkout's (--root) names from before the split-row attention
 # and the tensor-core GEMM come last: attention_kernel, gemm_splitk_kernel.
-FAMILIES = {"attention": ("attention_scores_kernel", "attention_pv_kernel", "attention_kernel"),
+FAMILIES = {"persistent": ("frame_persistent_kernel",),
+            "attention": ("attention_scores_kernel", "attention_pv_kernel", "attention_kernel"),
             "gemm": ("gemm_mma_kernel", "gemm_splitk_kernel"), "gemv": ("gemv_splitk_kernel",),
             "combine_ln": ("combine_ln_kernel", "decoder_input_kernel"),
             "lt_sample": ("lt_sample_kernel",), "reduce_act": ("reduce_act_kernel",),
@@ -95,6 +106,133 @@ def _family(name: str) -> str:
         if any(k in name for k in kernels):
             return fam
     return "other"
+
+
+def stamp_breakdown(run, plan=None, reps: int = 5) -> dict:
+    """Mean ms a frame by phase group from the persistent kernel's stamps:
+    ``run(stamps)`` launches one frame writing them. GEMV / attention: the
+    phases' work after their prologue; LayerNorm / epilogue (residual,
+    norm, partial sums; an in-block one-chunk attention counts as
+    attention) and sampling: the prologues; barrier wait: from block 0's
+    arrival to the next phase's start. Also the barriers, the span and,
+    with the frame's ``plan`` (frame_step.plan_frame), ms a frame by phase
+    name (prologue + work, every layer's summed; ``wait``: the barriers
+    after them)."""
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+
+    groups = dict.fromkeys(("gemv", "attention", "ln_epilogue", "sampling", "barrier_wait"), 0.0)
+    total, barriers = 0.0, None
+    by_phase: dict = {}
+    for _ in range(reps + 1):
+        stamps = torch.zeros(1 + fs.STAMP_WORDS * 512, dtype=torch.int64, device="cuda")
+        run(stamps)
+        torch.cuda.synchronize()
+        recs = fs.read_stamps(stamps)
+        if barriers is None:          # the first run warms up and is not counted
+            barriers = len(recs) - 1
+            continue
+        pro_group = {"ln": "ln_epilogue", "none": "ln_epilogue", "sampling": "sampling",
+                     "attention": "attention"}
+        names = [ph.name for ph in plan.phases] if plan is not None else [None] * len(recs)
+        if len(names) != len(recs):
+            raise AssertionError(f"{len(recs)} phases stamped, the plan has {len(names)}")
+        for r, nxt, name in zip(recs, recs[1:] + [None], names):
+            if name is not None:
+                ph = by_phase.setdefault(name, {"ms": 0.0, "wait": 0.0})
+                ph["ms"] += (r["end"] - r["start"]) / 1e6 / reps
+                if nxt is not None:
+                    ph["wait"] += (nxt["start"] - r["end"]) / 1e6 / reps
+            groups[pro_group[r["pro"]]] += (r["pro_end"] - r["start"]) / 1e6 / reps
+            work = {"gemv": "gemv", "attention": "attention"}.get(r["work"], "ln_epilogue")
+            groups[work] += (r["end"] - r["pro_end"]) / 1e6 / reps
+            if nxt is not None:
+                groups["barrier_wait"] += (nxt["start"] - r["end"]) / 1e6 / reps
+        total += (recs[-1]["end"] - recs[0]["start"]) / 1e6 / reps
+    out = {"stamp_ms": groups, "stamp_span_ms": total, "barriers": barriers}
+    if by_phase:
+        out["by_phase_ms"] = {k: {kk: round(vv, 5) for kk, vv in v.items()}
+                              for k, v in by_phase.items()}
+    return out
+
+
+def _stamped(fs_module) -> bool:
+    """Whether the imported package's frame kernels write phase stamps (a
+    parent checkout's may not)."""
+    return hasattr(fs_module, "read_stamps")
+
+
+def profile_persistent(dev) -> None:
+    """Kernels A and 5 at B = 1, rows 301 and 640, float32 dense: the stamp
+    breakdown of one frame."""
+    import torch
+
+    from chip_smoke import prod_weights
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+
+    if not _stamped(fs):
+        return
+    c, w = prod_weights(dev)
+    S, L, D, E = c.max_seq, c.dec_layers, c.d_model, 32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape, s=0.5: torch.randn(*shape, generator=gen, device=dev) * s
+    one = dict(xa_k=rnd(L, E, c.d_xa), xa_v=rnd(L, E, c.d_xa), k_cache=rnd(L, S, D),
+               v_cache=rnd(L, S, D), weights=w, config=c, enc_length=E)
+    hidden = rnd(D, s=1.0)
+    with torch.no_grad():
+        for rows in (301, 640):
+            pos = rows - 1
+            for path, run in (
+                    ("frame_step", lambda st: fs.frame_step(hidden, pos, seed=7, temperature=0.7,
+                                                            top_k=80, forbid_eos=False,
+                                                            stamps=st, **one)),
+                    ("decoder_step", lambda st: ds.decode_step(hidden, pos, stamps=st, **one))):
+                plan = fs.plan_frame(c, E, path == "frame_step")
+                emit({"phase": "frame", "path": path, "B": 1, "rows": rows, "temperature": 0.7,
+                      **stamp_breakdown(run, plan)})
+
+
+def profile_slope(dev) -> None:
+    """Kernels A and 5 by CUDA-graph slope (dense, float32 and bf16, row
+    300): ms a frame, device only."""
+    import torch
+
+    from chip_smoke import prod_weights
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.scripts import timing
+
+    for dtype in ("float32", "bfloat16"):
+        c, w = prod_weights(dev, dtype)
+        T = w.decoder.qkv.dtype
+        S, L, D, E, row = c.max_seq, c.dec_layers, c.d_model, 32, 300
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rnd = lambda *shape, s=0.5: (torch.randn(*shape, generator=gen, device=dev) * s).to(T)
+        kc, vc = rnd(L, S, D), rnd(L, S, D)
+        xa = dict(xa_k=rnd(L, E, c.d_xa), xa_v=rnd(L, E, c.d_xa), weights=w, config=c,
+                  enc_length=E)
+        hidden = rnd(D, s=1.0)
+
+        def a_body(i, h):
+            return fs.frame_step(h, row, k_cache=kc, v_cache=vc, seed=i, temperature=0.7,
+                                 top_k=80, forbid_eos=False, **xa)[2]
+
+        def five_body(i, h):
+            return ds.decode_step(h, row, k_cache=kc, v_cache=vc, **xa)
+
+        with torch.no_grad():
+            for path, body in (("frame_step", a_body), ("decoder_step", five_body)):
+                t = timing.graph_slope(body, hidden, *SLOPE_N)
+                emit({"phase": "slope", "path": path, "dtype": dtype, "B": 1, "row": row,
+                      "graph_ms": t["per_launch_ms"], "n": SLOPE_N})
+        del w, kc, vc, xa
+        torch.cuda.empty_cache()
+    if hasattr(fs, "barrier_probe"):
+        from chip_smoke import barrier_cost
+
+        emit({"phase": "slope", "path": "barrier_probe", **barrier_cost(dev, SLOPE_N)})
 
 
 def profile_frame(dev) -> None:
@@ -433,6 +571,15 @@ def profile_stream(dev) -> None:
             for (path, b), frame in frames.items():
                 emit({"phase": "stream", "stream": mode, "path": path, "B": b, "row": row,
                       "temperature": 0.7, **_profile_frames(frame)})
+            if _stamped(fs):
+                for path, run in (
+                        ("frame_step", lambda st: fs.frame_step(
+                            hidden[0], row, seed=7, temperature=0.7, top_k=80, forbid_eos=False,
+                            enc_length=32, stamps=st, **one)),
+                        ("decoder_step", lambda st: ds.decode_step(
+                            x_pe[0], row, enc_length=32, stamps=st, **one))):
+                    emit({"phase": "stream", "stream": mode, "path": path, "B": 1, "row": row,
+                          "temperature": 0.7, **stamp_breakdown(run)})
 
 
 def main() -> int:
@@ -455,8 +602,9 @@ def main() -> int:
     from magpie_tts_tpu_torch.runtime.engine import resolve_device
 
     what = args[0] if args else "all"
-    if what not in ("frame", "split", "fused", "stream", "serve", "all"):
-        print("usage: python3 chip_profile.py [frame|split|fused|stream|serve|all] [--root DIR]",
+    if what not in ("frame", "split", "fused", "stream", "slope", "serve", "all"):
+        print("usage: python3 chip_profile.py [frame|split|fused|stream|slope|serve|all] "
+              "[--root DIR]",
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
@@ -465,6 +613,9 @@ def main() -> int:
     build.load_library()
     if what in ("frame", "all"):
         profile_frame(dev)
+        profile_persistent(dev)
+    if what in ("slope", "all"):
+        profile_slope(dev)
     if what in ("split", "fused", "all"):
         profile_split(dev, split=what != "fused")
     if what in ("stream", "all"):

@@ -79,6 +79,16 @@ Phases (each raises on failure, so the process exits non-zero):
    ``torch.matmul`` on the same weights (timed only), with their bounds;
    rows 6 and 8 of the kernels line carry them as ``families``.
 
+10. the persistent frame kernels A and 5 (one cooperative launch a frame,
+   after phase 6): each by CUDA-graph slope at B = 1, row 300, dense, in
+   both dtypes, in turns with its library composite (cuBLAS ``torch.matmul``
+   on the frame's products, SDPA on its attentions; timed only), the barrier
+   probe's us a grid barrier at one and two blocks an SM, and their
+   -Xptxas -v lines ("ptxas, persistent"); the float32 synth and
+   ``--no-fused`` main paths are traced by torch.profiler and their device
+   kernels counted: the persistent kernel once a step and nothing of the
+   launch sequence A and 5 ran before.
+
 The line before last is a JSON summary of the kernels (float32 rows, then
 the ``[bf16]`` rows, then the weight streams, then the probe rows with
 ``"path": "probe"``; kernel 9's rows also carry ``kernel_b_ms``, kernel B's
@@ -1866,6 +1876,124 @@ def check_bf16_batched(dev) -> dict:
     return res
 
 
+PERSIST_N = (2, 8, 3)        # graph slopes of A and 5: frames a graph, lo / hi, replays
+BARRIER_COUNTS = (16, 272)   # the barrier probe: barriers a launch, lo / hi
+
+
+def barrier_cost(dev, n=PERSIST_N) -> dict:
+    """us a grid barrier of the persistent kernels: graph slopes of the
+    barrier probe (frame_step.barrier_probe) at BARRIER_COUNTS barriers a
+    launch, at one block an SM (the frame kernels' grid) and at two."""
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.scripts import timing
+
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lo, hi = BARRIER_COUNTS
+    out = {}
+    for grid in (sms, 2 * sms):
+        ms = {}
+        for count in (lo, hi):
+            def body(i, h, count=count, grid=grid):
+                fs.barrier_probe(bar, count, grid)
+                return h
+            ms[count] = timing.graph_slope(body, bar, *n)["per_launch_ms"]
+        out[f"us_per_barrier_grid{grid}"] = (ms[hi] - ms[lo]) * 1e3 / (hi - lo)
+    return out
+
+
+def persistent_bodies(dev, dtype: str, row: int = 300, enc: int = SINGLE_ENC) -> dict:
+    """One frame of kernels A and 5 at B = 1 and row ``row`` as graph-slope
+    bodies (the hidden row carried), and their library composites, timed
+    only: cuBLAS ``torch.matmul`` on the frame's products in order (5: the
+    decoder's 72; A adds the LT's 48) and SDPA on its attentions (12
+    self-attentions over row + 1 cache rows, 12 cross-attentions over enc
+    rows; A adds the LT's 8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step as ds
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+
+    c, w, xa_k, xa_v, hidden, k_base, v_base, _ = single_state(dev, dtype)
+    T = k_base.dtype
+    kc, vc = k_base.clone(), v_base.clone()
+    L, D, X, LT, H, V = c.dec_layers, c.d_model, c.d_xa, c.lt_dim, c.dec_sa_heads, c.vocab_per_cb
+    dh, rows = D // H, row + 1
+    dec, lt = w.decoder, w.lt
+    gen = torch.Generator(device=dev).manual_seed(row)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev).to(T)
+    dec_seq = [getattr(dec, n)[l] for l in range(L)
+               for n in ("qkv", "sa_out", "xa_q", "xa_out", "ff_proj", "ff_out")]
+    lt_seq = [m for cb in range(c.num_codebooks)
+              for m in (lt.in_proj_w, lt.qkv, lt.sa_out, lt.ff_proj, lt.ff_out,
+                        lt.out_proj_w[cb])]
+    xs = {id(m): randn(1, m.shape[0]) for m in dec_seq + lt_seq}
+    heads = lambda t, n, h: t.reshape(1, n, h, -1).transpose(1, 2)
+    q_sa, q_xa = randn(1, H, 1, dh), randn(1, 1, 1, X)
+    k_lt, v_lt, q_lt = randn(c.num_codebooks, LT), randn(c.num_codebooks, LT), randn(1, 1, 1, LT)
+
+    def library(fused: bool):
+        def body(i, h):
+            for m in (lt_seq if fused else []) + dec_seq:
+                torch.matmul(xs[id(m)], m)
+            for l in range(L):
+                F.scaled_dot_product_attention(q_sa, heads(kc[l, :rows], rows, H),
+                                               heads(vc[l, :rows], rows, H))
+                F.scaled_dot_product_attention(q_xa, heads(xa_k[l, :enc], enc, 1),
+                                               heads(xa_v[l, :enc], enc, 1))
+            if fused:
+                for cb in range(c.num_codebooks):
+                    F.scaled_dot_product_attention(q_lt, heads(k_lt[:cb + 1], cb + 1, 1),
+                                                   heads(v_lt[:cb + 1], cb + 1, 1))
+            return h
+        return body
+
+    def a_body(i, h):
+        return fs.frame_step(h, row, xa_k, xa_v, kc, vc, w, c, i, 0.7, 80, False,
+                             enc_length=enc)[2]
+
+    def five_body(i, h):
+        return ds.decode_step(h, row, xa_k, xa_v, kc, vc, w, c, enc_length=enc)
+
+    return {"A": a_body, "5": five_body, "A.library": library(True),
+            "5.library": library(False)}, hidden
+
+
+def time_persistent(dev) -> dict:
+    """Kernels A and 5 by CUDA-graph slope at B = 1, row 300, dense, in both
+    dtypes, in turns with their library composites (persistent_bodies); the
+    barrier probe's us a barrier. Returns {dtype: {"A" / "5": {graph_ms,
+    library_ms}}, "barrier": {...}} and logs each."""
+    import torch
+
+    from magpie_tts_tpu_torch.scripts import timing
+
+    out = {}
+    with torch.no_grad():
+        for dtype in ("float32", BF):
+            bodies, hidden = persistent_bodies(dev, dtype)
+            t = {}
+            for _ in range(2):   # in turns: kernel, library, library, kernel
+                for k in ("A", "A.library", "5", "5.library"):
+                    t.setdefault(k, []).append(
+                        timing.graph_slope(bodies[k], hidden, *PERSIST_N)["per_launch_ms"])
+            out[dtype] = {k: {"graph_ms": min(t[k]), "library_ms": min(t[f"{k}.library"])}
+                          for k in ("A", "5")}
+            log(f"persistent [{dtype}] (graph slopes a frame, B 1, row 300): kernel A "
+                f"{out[dtype]['A']['graph_ms']:.4f} ms (library composite "
+                f"{out[dtype]['A']['library_ms']:.4f}), kernel 5 "
+                f"{out[dtype]['5']['graph_ms']:.4f} ms (library composite "
+                f"{out[dtype]['5']['library_ms']:.4f})")
+            del bodies
+            torch.cuda.empty_cache()
+        out["barrier"] = barrier_cost(dev)
+    log(f"barrier probe: " + ", ".join(f"{k} {v:.4f}" for k, v in out["barrier"].items()))
+    return out
+
+
 FAMILY_B = (8, 32)           # the family slopes: slots, and the rows attended
 FAMILY_ROWS = (300, 630)
 
@@ -2154,6 +2282,33 @@ def recording_decodes(record: list):
         CodecEngine.decode = real
 
 
+# The launch sequence's kernels that kernels A and 5 ran before their
+# persistent redesign (kernels 4, C, 7 and 8 still run them).
+OLD_SEQUENCE = ("gemv_splitk_kernel", "combine_ln_kernel", "reduce_act_kernel",
+                "qkv_scatter_kernel", "lt_sample_kernel", "decoder_input_kernel",
+                "attention_scores_kernel", "attention_pv_kernel")
+
+
+@contextlib.contextmanager
+def device_trace():
+    """torch.profiler over the block, CPU and CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield prof
+
+
+def count_device_kernels(prof) -> dict:
+    """{device kernel name: launches} of a finished trace."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
 def reset_counts(kernels) -> None:
     for k in kernels:
         k.launches = 0
@@ -2165,7 +2320,7 @@ def reset_counts(kernels) -> None:
 def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
                   model: str = "magpie.gguf", flags=(), temp: float = 0.7,
                   q8_nodes: int = 0, dtype: str = "float32",
-                  fused_codec: bool = False) -> dict:
+                  fused_codec: bool = False, count_kernels: bool = False) -> dict:
     """cli.main at full width on random GGUFs with ``--dtype dtype``; checks
     the WAV and launch counts: kernel A once per loop step, or with ``split``
     (``--no-fused``) kernels 4 and 5 once per step and kernel A never; every
@@ -2173,8 +2328,12 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     ``--serve-int8``, else dense) and in ``dtype``, and with ``--serve-q8``
     kernel 10 once for each of the ``q8_nodes`` block-stored tensors; codec
     conv 92 per decode, or with ``fused_codec`` (MAGPIE_FUSED_CODEC=1) 38 and
-    kernel 9 three times. Returns the counts, frames/s, the WAV's bytes and
-    the codes the codec decoded."""
+    kernel 9 three times. With ``count_kernels`` the run is traced by
+    torch.profiler and its device kernels counted by name: the persistent
+    kernel (A, or 5 with ``split``) once a step, none of the launch
+    sequence's kernels that A and 5 ran before their redesign (fused), no
+    decoder-input kernel (split). Returns the counts, frames/s, the WAV's
+    bytes and the codes the codec decoded."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
@@ -2197,7 +2356,11 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     reset_counts(kernels)
     decoded = []
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err), fused_codec_env(fused_codec), recording_decodes(decoded):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stderr(err))
+        stack.enter_context(fused_codec_env(fused_codec))
+        stack.enter_context(recording_decodes(decoded))
+        prof = stack.enter_context(device_trace()) if count_kernels else None
         rc = cli.main(argv)
     wall = time.perf_counter() - t0
     frame_launches, lt_launches, dec_launches, conv_launches, deq_launches, res_launches = (
@@ -2224,6 +2387,19 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     if by_mode[stream_kernel][mode] != want_steps:
         raise AssertionError(f"{stream_kernel} launched {by_mode[stream_kernel]} by weight "
                              f"stream, want {want_steps} {mode} ({tag})")
+    device_kernels = {}
+    if prof is not None:
+        device_kernels = count_device_kernels(prof)
+        persistent = sum(n for k, n in device_kernels.items() if "frame_persistent_kernel" in k)
+        old_seq = sum(n for k, n in device_kernels.items() if any(o in k for o in OLD_SEQUENCE))
+        dec_input = sum(n for k, n in device_kernels.items() if "decoder_input_kernel" in k)
+        log(f"device kernels of {tag} (profiler): persistent {persistent} for {want_steps} "
+            f"steps, launch-sequence kernels {old_seq}, decoder-input kernels {dec_input}; "
+            f"fill / memset {sum(n for k, n in device_kernels.items() if 'ill' in k or 'emset' in k)}")
+        if persistent != want_steps or (old_seq if not split else dec_input):
+            raise AssertionError(f"{tag}: the persistent kernel ran {persistent}x for "
+                                 f"{want_steps} steps (launch-sequence kernels {old_seq}, "
+                                 f"decoder-input {dec_input})")
     want_codec = (38, 3) if fused_codec else (92, 0)
     if len(decoded) != 1 or (conv_launches, res_launches) != want_codec:
         raise AssertionError(f"codec conv / kernel 9 launched {conv_launches} / {res_launches}x "
@@ -2776,6 +2952,10 @@ def kernel_ptxas(build_log: str, kinds) -> list:
                 t = re.search(r"gemm_mma_kernelI(?:f|13__nv_bfloat16)Li(\d)ELi(\d)E", fn)
                 if t:
                     name += f"[{('dense', 'int8', 'q8')[int(t.group(1))]}, m16 tiles {t.group(2)}]"
+                t = re.search(r"frame_persistent_kernelI(?:f|13__nv_bfloat16)Li(\d)ELb(\d)E", fn)
+                if t:
+                    name += (f"[{('dense', 'int8', 'q8')[int(t.group(1))]}, "
+                             f"{'A' if t.group(2) == '1' else '5'}]")
         elif name and ("spill" in line or "registers" in line):
             out.append(f"{name}: {line.strip()}")
     return out
@@ -2810,6 +2990,8 @@ def main() -> int:
     for line in kernel_ptxas(build.build_log, ("attention_scores_kernel", "attention_pv_kernel",
                                                "gemm_mma_kernel")):
         log("  ptxas, frame families: " + line)
+    for line in kernel_ptxas(build.build_log, ("frame_persistent_kernel", "barrier_probe_kernel")):
+        log("  ptxas, persistent: " + line)
 
     fs_res = check_frame_step(dev)
     fsb_res = check_frame_step_batched(dev)
@@ -2821,6 +3003,11 @@ def main() -> int:
     bf_single = check_bf16_single(dev)
     bf_batched = check_bf16_batched(dev)
     invariance = {dt: check_batch_invariance(dev, dt) for dt in ("float32", BF)}
+    pers = time_persistent(dev)
+    for res, dt, k in ((fs_res, "float32", "A"), (split_res["dec"], "float32", "5"),
+                       (bf_single["A"], BF, "A"), (bf_single["5"], BF, "5")):
+        res.update(pers[dt][k], library_covers="cuBLAS matmul of the frame's products + SDPA "
+                                               "of its attentions, B 1, row 300")
     fam = time_families(dev)
     fsb_res["families"] = family_summary(fam["float32"], "C")
     splitb_res["dec"]["families"] = family_summary(fam["float32"], "8")
@@ -2859,8 +3046,8 @@ def main() -> int:
         warm = run_warmup(tmp, card)
         prep_ms = time_prepare(tmp, dev)
         # float32, as before
-        main_res = run_main_path(tmp, mcfg, ccfg, card)
-        split_main = run_main_path(tmp, mcfg, ccfg, card, split=True)
+        main_res = run_main_path(tmp, mcfg, ccfg, card, count_kernels=True)
+        split_main = run_main_path(tmp, mcfg, ccfg, card, split=True, count_kernels=True)
         serve_res = run_serve(tmp, mcfg, ccfg, card, dtype="float32")
         split_serve = run_serve(tmp, mcfg, ccfg, card, split=True, dtype="float32")
         quant_main = run_quantized_main_paths(tmp, mcfg, ccfg, card, nodes)
@@ -2929,6 +3116,13 @@ def main() -> int:
         f"{fr['dec']['graph_ms']:.4f}, 7 {fr['lt']['graph_ms']:.4f}; copy kernel a launch: graph "
         f"{probes['copy_minimal']['graph_ms'] * 1e3:.3f} us, eager "
         f"{probes['copy_minimal']['eager_ms'] * 1e3:.3f} us; on {card}")
+    log(f"summary, persistent frame kernels (CUDA-graph slopes, B 1, row 300, ms a frame; "
+        f"library composite in brackets): A float32 {pers['float32']['A']['graph_ms']:.4f} "
+        f"({pers['float32']['A']['library_ms']:.4f}), bf16 {pers[BF]['A']['graph_ms']:.4f} "
+        f"({pers[BF]['A']['library_ms']:.4f}); 5 float32 {pers['float32']['5']['graph_ms']:.4f} "
+        f"({pers['float32']['5']['library_ms']:.4f}), bf16 {pers[BF]['5']['graph_ms']:.4f} "
+        f"({pers[BF]['5']['library_ms']:.4f}); us a grid barrier "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pers["barrier"].items()) + f"; on {card}")
     fam_line = "; ".join(
         f"{dt} B{B} rows{rows}: " + ", ".join(
             f"{k} attention {fam[dt][B, rows][k]['attention']['ms']:.4f} (SDPA "
@@ -2952,7 +3146,8 @@ def main() -> int:
                                         "bound_simt_ms", "f64_err", "plain_f64_err",
                                         "kernel_signed_ulps", "plain_signed_ulps",
                                         "f64_within_1ulp", "plain_f64_within_1ulp",
-                                        "families") if k in res})
+                                        "families", "graph_ms", "library_covers")
+                    if k in res})
         return row
 
     streams = []

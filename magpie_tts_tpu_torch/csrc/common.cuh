@@ -145,7 +145,7 @@ __device__ __forceinline__ void block_layer_norm(const float* x, const T* w, O* 
 
 constexpr float kNegBig = -1e30f;          // masked score / logit (jnp's _NEG)
 constexpr int kSampleThreads = 1024;        // threads of an LT sampling block
-constexpr int kMaxVocab = 4 * kSampleThreads;
+constexpr int kMaxVocab = 4096;             // the largest vocabulary a sampler takes
 
 // The JAX package's int32 hash constants (magpie_tts_tpu/ops/sampling.py).
 constexpr uint32_t kMixA = 0x85EBCA6Bu;
@@ -182,14 +182,68 @@ __device__ __forceinline__ bool lt_forbidden(int v, int bos_id, int eos_id, int 
   return v == bos_id || (v >= bos_id + 2 && v <= bos_id + 7) || (forbid_eos && v == eos_id);
 }
 
-// One LT phase's draw by a block of kSampleThreads over the masked logits
-// lg[0:V] (each thread touches only v = tid + j * blockDim.x, so lg needs no
-// barrier): argmax with ties to the lowest index; at temperature >= 0.01 the
-// exact top-k set by 32-pass integer bisection on order_key and a Gumbel-max
-// draw with the noise of fmix32(base + v * kGolden). Every thread gets the
-// code; `amax` receives the argmax.
+// The k-th largest order_key of lg[0:V] (1 <= k <= V), by an exact radix
+// select: 4 passes of 8 bits from the top, each a 256-bin histogram in
+// shared memory (hist, 256 ints) of the keys that share the prefix found so
+// far, then a scan from the top bin by warp 0 for the bin that holds the
+// k-th key (sel, 2 ints). Any block size that is a multiple of 32 works;
+// every thread gets the key. The k-th largest key is one value, so the set
+// key >= it equals that of a 32-pass bisection on the same keys
+// (ops/sampling.exact_topk_mask), ties and all.
+__device__ __forceinline__ int block_kth_key(const float* lg, int V, int k, int* hist,
+                                             int* sel) {
+  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31;
+  uint32_t prefix = 0u, mask = 0u;
+  int rest = k;  // rank still to find among the keys with the prefix
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += bd) hist[i] = 0;
+    __syncthreads();
+    for (int v = tid; v < V; v += bd) {
+      const uint32_t u = (uint32_t)order_key(lg[v]) ^ 0x80000000u;  // unsigned order
+      if ((u & mask) == prefix) atomicAdd(hist + ((u >> shift) & 255u), 1);
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // lane l holds bins 255 - 8l down to 248 - 8l; counts above it by a scan
+      int c[8], own = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) own += (c[i] = hist[255 - 8 * lane - i]);
+      int incl = own;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(MAGPIE_FULL_MASK, incl, o);
+        if (lane >= o) incl += t;
+      }
+      int above = incl - own;
+      if (above < rest && rest <= incl) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (above < rest && rest <= above + c[i]) {
+            sel[0] = 255 - 8 * lane - i;
+            sel[1] = above;
+          }
+          above += c[i];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= (uint32_t)sel[0] << shift;
+    mask |= 255u << shift;
+    rest -= sel[1];
+    __syncthreads();  // sel and hist are rewritten by the next pass
+  }
+  return (int)(prefix ^ 0x80000000u);
+}
+
+// One LT phase's draw by one block over the masked logits lg[0:V] (each
+// thread touches only v = tid + j * blockDim.x, so lg needs no barrier):
+// argmax with ties to the lowest index; at temperature >= 0.01 the exact
+// top-k set, key >= the k-th largest order_key (block_kth_key), and a
+// Gumbel-max draw with the noise of fmix32(base + v * kGolden). Every thread
+// gets the code; `amax` receives the argmax. Any block size (a multiple of
+// 32) gives the same code.
 __device__ __forceinline__ int block_sample(const float* lg, int V, float temperature, int top_k,
-                                            uint32_t base, float* redv, int* redi, int& amax) {
+                                            uint32_t base, float* redv, int* redi, int* hist,
+                                            int& amax) {
   const int tid = threadIdx.x, bd = blockDim.x;
   float bv = -INFINITY;
   int bi = INT_MAX;
@@ -197,34 +251,13 @@ __device__ __forceinline__ int block_sample(const float* lg, int V, float temper
   amax = block_argmax(bv, bi, redv, redi);
   if (temperature < 0.01f) return amax;
 
-  const int k = min(top_k, V);
-  int kmin = INT_MAX, kmax = INT_MIN;
-  for (int v = tid; v < V; v += bd) {
-    const int key = order_key(lg[v]);
-    kmin = min(kmin, key);
-    kmax = max(kmax, key);
-  }
-  long long lo = block_min_int(kmin, redi);
-  long long hi = (long long)block_max_int(kmax, redi) + 1;
-  for (int it = 0; it < 32; ++it) {
-    const long long mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
-    int cnt = 0;
-    for (int j = 0; j < kMaxVocab / kSampleThreads; ++j) {
-      const int v = tid + j * bd;
-      cnt += __syncthreads_count(v < V && (long long)order_key(lg[v]) >= mid);
-    }
-    if (cnt >= k) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-  }
+  const int lo = block_kth_key(lg, V, min(top_k, V), hist, redi);
   const float t = fmaxf(temperature, 0.01f);
   float bz = -INFINITY;
   int bzi = INT_MAX;
   for (int v = tid; v < V; v += bd) {
     float z = kNegBig;
-    if ((long long)order_key(lg[v]) >= lo) {
+    if (order_key(lg[v]) >= lo) {
       const uint32_t hsh = fmix32(base + (uint32_t)v * kGolden);
       float u = (float)(hsh >> 8) * (1.0f / 16777216.0f);
       u = fminf(fmaxf(u, 1e-10f), 0.99999988f);

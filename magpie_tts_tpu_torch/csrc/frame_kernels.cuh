@@ -43,7 +43,7 @@ struct WeightRef {
 };
 
 template <class T>
-inline WeightRef<T> dense_ref(const T* w) {
+__host__ __device__ inline WeightRef<T> dense_ref(const T* w) {
   return WeightRef<T>{w, nullptr, nullptr, kStreamDense};
 }
 
@@ -87,11 +87,25 @@ __device__ __forceinline__ float4 load_w4(const WeightRef<T>& W, size_t k, int n
 
 // Sum over s of part[(s * B + b) * N + n], in order of s; the pointer steps
 // over the B * N floats between partial rows (no index arithmetic per load).
+// With kCo the loads go through L2 (a reader in the writer's launch). The
+// loads of up to 8 partials go out together before the ordered adds (a
+// loop that adds each load as it comes would wait one round trip a partial).
+template <bool kCo = false>
 __device__ __forceinline__ float sum_parts(const float* part, int S, int B, int N, int b, int n) {
   const size_t stride = (size_t)B * N;
   const float* p = part + (size_t)b * N + n;
   float v = 0.f;
-  for (int s = 0; s < S; ++s, p += stride) v += *p;
+  for (int s0 = 0; s0 < S; s0 += 8, p += 8 * stride) {
+    float t[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      t[i] = s0 + i < S ? (kCo ? __ldcg(p + i * stride) : p[i * stride]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (s0 + i < S) v += t[i];
+    }
+  }
   return v;
 }
 
@@ -126,20 +140,16 @@ __global__ void combine_ln_kernel(const float* __restrict__ part, int S, int N,
   if (ln_w) block_layer_norm<T>(xb, ln_w, h + (size_t)b * N, N, eps, red);
 }
 
-// The split paths' decoder input, one block per slot b: x[b] = x_in[b], or
-// rnd(x_in[b] + add) with add (the JAX decode step's embedding + position
-// row, a sum in T); h[b] = rnd(LayerNorm(x[b]) * ln_w).
+// The batched split path's decoder input (kernel 8), one block per slot b:
+// x[b] = x_in[b] (its embedding + position row, summed by the caller), h[b]
+// = rnd(LayerNorm(x[b]) * ln_w).
 template <class T>
-__global__ void decoder_input_kernel(const T* __restrict__ x_in, const T* __restrict__ add,
-                                     int N, float* x, const T* __restrict__ ln_w, float eps,
-                                     float* h) {
+__global__ void decoder_input_kernel(const T* __restrict__ x_in, int N, float* x,
+                                     const T* __restrict__ ln_w, float eps, float* h) {
   __shared__ float red[32];
   const int b = blockIdx.x;
   float* xb = x + (size_t)b * N;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float v = 0.f + ld(x_in[(size_t)b * N + n]);
-    xb[n] = add ? rnd<T>(v + ld(add[n])) : v;
-  }
+  for (int n = threadIdx.x; n < N; n += blockDim.x) xb[n] = 0.f + ld(x_in[(size_t)b * N + n]);
   block_layer_norm<T>(xb, ln_w, h + (size_t)b * N, N, eps, red);
 }
 
@@ -218,6 +228,10 @@ __global__ void qkv_scatter_kernel(const float* __restrict__ part, int S, int D,
 //    and the launches capture in a CUDA graph) sums the partials in chunk
 //    order and writes the output. No float atomics: every sum runs in a fixed
 //    order, so a frame gives the same bits on every run.
+// The two steps are device functions of one chunk, attn_scores_item and
+// attn_pv_item; the persistent frame kernel (frame_persistent.cuh) runs the
+// same items between two grid barriers and sums the chunk partials in its
+// consumer, in chunk order, so its outputs have the bits of these launches.
 constexpr int kAttnThreads = 128;   // threads of an attention block
 constexpr int kAttnMaxChunk = 64;   // rows of a chunk, at most
 constexpr int kAttnMaxDHead = 256;
@@ -284,9 +298,61 @@ struct RowLanes {
   __device__ int col(int j) const { return (l + j * lpr) * kVE; }
 };
 
+// How an attention reads what it reads. kCo (coherent) is for a reader in the
+// same launch as the writer (the persistent frame kernel): q, K / V and the
+// scores go through L2 (ld.global.cg), never through the non-coherent or L1
+// paths, which may hold a line another block has since rewritten. K / V rows
+// that no block writes during the launch (the encoder rows of the
+// cross-attention) and those of the separate attention launches go through
+// the read-only path (kCoKV false). A Sc
+// policy reads the scores: from global memory (ScGlobal<kCo>) or from the
+// block's own shared memory (ScPlain, the persistent kernel's LT attention).
+template <bool kCo>
+__device__ __forceinline__ uint4 ld_row16(const void* p) {
+  if constexpr (kCo) return __ldcg(reinterpret_cast<const uint4*>(p));
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+template <bool kCo>
+struct ScGlobal {
+  __device__ static float ld(const float* p) { return kCo ? __ldcg(p) : *p; }
+};
+struct ScPlain {
+  __device__ static float ld(const float* p) { return *p; }
+};
+
+// The barrier of the kAttnThreads threads that run one attention item:
+// named barrier 1 over the first kAttnThreads threads (the whole block of an
+// attention launch; the first four warps of a persistent block, whose other
+// warps never enter an item).
+__device__ __forceinline__ void attn_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kAttnThreads) : "memory");
+}
+// block_sum / block_max over the kAttnThreads threads of an item (the same
+// order: each warp's butterfly, then the warps in order).
+__device__ __forceinline__ float attn_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  attn_sync();
+  if (lane == 0) red[warp] = v;
+  attn_sync();
+  float t = 0.f;
+  for (int i = 0; i < kAttnThreads / 32; ++i) t += red[i];
+  return t;
+}
+__device__ __forceinline__ float attn_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_max(v);
+  attn_sync();
+  if (lane == 0) red[warp] = v;
+  attn_sync();
+  float t = red[0];
+  for (int i = 1; i < kAttnThreads / 32; ++i) t = fmaxf(t, red[i]);
+  return t;
+}
+
 // The 16-byte vectors of rows base + g + u * groups (u < kUnroll, rows < r1)
 // a lane reads; zeros past r1.
-template <class T, int U = RowLanes<T>::kUnroll, int P = RowLanes<T>::kPer>
+template <class T, bool kCo = false, int U = RowLanes<T>::kUnroll, int P = RowLanes<T>::kPer>
 __device__ __forceinline__ void load_rows(const T* m, int row_stride, int base, int r1,
                                           const RowLanes<T>& rl, uint4 (&v)[U][P]) {
 #pragma unroll
@@ -295,8 +361,7 @@ __device__ __forceinline__ void load_rows(const T* m, int row_stride, int base, 
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       v[u][j] = r < r1 && j < rl.per
-                    ? __ldg(reinterpret_cast<const uint4*>(m + (size_t)r * row_stride +
-                                                           rl.col(j)))
+                    ? ld_row16<kCo>(m + (size_t)r * row_stride + rl.col(j))
                     : make_uint4(0u, 0u, 0u, 0u);
     }
   }
@@ -307,30 +372,30 @@ __device__ __forceinline__ int attn_rows(const AttnCall<T>& a, int b) {
   return a.rows_dev ? min(max(a.rows_dev[b], 1), a.rows) : a.rows;
 }
 
-template <class T>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_scores_kernel(const AttnCall<T> a, const AttnWork w, int chunk) {
-  __shared__ __align__(16) float qs[kAttnMaxDHead];
+// Step 1 of one attention item, chunk c of (slot b of B, head h): q (into
+// qs, kAttnMaxDHead floats of shared memory), then the scaled, masked scores
+// of the chunk's rows into sc_bh[r] (the (slot, head)'s scores). Run by
+// threads 0 .. kAttnThreads - 1.
+template <class T, bool kCo, bool kCoKV = kCo>
+__device__ __forceinline__ void attn_scores_item(const AttnCall<T>& a, float* sc_bh, int chunk,
+                                                 int c, int h, int b, int B, float* qs) {
   constexpr int VE = RowLanes<T>::kVE;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y, B = gridDim.z;
   const int tid = threadIdx.x;
-  if (c == 0 && tid == 0) w.tk[b * H + h] = 0;
   const int r0 = c * chunk, r1 = min(attn_rows(a, b), r0 + chunk);
   if (r0 >= r1) return;
   const int off = h * a.d_head;
   const RowLanes<T> rl(a.d_head);
   const T* kb = a.K + b * a.slot_stride + off;
-  float* sc = w.sc + ((size_t)b * H + h) * a.rows;
   // The first rows' K loads go out before q is summed: they do not wait on it.
   constexpr int P = RowLanes<T>::kPer, U = RowLanes<T>::kUnroll;
   uint4 kv[U][P];
-  load_rows<T>(kb, a.row_stride, r0, r1, rl, kv);
+  load_rows<T, kCoKV>(kb, a.row_stride, r0, r1, rl, kv);
   for (int d = tid; d < a.d_head; d += kAttnThreads) {
-    qs[d] = rnd<T>(sum_parts(a.qpart, a.Sq, B, a.Nq, b, off + d));
+    qs[d] = rnd<T>(sum_parts<kCo>(a.qpart, a.Sq, B, a.Nq, b, off + d));
   }
-  __syncthreads();
+  attn_sync();
   for (int base = r0; base < r1; base += rl.groups * U) {
-    if (base != r0) load_rows<T>(kb, a.row_stride, base, r1, rl, kv);
+    if (base != r0) load_rows<T, kCoKV>(kb, a.row_stride, base, r1, rl, kv);
     float dot[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -358,27 +423,38 @@ attention_scores_kernel(const AttnCall<T> a, const AttnWork w, int chunk) {
           ok = a.new_valid && r == a.write_row ? a.new_valid[b] != 0
                                                : a.valid[(size_t)b * a.valid_stride + r] != 0;
         }
-        sc[r] = ok ? dot[u] * a.scale : kNegBig;
+        sc_bh[r] = ok ? dot[u] * a.scale : kNegBig;
       }
     }
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_pv_kernel(const AttnCall<T> a, const AttnWork w, int chunk, int nch) {
-  __shared__ float red[32];
-  __shared__ float pr[kAttnMaxChunk];
-  __shared__ float grp[kAttnThreads * 8];  // [groups][d_head] group sums
-  __shared__ int last;
+// Shared memory of step 2: the reduction slots, a chunk's probabilities and
+// the row groups' sums ([groups][d_head]).
+struct AttnSmem {
+  float* red;  // 32
+  float* pr;   // kAttnMaxChunk
+  float* grp;  // kAttnThreads * 8
+};
+
+// Step 2 of one attention item: the max and the sum of exp(s - max) over all
+// the (slot, head)'s scores sc_bh (every chunk's item reduces them in the same
+// order, so all hold the same two numbers), the chunk's probabilities
+// rnd(exp(s - m) / sum) and its float32 partial of p . V, summed over the row
+// groups in order. With direct and a single chunk the output row is written,
+// rounded to T (out_bh: the (slot, head)'s d_head outputs); otherwise the
+// partial goes to po_bh[c * d_head + d]. Returns the chunk count of the slot
+// (0 when chunk c has no rows; nothing is written then).
+template <class T, bool kCoKV, class Sc>
+__device__ __forceinline__ int attn_pv_item(const AttnCall<T>& a, const float* sc_bh,
+                                            float* out_bh, float* po_bh, bool direct, int chunk,
+                                            int c, int h, int b, const AttnSmem& sm) {
   constexpr int VE = RowLanes<T>::kVE;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int tid = threadIdx.x;
   const int n_rows = attn_rows(a, b);
   const int nc = (n_rows + chunk - 1) / chunk;
-  if (c >= nc) return;
+  if (c >= nc) return 0;
   const int r0 = c * chunk, r1 = min(n_rows, r0 + chunk);
-  const float* sc = w.sc + ((size_t)b * H + h) * a.rows;
   const int off = h * a.d_head;
   const RowLanes<T> rl(a.d_head);
   const T* vb = a.V + b * a.slot_stride + off;
@@ -388,33 +464,33 @@ attention_pv_kernel(const AttnCall<T> a, const AttnWork w, int chunk, int nch) {
   // memory.
   constexpr int P = RowLanes<T>::kPer, U = RowLanes<T>::kUnroll;
   uint4 vv[U][P];
-  load_rows<T>(vb, a.row_stride, r0, r1, rl, vv);
+  load_rows<T, kCoKV>(vb, a.row_stride, r0, r1, rl, vv);
   constexpr int kScoreRegs = 8;
   float sv[kScoreRegs];
 #pragma unroll
   for (int i = 0; i < kScoreRegs; ++i) {
     const int r = tid + i * kAttnThreads;
-    sv[i] = r < n_rows ? sc[r] : -INFINITY;
+    sv[i] = r < n_rows ? Sc::ld(sc_bh + r) : -INFINITY;
   }
-  const float mine = r0 + tid < r1 ? sc[r0 + tid] : 0.f;
+  const float mine = r0 + tid < r1 ? Sc::ld(sc_bh + r0 + tid) : 0.f;
   float m = -INFINITY;
 #pragma unroll
   for (int i = 0; i < kScoreRegs; ++i) m = fmaxf(m, sv[i]);
   for (int r = tid + kScoreRegs * kAttnThreads; r < n_rows; r += kAttnThreads) {
-    m = fmaxf(m, sc[r]);
+    m = fmaxf(m, Sc::ld(sc_bh + r));
   }
-  m = block_max(m, red);
+  m = attn_max(m, sm.red);
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < kScoreRegs; ++i) {
     if (tid + i * kAttnThreads < n_rows) s += expf(sv[i] - m);
   }
   for (int r = tid + kScoreRegs * kAttnThreads; r < n_rows; r += kAttnThreads) {
-    s += expf(sc[r] - m);
+    s += expf(Sc::ld(sc_bh + r) - m);
   }
-  s = block_sum(s, red);
-  if (r0 + tid < r1) pr[tid] = rnd<T>(expf(mine - m) / s);
-  __syncthreads();
+  s = attn_sum(s, sm.red);
+  if (r0 + tid < r1) sm.pr[tid] = rnd<T>(expf(mine - m) / s);
+  attn_sync();
 
   float acc[P][VE];
 #pragma unroll
@@ -422,12 +498,12 @@ attention_pv_kernel(const AttnCall<T> a, const AttnWork w, int chunk, int nch) {
 #pragma unroll
     for (int e = 0; e < VE; ++e) acc[j][e] = 0.f;
   for (int base = r0; base < r1; base += rl.groups * U) {
-    if (base != r0) load_rows<T>(vb, a.row_stride, base, r1, rl, vv);
+    if (base != r0) load_rows<T, kCoKV>(vb, a.row_stride, base, r1, rl, vv);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = base + rl.g + u * rl.groups;
       if (r < r1) {
-        const float p = pr[r - r0];
+        const float p = sm.pr[r - r0];
 #pragma unroll
         for (int j = 0; j < P; ++j) {
           float v[VE];
@@ -442,22 +518,51 @@ attention_pv_kernel(const AttnCall<T> a, const AttnWork w, int chunk, int nch) {
   for (int j = 0; j < P; ++j) {
     if (j < rl.per) {
 #pragma unroll
-      for (int e = 0; e < VE; ++e) grp[rl.g * a.d_head + rl.col(j) + e] = acc[j][e];
+      for (int e = 0; e < VE; ++e) sm.grp[rl.g * a.d_head + rl.col(j) + e] = acc[j][e];
     }
   }
-  __syncthreads();
-  float* ob = a.out + (size_t)b * a.Nq + off;
-  float* po = w.po + ((size_t)b * H + h) * nch * a.d_head;
+  attn_sync();
   for (int d = tid; d < a.d_head; d += kAttnThreads) {
     float o = 0.f;
-    for (int gg = 0; gg < rl.groups; ++gg) o += grp[gg * a.d_head + d];
-    if (nc == 1) {
-      ob[d] = rnd<T>(o);
+    for (int gg = 0; gg < rl.groups; ++gg) o += sm.grp[gg * a.d_head + d];
+    if (direct && nc == 1) {
+      out_bh[d] = rnd<T>(o);
     } else {
-      po[(size_t)c * a.d_head + d] = o;
+      po_bh[(size_t)c * a.d_head + d] = o;
     }
   }
-  if (nc == 1) return;
+  return nc;
+}
+
+template <class T>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_scores_kernel(const AttnCall<T> a, const AttnWork w, int chunk) {
+  __shared__ __align__(16) float qs[kAttnMaxDHead];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y, B = gridDim.z;
+  if (c == 0 && threadIdx.x == 0) w.tk[b * H + h] = 0;
+  attn_scores_item<T, false>(a, w.sc + ((size_t)b * H + h) * a.rows, chunk, c, h, b, B, qs);
+}
+
+// Step 2 as a launch: the last block of a (slot, head) to finish (an integer
+// ticket, set to 0 by launch 1's chunk-0 block, so no reset is left for the
+// host and the launches capture in a CUDA graph) sums the partials in chunk
+// order and writes the output.
+template <class T>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_pv_kernel(const AttnCall<T> a, const AttnWork w, int chunk, int nch) {
+  __shared__ float red[32];
+  __shared__ float pr[kAttnMaxChunk];
+  __shared__ float grp[kAttnThreads * 8];  // [groups][d_head] group sums
+  __shared__ int last;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
+  const int tid = threadIdx.x;
+  const int off = h * a.d_head;
+  float* ob = a.out + (size_t)b * a.Nq + off;
+  float* po = w.po + ((size_t)b * H + h) * nch * a.d_head;
+  const int nc = attn_pv_item<T, false, ScGlobal<false>>(
+      a, w.sc + ((size_t)b * H + h) * a.rows, ob, po, true, chunk, c, h, b,
+      AttnSmem{red, pr, grp});
+  if (nc <= 1) return;
   __threadfence();
   __syncthreads();
   if (tid == 0) last = atomicAdd(w.tk + b * H + h, 1) == nc - 1;
@@ -519,6 +624,7 @@ lt_sample_kernel(const float* __restrict__ part, int S, int V, const T* __restri
   __shared__ float lg[kMaxVocab];
   __shared__ float redv[32];
   __shared__ int redi[32];
+  __shared__ int hist[256];
   const int tid = threadIdx.x, bd = blockDim.x;
   const int b = blockIdx.x, B = gridDim.x;
   const int forbid = forbid_eos ? forbid_eos[b] : forbid_eos1;
@@ -530,7 +636,7 @@ lt_sample_kernel(const float* __restrict__ part, int S, int V, const T* __restri
   }
   int amax;
   const int code = block_sample(lg, V, temperature, top_k, seed + (uint32_t)cb * kPhaseC, redv,
-                                redi, amax);
+                                redi, hist, amax);
 
   const bool last = cb == ncb - 1;
   const bool to_decoder = last && x != nullptr;

@@ -1,11 +1,12 @@
 // The host launch sequences of a decode frame, shared by every frame entry
 // point: lt_phases (the 8 local-transformer phases and their sampling) and
-// decoder_layers (the cached decoder step). frame_step.cu runs them for one
-// slot through its split-K GEMV, frame_step_batched.cu for B slots through its
-// batched GEMM. A fused frame is lt_phases + decoder_layers; the split path's
-// LT sampler runs lt_phases alone, its decoder step decoder_input +
-// decoder_layers. Both entry points of a pair therefore launch the same
-// kernels in the same order with the same arguments. Everything is templated
+// decoder_layers (the cached decoder step). frame_step_batched.cu runs them
+// for B slots through its batched GEMM: a fused frame (kernel C) is
+// lt_phases + decoder_layers, the split path's LT sampler (7) lt_phases
+// alone, its decoder step (8) decoder_input + decoder_layers, so both entry
+// points of the pair launch the same kernels in the same order with the
+// same arguments. frame_step.cu runs lt_phases for one slot through its
+// split-K GEMV (kernel 4); kernels A and 5 are frame_persistent.cuh's. Everything is templated
 // on the compute dtype T of the weights, caches and hidden rows (float or
 // __nv_bfloat16); a frame's float32 workspace is the same in both.
 
@@ -27,14 +28,14 @@ struct StreamW {
   int mode;
 
   // Layer l's [K, N] matrix.
-  WeightRef<T> layer(int l, int K, int N) const {
+  __host__ __device__ WeightRef<T> layer(int l, int K, int N) const {
     const size_t kn = (size_t)K * N;
     if (mode == kStreamDense) return WeightRef<T>{w + l * kn, nullptr, nullptr, mode};
     const size_t sl = mode == kStreamInt8 ? (size_t)N : (size_t)(K / 32) * N;
     return WeightRef<T>{nullptr, q + l * kn, s + l * sl, mode};
   }
   // The reducer's column scale of layer l (int8 only).
-  const float* col_scale(int l, int N) const {
+  __host__ __device__ const float* col_scale(int l, int N) const {
     return mode == kStreamInt8 ? s + (size_t)l * N : nullptr;
   }
 };
@@ -144,12 +145,11 @@ int lt_phases(const FrameSeq<T>& s, const Matmul& mm, bool seed_decoder, cudaStr
   return 0;
 }
 
-// The split path's decoder input: x[b] = x_in[b] (or rnd(x_in[b] + add),
-// one add row for all slots), h[b] = LayerNorm_0(x[b]) (what the fused
-// frame's last LT phase writes).
+// The batched split path's decoder input: x[b] = x_in[b], h[b] =
+// LayerNorm_0(x[b]) (what the fused frame's last LT phase writes).
 template <class T>
-int decoder_input(const FrameSeq<T>& s, const T* x_in, const T* add, cudaStream_t st) {
-  decoder_input_kernel<T><<<s.B, kRt, 0, st>>>(x_in, add, s.D, s.x, s.norm_self, s.eps, s.h);
+int decoder_input(const FrameSeq<T>& s, const T* x_in, cudaStream_t st) {
+  decoder_input_kernel<T><<<s.B, kRt, 0, st>>>(x_in, s.D, s.x, s.norm_self, s.eps, s.h);
   MAGPIE_CHECK_LAUNCH();
   return 0;
 }

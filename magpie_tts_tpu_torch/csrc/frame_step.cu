@@ -12,45 +12,31 @@
 //   magpie_tts_tpu/ops/pallas_kernels/decoder_step.py (decode_step_pallas),
 //   with the same three weight streams.
 // The split path (--no-fused) runs kernel 4, the embedding in torch, then
-// kernel 5; all three run frame_sequence.cuh's launch sequences.
+// kernel 5.
 //
-// The TPU kernels are sequential grids that carry the LT buffer, the residual
-// and the DMA double buffers in VMEM from step to step. Hopper blocks carry
-// nothing between launches, so here a frame is a fixed sequence of small
-// kernels on one stream and every carried value (LT rows, residual x, K/V
-// rows, codes, the embedding sum) lives in a workspace in device memory that
-// the wrapper allocates.
-//
-// What bounds them on the card: the decoder step reads every decoder weight
-// once (~349 MB in float32 at 357M width, half in bf16) plus the K/V cache
-// rows <= pos, the LT sampler ~20 MB of LT weights and heads; both do ~2
-// flops per weight read,
-// far below the card's compute/byte ratio, so device memory bandwidth is the
-// floor (~0.11 ms for the decoder step at pos 300, ~6 us for the sampler;
-// the int8 and Q8_0 streams read the four streamed matrices at a quarter of
-// their float32 bytes, plus their scales: ~0.04 ms) and
-// the launches (157 for the decoder step, 104 for the sampler, 260 for a
-// fused frame) sit above it: the sampler is latency-bound. The design answers
-// the bandwidth side only: every matrix-vector product is a split-K GEMV whose
-// grid covers all SMs with 16-byte loads on consecutive columns, and partial
-// sums are reduced in a fixed order by the next kernel (no atomics, so the
-// bits do not change from run to run). The per-slot kernels (reductions,
-// attention, LT sampling) are frame_kernels.cuh's, launched for one slot (the
-// attention's rows split into chunks, a block each, so 12 heads at 300 rows
-// fill the card); the GEMV is this file's own. Fewer launches (CUDA graphs,
-// fusion) are later work.
+// Kernels A and 5 are one persistent, cooperative launch a frame
+// (frame_persistent.cuh: the design and what bounds it). Kernel 4 is still
+// frame_sequence.cuh's launch sequence (lt_phases) through this file's
+// split-K GEMV: every matrix-vector product a GEMV whose grid covers all SMs
+// with 16-byte loads on consecutive columns, its partial sums reduced in a
+// fixed order by the next kernel (no atomics, so the bits do not change from
+// run to run); the LT sampler reads ~20 MB of LT weights and heads (~6 us at
+// 3.35 TB/s) and its 104 launches sit far above that: it is latency-bound.
 //
 // Numerics follow the plain versions (frame_step_reference, the LT sampler's
 // sample_frame_codes, decode_step): float32 residual carry, exact-erf GELU via
 // erff, softmax as exp(s - max) / sum, the Gumbel noise via logf, argmax ties
-// to the lowest index, and the exact top-k set by 32-pass integer bisection
-// on the monotone key of the float bits. The bfloat16 entry points keep
+// to the lowest index, and the exact top-k set by a radix select on the
+// monotone key of the float bits. The bfloat16 entry points keep
 // weights, caches and hidden rows in bf16 (half the weight bytes) and round
 // to bf16 exactly where the Pallas kernels do (frame_kernels.cuh); products
 // of bf16 values are exact in float32, so a bf16 frame differs from its
 // plain version only by the order of its float32 sums.
 
-#include "frame_sequence.cuh"
+#include <algorithm>
+#include <mutex>
+
+#include "frame_persistent.cuh"
 
 namespace {
 
@@ -196,11 +182,21 @@ struct FrameStepArgs {
   float* att_sc;
   float* att_po;
   int* att_tk;
+  // the persistent kernels (A, 5): the second partial buffer, the grid
+  // barrier's arrival count (zeroed by the wrapper) and the optional phase
+  // stamps (null: none)
+  float* part2;
+  unsigned* bar;
+  unsigned long long* stamps;
   // dims and scalars
   int d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
   int lt_dim, lt_ffn, n_cb, vocab, part_cap;
   int pos, enc_len, seed, top_k, forbid_eos, audio_bos_id, audio_eos_id, gelu_tanh;
   int stream_mode, sa_chunk, xa_chunk, lt_chunk;
+  // the persistent kernels' plan (ops/kernels/frame_step.py plan_frame):
+  // the grid (0: the co-resident maximum), the stamp buffer's phases, the K
+  // splits of the narrow products and the tile width
+  int grid, stamp_cap, split_lt_in, split_lt_sa, split_lt_ff, split_xa_q, tile_cols;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
@@ -257,18 +253,107 @@ struct Gemv {
   }
 };
 
-// Kernel A: one fused frame, LT sampling from `hidden` then the decoder at pos.
-template <class T>
-int frame_step(const FrameStepArgs* a, void* stream) {
-  if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
-    return (int)cudaErrorInvalidValue;
+// Blocks of a persistent kernel an SM on the current device, at its shared
+// memory (cached per kernel, device and size: the occupancy query runs once).
+int blocks_per_sm(const void* kernel, int smem, int* n_sm) {
+  struct Entry {
+    const void* kernel;
+    int device, smem, blocks, sms;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int used = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    if (cache[i].kernel == kernel && cache[i].device == dev && cache[i].smem == smem) {
+      *n_sm = cache[i].sms;
+      return cache[i].blocks;
+    }
   }
+  int blocks = 0, sms = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kPThreads, smem) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return -1;
+  }
+  if (used < 64) cache[used++] = Entry{kernel, dev, smem, blocks, sms};
+  *n_sm = sms;
+  return blocks;
+}
+
+// Whether an attention of the frame fits the items (attend's conditions).
+template <class T>
+bool attn_fits(int d_head, int row_stride, int chunk) {
+  constexpr int VE = RowLanes<T>::kVE;
+  const int vpr = d_head / VE;
+  return chunk >= 16 && chunk <= kAttnMaxChunk && chunk % 16 == 0 && d_head % VE == 0 &&
+         vpr >= 1 && vpr <= 32 * RowLanes<T>::kPer && (vpr & (vpr - 1)) == 0 &&
+         d_head <= kAttnMaxDHead && row_stride % VE == 0;
+}
+
+// Kernels A (kLT) and 5: one cooperative launch of the persistent kernel.
+// Refuses a plan it does not take (cudaErrorInvalidValue); a grid that cannot
+// be co-resident is refused by the launch itself
+// (cudaErrorCooperativeLaunchTooLarge). There is no other path.
+template <class T, int MODE, bool kLT>
+int launch_persistent(const FrameStepArgs& a, cudaStream_t st) {
+  const FrameSeq<T> s = seq_of<T>(a);
+  const int kmax = std::max(std::max(std::max(s.D, s.F), std::max(s.LT, s.LF)), s.X);
+  const int smem = psmem_layout(kmax, s.D, s.LT, s.V).words * 4;
+  const int splits[] = {a.split_lt_in, a.split_lt_sa, a.split_lt_ff, a.split_xa_q};
+  bool ok = a.tile_cols == kTileCols && a.bar != nullptr && a.part2 != nullptr &&
+            smem <= 227 * 1024 && s.V <= kMaxVocab && std::max(s.D, std::max(s.F, s.LF)) <= 4096 &&
+            s.ncb <= s.lt_chunk &&
+            s.lt_chunk <= kOneChunkRows && s.xa_chunk <= kOneChunkRows && a.grid >= 0 &&
+            attn_fits<T>(s.D / s.n_heads, s.D, s.sa_chunk) &&
+            attn_fits<T>(s.X / s.xa_heads, s.X, s.xa_chunk) &&
+            attn_fits<T>(s.LT, s.LT, s.lt_chunk) && (a.stamps == nullptr || a.stamp_cap > 0);
+  for (const int sp : splits) ok = ok && sp >= 1 && sp <= kMaxSplit;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  Persist<T> p{s, a.part2, a.bar, a.stamps, a.stamp_cap,
+               a.split_lt_in, a.split_lt_sa, a.split_lt_ff, a.split_xa_q};
+  const void* kernel = reinterpret_cast<const void*>(&frame_persistent_kernel<T, MODE, kLT>);
+  int n_sm = 0;
+  const int per_sm = blocks_per_sm(kernel, smem, &n_sm);
+  if (per_sm < 0) {
+    const cudaError_t e = cudaGetLastError();
+    return e != cudaSuccess ? (int)e : (int)cudaErrorUnknown;
+  }
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  const int grid = a.grid > 0 ? a.grid : std::min(per_sm, kBlocksPerSm) * n_sm;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kPThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, frame_persistent_kernel<T, MODE, kLT>, p);
+  // Reading the last error clears it: a refused launch must not fail the next one.
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)last;
+}
+
+template <class T, bool kLT>
+int persistent(const FrameStepArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const FrameSeq<T> s = seq_of<T>(*a);
-  const Gemv<T> mm{a->part_cap};
-  int err = lt_phases(s, mm, true, st);
-  if (!err) err = decoder_layers(s, mm, st);
-  return err ? err : (int)cudaGetLastError();
+  switch (a->stream_mode) {
+    case kStreamDense:
+      return launch_persistent<T, kStreamDense, kLT>(*a, st);
+    case kStreamInt8:
+      return launch_persistent<T, kStreamInt8, kLT>(*a, st);
+    case kStreamQ8:
+      return launch_persistent<T, kStreamQ8, kLT>(*a, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Kernel 4 (the split path's LT sampler): the codes of `hidden` only.
@@ -279,27 +364,33 @@ int lt_sample(const FrameStepArgs* a, void* stream) {
   return err ? err : (int)cudaGetLastError();
 }
 
-// Kernel 5 (the split path's decoder step): `hidden` holds the frame
-// embedding; the decoder runs on hidden + pos_emb[pos] at row pos.
-template <class T>
-int decode_step(const FrameStepArgs* a, void* stream) {
-  if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const FrameSeq<T> s = seq_of<T>(*a);
-  int err = decoder_input(s, s.hidden, s.posemb, st);
-  if (!err) err = decoder_layers(s, Gemv<T>{a->part_cap}, st);
-  return err ? err : (int)cudaGetLastError();
-}
-
 }  // namespace
 
+// The barrier probe (barrier_probe_kernel): n grid barriers in one
+// cooperative launch of `grid` blocks (0: two an SM) on bar (a zeroed count).
+extern "C" int magpie_barrier_probe(unsigned* bar, int n, int grid, void* stream) {
+  int n_sm = 0;
+  const void* kernel = reinterpret_cast<const void*>(&barrier_probe_kernel);
+  if (blocks_per_sm(kernel, 0, &n_sm) < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid > 0 ? grid : 2 * n_sm);
+  cfg.blockDim = dim3(kPThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, barrier_probe_kernel, bar, n);
+  const cudaError_t last = cudaGetLastError();  // cleared, as in launch_persistent
+  return err != cudaSuccess ? (int)err : (int)last;
+}
+
 extern "C" int magpie_frame_step_f32(const FrameStepArgs* a, void* stream) {
-  return frame_step<float>(a, stream);
+  return persistent<float, true>(a, stream);
 }
 extern "C" int magpie_frame_step_bf16(const FrameStepArgs* a, void* stream) {
-  return frame_step<__nv_bfloat16>(a, stream);
+  return persistent<__nv_bfloat16, true>(a, stream);
 }
 extern "C" int magpie_lt_sample_f32(const FrameStepArgs* a, void* stream) {
   return lt_sample<float>(a, stream);
@@ -308,8 +399,8 @@ extern "C" int magpie_lt_sample_bf16(const FrameStepArgs* a, void* stream) {
   return lt_sample<__nv_bfloat16>(a, stream);
 }
 extern "C" int magpie_decode_step_f32(const FrameStepArgs* a, void* stream) {
-  return decode_step<float>(a, stream);
+  return persistent<float, false>(a, stream);
 }
 extern "C" int magpie_decode_step_bf16(const FrameStepArgs* a, void* stream) {
-  return decode_step<__nv_bfloat16>(a, stream);
+  return persistent<__nv_bfloat16, false>(a, stream);
 }

@@ -546,7 +546,7 @@ int decode_step_batched(const FrameStepBatchedArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FrameSeq<T> s = seq_of<T>(*a);
   s.new_valid = nullptr;  // attention reads row write_row from valid like any row
-  int err = decoder_input(s, s.hidden, static_cast<const T*>(nullptr), st);
+  int err = decoder_input(s, s.hidden, st);
   if (!err) err = decoder_layers(s, gemm_of<T>(*a), st);
   return err ? err : (int)cudaGetLastError();
 }

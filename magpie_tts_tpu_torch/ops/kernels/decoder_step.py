@@ -7,7 +7,8 @@ Q8DecoderStream, as for kernel A): the 12 cached decoder layers at one
 position, from a frame embedding to which the position embedding is added
 inside. On CUDA
 tensors it launches the ``magpie_decode_step_f32`` / ``_bf16`` entry point
-of csrc/frame_step.cu (kernel A's decoder sequence; x's dtype picks one) or
+of csrc/frame_step.cu (kernel A's persistent kernel without its LT phases:
+one cooperative launch, csrc/frame_persistent.cuh; x's dtype picks one) or
 raises; on CPU tensors
 it runs ``decode_step_reference``, the plain ``models.decoder.decode_step``.
 
@@ -48,13 +49,15 @@ def decode_step_reference(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: t
 def decode_step(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor, weights: MagpieWeights,
                 config: MagpieConfig, enc_length: Optional[int] = None,
-                stream=None) -> torch.Tensor:
+                stream=None, grid: Optional[int] = None,
+                stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decoder step: x [d_model] is the frame embedding WITHOUT the
     position embedding (added here: pos_emb[pos]); the new K/V row is written
     at ``pos`` of caches [L, max_seq, d_model] before attending to rows
     [0, pos]; xa_k / xa_v [L, enc, d_xa] with the first ``enc_length`` rows
     valid; ``stream`` supplies the four streamed matrices when given.
-    Returns hidden [d_model]."""
+    ``grid`` and ``stamps`` as for ``frame_step.frame_step``. Returns hidden
+    [d_model]."""
     global launches
     if x.device.type == "cpu":
         return decode_step_reference(x, pos, xa_k, xa_v, k_cache, v_cache, weights, config,
@@ -71,7 +74,7 @@ def decode_step(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tenso
                **fs.cache_tensors(k_cache, v_cache, xa_k, xa_v, c),
                **fs.decoder_weight_tensors(weights, c, stream)}
     fs.launch(fs.entry_name(ENTRY, dtype), tensors, dict(hidden_out=hidden_out), c, x.device,
-              stream, dtype, **scalars)
+              stream, dtype, persistent=True, grid=grid or 0, stamps=stamps, **scalars)
     launches += 1
     mode_launches[fs.MODES[fs.stream_mode(stream)]] += 1
     fs.count_dtype(dtype_launches, dtype)

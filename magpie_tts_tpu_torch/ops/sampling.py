@@ -164,6 +164,33 @@ def exact_topk_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
     return keys >= lo
 
 
+def radix_topk_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """EXACT top-k membership by the kernels' radix select (csrc/common.cuh
+    ``block_kth_key``): the k-th largest monotone key, found 8 bits at a time
+    from the top (a 256-bin histogram of the keys that share the prefix so
+    far, the bin that holds the k-th), then ``keys >= it``. One value, so the
+    same set as ``exact_topk_mask``'s bisection; k > n admits every entry."""
+    bits = logits.float().contiguous().view(torch.int32).to(torch.int64)
+    keys = torch.where(bits >= 0, bits, -2**31 - bits)
+    u = keys + 2**31                                  # the unsigned order of the keys
+    k = min(int(k), logits.shape[-1])
+    lead = logits.shape[:-1]
+    prefix = torch.zeros(*lead, 1, dtype=torch.int64)
+    mask = 0
+    rest = torch.full((*lead, 1), k, dtype=torch.int64)
+    bins = torch.arange(256, dtype=torch.int64)
+    for shift in (24, 16, 8, 0):
+        digit = (u >> shift) & 255
+        match = (u & mask) == prefix
+        hist = ((digit[..., None] == bins) & match[..., None]).sum(-2)       # [..., 256]
+        at_or_above = hist.flip(-1).cumsum(-1).flip(-1)                     # count(digit >= d)
+        top = 255 - (at_or_above >= rest).flip(-1).int().argmax(-1, keepdim=True)
+        rest = rest - (at_or_above.gather(-1, top) - hist.gather(-1, top))
+        prefix = prefix | (top << shift)
+        mask |= 255 << shift
+    return keys >= prefix - 2**31
+
+
 def forbidden_token_mask(vocab_size: int, audio_bos_id: int = 2016,
                          device=None) -> torch.Tensor:
     """Additive float32 mask [vocab] for the always-forbidden specials
