@@ -15,19 +15,15 @@
 // kernel 5.
 //
 // Kernels A and 5 are one persistent, cooperative launch a frame
-// (frame_persistent.cuh: the design and what bounds it). Kernel 4 is still
-// frame_sequence.cuh's launch sequence (lt_phases) through this file's
-// split-K GEMV: every matrix-vector product a GEMV whose grid covers all SMs
-// with 16-byte loads on consecutive columns, its partial sums reduced in a
-// fixed order by the next kernel (no atomics, so the bits do not change from
-// run to run); the LT sampler reads ~20 MB of LT weights and heads (~6 us at
-// 3.35 TB/s) and its 104 launches sit far above that: it is latency-bound.
+// (frame_persistent.cuh: the design and what bounds it). Kernel 4 is one
+// launch a frame on thread-block clusters (lt_persistent.cuh), the launch
+// kernels 7 and C run for B slots.
 //
 // Numerics follow the plain versions (frame_step_reference, the LT sampler's
 // sample_frame_codes, decode_step): float32 residual carry, exact-erf GELU via
 // erff, softmax as exp(s - max) / sum, the Gumbel noise via logf, argmax ties
-// to the lowest index, and the exact top-k set by a radix select on the
-// monotone key of the float bits. The bfloat16 entry points keep
+// to the lowest index, and the exact top-k set (common.cuh block_sample) on
+// the monotone key of the float bits. The bfloat16 entry points keep
 // weights, caches and hidden rows in bf16 (half the weight bytes) and round
 // to bf16 exactly where the Pallas kernels do (frame_kernels.cuh); products
 // of bf16 values are exact in float32, so a bf16 frame differs from its
@@ -37,81 +33,7 @@
 #include <mutex>
 
 #include "frame_persistent.cuh"
-
-namespace {
-
-constexpr int kGemvThreads = 256;   // 8 warps; one float4 column per lane
-constexpr int kTargetBlocks = 264;  // 2 blocks per SM on a 132-SM card
-
-// part[s, n] = sum over k in split s of rnd<T>(x[k]) * W[k, n]. W is
-// row-major [K, N] with N % 4 == 0 in mode MODE (load_w4: four dense T
-// weights, or a char4 of int8 values, times their float4 of Q8_0 block
-// scales); a lane owns 4 consecutive columns, the 8 warps of a block stride
-// over the split's rows, and warp 0 adds the 8 warp sums in order. The split
-// count and the fmaf chain do not depend on the mode, so a Q8_0 stream gives
-// the same bits as its copy dequantized in T; an int8 stream's column scale
-// is applied by the reducer.
-template <int MODE, class X, class T>
-__global__ void __launch_bounds__(kGemvThreads)
-gemv_splitk_kernel(const X* __restrict__ x, const WeightRef<T> W, float* __restrict__ part,
-                   int K, int N, int kchunk) {
-  __shared__ float4 red[kGemvThreads / 32][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n4 = N >> 2;
-  const int c = blockIdx.x * 32 + lane;
-  const int k0 = blockIdx.y * kchunk;
-  const int k1 = min(K, k0 + kchunk);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (c < n4) {
-#pragma unroll 4
-    for (int k = k0 + warp; k < k1; k += kGemvThreads / 32) {
-      const float xv = rnd<T>(load_x(x + k));
-      const float4 w = load_w4<MODE>(W, (size_t)k, n4, c);
-      acc.x = fmaf(xv, w.x, acc.x);
-      acc.y = fmaf(xv, w.y, acc.y);
-      acc.z = fmaf(xv, w.z, acc.z);
-      acc.w = fmaf(xv, w.w, acc.w);
-    }
-  }
-  red[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0 && c < n4) {
-    float4 s = red[0][lane];
-    for (int w = 1; w < kGemvThreads / 32; ++w) {
-      s.x += red[w][lane].x;
-      s.y += red[w][lane].y;
-      s.z += red[w][lane].z;
-      s.w += red[w][lane].w;
-    }
-    reinterpret_cast<float4*>(part + (size_t)blockIdx.y * N)[c] = s;
-  }
-}
-
-// Launches the split-K GEMV of x[K] @ W[K, N]; returns the split count S,
-// which depends on K, N and part_cap only (not on W's mode).
-template <class X, class T>
-int launch_gemv(const X* x, const WeightRef<T>& W, float* part, int K, int N, int part_cap,
-                cudaStream_t st) {
-  const int tiles = (N / 4 + 31) / 32;
-  int S = (kTargetBlocks + tiles - 1) / tiles;
-  S = min(S, part_cap);
-  S = max(1, min(S, K / (kGemvThreads / 32)));
-  const int kchunk = (K + S - 1) / S;
-  S = (K + kchunk - 1) / kchunk;
-  const dim3 grid(tiles, S);
-  if (W.mode == kStreamInt8) {
-    gemv_splitk_kernel<kStreamInt8, X, T><<<grid, kGemvThreads, 0, st>>>(x, W, part, K, N,
-                                                                        kchunk);
-  } else if (W.mode == kStreamQ8) {
-    gemv_splitk_kernel<kStreamQ8, X, T><<<grid, kGemvThreads, 0, st>>>(x, W, part, K, N, kchunk);
-  } else {
-    gemv_splitk_kernel<kStreamDense, X, T><<<grid, kGemvThreads, 0, st>>>(x, W, part, K, N,
-                                                                         kchunk);
-  }
-  return S;
-}
-
-}  // namespace
+#include "lt_persistent.cuh"
 
 // Field order and types mirror FrameStepArgs in ops/kernels/frame_step.py.
 // The void pointers hold the entry point's compute dtype (float for _f32,
@@ -170,15 +92,10 @@ struct FrameStepArgs {
   float* attn;
   float* f;
   float* xa;
-  float* lt_x;
-  float* lt_h;
   float* lt_q;
   float* lt_k;
   float* lt_v;
-  float* lt_attn;
   float* lt_f;
-  float* emb_row;
-  float* emb_acc;
   float* att_sc;
   float* att_po;
   int* att_tk;
@@ -188,15 +105,21 @@ struct FrameStepArgs {
   float* part2;
   unsigned* bar;
   unsigned long long* stamps;
+  // the LT launch (kernel 4): optional logits [n_cb, vocab] and the plan
+  // written back ({CTAs a cluster, clusters, slots a cluster})
+  float* lt_logits;
+  int* lt_plan;
   // dims and scalars
   int d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
-  int lt_dim, lt_ffn, n_cb, vocab, part_cap;
+  int lt_dim, lt_ffn, n_cb, vocab;
   int pos, enc_len, seed, top_k, forbid_eos, audio_bos_id, audio_eos_id, gelu_tanh;
   int stream_mode, sa_chunk, xa_chunk, lt_chunk;
   // the persistent kernels' plan (ops/kernels/frame_step.py plan_frame):
   // the grid (0: the co-resident maximum), the stamp buffer's phases, the K
   // splits of the narrow products and the tile width
   int grid, stamp_cap, split_lt_in, split_lt_sa, split_lt_ff, split_xa_q, tile_cols;
+  // the LT launch's plan requests (0: the launch's choice; tests)
+  int lt_clusters, lt_ctas;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
@@ -233,25 +156,14 @@ FrameSeq<T> seq_of(const FrameStepArgs& a) {
   s.write_row = a.pos, s.rows = a.pos + 1, s.enc_len = a.enc_len;
   s.hidden_out = static_cast<T*>(a.hidden_out);
   s.part = a.part, s.x = a.x, s.h = a.h, s.q = a.q, s.attn = a.attn, s.f = a.f, s.xa = a.xa;
-  s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q;
+  s.lt_q = a.lt_q, s.lt_f = a.lt_f;
   s.lt_k = reinterpret_cast<T*>(a.lt_k), s.lt_v = reinterpret_cast<T*>(a.lt_v);
-  s.lt_attn = a.lt_attn, s.lt_f = a.lt_f, s.emb_row = a.emb_row, s.emb_acc = a.emb_acc;
   s.att = AttnWork{a.att_sc, a.att_po, a.att_tk};
   s.sa_chunk = a.sa_chunk, s.xa_chunk = a.xa_chunk, s.lt_chunk = a.lt_chunk;
   s.eps = a.eps, s.sa_scale = a.sa_scale, s.xa_scale = a.xa_scale, s.lt_scale = a.lt_scale;
   s.gelu_tanh = a.gelu_tanh;
   return s;
 }
-
-template <class T>
-struct Gemv {
-  int cap;
-  template <class X>
-  int operator()(const X* x, const WeightRef<T>& W, float* part, int K, int N,
-                 cudaStream_t st) const {
-    return launch_gemv(x, W, part, K, N, cap, st);
-  }
-};
 
 // Blocks of a persistent kernel an SM on the current device, at its shared
 // memory (cached per kernel, device and size: the occupancy query runs once).
@@ -356,12 +268,12 @@ int persistent(const FrameStepArgs* a, void* stream) {
   }
 }
 
-// Kernel 4 (the split path's LT sampler): the codes of `hidden` only.
+// Kernel 4 (the split path's LT sampler): the codes of `hidden` only, one
+// LT launch (one cluster), with the optional stamps of lt_persistent.cuh.
 template <class T>
 int lt_sample(const FrameStepArgs* a, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = lt_phases(seq_of<T>(*a), Gemv<T>{a->part_cap}, false, st);
-  return err ? err : (int)cudaGetLastError();
+  return lt_launch<T, 1>(seq_of<T>(*a), false, a->lt_logits, a->lt_ctas, a->lt_clusters,
+                         a->lt_plan, static_cast<cudaStream_t>(stream), a->stamps, a->stamp_cap);
 }
 
 }  // namespace
@@ -384,6 +296,21 @@ extern "C" int magpie_barrier_probe(unsigned* bar, int n, int grid, void* stream
   const cudaError_t err = cudaLaunchKernelEx(&cfg, barrier_probe_kernel, bar, n);
   const cudaError_t last = cudaGetLastError();  // cleared, as in launch_persistent
   return err != cudaSuccess ? (int)err : (int)last;
+}
+
+// The cluster-barrier probe (cluster_barrier_probe_kernel): n cluster
+// barriers in one launch of one cluster of `ctas` CTAs.
+extern "C" int magpie_cluster_barrier_probe(int n, int ctas, void* stream) {
+  return lt_barrier_probe(n, ctas, static_cast<cudaStream_t>(stream));
+}
+
+// The draw probe (draw_probe_kernel): each of `rows` blocks draws its row of
+// lg [rows, V] `reps` times.
+extern "C" int magpie_draw_probe(const float* lg, int V, int rows, int reps, float temperature,
+                                 int top_k, const int* seeds, int* codes, int* amax,
+                                 void* stream) {
+  return lt_draw_probe(lg, V, rows, reps, temperature, top_k, seeds, codes, amax,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int magpie_frame_step_f32(const FrameStepArgs* a, void* stream) {

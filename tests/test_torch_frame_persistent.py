@@ -112,7 +112,7 @@ def test_workspace_and_shared_memory_fit(name):
     c = CONFIGS[name]
     smem = fs.smem_bytes(c)
     assert fs.BLOCKS_PER_SM * smem <= 228 * 1024 and smem <= fs.SMEM_LIMIT
-    sizes = fs.workspace_sizes(c, persistent=True)
+    sizes = fs.workspace_sizes(c)
     for rows in (1, 64, 65, c.max_seq):
         plan = fs.plan_frame(c, 20, True)
         for p in plan.products:
