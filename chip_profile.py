@@ -26,23 +26,19 @@ stream: kernels A and 5 (single stream) and C and 8 (B=8) at 357M width,
     row 300, temp 0.7, with each weight stream (dense float32, int8 columns,
     Q8_0 blocks): host wall ms, device ms in all and by kernel family, and
     launches per frame, as ``split`` reports them.
-slope: kernels A and 5 (B = 1), the LT launch as kernel 4 (B = 1, temp 0.7
-    and 0), kernel 7 (B = 8, 32, 64) and kernel C (B = 8, 32) at 357M width,
-    row 300, temp 0.7, dense float32 and bf16: device ms a frame by CUDA-graph
-    slope (scripts/timing.py graph_slope, SLOPE_N frames a graph), and the
-    grid- and cluster-barrier probes' us a barrier; with ``--root DIR``
-    another checkout's kernels, so parent and change time in turns in one
-    call.
+slope: kernels A and 5 (B = 1), kernel 4 (B = 1, temp 0.7 and 0), kernel 7
+    (B = 8, 32, 64) and kernel C (B = 8, 32) at 357M width, row 300, temp
+    0.7, dense float32 and bf16: device ms a frame by CUDA-graph slope
+    (scripts/timing.py graph_slope, SLOPE_N frames a graph), and the
+    grid-barrier probe's us a barrier; with ``--root DIR`` another
+    checkout's kernels, so parent and change time in turns in one call.
     The persistent kernels (A, 5 since their redesign) are also broken down
     in ``frame``, ``split`` and ``stream`` by their phase stamps (block 0's
     %globaltimer at each phase's start, prologue end and barrier arrival):
     ms a frame in GEMV work, attention, LayerNorm / epilogue, sampling and
     barrier wait (``stamp_ms``), and the barriers counted.
-lt: the LT launch's rows of ``slope`` alone (kernels 4 and 7), the
-    cluster-barrier probe, the draw probe (``profile_draw``) and kernel A's
-    LT phases by its stamps (``profile_a_lt_span``: the plain persistent
-    form of the LT sampler at B = 1), kernel 7 at several cluster plans
-    (``profile_lt_plans``).
+lt: the LT samplers' rows of ``slope`` alone (kernels 4 and 7), and kernel
+    4's phase-stamp breakdown in both dtypes (``profile_lt_stamps``).
 serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
@@ -84,7 +80,7 @@ FAMILIES = {"persistent": ("frame_persistent_kernel",),
             "attention": ("attention_scores_kernel", "attention_pv_kernel", "attention_kernel"),
             "gemm": ("gemm_mma_kernel", "gemm_splitk_kernel"), "gemv": ("gemv_splitk_kernel",),
             "combine_ln": ("combine_ln_kernel", "decoder_input_kernel"),
-            "lt_launch": ("lt_cluster_kernel",),
+            "lt_persistent": ("lt_persistent_kernel",),
             "lt_sample": ("lt_sample_kernel",), "reduce_act": ("reduce_act_kernel",),
             "qkv_scatter": ("qkv_scatter_kernel",)}
 
@@ -212,8 +208,7 @@ def profile_slope(dev, lt_only: bool = False) -> None:
     300, temp 0.7): kernel A and 5 at B = 1, kernel 4 at B = 1 and at temp 0
     (the difference over 8 codebooks: the draw's top-k and Gumbel passes),
     kernel 7 at LT_SLOPE_B slots and kernel C at C_SLOPE_B slots; then the
-    grid-barrier and cluster-barrier probes where the package has them.
-    ``lt_only``: the LT launch's rows alone (4 and 7)."""
+    grid-barrier probe. ``lt_only``: the LT samplers' rows alone (4 and 7)."""
     import torch
 
     from chip_smoke import prod_weights
@@ -295,155 +290,30 @@ def profile_slope(dev, lt_only: bool = False) -> None:
         from chip_smoke import barrier_cost
 
         emit({"phase": "slope", "path": "barrier_probe", **barrier_cost(dev, SLOPE_N)})
-    if hasattr(fs, "cluster_barrier_probe"):
-        emit({"phase": "slope", "path": "cluster_barrier_probe",
-              **cluster_barrier_cost(dev, SLOPE_N)})
 
 
-DRAW_REPS = (4, 36)   # the draw probe: draws a launch, lo / hi
-
-
-def profile_draw(dev) -> None:
-    """The draw alone (frame_step.draw_probe, one block of 256 threads a row)
-    on the masked logits kernel 4 writes at 357M (float32, 8 codebooks of a
-    frame), by CUDA-graph slope over draws a launch, at temp 0.7 / top_k 80,
-    at temp 0 (the argmax pass alone) and at top_k 1 and V (the Gumbel pass
-    over one logit and over all); codes against the plain draw."""
+def profile_lt_stamps(dev) -> None:
+    """Kernel 4 at B = 1, dense, float32 and bf16, temp 0.7: the stamp
+    breakdown of one frame by phase group and by phase name
+    (frame_step.plan_lt)."""
     import torch
 
     from chip_smoke import prod_weights
     from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
     from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
-    from magpie_tts_tpu_torch.scripts import timing
 
-    c, w = prod_weights(dev)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    hidden = torch.randn(c.d_model, generator=gen, device=dev)
-    lg = torch.empty(c.num_codebooks, c.vocab_per_cb, device=dev)
-    seeds = torch.arange(c.num_codebooks, dtype=torch.int32, device=dev) * 977
-    with torch.no_grad():
-        lts.sample_frame_codes(hidden, w, c, 11, 0.7, 80, False, logits=lg)
-        got = fs.draw_probe(lg, seeds, 0.7, 80)
-        want = fs.draw_reference(lg.cpu(), seeds.cpu(), 0.7, 80)
-        lo, hi = DRAW_REPS
-        out = {}
-        for name, temp, k in (("k80", 0.7, 80), ("argmax", 0.0, 80), ("k1", 0.7, 1),
-                              ("kV", 0.7, c.vocab_per_cb)):
-            ms = {}
-            for reps in (lo, hi):
-                def body(i, h, reps=reps, temp=temp, k=k):
-                    fs.draw_probe(lg, seeds, temp, k, reps=reps)
-                    return h
-                ms[reps] = timing.graph_slope(body, lg, *SLOPE_N)["per_launch_ms"]
-            out[f"us_per_draw_{name}"] = (ms[hi] - ms[lo]) * 1e3 / (hi - lo)
-        stamps = torch.zeros(1 + 1024, dtype=torch.int64, device=dev)
-        spans = []
-        for i in range(4):   # the first warms up
-            lts.sample_frame_codes(hidden, w, c, 11, 0.7, 80, False, stamps=stamps)
-            torch.cuda.synchronize()
-            spans.append(lts.read_stamps(stamps, c.num_codebooks))
-        emit({"phase": "lt_stamps", "path": "lt_sampler", "B": 1, "dtype": "float32",
-              "us_a_frame": {k: round(sum(s[k] for s in spans[1:]) / 3, 3) for k in spans[0]}})
-    equal = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
-    emit({"phase": "slope", "path": "draw_probe", "rows": c.num_codebooks, "V": c.vocab_per_cb,
-          "codes_equal_plain": equal, **out})
-
-
-LT_PLANS = {8: ((16, 2), (16, 4), (16, 8), (8, 8)), 32: ((8, 8), (8, 16), (16, 8), (8, 32)),
-            64: ((8, 16), (8, 32), (16, 16), (8, 64))}   # B: ((CTAs a cluster, clusters), ...)
-
-
-def profile_lt_plans(dev) -> None:
-    """Kernel 7 by CUDA-graph slope (float32, temp 0.7) at the cluster plans
-    of LT_PLANS beside the launch's own choice: what the choice of cluster
-    size and count moves."""
-    import torch
-
-    from chip_smoke import prod_weights
-    from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
-    from magpie_tts_tpu_torch.scripts import timing
-
-    c, w = prod_weights(dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    hidden = torch.randn(64, c.d_model, generator=gen, device=dev)
-    seeds = torch.arange(64, dtype=torch.int32, device=dev)
-    forbid = torch.zeros(64, dtype=torch.bool, device=dev)
-    with torch.no_grad():
-        for B, plans in LT_PLANS.items():
-            for ctas, clusters in ((0, 0),) + plans:
-                def body(i, h, B=B, ctas=ctas, clusters=clusters):
-                    ltsb.sample_frame_codes_batched(h, w, c, seeds[:B], 0.7, 80, forbid[:B],
-                                                    clusters=clusters, cluster_ctas=ctas)
-                    return h
-                try:
-                    ms = timing.graph_slope(body, hidden[:B].contiguous(), *SLOPE_N)
-                    emit({"phase": "lt_plan", "B": B, "asked": [ctas, clusters],
-                          "plan": ltsb.last_plan, "graph_ms": ms["per_launch_ms"]})
-                except RuntimeError as e:
-                    emit({"phase": "lt_plan", "B": B, "asked": [ctas, clusters],
-                          "refused": str(e)[:120]})
-
-
-def profile_a_lt_span(dev) -> None:
-    """The plain persistent form of the LT sampler at B = 1: kernel A's LT
-    phases (A's phase table without its decoder, grid barriers between
-    phases, every block drawing) timed by A's phase stamps, dense, both
-    dtypes, row 300, temp 0.7: block 0's time from the frame's start to the
-    end of the last codebook's draw (the first decoder phase's prologue)."""
-    import torch
-
-    from chip_smoke import prod_weights
-    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
-
+    if not hasattr(fs, "plan_lt"):
+        return
     for dtype in ("float32", "bfloat16"):
         c, w = prod_weights(dev, dtype)
-        T = w.decoder.qkv.dtype
-        S, L, D, E, row = c.max_seq, c.dec_layers, c.d_model, 32, 300
         gen = torch.Generator(device=dev).manual_seed(0)
-        rnd = lambda *shape, s=0.5: (torch.randn(*shape, generator=gen, device=dev) * s).to(T)
-        one = dict(xa_k=rnd(L, E, c.d_xa), xa_v=rnd(L, E, c.d_xa), k_cache=rnd(L, S, D),
-                   v_cache=rnd(L, S, D), weights=w, config=c, enc_length=E)
-        hidden = rnd(D, s=1.0)
-        n_lt = 6 * c.num_codebooks
-        spans = []
+        hidden = torch.randn(c.d_model, generator=gen, device=dev).to(w.decoder.qkv.dtype)
         with torch.no_grad():
-            for _ in range(4):   # the first warms up
-                stamps = torch.zeros(1 + fs.STAMP_WORDS * 512, dtype=torch.int64, device=dev)
-                fs.frame_step(hidden, row, seed=7, temperature=0.7, top_k=80, forbid_eos=False,
-                              stamps=stamps, **one)
-                torch.cuda.synchronize()
-                recs = fs.read_stamps(stamps)
-                spans.append((recs[n_lt]["pro_end"] - recs[0]["start"]) / 1e3)
-        emit({"phase": "lt_span", "path": "frame_step", "dtype": dtype, "B": 1, "row": row,
-              "lt_phases_us": sum(spans[1:]) / 3, "spans_us": spans[1:]})
-        del one
+            run = lambda st: lts.sample_frame_codes(hidden, w, c, 7, 0.7, 80, False, stamps=st)
+            emit({"phase": "lt_stamps", "path": "lt_sampler", "dtype": dtype, "B": 1,
+                  "temperature": 0.7, **stamp_breakdown(run, fs.plan_lt(c))})
+        del w
         torch.cuda.empty_cache()
-
-
-CLUSTER_BARRIERS = (16, 528)   # the cluster-barrier probe: barriers a launch, lo / hi
-
-
-def cluster_barrier_cost(dev, n=SLOPE_N) -> dict:
-    """us a cluster barrier of the LT launch (barrier.cluster arrive / wait):
-    graph slopes of frame_step.cluster_barrier_probe at CLUSTER_BARRIERS
-    barriers a launch, one cluster of 8 and of 16 CTAs."""
-    import torch
-
-    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
-    from magpie_tts_tpu_torch.scripts import timing
-
-    anchor = torch.zeros(1, device=dev)
-    lo, hi = CLUSTER_BARRIERS
-    out = {}
-    for ctas in (8, 16):
-        ms = {}
-        for count in (lo, hi):
-            def body(i, h, count=count, ctas=ctas):
-                fs.cluster_barrier_probe(count, ctas, dev)
-                return h
-            ms[count] = timing.graph_slope(body, anchor, *n)["per_launch_ms"]
-        out[f"us_per_cluster_barrier_{ctas}"] = (ms[hi] - ms[lo]) * 1e3 / (hi - lo)
-    return out
 
 
 def profile_frame(dev) -> None:
@@ -829,16 +699,7 @@ def main() -> int:
         profile_slope(dev)
     if what == "lt":
         profile_slope(dev, lt_only=True)
-        from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
-
-        if hasattr(fs, "draw_probe"):
-            profile_draw(dev)
-        if hasattr(fs, "read_stamps"):
-            profile_a_lt_span(dev)
-        from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
-
-        if hasattr(ltsb, "last_plan"):
-            profile_lt_plans(dev)
+        profile_lt_stamps(dev)
     if what in ("split", "fused", "all"):
         profile_split(dev, split=what != "fused")
     if what in ("stream", "all"):

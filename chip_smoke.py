@@ -1511,11 +1511,7 @@ def lt_flips(hidden, sampled, argmax, w, c, seed, temp, top_k, forbid):
     differ from the plain LT sampler fed the kernel's earlier codes, as
     (phase, gap, ulp): the plain winner's score minus the kernel's code's
     (in logits; at temp >= 0.01 the Gumbel score times temp) and one bf16
-    ulp of the winner's logit. A flip is a near-tie when gap < ulp. A drawn
-    code that differs where the kernel's code or the plain winner lies
-    within one bf16 ulp of the plain k-th largest logit (the top-k set's
-    edge, which a one-ulp change of a logit moves) is a near-tie of the
-    top-k set: its gap is 0 against that ulp."""
+    ulp of the winner's logit. A flip is a near-tie when gap < ulp."""
     import math
 
     import torch
@@ -1534,23 +1530,18 @@ def lt_flips(hidden, sampled, argmax, w, c, seed, temp, top_k, forbid):
         hid = lt_mod._lt_layer_f32(seq, lt, c)[cb]
         logits = matmul_f32(hid.to(hidden.dtype), lt.out_proj_w[cb]) + lt.out_proj_b[cb].float()
         logits = sampling.mask_logits(logits, mask, bool(forbid), c.audio_eos_id)
-        scored = [(logits, int(argmax[cb]), 1.0, None)]
+        scored = [(logits, int(argmax[cb]), 1.0)]
         if temp >= 0.01:
-            k = min(top_k, c.vocab_per_cb)
-            in_topk = sampling.exact_topk_mask(logits, k)
+            in_topk = sampling.exact_topk_mask(logits, min(top_k, c.vocab_per_cb))
             g = sampling.gumbel_from_seed(sampling.phase_seed(int(seed), cb).to(dev), cols)
             z = torch.where(in_topk, logits / temp + g, torch.full_like(logits, sampling.NEG_INF))
-            scored.append((z, int(sampled[cb]), temp, float(logits.topk(k).values[-1])))
-        ulp_of = lambda v: 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v != 0 else 0.0
-        for z, got, scale, kth in scored:
+            scored.append((z, int(sampled[cb]), temp))
+        for z, got, scale in scored:
             want = int(torch.argmax(z))
             if got != want:
-                ulp = ulp_of(float(logits[want]))
-                gap = float(z[want] - z[got]) * scale
-                if kth is not None and any(abs(float(logits[v]) - kth) < ulp_of(kth)
-                                           for v in (got, want)):
-                    gap, ulp = 0.0, ulp_of(kth)   # the top-k set's edge
-                flips.append((cb, gap, ulp))
+                lw = abs(float(logits[want]))
+                ulp = 2.0 ** (math.floor(math.log2(lw)) - 7) if lw > 0 else 0.0
+                flips.append((cb, float(z[want] - z[got]) * scale, ulp))
         if cb < c.num_codebooks - 1:
             seq[cb + 1] = lt_mod._in_proj(w.audio_emb[cb, int(sampled[cb])], lt)
     return flips
@@ -2004,40 +1995,13 @@ def time_persistent(dev) -> dict:
 
 
 LT_B = (8, 32, 64)            # kernel 7's graph slopes: slots
-CLUSTER_BARRIERS = (16, 528)  # the cluster-barrier probe: barriers a launch, lo / hi
-
-
-def cluster_barrier_cost(dev, n=PERSIST_N) -> dict:
-    """us a cluster barrier of the LT launch (barrier.cluster arrive / wait):
-    graph slopes of the cluster-barrier probe (frame_step.
-    cluster_barrier_probe) at CLUSTER_BARRIERS barriers a launch, one
-    cluster of 8 and of 16 CTAs."""
-    import torch
-
-    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
-    from magpie_tts_tpu_torch.scripts import timing
-
-    anchor = torch.zeros(1, device=dev)
-    lo, hi = CLUSTER_BARRIERS
-    out = {}
-    for ctas in (8, 16):
-        ms = {}
-        for count in (lo, hi):
-            def body(i, h, count=count, ctas=ctas):
-                fs.cluster_barrier_probe(count, ctas, dev)
-                return h
-            ms[count] = timing.graph_slope(body, anchor, *n)["per_launch_ms"]
-        out[f"us_per_cluster_barrier_{ctas}"] = (ms[hi] - ms[lo]) * 1e3 / (hi - lo)
-    return out
 
 
 def time_lt_launch(dev) -> dict:
-    """The LT launch by CUDA-graph slope at 357M, dense, both dtypes, temp
+    """The LT samplers by CUDA-graph slope at 357M, dense, both dtypes, temp
     0.7: kernel 4 at B = 1 (and at temp 0: the difference over the 8
     codebooks is the draw's top-k and Gumbel passes, ``draw_us``), kernel 7
-    at LT_B slots with the plan it ran; the cluster-barrier probe. Returns
-    {dtype: {"4": ..., "7": {B: ...}}, "cluster_barrier": {...}} and logs
-    each."""
+    at LT_B slots. Returns {dtype: {"4": ..., "7": {B: ...}}} and logs each."""
     import torch
 
     from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
@@ -2069,28 +2033,25 @@ def time_lt_launch(dev) -> dict:
             t07 = timing.graph_slope(four(0.7), hidden[0], *PERSIST_N)["per_launch_ms"]
             t0 = timing.graph_slope(four(0.0), hidden[0], *PERSIST_N)["per_launch_ms"]
             res = {"4": {"graph_ms": t07, "graph_ms_temp0": t0,
-                         "draw_us": (t07 - t0) * 1e3 / c.num_codebooks, "plan": lts.last_plan},
-                   "7": {}}
+                         "draw_us": (t07 - t0) * 1e3 / c.num_codebooks}, "7": {}}
             for B in LT_B:
                 ms = timing.graph_slope(seven(B), hidden[:B].contiguous(), *PERSIST_N)
-                res["7"][B] = {"graph_ms": ms["per_launch_ms"], "plan": ltsb.last_plan}
+                res["7"][B] = {"graph_ms": ms["per_launch_ms"]}
             out[dtype] = res
-            log(f"LT launch [{dtype}] (graph slopes a frame, temp 0.7): kernel 4 B 1 "
+            log(f"LT samplers [{dtype}] (graph slopes a frame, temp 0.7): kernel 4 B 1 "
                 f"{t07:.4f} ms (temp 0 {t0:.4f}; the draw {res['4']['draw_us']:.2f} us a "
-                f"codebook; plan {lts.last_plan}); kernel 7 " + ", ".join(
-                    f"B {B} {res['7'][B]['graph_ms']:.4f} ms (plan {res['7'][B]['plan']})"
-                    for B in LT_B))
-        out["cluster_barrier"] = cluster_barrier_cost(dev)
-    log("cluster-barrier probe: " + ", ".join(f"{k} {v:.4f}"
-                                             for k, v in out["cluster_barrier"].items()))
+                f"codebook); kernel 7 " + ", ".join(
+                    f"B {B} {res['7'][B]['graph_ms']:.4f} ms" for B in LT_B))
     return out
 
 
 def count_lt_device_kernels(dev) -> dict:
     """One frame of kernel 4 (B = 1), kernel 7 (B = 8) and kernel C (B = 8)
-    at 357M, each traced alone by torch.profiler: 4 and 7 are one device
-    kernel (the LT launch), C's LT part is that launch too, and none of the
-    LT launch sequence's kernels they ran before runs."""
+    at 357M, each traced alone by torch.profiler: kernel 4 is one device
+    kernel (the persistent LT launch) beside the fill that zeroes its
+    barrier count, and none of the LT launch sequence's kernels; 7 and C
+    run that sequence (frame_sequence.cuh lt_phases), and their device
+    kernels a frame are counted."""
     import torch
 
     from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
@@ -2114,17 +2075,18 @@ def count_lt_device_kernels(dev) -> dict:
                 run()
                 torch.cuda.synchronize()
             kernels = count_device_kernels(prof)
-            lt = sum(n for k, n in kernels.items() if "lt_cluster_kernel" in k)
-            old = sum(n for k, n in kernels.items() if "lt_sample_kernel" in k
-                      or "gemv_splitk_kernel" in k)
-            out[name] = {"device_kernels": sum(kernels.values()), "lt_launches": lt,
-                         "old_sequence": old}
+            lt = sum(n for k, n in kernels.items() if "lt_persistent_kernel" in k)
+            seq = sum(n for k, n in kernels.items() if any(o in k for o in OLD_SEQUENCE))
+            fills = sum(n for k, n in kernels.items() if "ill" in k or "emset" in k)
+            out[name] = {"device_kernels": sum(kernels.values()) - fills, "fills": fills,
+                         "lt_launches": lt, "sequence_kernels": seq}
     log("device kernels a frame (profiler): " + "; ".join(
-        f"{k}: {v['device_kernels']} in all, LT launch {v['lt_launches']}, old LT sequence "
-        f"{v['old_sequence']}" for k, v in out.items()))
-    for name, v in out.items():
-        if v["lt_launches"] != 1 or v["old_sequence"] or (name != "C" and v["device_kernels"] != 1):
-            raise AssertionError(f"kernel {name}: {v} (want one LT launch a frame)")
+        f"{k}: {v['device_kernels']} in all (and {v['fills']} fill / memset), persistent LT "
+        f"launch {v['lt_launches']}, LT sequence kernels {v['sequence_kernels']}"
+        for k, v in out.items()))
+    four = out["4"]
+    if four["lt_launches"] != 1 or four["device_kernels"] != 1 or four["sequence_kernels"]:
+        raise AssertionError(f"kernel 4: {four} (want one persistent launch a frame)")
     return out
 
 
@@ -2464,8 +2426,8 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     conv 92 per decode, or with ``fused_codec`` (MAGPIE_FUSED_CODEC=1) 38 and
     kernel 9 three times. With ``count_kernels`` the run is traced by
     torch.profiler and its device kernels counted by name: the persistent
-    kernel (A, or 5 with ``split``) once a step, the LT launch (kernel 4)
-    once a step with ``split`` and never without, none of the launch
+    kernel (A, or 5 with ``split``) once a step, kernel 4's persistent LT
+    launch once a step with ``split`` and never without, none of the launch
     sequence's kernels that A, 4 and 5 ran before their redesigns. Returns
     the counts, frames/s, the WAV's bytes and the codes the codec decoded."""
     from magpie_tts_tpu_torch import cli
@@ -2526,7 +2488,7 @@ def run_main_path(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
         device_kernels = count_device_kernels(prof)
         persistent = sum(n for k, n in device_kernels.items() if "frame_persistent_kernel" in k)
         old_seq = sum(n for k, n in device_kernels.items() if any(o in k for o in OLD_SEQUENCE))
-        lt = sum(n for k, n in device_kernels.items() if "lt_cluster_kernel" in k)
+        lt = sum(n for k, n in device_kernels.items() if "lt_persistent_kernel" in k)
         log(f"device kernels of {tag} (profiler): persistent {persistent} for {want_steps} "
             f"steps, LT launches {lt}, launch-sequence kernels {old_seq}; fill / memset "
             f"{sum(n for k, n in device_kernels.items() if 'ill' in k or 'emset' in k)}")
@@ -3090,9 +3052,6 @@ def kernel_ptxas(build_log: str, kinds) -> list:
                 if t:
                     name += (f"[{('dense', 'int8', 'q8')[int(t.group(1))]}, "
                              f"{'A' if t.group(2) == '1' else '5'}]")
-                t = re.search(r"lt_cluster_kernelI(?:f|13__nv_bfloat16)Li(\d)E", fn)
-                if t:
-                    name += f"[{t.group(1)} slots a cluster]"
         elif name and ("spill" in line or "registers" in line):
             out.append(f"{name}: {line.strip()}")
     return out
@@ -3127,11 +3086,9 @@ def main() -> int:
     for line in kernel_ptxas(build.build_log, ("attention_scores_kernel", "attention_pv_kernel",
                                                "gemm_mma_kernel")):
         log("  ptxas, frame families: " + line)
-    for line in kernel_ptxas(build.build_log, ("frame_persistent_kernel", "barrier_probe_kernel")):
+    for line in kernel_ptxas(build.build_log, ("frame_persistent_kernel", "lt_persistent_kernel",
+                                               "barrier_probe_kernel")):
         log("  ptxas, persistent: " + line)
-    for line in kernel_ptxas(build.build_log, ("lt_cluster_kernel",
-                                               "cluster_barrier_probe_kernel")):
-        log("  ptxas, LT launch: " + line)
 
     fs_res = check_frame_step(dev)
     fsb_res = check_frame_step_batched(dev)
@@ -3148,9 +3105,9 @@ def main() -> int:
     lt_count = count_lt_device_kernels(dev)
     for res, dt in ((split_res["lt"], "float32"), (bf_single["4"], BF)):
         res.update(graph_ms=lt_times[dt]["4"]["graph_ms"], draw_us=lt_times[dt]["4"]["draw_us"],
-                   plan=lt_times[dt]["4"]["plan"], device_kernels=lt_count["4"]["device_kernels"])
+                   device_kernels=lt_count["4"]["device_kernels"])
     for res, dt in ((splitb_res["lt"], "float32"), (bf_batched["7"], BF)):
-        res.update(graph_ms=lt_times[dt]["7"][8]["graph_ms"], plan=lt_times[dt]["7"][8]["plan"],
+        res.update(graph_ms=lt_times[dt]["7"][8]["graph_ms"],
                    device_kernels=lt_count["7"]["device_kernels"],
                    **{f"graph_ms_b{B}": lt_times[dt]["7"][B]["graph_ms"] for B in LT_B[1:]})
     for res, dt, k in ((fs_res, "float32", "A"), (split_res["dec"], "float32", "5"),
@@ -3272,17 +3229,14 @@ def main() -> int:
         f"({pers['float32']['5']['library_ms']:.4f}), bf16 {pers[BF]['5']['graph_ms']:.4f} "
         f"({pers[BF]['5']['library_ms']:.4f}); us a grid barrier "
         + ", ".join(f"{k} {v:.4f}" for k, v in pers["barrier"].items()) + f"; on {card}")
-    log(f"summary, the LT launch (CUDA-graph slopes, 357M, temp 0.7, ms a frame): kernel 4 "
+    log(f"summary, the LT samplers (CUDA-graph slopes, 357M, temp 0.7, ms a frame): kernel 4 "
         f"B 1 float32 {lt_times['float32']['4']['graph_ms']:.4f}, bf16 "
         f"{lt_times[BF]['4']['graph_ms']:.4f} (the draw {lt_times['float32']['4']['draw_us']:.2f}"
         f" / {lt_times[BF]['4']['draw_us']:.2f} us a codebook); kernel 7 float32 "
         + ", ".join(f"B {B} {lt_times['float32']['7'][B]['graph_ms']:.4f}" for B in LT_B)
         + ", bf16 " + ", ".join(f"B {B} {lt_times[BF]['7'][B]['graph_ms']:.4f}" for B in LT_B)
-        + "; us a cluster barrier "
-        + ", ".join(f"{k} {v:.4f}" for k, v in lt_times["cluster_barrier"].items())
         + f"; device kernels a frame: 4 {lt_count['4']['device_kernels']}, 7 "
-        f"{lt_count['7']['device_kernels']}, C's LT launches {lt_count['C']['lt_launches']}; "
-        f"on {card}")
+        f"{lt_count['7']['device_kernels']}, C {lt_count['C']['device_kernels']}; on {card}")
     fam_line = "; ".join(
         f"{dt} B{B} rows{rows}: " + ", ".join(
             f"{k} attention {fam[dt][B, rows][k]['attention']['ms']:.4f} (SDPA "
@@ -3307,7 +3261,7 @@ def main() -> int:
                                         "kernel_signed_ulps", "plain_signed_ulps",
                                         "f64_within_1ulp", "plain_f64_within_1ulp",
                                         "families", "graph_ms", "library_covers",
-                                        "graph_ms_b32", "graph_ms_b64", "draw_us", "plan",
+                                        "graph_ms_b32", "graph_ms_b64", "draw_us",
                                         "device_kernels")
                     if k in res})
         return row

@@ -144,6 +144,7 @@ __device__ __forceinline__ void block_layer_norm(const float* x, const T* w, O* 
 }
 
 constexpr float kNegBig = -1e30f;          // masked score / logit (jnp's _NEG)
+constexpr int kSampleThreads = 1024;        // threads of an LT sampling block
 constexpr int kMaxVocab = 4096;             // the largest vocabulary a sampler takes
 
 // The JAX package's int32 hash constants (magpie_tts_tpu/ops/sampling.py).
@@ -234,8 +235,7 @@ __device__ __forceinline__ int block_kth_key(const float* lg, int V, int k, int*
 }
 
 // One LT phase's draw by one block over the masked logits lg[0:V] (each
-// thread touches only v = tid + j * blockDim.x, so lg needs no barrier;
-// kernel A's phases and the LT launch of kernels 4, 7 and C draw with it):
+// thread touches only v = tid + j * blockDim.x, so lg needs no barrier):
 // argmax with ties to the lowest index; at temperature >= 0.01 the exact
 // top-k set, key >= the k-th largest order_key (block_kth_key), and a
 // Gumbel-max draw with the noise of fmix32(base + v * kGolden). Every thread

@@ -1,11 +1,13 @@
-// Kernels A and 5 as one persistent, cooperative launch a frame.
+// Kernels A, 4 and 5 as one persistent, cooperative launch a frame.
 //
 // Replaces, for one stream, the TPU kernels
 // magpie_tts_tpu/ops/pallas_kernels/frame_step.py (frame_step_pallas: LT
-// sampling of the 8 codes, the frame embedding, the 12 cached decoder layers)
-// and magpie_tts_tpu/ops/pallas_kernels/decoder_step.py (decode_step_pallas:
-// the decoder layers from a frame embedding), with their dense float32 /
-// bfloat16, int8-column and Q8_0-block weight streams.
+// sampling of the 8 codes, the frame embedding, the 12 cached decoder layers),
+// magpie_tts_tpu/ops/pallas_kernels/lt_sampler.py (sample_frame_codes_pallas:
+// the LT sampling alone; lt_persistent_kernel, A's LT phases without the
+// seam and the decoder) and magpie_tts_tpu/ops/pallas_kernels/decoder_step.py
+// (decode_step_pallas: the decoder layers from a frame embedding), with their
+// dense float32 / bfloat16, int8-column and Q8_0-block weight streams.
 //
 // What bounds a frame on the card: ~392 MB of float32 weights and cache rows
 // read once (0.117 ms at 3.35 TB/s; half in bf16, a quarter for the streamed
@@ -468,8 +470,10 @@ struct Frame {
 
   // Phase cb's draw from the logits in part2 (every block, redundantly),
   // the code's embedding row into xs (the next phase's input) and the
-  // embedding sum; after the last codebook x = rnd(rnd(sum / n_cb) +
-  // posemb) and xs = LayerNorm_0(x), the decoder's input.
+  // embedding sum; after the last codebook (kSeam: kernel A) x =
+  // rnd(rnd(sum / n_cb) + posemb) and xs = LayerNorm_0(x), the decoder's
+  // input; without the seam (kernel 4) the last draw ends the frame.
+  template <bool kSeam>
   __device__ void sample(int cb) {
     const int V = s.V, D = s.D;
     {
@@ -505,6 +509,10 @@ struct Frame {
       s.argmax[cb] = amax;
     }
     const bool last = cb == s.ncb - 1;
+    if (last && !kSeam) {
+      pro(kProSample);
+      return;
+    }
     float4 e4[kRow4], pe4[kRow4];
     weight_row(s.audio_emb + ((size_t)cb * V + code) * D, D, e4);
     if (last) weight_row(s.posemb, D, pe4);
@@ -531,6 +539,7 @@ struct Frame {
     pro(kProSample);
   }
 
+  template <bool kSeam>
   __device__ void lt_phases() {
     const int D = s.D, LT = s.LT, LF = s.LF, V = s.V;
     float* P0 = s.part;
@@ -549,7 +558,7 @@ struct Frame {
         }
         __syncthreads();
       } else {
-        sample(cb - 1);
+        sample<kSeam>(cb - 1);
       }
       gemv<kStreamDense>(dense_ref(s.lt_in_w), D, LT, p.split_lt_in,
                          [&](int sp, int c, float v) { P0[sp * LT + c] = v; });
@@ -614,7 +623,13 @@ struct Frame {
                          [&](int, int c, float v) { P1[c] = v; });
       barrier(kWorkGemv);
     }
-    sample(s.ncb - 1);
+    sample<kSeam>(s.ncb - 1);
+  }
+
+  // The last stamp record, and the records' count in word 0.
+  __device__ void end_stamps() {
+    record(kWorkNone);
+    if (stamping()) p.stamps[0] = (unsigned long long)nrec;
   }
 
   // Kernel 5's input: x = rnd(hidden + posemb), xs = LayerNorm_0(x).
@@ -738,8 +753,7 @@ struct Frame {
     if (blockIdx.x == 0) {
       block_layer_norm<T, T>(xd, s.norm_out, s.hidden_out, D, s.eps, am.red);
       pro(kProLN);
-      record(kWorkNone);
-      if (stamping()) p.stamps[0] = (unsigned long long)nrec;
+      end_stamps();
     }
   }
 };
@@ -750,11 +764,23 @@ frame_persistent_kernel(const __grid_constant__ Persist<T> p) {
   extern __shared__ __align__(16) float smem[];
   Frame<T, MODE, kLT> f(p, smem);
   if constexpr (kLT) {
-    f.lt_phases();
+    f.template lt_phases<true>();
   } else {
     f.decoder_input();
   }
   f.decoder_layers();
+}
+
+// Kernel 4: kernel A's LT phases alone, the codes of `hidden`: the same
+// phase table up to the last draw, the same grid, products and draw, so
+// its codes are A's.
+template <class T>
+__global__ void __launch_bounds__(kPThreads, kBlocksPerSm)
+lt_persistent_kernel(const __grid_constant__ Persist<T> p) {
+  extern __shared__ __align__(16) float smem[];
+  Frame<T, kStreamDense, true> f(p, smem);
+  f.template lt_phases<false>();
+  f.end_stamps();
 }
 
 }  // namespace

@@ -14,16 +14,16 @@
 // The split path (--no-fused) runs kernel 4, the embedding in torch, then
 // kernel 5.
 //
-// Kernels A and 5 are one persistent, cooperative launch a frame
-// (frame_persistent.cuh: the design and what bounds it). Kernel 4 is one
-// launch a frame on thread-block clusters (lt_persistent.cuh), the launch
-// kernels 7 and C run for B slots.
+// All three are one persistent, cooperative launch a frame
+// (frame_persistent.cuh: the design and what bounds it); kernel 4 is kernel
+// A's phase table up to the last draw (lt_persistent_kernel), so the split
+// path's codes are the fused path's.
 //
 // Numerics follow the plain versions (frame_step_reference, the LT sampler's
 // sample_frame_codes, decode_step): float32 residual carry, exact-erf GELU via
 // erff, softmax as exp(s - max) / sum, the Gumbel noise via logf, argmax ties
-// to the lowest index, and the exact top-k set (common.cuh block_sample) on
-// the monotone key of the float bits. The bfloat16 entry points keep
+// to the lowest index, and the exact top-k set by a radix select on the
+// monotone key of the float bits. The bfloat16 entry points keep
 // weights, caches and hidden rows in bf16 (half the weight bytes) and round
 // to bf16 exactly where the Pallas kernels do (frame_kernels.cuh); products
 // of bf16 values are exact in float32, so a bf16 frame differs from its
@@ -33,7 +33,6 @@
 #include <mutex>
 
 #include "frame_persistent.cuh"
-#include "lt_persistent.cuh"
 
 // Field order and types mirror FrameStepArgs in ops/kernels/frame_step.py.
 // The void pointers hold the entry point's compute dtype (float for _f32,
@@ -92,10 +91,15 @@ struct FrameStepArgs {
   float* attn;
   float* f;
   float* xa;
+  float* lt_x;
+  float* lt_h;
   float* lt_q;
   float* lt_k;
   float* lt_v;
+  float* lt_attn;
   float* lt_f;
+  float* emb_row;
+  float* emb_acc;
   float* att_sc;
   float* att_po;
   int* att_tk;
@@ -105,10 +109,6 @@ struct FrameStepArgs {
   float* part2;
   unsigned* bar;
   unsigned long long* stamps;
-  // the LT launch (kernel 4): optional logits [n_cb, vocab] and the plan
-  // written back ({CTAs a cluster, clusters, slots a cluster})
-  float* lt_logits;
-  int* lt_plan;
   // dims and scalars
   int d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
   int lt_dim, lt_ffn, n_cb, vocab;
@@ -118,8 +118,6 @@ struct FrameStepArgs {
   // the grid (0: the co-resident maximum), the stamp buffer's phases, the K
   // splits of the narrow products and the tile width
   int grid, stamp_cap, split_lt_in, split_lt_sa, split_lt_ff, split_xa_q, tile_cols;
-  // the LT launch's plan requests (0: the launch's choice; tests)
-  int lt_clusters, lt_ctas;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
 };
 
@@ -156,8 +154,9 @@ FrameSeq<T> seq_of(const FrameStepArgs& a) {
   s.write_row = a.pos, s.rows = a.pos + 1, s.enc_len = a.enc_len;
   s.hidden_out = static_cast<T*>(a.hidden_out);
   s.part = a.part, s.x = a.x, s.h = a.h, s.q = a.q, s.attn = a.attn, s.f = a.f, s.xa = a.xa;
-  s.lt_q = a.lt_q, s.lt_f = a.lt_f;
+  s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q;
   s.lt_k = reinterpret_cast<T*>(a.lt_k), s.lt_v = reinterpret_cast<T*>(a.lt_v);
+  s.lt_attn = a.lt_attn, s.lt_f = a.lt_f, s.emb_row = a.emb_row, s.emb_acc = a.emb_acc;
   s.att = AttnWork{a.att_sc, a.att_po, a.att_tk};
   s.sa_chunk = a.sa_chunk, s.xa_chunk = a.xa_chunk, s.lt_chunk = a.lt_chunk;
   s.eps = a.eps, s.sa_scale = a.sa_scale, s.xa_scale = a.xa_scale, s.lt_scale = a.lt_scale;
@@ -167,17 +166,35 @@ FrameSeq<T> seq_of(const FrameStepArgs& a) {
 
 // Blocks of a persistent kernel an SM on the current device, at its shared
 // memory (cached per kernel, device and size: the occupancy query runs once).
+// The kernel's dynamic shared memory limit is raised to the largest size
+// asked for on the device, so a launch at one config's size does not leave
+// the limit below another's (two configs in one process).
 int blocks_per_sm(const void* kernel, int smem, int* n_sm) {
   struct Entry {
     const void* kernel;
     int device, smem, blocks, sms;
   };
   static std::mutex mu;
-  static Entry cache[64];
-  static int used = 0;
+  static Entry cache[64], limits[64];
+  static int used = 0, n_limits = 0;
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   std::lock_guard<std::mutex> lock(mu);
+  Entry* limit = nullptr;
+  for (int i = 0; i < n_limits; ++i) {
+    if (limits[i].kernel == kernel && limits[i].device == dev) limit = &limits[i];
+  }
+  if (limit == nullptr || smem > limit->smem) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+        cudaSuccess) {
+      return -1;
+    }
+    if (limit != nullptr) {
+      limit->smem = smem;
+    } else if (n_limits < 64) {
+      limits[n_limits++] = Entry{kernel, dev, smem, 0, 0};
+    }
+  }
   for (int i = 0; i < used; ++i) {
     if (cache[i].kernel == kernel && cache[i].device == dev && cache[i].smem == smem) {
       *n_sm = cache[i].sms;
@@ -185,9 +202,7 @@ int blocks_per_sm(const void* kernel, int smem, int* n_sm) {
     }
   }
   int blocks = 0, sms = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kPThreads, smem) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kPThreads, smem) !=
           cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
     return -1;
@@ -207,12 +222,12 @@ bool attn_fits(int d_head, int row_stride, int chunk) {
          d_head <= kAttnMaxDHead && row_stride % VE == 0;
 }
 
-// Kernels A (kLT) and 5: one cooperative launch of the persistent kernel.
+// Kernels A, 4 and 5: one cooperative launch of a persistent kernel.
 // Refuses a plan it does not take (cudaErrorInvalidValue); a grid that cannot
 // be co-resident is refused by the launch itself
 // (cudaErrorCooperativeLaunchTooLarge). There is no other path.
-template <class T, int MODE, bool kLT>
-int launch_persistent(const FrameStepArgs& a, cudaStream_t st) {
+template <class T>
+int launch_persistent(const FrameStepArgs& a, void (*fn)(Persist<T>), cudaStream_t st) {
   const FrameSeq<T> s = seq_of<T>(a);
   const int kmax = std::max(std::max(std::max(s.D, s.F), std::max(s.LT, s.LF)), s.X);
   const int smem = psmem_layout(kmax, s.D, s.LT, s.V).words * 4;
@@ -228,7 +243,7 @@ int launch_persistent(const FrameStepArgs& a, cudaStream_t st) {
   if (!ok) return (int)cudaErrorInvalidValue;
   Persist<T> p{s, a.part2, a.bar, a.stamps, a.stamp_cap,
                a.split_lt_in, a.split_lt_sa, a.split_lt_ff, a.split_xa_q};
-  const void* kernel = reinterpret_cast<const void*>(&frame_persistent_kernel<T, MODE, kLT>);
+  const void* kernel = reinterpret_cast<const void*>(fn);
   int n_sm = 0;
   const int per_sm = blocks_per_sm(kernel, smem, &n_sm);
   if (per_sm < 0) {
@@ -247,7 +262,7 @@ int launch_persistent(const FrameStepArgs& a, cudaStream_t st) {
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, frame_persistent_kernel<T, MODE, kLT>, p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, fn, p);
   // Reading the last error clears it: a refused launch must not fail the next one.
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? (int)err : (int)last;
@@ -258,22 +273,20 @@ int persistent(const FrameStepArgs* a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a->stream_mode) {
     case kStreamDense:
-      return launch_persistent<T, kStreamDense, kLT>(*a, st);
+      return launch_persistent<T>(*a, frame_persistent_kernel<T, kStreamDense, kLT>, st);
     case kStreamInt8:
-      return launch_persistent<T, kStreamInt8, kLT>(*a, st);
+      return launch_persistent<T>(*a, frame_persistent_kernel<T, kStreamInt8, kLT>, st);
     case kStreamQ8:
-      return launch_persistent<T, kStreamQ8, kLT>(*a, st);
+      return launch_persistent<T>(*a, frame_persistent_kernel<T, kStreamQ8, kLT>, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Kernel 4 (the split path's LT sampler): the codes of `hidden` only, one
-// LT launch (one cluster), with the optional stamps of lt_persistent.cuh.
+// Kernel 4 (the split path's LT sampler): the codes of `hidden` only.
 template <class T>
 int lt_sample(const FrameStepArgs* a, void* stream) {
-  return lt_launch<T, 1>(seq_of<T>(*a), false, a->lt_logits, a->lt_ctas, a->lt_clusters,
-                         a->lt_plan, static_cast<cudaStream_t>(stream), a->stamps, a->stamp_cap);
+  return launch_persistent<T>(*a, lt_persistent_kernel<T>, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -296,21 +309,6 @@ extern "C" int magpie_barrier_probe(unsigned* bar, int n, int grid, void* stream
   const cudaError_t err = cudaLaunchKernelEx(&cfg, barrier_probe_kernel, bar, n);
   const cudaError_t last = cudaGetLastError();  // cleared, as in launch_persistent
   return err != cudaSuccess ? (int)err : (int)last;
-}
-
-// The cluster-barrier probe (cluster_barrier_probe_kernel): n cluster
-// barriers in one launch of one cluster of `ctas` CTAs.
-extern "C" int magpie_cluster_barrier_probe(int n, int ctas, void* stream) {
-  return lt_barrier_probe(n, ctas, static_cast<cudaStream_t>(stream));
-}
-
-// The draw probe (draw_probe_kernel): each of `rows` blocks draws its row of
-// lg [rows, V] `reps` times.
-extern "C" int magpie_draw_probe(const float* lg, int V, int rows, int reps, float temperature,
-                                 int top_k, const int* seeds, int* codes, int* amax,
-                                 void* stream) {
-  return lt_draw_probe(lg, V, rows, reps, temperature, top_k, seeds, codes, amax,
-                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int magpie_frame_step_f32(const FrameStepArgs* a, void* stream) {

@@ -9,25 +9,23 @@
 //   weight streams (stream_mode 0 / 1 / 2).
 // - magpie_lt_sample_batched_f32 (kernel 7): the per-slot LT sampling alone.
 //   Replaces magpie_tts_tpu/ops/pallas_kernels/lt_sampler_batched.py
-//   (sample_frame_codes_batched_pallas): one launch a frame on thread-block
-//   clusters (lt_persistent.cuh, shared with kernel 4).
+//   (sample_frame_codes_batched_pallas).
 // - magpie_decode_step_batched_f32 (kernel 8): the decoder step alone, from
 //   x_pe (embedding + position embedding) and a mask that already holds the
 //   write row. Replaces magpie_tts_tpu/ops/pallas_kernels/
 //   decoder_step_batched.py (decode_step_batched_pallas), with the same
 //   three weight streams.
-// Kernel C is the LT launch of kernel 7 (with the decoder seam), then
-// frame_sequence.cuh's decoder_layers; kernel 8 is decoder_input +
-// decoder_layers. What follows is about the decoder's launch sequence.
+// All three run frame_sequence.cuh's launch sequences.
 //
 // The TPU kernels are sequential grids (8 LT phases, 12 layers) that keep
 // the slots' LT rows, residuals and cache groups in VMEM and contract every
 // weight tile with all B rows on the MXU; the batched LT sampler pre-projects
-// the whole audio-embedding table through in_proj once per call (the LT
-// launch projects only the B sampled rows per phase: the plain version's
-// rounding). Hopper blocks carry nothing between launches, so the decoder is
-// a fixed sequence of kernels on one stream with every carried value in a
-// workspace the wrapper allocates.
+// the whole audio-embedding table through in_proj once per call. Hopper
+// blocks carry nothing between launches, so, as in frame_step.cu, a frame is a
+// fixed sequence of kernels on one stream with every carried value in a
+// workspace the wrapper allocates, and the LT projects only the B sampled
+// rows per phase (the plain version's rounding; the weight is still read
+// once for all slots).
 //
 // What bounds it on the card: a frame reads ~360 MB of decoder and LT weights
 // in float32 (half in bf16, a quarter for the int8 / Q8_0 streams) plus the
@@ -86,7 +84,6 @@
 
 #include "conv_mma.cuh"
 #include "frame_sequence.cuh"
-#include "lt_persistent.cuh"
 
 namespace {
 
@@ -425,21 +422,24 @@ struct FrameStepBatchedArgs {
   float* attn;
   float* f;
   float* xa;
+  float* lt_x;
+  float* lt_h;
+  float* lt_q;
+  float* lt_k;
+  float* lt_v;
+  float* lt_attn;
+  float* lt_f;
+  float* emb_row;
+  float* emb_acc;
   int* new_valid;
   float* att_sc;
   float* att_po;
   int* att_tk;
-  // the LT launch: optional logits [B, n_cb, vocab] and the plan written
-  // back ({CTAs a cluster, clusters, slots a cluster})
-  float* lt_logits;
-  int* lt_plan;
   // dims and scalars
   int batch, d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
   int lt_dim, lt_ffn, n_cb, vocab;
   int write_row, rows, valid_stride, posemb_stride, top_k, audio_bos_id, audio_eos_id;
   int gelu_tanh, stream_mode, sa_chunk, xa_chunk, lt_chunk, n_gemm_plans;
-  // the LT launch's plan requests (0: the launch's choice; tests)
-  int lt_clusters, lt_ctas;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
   // the GEMM plan of every (K, N) product of the sequence
   GemmPlan gemm_plans[kMaxGemmPlans];
@@ -478,6 +478,9 @@ FrameSeq<T> seq_of(const FrameStepBatchedArgs& a) {
   s.valid_stride = a.valid_stride, s.enc_lengths = a.enc_lengths;
   s.hidden_out = static_cast<T*>(a.hidden_out);
   s.part = a.part, s.x = a.x, s.h = a.h, s.q = a.q, s.attn = a.attn, s.f = a.f, s.xa = a.xa;
+  s.lt_x = a.lt_x, s.lt_h = a.lt_h, s.lt_q = a.lt_q;
+  s.lt_k = reinterpret_cast<T*>(a.lt_k), s.lt_v = reinterpret_cast<T*>(a.lt_v);
+  s.lt_attn = a.lt_attn, s.lt_f = a.lt_f, s.emb_row = a.emb_row, s.emb_acc = a.emb_acc;
   s.att = AttnWork{a.att_sc, a.att_po, a.att_tk};
   s.sa_chunk = a.sa_chunk, s.xa_chunk = a.xa_chunk, s.lt_chunk = a.lt_chunk;
   s.eps = a.eps, s.sa_scale = a.sa_scale, s.xa_scale = a.xa_scale, s.lt_scale = a.lt_scale;
@@ -510,8 +513,7 @@ Gemm<T> gemm_of(const FrameStepBatchedArgs& a) {
   return Gemm<T>{a.batch, a.gemm_plans, a.n_gemm_plans};
 }
 
-// Kernel C: one fused frame for B slots: the LT launch with the decoder
-// seam, then the decoder layers.
+// Kernel C: one fused frame for B slots.
 template <class T>
 int frame_step_batched(const FrameStepBatchedArgs* a, void* stream) {
   if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
@@ -519,17 +521,18 @@ int frame_step_batched(const FrameStepBatchedArgs* a, void* stream) {
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FrameSeq<T> s = seq_of<T>(*a);
-  int err = lt_launch(s, true, a->lt_logits, a->lt_ctas, a->lt_clusters, a->lt_plan, st);
-  if (!err) err = decoder_layers(s, gemm_of<T>(*a), st);
+  const Gemm<T> mm = gemm_of<T>(*a);
+  int err = lt_phases(s, mm, true, st);
+  if (!err) err = decoder_layers(s, mm, st);
   return err ? err : (int)cudaGetLastError();
 }
 
-// Kernel 7 (the split path's batched LT sampler): the codes of B slots, one
-// LT launch.
+// Kernel 7 (the split path's batched LT sampler): the codes of B slots.
 template <class T>
 int lt_sample_batched(const FrameStepBatchedArgs* a, void* stream) {
-  return lt_launch(seq_of<T>(*a), false, a->lt_logits, a->lt_ctas, a->lt_clusters, a->lt_plan,
-                   static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = lt_phases(seq_of<T>(*a), gemm_of<T>(*a), false, st);
+  return err ? err : (int)cudaGetLastError();
 }
 
 // Kernel 8 (the split path's batched decoder step): `hidden` holds x_pe, the

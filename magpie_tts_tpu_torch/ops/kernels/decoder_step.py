@@ -74,7 +74,7 @@ def decode_step(x: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.Tenso
                **fs.cache_tensors(k_cache, v_cache, xa_k, xa_v, c),
                **fs.decoder_weight_tensors(weights, c, stream)}
     fs.launch(fs.entry_name(ENTRY, dtype), tensors, dict(hidden_out=hidden_out), c, x.device,
-              stream, dtype, persistent=True, grid=grid or 0, stamps=stamps, **scalars)
+              stream, dtype, grid=grid or 0, stamps=stamps, **scalars)
     launches += 1
     mode_launches[fs.MODES[fs.stream_mode(stream)]] += 1
     fs.count_dtype(dtype_launches, dtype)

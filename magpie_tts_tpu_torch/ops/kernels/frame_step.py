@@ -7,11 +7,9 @@ its three weight streams: ``stream=None`` (dense float32), an
 decoder matrices, and the kernel dispatches on the type (``stream_mode``).
 On CUDA tensors it launches csrc/frame_step.cu: one persistent,
 cooperative launch a frame (csrc/frame_persistent.cuh; its plan is
-``plan_frame`` here), with a zeroed grid-barrier count in the call's
-workspace, or raises (a refused cooperative launch too: there is no other
-path). The LT launch of kernels 4, 7 and C (csrc/lt_persistent.cuh, on
-thread-block clusters) has its plan here too (``plan_lt``). On CPU tensors
-it runs ``frame_step_reference``, the plain
+``plan_frame`` here, kernel 4's ``plan_lt``), with a zeroed grid-barrier
+count in the call's workspace, or raises (a refused cooperative launch too: there is no other
+path); on CPU tensors it runs ``frame_step_reference``, the plain
 composition the TPU kernel is pinned against: the split path's two plain
 versions, ``lt_sampler.sample_frame_codes_reference`` +
 ``audio_frame_embedding`` + ``decoder_step.decode_step_reference``.
@@ -134,8 +132,8 @@ class Phase:
 
 @dataclasses.dataclass(frozen=True)
 class FramePlan:
-    """The persistent kernel's phase table for one frame (fused: kernel A;
-    else kernel 5): its products and phases."""
+    """The persistent kernel's phase table for one frame (kernel A, 4 or
+    5): its products and phases."""
     products: Tuple[Product, ...]
     phases: Tuple[Phase, ...]
 
@@ -228,6 +226,28 @@ def smem_bytes(config: MagpieConfig) -> int:
     return 4 * words
 
 
+def _lt_phases(config: MagpieConfig, prod: dict) -> list:
+    """The 8 LT phases of 6 barriers (kernels A and 4), their products in ``prod``."""
+    c = config
+    D, LT, LF, V = c.d_model, c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb
+    phases = []
+    for _ in range(c.num_codebooks):
+        for name, K, N in (("lt_in", D, LT), ("lt_qkv", LT, 3 * LT), ("lt_sa_out", LT, LT),
+                           ("lt_ff_proj", LT, LF), ("lt_ff_out", LF, LT), ("lt_out", LT, V)):
+            prod[name] = Product(name, K, N, product_split(K, N))
+            phases.append(Phase(name, "gemv", True))
+    return phases
+
+
+@functools.lru_cache(maxsize=None)
+def plan_lt(config: MagpieConfig) -> FramePlan:
+    """Kernel 4's phase table: kernel A's 8 LT phases, then the last draw
+    (no barrier). Nothing in it depends on the grid or the dtype."""
+    prod = {}
+    phases = _lt_phases(config, prod) + [Phase("draw", "none", False)]
+    return FramePlan(tuple(prod.values()), tuple(phases))
+
+
 @functools.lru_cache(maxsize=None)
 def plan_frame(config: MagpieConfig, enc_rows: int, fused: bool = True) -> FramePlan:
     """The phase table of one frame with ``enc_rows`` encoder rows: kernel A (``fused``: 8 LT phases of 6
@@ -236,7 +256,7 @@ def plan_frame(config: MagpieConfig, enc_rows: int, fused: bool = True) -> Frame
     Nothing in it depends on the grid, the dtype, the weight stream or the
     cache rows attended."""
     c = config
-    D, F, X, LT, LF, V = c.d_model, c.d_ffn, c.d_xa, c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb
+    D, F, X = c.d_model, c.d_ffn, c.d_xa
     prod = {}
 
     def mm(name, K, N):
@@ -246,11 +266,7 @@ def plan_frame(config: MagpieConfig, enc_rows: int, fused: bool = True) -> Frame
     def att(name):
         return Phase(name, "attention", True)
 
-    phases = []
-    if fused:
-        for _ in range(c.num_codebooks):
-            phases += [mm("lt_in", D, LT), mm("lt_qkv", LT, 3 * LT), mm("lt_sa_out", LT, LT),
-                       mm("lt_ff_proj", LT, LF), mm("lt_ff_out", LF, LT), mm("lt_out", LT, V)]
+    phases = _lt_phases(c, prod) if fused else []
     # a cross-attention whose rows fit one chunk runs in-block, barrier-free
     xa_steps = decode_attention.plan_attention(enc_rows, X // c.dec_xa_heads).chunks > 1
     for _ in range(c.dec_layers):
@@ -263,171 +279,6 @@ def plan_frame(config: MagpieConfig, enc_rows: int, fused: bool = True) -> Frame
     return FramePlan(tuple(prod.values()), tuple(phases))
 
 
-# csrc/lt_persistent.cuh: the LT launch of kernels 4, 7 and C. Threads of a
-# CTA, column tiles a product is cut into, the most slots a cluster holds,
-# the most codebooks, the widest tile.
-LT_THREADS = 256
-LT_TILES = 16
-LT_MAX_SLOTS = 4
-LT_MAX_ROWS = 16
-LT_MAX_COLS = 128
-
-
-@dataclasses.dataclass(frozen=True)
-class LtProduct:
-    """One product x[slot] @ W[K, N] of the LT launch (csrc LtTile): LT_TILES
-    tiles of ``cols`` columns (N / LT_TILES rounded up to whole quads), tile
-    t on CTA (t + cluster) % ctas; in a tile ``q`` four-column quads, ``gw`` row groups a
-    warp (the largest power of two with gw * q <= 32), ``groups`` = 8 * gw.
-    A function of (K, N) alone."""
-    name: str
-    K: int
-    N: int
-
-    @property
-    def cols(self) -> int:
-        return -(-self.N // (4 * LT_TILES)) * 4
-
-    @property
-    def q(self) -> int:
-        return self.cols // 4
-
-    @property
-    def gw(self) -> int:
-        gw = 1
-        while 2 * gw * self.q <= 32:
-            gw *= 2
-        return gw
-
-    @property
-    def groups(self) -> int:
-        return (LT_THREADS // 32) * self.gw
-
-    @property
-    def tiles(self) -> int:
-        return -(-self.N // self.cols)
-
-    def sum_order(self, column: int):
-        """How column ``column`` is summed: the rows of each row group in
-        order (group g: g, g + groups, ...), the groups of a warp by a tree of
-        shuffles (lane l += lane l + o for o = q, 2q, .. < gw * q), the 8 warps
-        in order: ((group rows, ...), gw)."""
-        assert 0 <= column < self.N
-        return (tuple(tuple(range(g, self.K, self.groups)) for g in range(self.groups)), self.gw)
-
-
-def lt_product_model(x: torch.Tensor, product: LtProduct, w: torch.Tensor) -> torch.Tensor:
-    """A plain model of one LT-launch product for one slot, in the kernel's
-    order (``LtProduct.sum_order``): every row group's fmaf chain, the tree
-    over a warp's groups, the warps in order. x: [K] float32 (rounded to the
-    weights' dtype), w: [K, N] float32 values. Returns [N] float32."""
-    K, N, G, gw = product.K, product.N, product.groups, product.gw
-    steps = -(-K // G)
-    xs = torch.zeros(steps * G, dtype=torch.float32)
-    ws = torch.zeros(steps * G, N, dtype=torch.float32)
-    xs[:K], ws[:K] = x.float(), w.float()           # rows past K add exact zeros
-    acc = torch.zeros(G, N, dtype=torch.float32)
-    for r in range(steps):                           # step r: row g + r * G of group g
-        acc = _fma(acc, xs[r * G:(r + 1) * G, None], ws[r * G:(r + 1) * G])
-    warps = acc.reshape(LT_THREADS // 32, gw, N)
-    m = 1
-    while m < gw:                                    # lane l += lane l + m * q
-        warps = warps + torch.cat([warps[:, m:], torch.zeros_like(warps[:, :m])], 1)
-        m *= 2
-    total = warps[0, 0]
-    for wp in range(1, LT_THREADS // 32):
-        total = total + warps[wp, 0]
-    return total
-
-
-def lt_smem_bytes(config: MagpieConfig, slots: int) -> int:
-    """Dynamic shared memory of an LT CTA whose cluster holds ``slots``
-    slots (csrc lt_smem_layout; the launch instantiates 1, 2 and 4)."""
-    c = config
-    G, D, LT, LF, V, n = slots, c.d_model, c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb, c.num_codebooks
-    cols = max(p.cols for p in lt_products(c))
-    words = 0
-    head = lt_products(c)[-1].cols
-    for k in (G * max(D, LF), G * LT, G * LT, G * LT, 3 * G * LT, G * n * LT, G * n * LT, V,
-              8 * G * cols, G * cols, G * LT_MAX_ROWS, D, 32, 32, 256, G,
-              (3 + n) * LT, n * 2 * head, G):
-        words += -(-k // 4) * 4
-    return 4 * words
-
-
-@dataclasses.dataclass(frozen=True)
-class LtPlan:
-    """The LT launch of one frame for ``B`` slots: ``clusters`` clusters of
-    ``ctas`` CTAs, ``slots`` slots a cluster (the last may hold fewer); its
-    products (``LtProduct``) and phases (a phase with ``barrier`` ends at a
-    cluster barrier)."""
-    B: int
-    ctas: int
-    clusters: int
-    slots: int
-    products: Tuple[LtProduct, ...]
-    phases: Tuple[Phase, ...]
-
-    @property
-    def barriers(self) -> int:
-        return sum(ph.barrier for ph in self.phases)
-
-    def product(self, name: str) -> LtProduct:
-        return next(p for p in self.products if p.name == name)
-
-    def tiles(self, name: str, rank: int, cluster: int = 0) -> Tuple[int, ...]:
-        """The column tiles of product ``name`` that CTA ``rank`` of cluster
-        ``cluster`` sums: tile t on CTA (t + cluster) % ctas."""
-        return tuple(range((rank - cluster) % self.ctas, self.product(name).tiles, self.ctas))
-
-    def slot_range(self, cluster: int) -> range:
-        return range(cluster * self.slots, min(self.B, (cluster + 1) * self.slots))
-
-
-def lt_products(config: MagpieConfig) -> Tuple[LtProduct, ...]:
-    """The LT's six products."""
-    c = config
-    D, LT, LF, V = c.d_model, c.lt_dim, c.lt_ffn_dim, c.vocab_per_cb
-    return tuple(LtProduct(name, K, N) for name, K, N in (
-        ("lt_in", D, LT), ("lt_qkv", LT, 3 * LT), ("lt_sa_out", LT, LT),
-        ("lt_ff_proj", LT, LF), ("lt_ff_out", LF, LT), ("lt_out", LT, V)))
-
-
-def plan_lt(config: MagpieConfig, B: int, resident: dict, ctas: int = 0,
-            clusters: int = 0) -> LtPlan:
-    """The LT launch's plan for B slots (csrc lt_launch): ``resident`` maps a
-    cluster size to the clusters of it the card holds at once; ``ctas`` /
-    ``clusters`` (0: the launch's choice) are the tests' requests. 16 CTAs a
-    cluster when ceil(B / LT_MAX_SLOTS) such clusters fit at once, else 8;
-    as many clusters as fit at once (at least ceil(B / LT_MAX_SLOTS), at most
-    B); slots a cluster ceil(B / clusters); then the clusters those slots
-    need. Phases a codebook: in_proj, qkv, the attention (in every CTA, no
-    barrier), sa_out, ff_proj, ff_out, the head, the draw (its code sent to
-    every CTA, a barrier but after the last codebook)."""
-    c = config
-    if not 1 <= B <= 64:
-        raise ValueError(f"plan_lt: {B} slots, the launch takes 1..64")
-    need = -(-B // LT_MAX_SLOTS)
-    if ctas and ctas < LT_TILES // 2:
-        raise ValueError(f"plan_lt: {ctas} CTAs a cluster; a CTA takes at most 2 tiles")
-    if not ctas:
-        ctas = 16 if resident.get(16, 0) >= need else 8
-    if not clusters:
-        clusters = max(need, min(B, resident.get(ctas, 0)))
-    slots = -(-B // clusters)
-    if slots > LT_MAX_SLOTS or slots > ctas:
-        raise ValueError(f"plan_lt: {slots} slots a cluster of {ctas} CTAs")
-    clusters = -(-B // slots)
-    phases = []
-    for cb in range(c.num_codebooks):
-        phases += [Phase("lt_in", "gemv", True), Phase("lt_qkv", "gemv", True),
-                   Phase("lt_attention", "attention", False), Phase("lt_sa_out", "gemv", True),
-                   Phase("lt_ff_proj", "gemv", True), Phase("lt_ff_out", "gemv", True),
-                   Phase("lt_out", "gemv", True),
-                   Phase("draw", "none", cb + 1 < c.num_codebooks)]
-    return LtPlan(B, ctas, clusters, slots, lt_products(c), tuple(phases))
-
-
 class FrameStepArgs(ctypes.Structure):
     """Mirror of ``struct FrameStepArgs`` in csrc/frame_step.cu."""
     _ptrs = (
@@ -438,15 +289,14 @@ class FrameStepArgs(ctypes.Structure):
         "ff_out norm_out "
         "qkv_q qkv_s sa_out_q sa_out_s ff_proj_q ff_proj_s ff_out_q ff_out_s "
         "sampled argmax hidden_out "
-        "part x h q attn f xa lt_q lt_k lt_v lt_f att_sc att_po att_tk part2 bar stamps "
-        "lt_logits lt_plan").split()
+        "part x h q attn f xa lt_x lt_h lt_q lt_k lt_v lt_attn lt_f emb_row "
+        "emb_acc att_sc att_po att_tk part2 bar stamps").split()
     _ints = (
         "d_model d_ffn n_layers max_seq enc_rows d_xa n_heads xa_heads "
         "lt_dim lt_ffn n_cb vocab "
         "pos enc_len seed top_k forbid_eos audio_bos_id audio_eos_id "
         "gelu_tanh stream_mode sa_chunk xa_chunk lt_chunk "
-        "grid stamp_cap split_lt_in split_lt_sa split_lt_ff split_xa_q tile_cols "
-        "lt_clusters lt_ctas").split()
+        "grid stamp_cap split_lt_in split_lt_sa split_lt_ff split_xa_q tile_cols").split()
     _floats = "temperature eps sa_scale xa_scale lt_scale".split()
     _fields_ = ([(n, ctypes.c_void_p) for n in _ptrs] +
                 [(n, ctypes.c_int) for n in _ints] +
@@ -462,12 +312,6 @@ def declare(lib: ctypes.CDLL, base: str = "magpie_frame_step") -> None:
         lib.magpie_barrier_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                              ctypes.c_void_p]
         lib.magpie_barrier_probe.restype = ctypes.c_int
-        lib.magpie_cluster_barrier_probe.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                     ctypes.c_void_p]
-        lib.magpie_cluster_barrier_probe.restype = ctypes.c_int
-        lib.magpie_draw_probe.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 +
-                                          [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4)
-        lib.magpie_draw_probe.restype = ctypes.c_int
 
 
 barrier_probe_launches = 0  # launches of the barrier probe since the last reset
@@ -488,75 +332,6 @@ def barrier_probe(bar: torch.Tensor, n: int, grid: int = 0) -> None:
                                    torch.cuda.current_stream(bar.device).cuda_stream)
     build.check(err, "magpie_barrier_probe")
     barrier_probe_launches += 1
-
-
-draw_probe_launches = 0  # launches of the draw probe since the last reset
-
-
-def draw_reference(logits: torch.Tensor, seeds: torch.Tensor, temperature: float,
-                   top_k: int):
-    """The kernels' draw (csrc/common.cuh block_sample) in plain torch, one
-    row at a time: the argmax (ties to the lowest index); at temperature >=
-    0.01 the exact top-k set (``sampling.radix_topk_mask``, the radix
-    select's twin) and the Gumbel-max draw with the noise of ``seeds`` (the
-    rows' phase seeds). Returns (codes, argmax) int32 [rows]."""
-    from .. import sampling
-
-    x = logits.float()
-    amax = torch.argmax(x, dim=-1).to(torch.int32)
-    if temperature < sampling.GREEDY_TEMP_THRESHOLD:
-        return amax, amax
-    keep = sampling.radix_topk_mask(x.cpu(), min(int(top_k), x.shape[-1])).to(x.device)
-    cols = torch.arange(x.shape[-1], device=x.device)
-    g = torch.stack([sampling.gumbel_from_seed(int(s), cols) for s in seeds.tolist()])
-    z = torch.where(keep, x / max(temperature, sampling.GREEDY_TEMP_THRESHOLD) + g,
-                    torch.full_like(x, sampling.NEG_INF))
-    return torch.argmax(z, dim=-1).to(torch.int32), amax
-
-
-def draw_probe(logits: torch.Tensor, seeds: torch.Tensor, temperature: float, top_k: int,
-               reps: int = 1):
-    """The draw of kernel A and the LT launch, alone: one block of 256
-    threads a row of ``logits`` [rows, V] (float32, V <= 4096) with the noise
-    of ``seeds`` [rows] int32, drawn ``reps`` times (a measurement probe: its
-    graph slope over reps is one draw's time). Returns (codes, argmax) int32
-    [rows]. On CPU tensors: ``draw_reference``."""
-    global draw_probe_launches
-    if logits.device.type == "cpu":
-        return draw_reference(logits, seeds, temperature, top_k)
-    rows, V = logits.shape
-    check_tensor("draw_probe", "logits", logits, (rows, V))
-    if seeds.device != logits.device or seeds.dtype != torch.int32 or seeds.shape != (rows,):
-        raise ValueError("draw_probe: seeds must be int32 [rows] on the logits' card")
-    codes = torch.empty(rows, dtype=torch.int32, device=logits.device)
-    amax = torch.empty(rows, dtype=torch.int32, device=logits.device)
-    lib = build.load_library()
-    err = lib.magpie_draw_probe(logits.data_ptr(), V, rows, int(reps), float(temperature),
-                                int(top_k), seeds.contiguous().data_ptr(), codes.data_ptr(),
-                                amax.data_ptr(),
-                                torch.cuda.current_stream(logits.device).cuda_stream)
-    build.check(err, "magpie_draw_probe")
-    draw_probe_launches += 1
-    return codes, amax
-
-
-cluster_barrier_probe_launches = 0  # launches of the cluster-barrier probe since the last reset
-
-
-def cluster_barrier_probe(n: int, ctas: int, device) -> None:
-    """n cluster barriers of the LT launch's kind (barrier.cluster arrive /
-    wait) in one launch of one cluster of ``ctas`` CTAs on ``device``. A
-    measurement probe: its graph slope over n is one barrier's cost. Needs
-    the card: there is no plain version of a barrier."""
-    global cluster_barrier_probe_launches
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError("cluster_barrier_probe: needs a CUDA device")
-    lib = build.load_library()
-    err = lib.magpie_cluster_barrier_probe(int(n), int(ctas),
-                                           torch.cuda.current_stream(device).cuda_stream)
-    build.check(err, "magpie_cluster_barrier_probe")
-    cluster_barrier_probe_launches += 1
 
 
 def compute_dtype(who: str, t: torch.Tensor) -> torch.dtype:
@@ -678,24 +453,23 @@ def check_config(who: str, config: MagpieConfig, top_k: int = 1) -> None:
     if smem_bytes(c) > SMEM_LIMIT:
         raise ValueError(f"{who}: a persistent block needs {smem_bytes(c)} bytes of shared "
                          f"memory, more than {SMEM_LIMIT}")
-    if (c.num_codebooks > LT_MAX_ROWS or lt_smem_bytes(c, LT_MAX_SLOTS) > SMEM_LIMIT
-            or max(p.cols for p in lt_products(c)) > LT_MAX_COLS):
-        raise ValueError(f"{who}: the LT launch takes at most {LT_MAX_ROWS} codebooks, tiles "
-                         f"of at most {LT_MAX_COLS} columns and {SMEM_LIMIT} bytes of shared "
-                         f"memory a CTA")
 
 
 def workspace_sizes(config: MagpieConfig) -> dict:
-    """{buffer: float32 elements} of a persistent frame's workspace (the
-    attention's apart): kernels A and 5 alternate their products' outputs
-    and split partials between part and part2 (each at most MAX_SPLIT x the
-    widest N). The LT launch (kernel 4) keeps everything in shared memory."""
+    """{buffer: float32 elements} of a frame's workspace (the attention's
+    apart), in the order it is laid out. The persistent kernels (A, 4, 5)
+    alternate their products' outputs and split partials between part and
+    part2 (each at most MAX_SPLIT x the widest N). On an H100, kernels A
+    and 5 in float32 ran 4-6% slower with part2 laid out right after part
+    (and lt_x, lt_h, lt_attn, emb_row and emb_acc, which no persistent
+    kernel reads, left out) than in this order (PERF.md), so it stays."""
     c = config
     n_max = max(3 * c.d_model, c.d_ffn, c.vocab_per_cb, 3 * c.lt_dim, c.lt_ffn_dim, c.d_xa)
-    return {"part": MAX_SPLIT * n_max, "part2": MAX_SPLIT * n_max, "x": c.d_model,
-            "h": c.d_model, "q": c.d_model, "attn": c.d_model, "f": c.d_ffn, "xa": c.d_xa,
-            "lt_q": c.lt_dim, "lt_k": c.num_codebooks * c.lt_dim,
-            "lt_v": c.num_codebooks * c.lt_dim, "lt_f": c.lt_ffn_dim}
+    return {"part": MAX_SPLIT * n_max, "x": c.d_model, "h": c.d_model, "q": c.d_model,
+            "attn": c.d_model, "f": c.d_ffn, "xa": c.d_xa, "lt_x": c.lt_dim,
+            "lt_h": c.lt_dim, "lt_q": c.lt_dim, "lt_k": c.num_codebooks * c.lt_dim,
+            "lt_v": c.num_codebooks * c.lt_dim, "lt_attn": c.lt_dim, "lt_f": c.lt_ffn_dim,
+            "emb_row": c.d_model, "emb_acc": c.d_model, "part2": MAX_SPLIT * n_max}
 
 
 def _workspace(config: MagpieConfig, device, rows: int, enc_rows: int) -> dict:
@@ -782,16 +556,16 @@ def read_stamps(stamps: torch.Tensor) -> list:
 
 
 def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, device,
-           stream=None, dtype=torch.float32, persistent: bool = False, grid: int = 0,
+           stream=None, dtype=torch.float32, grid: int = 0,
            stamps: Optional[torch.Tensor] = None, **scalars) -> None:
     """Validate ``tensors`` ({name: (tensor, shape)}, all in the compute
-    ``dtype``) and the weight ``stream`` and call the library's ``entry`` with
-    a FrameStepArgs of the tensors, the stream's tensors and mode,
-    ``outputs`` ({name: tensor, or a host address}) and the config's dims;
-    ``scalars`` fill the remaining fields (unset pointers are null). A
-    ``persistent`` entry (A, 5) also gets a workspace on ``device``, its plan
-    fields, the grid barrier, ``grid`` (0: the co-resident maximum; another
-    value is for tests) and the optional phase ``stamps``."""
+    ``dtype``) and the weight ``stream``, allocate a workspace on ``device``
+    and call the library's ``entry`` with a FrameStepArgs of the tensors, the
+    stream's tensors and mode, the workspace, ``outputs`` ({name: tensor})
+    and the config's dims; ``scalars`` fill the remaining fields (unset
+    pointers are null). Every entry (A, 4, 5) is a persistent kernel and gets
+    its plan fields, the grid barrier, ``grid`` (0: the co-resident maximum;
+    another value is for tests) and the optional phase ``stamps``."""
     c = config
     for name, (t, shape) in tensors.items():
         check_tensor(entry, name, t, shape, dtype)
@@ -799,14 +573,14 @@ def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, devic
     lib = build.load_library()
     ptrs = {name: t.data_ptr() for name, (t, _) in tensors.items()}
     ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
-    ptrs.update({k: v if isinstance(v, int) else v.data_ptr() for k, v in outputs.items()})
     # self-attention covers rows [0, pos], cross-attention enc_len rows
     rows, enc_rows = scalars.get("pos", 0) + 1, scalars.get("enc_len", 1)
-    if persistent:
-        ptrs.update({k: v.data_ptr() for k, v in _workspace(c, device, rows, enc_rows).items()})
-        scalars.update(plan_fields(c), grid=int(grid), stamp_cap=check_stamps(entry, stamps))
-        if stamps is not None:
-            ptrs["stamps"] = stamps.data_ptr()
+    ptrs.update({k: v.data_ptr()
+                 for k, v in _workspace(c, device, rows, enc_rows).items()})
+    ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
+    scalars.update(plan_fields(c), grid=int(grid), stamp_cap=check_stamps(entry, stamps))
+    if stamps is not None:
+        ptrs["stamps"] = stamps.data_ptr()
     args = FrameStepArgs(
         **ptrs, d_model=c.d_model, d_ffn=c.d_ffn, n_layers=c.dec_layers, d_xa=c.d_xa,
         n_heads=c.dec_sa_heads, xa_heads=c.dec_xa_heads, lt_dim=c.lt_dim, lt_ffn=c.lt_ffn_dim,
@@ -869,7 +643,7 @@ def frame_step(hidden: torch.Tensor, pos: int, xa_k: torch.Tensor, xa_v: torch.T
                **lt_weight_tensors(weights, c), **decoder_weight_tensors(weights, c, stream)}
     launch(entry_name("magpie_frame_step", dtype), tensors,
            dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream, dtype,
-           persistent=True, grid=grid or 0, stamps=stamps,
+           grid=grid or 0, stamps=stamps,
            **scalars, **sampling_scalars(c, seed, temperature, top_k, forbid_eos))
     launches += 1
     mode_launches[MODES[stream_mode(stream)]] += 1

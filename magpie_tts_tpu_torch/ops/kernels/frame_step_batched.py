@@ -5,10 +5,9 @@ magpie_tts_tpu/ops/pallas_kernels/frame_step_batched.py
 ``frame_step_batched_pallas`` with its three weight streams (``stream``:
 None, an Int8DecoderStream or a Q8DecoderStream, as for kernel A). On CUDA
 tensors it
-launches csrc/frame_step_batched.cu (the LT launch of csrc/lt_persistent.cuh
-with the decoder's seam, then a fixed sequence of decoder kernels on the
+launches csrc/frame_step_batched.cu (a fixed sequence of kernels on the
 current stream that reads every weight once per frame for all B slots, see
-the source notes there) or raises; on CPU tensors it runs
+the source note there) or raises; on CPU tensors it runs
 ``frame_step_batched_reference``: the split path's plain versions,
 ``lt_sampler_batched.sample_frame_codes_batched_reference`` +
 ``audio_frame_embedding`` + posemb + ``decoder_step_batched.
@@ -56,13 +55,13 @@ class FrameStepBatchedArgs(ctypes.Structure):
         "norm_self qkv sa_out norm_xa_q xa_q xa_out norm_ff ff_proj ff_out norm_out "
         "qkv_q qkv_s sa_out_q sa_out_s ff_proj_q ff_proj_s ff_out_q ff_out_s "
         "sampled argmax hidden_out "
-        "part x h q attn f xa new_valid att_sc att_po att_tk lt_logits lt_plan").split()
+        "part x h q attn f xa lt_x lt_h lt_q lt_k lt_v lt_attn lt_f emb_row emb_acc "
+        "new_valid att_sc att_po att_tk").split()
     _ints = (
         "batch d_model d_ffn n_layers max_seq enc_rows d_xa n_heads xa_heads "
         "lt_dim lt_ffn n_cb vocab "
         "write_row rows valid_stride posemb_stride top_k audio_bos_id audio_eos_id "
-        "gelu_tanh stream_mode sa_chunk xa_chunk lt_chunk n_gemm_plans lt_clusters lt_ctas"
-        ).split()
+        "gelu_tanh stream_mode sa_chunk xa_chunk lt_chunk n_gemm_plans").split()
     _floats = "temperature eps sa_scale xa_scale lt_scale".split()
     _fields_ = ([(n, ctypes.c_void_p) for n in _ptrs] +
                 [(n, ctypes.c_int) for n in _ints] +
@@ -137,7 +136,10 @@ def _workspace(config: MagpieConfig, B: int, device, rows: int, enc_rows: int) -
     c = config
     n_max = max(3 * c.d_model, c.d_ffn, c.vocab_per_cb, 3 * c.lt_dim, c.lt_ffn_dim, c.d_xa)
     per_slot = {"part": _PART_CAP * n_max, "x": c.d_model, "h": c.d_model, "q": c.d_model,
-                "attn": c.d_model, "f": c.d_ffn, "xa": c.d_xa}
+                "attn": c.d_model, "f": c.d_ffn, "xa": c.d_xa, "lt_x": c.lt_dim,
+                "lt_h": c.lt_dim, "lt_q": c.lt_dim, "lt_k": c.num_codebooks * c.lt_dim,
+                "lt_v": c.num_codebooks * c.lt_dim, "lt_attn": c.lt_dim, "lt_f": c.lt_ffn_dim,
+                "emb_row": c.d_model, "emb_acc": c.d_model}
     # 64-float (256 B) granules keep every buffer aligned for float4 access.
     padded = {k: -(-n * B // 64) * 64 for k, n in per_slot.items()}
     ws = torch.empty(sum(padded.values()), dtype=torch.float32, device=device)
@@ -178,14 +180,13 @@ def decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights: M
 
 
 def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfig, device,
-           stream=None, **scalars) -> dict:
+           stream=None, **scalars) -> None:
     """Validate ``tensors`` ({name: (tensor, shape, dtype, broadcast_ok)}) and
     the weight ``stream``, allocate a B-slot workspace on ``device`` and call
     the library's ``entry`` on that card with a FrameStepBatchedArgs of the
     tensors, the stream's tensors and mode, the workspace, ``outputs``
     ({name: tensor}) and the config's dims; ``scalars`` fill the remaining
-    fields (unset pointers are null). Returns the LT launch's plan ({ctas,
-    clusters, slots}; zeros for an entry without one)."""
+    fields (unset pointers are null)."""
     c = config
     for name, (t, shape, dtype, broadcast_ok) in tensors.items():
         check_tensor(entry, name, t, shape, dtype, broadcast_ok)
@@ -198,8 +199,6 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
     rows, enc_rows = scalars.get("rows", 1), scalars.get("enc_rows", 1)
     ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, device, rows, enc_rows).items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
-    lt_plan = (ctypes.c_int * 3)()
-    ptrs["lt_plan"] = ctypes.addressof(lt_plan)
     plans, n_plans = batched_gemm.plan_table(c)
     args = FrameStepBatchedArgs(
         **ptrs, batch=B, d_model=c.d_model, d_ffn=c.d_ffn, n_layers=c.dec_layers,
@@ -214,7 +213,6 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
     with torch.cuda.device(device):  # the launch goes to the caches' card
         err = getattr(lib, entry)(ctypes.addressof(args), cuda_stream)
     build.check(err, entry)
-    return dict(zip(("ctas", "clusters", "slots"), lt_plan))
 
 
 def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor,
@@ -223,7 +221,7 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
                        weights: MagpieWeights, config: MagpieConfig,
                        enc_lengths: torch.Tensor, seeds: torch.Tensor, temperature: float,
                        top_k: int, forbid_eos: torch.Tensor, rows: Optional[int] = None,
-                       stream=None, clusters: int = 0, cluster_ctas: int = 0):
+                       stream=None):
     """One full frame for B slots: sample 8 codes per slot, embed them, add
     the slot's position-embedding row, run the decoder at ``write_row``.
 
@@ -237,7 +235,6 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     streamed decoder matrices when given. No value is read back to the
     host. Returns (sampled [B, 8] int32, argmax [B, 8] int32,
     hidden [B, d_model], k_cache, v_cache); the caches update in place.
-    ``clusters`` / ``cluster_ctas`` (tests) ask the LT launch for a plan.
     """
     global launches
     if hidden.device.type == "cpu":
@@ -266,8 +263,7 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
            dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream,
            max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
            valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
-           top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature),
-           lt_clusters=int(clusters), lt_ctas=int(cluster_ctas))
+           top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
     with _launches_lock:
         launches += 1
         mode_launches[MODES[stream_mode(stream)]] += 1

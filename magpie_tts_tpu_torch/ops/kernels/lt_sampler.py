@@ -5,15 +5,16 @@ magpie_tts_tpu/ops/pallas_kernels/lt_sampler.py ``sample_frame_codes_pallas``:
 the 8 local-transformer phases of a frame, each sampling one codebook's code
 from the decoder's hidden state. On CUDA tensors it launches the
 ``magpie_lt_sample_f32`` / ``_bf16`` entry point of csrc/frame_step.cu (the
-LT launch of csrc/lt_persistent.cuh for one slot: one cluster, one launch a
-frame; the hidden row's dtype picks one) or raises; on CPU tensors it runs
-``sample_frame_codes_reference``, the plain ``models.local_transformer.
-sample_frame_codes``.
+hidden row's dtype picks one) or raises: one persistent, cooperative launch
+a frame, kernel A's LT phases up to the last draw
+(csrc/frame_persistent.cuh ``lt_persistent_kernel``, its phase table
+``frame_step.plan_lt``), so the split path's codes are the fused path's. On
+CPU tensors it runs ``sample_frame_codes_reference``, the plain
+``models.local_transformer.sample_frame_codes``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -25,7 +26,6 @@ from . import frame_step as fs
 ENTRY = "magpie_lt_sample"
 launches = 0  # kernel launches (one per frame) since the last reset
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
-last_plan: Optional[dict] = None  # the last launch's plan: CTAs a cluster, clusters, slots
 
 
 def declare(lib) -> None:
@@ -47,15 +47,13 @@ def sample_frame_codes_reference(hidden: torch.Tensor, weights: MagpieWeights,
 
 def sample_frame_codes(hidden: torch.Tensor, weights: MagpieWeights, config: MagpieConfig,
                        seed: int, temperature: float, top_k: int, forbid_eos: bool,
-                       cluster_ctas: int = 0, logits: Optional[torch.Tensor] = None,
-                       stamps: Optional[torch.Tensor] = None):
+                       grid: Optional[int] = None, stamps: Optional[torch.Tensor] = None):
     """Sample one frame's 8 codes from ``hidden`` [d_model] with the frame's
-    int32 ``seed``. Returns (sampled [8] int32, argmax [8] int32). Tests
-    only: ``cluster_ctas`` asks for a cluster size in place of the launch's
-    choice, ``logits`` (float32 [8, vocab] on the card) receives each
-    codebook's masked logits; profiling: ``stamps`` (int64 [1 + records] on
-    the card) receives the launch's stamps (``read_stamps``)."""
-    global launches, last_plan
+    int32 ``seed``. Returns (sampled [8] int32, argmax [8] int32). ``grid``
+    (tests only) launches that many blocks in place of the co-resident
+    maximum; ``stamps`` (``frame_step.check_stamps``) receives the phase
+    stamps of the launch."""
+    global launches
     if hidden.device.type == "cpu":
         return sample_frame_codes_reference(hidden, weights, config, seed, temperature, top_k,
                                             forbid_eos)
@@ -68,53 +66,9 @@ def sample_frame_codes(hidden: torch.Tensor, weights: MagpieWeights, config: Mag
     sampled = torch.empty(c.num_codebooks, dtype=torch.int32, device=dev)
     argmax = torch.empty(c.num_codebooks, dtype=torch.int32, device=dev)
     tensors = {"hidden": (hidden, (c.d_model,)), **fs.lt_weight_tensors(weights, c)}
-    plan = (ctypes.c_int * 3)()
-    outputs = dict(sampled=sampled, argmax=argmax, lt_plan=ctypes.addressof(plan))
-    if logits is not None:
-        fs.check_tensor(ENTRY, "logits", logits, (c.num_codebooks, c.vocab_per_cb))
-        outputs["lt_logits"] = logits
-    cap = 0
-    if stamps is not None:
-        if stamps.device != dev or stamps.dtype != torch.int64 or stamps.dim() != 1:
-            raise ValueError(f"{ENTRY}: stamps must be a 1-d int64 tensor on the hidden row's card")
-        outputs["stamps"], cap = stamps, stamps.numel() - 1
-    fs.launch(fs.entry_name(ENTRY, dtype), tensors, outputs, c, dev, dtype=dtype,
-              lt_ctas=int(cluster_ctas), stamp_cap=cap,
+    fs.launch(fs.entry_name(ENTRY, dtype), tensors, dict(sampled=sampled, argmax=argmax), c, dev,
+              dtype=dtype, grid=grid or 0, stamps=stamps,
               **fs.sampling_scalars(c, seed, temperature, top_k, forbid_eos))
-    last_plan = dict(zip(("ctas", "clusters", "slots"), plan))
     launches += 1
     fs.count_dtype(dtype_launches, dtype)
     return sampled, argmax
-
-
-# The stamps of a launch (csrc/lt_persistent.cuh LtCluster::stamp): each
-# product's start, the end of its pre() (the cluster barrier's wait and the
-# prologue), its first bank's sums, its last tile's sums, the tile's
-# reduction and its end; then the draw's end.
-STAMP_PRODUCTS = ("in_proj", "qkv", "sa_out", "ff_proj", "ff_out", "head")
-STAMP_STEPS = ("wait", "first_bank", "sums", "reduce", "send")
-
-
-def read_stamps(stamps: torch.Tensor, n_cb: int) -> dict:
-    """us a frame of a stamped launch (CTA 0) by product and step: ``wait``
-    (the barrier's wait and the prologue), ``first_bank`` (until the first
-    bank is summed), ``sums`` (the rest of the sums), ``reduce`` (the tile's
-    warp reduction), ``send`` (the outputs to the cluster), and ``draw`` (the
-    head's end to the draw's end: the barrier's wait and the draw). A CTA
-    without tiles in a product records none of its middle steps."""
-    words = stamps.cpu().tolist()
-    t = words[1:1 + min(int(words[0]), len(words) - 1)]
-    per = len(STAMP_STEPS) + 1
-    per_cb = per * len(STAMP_PRODUCTS) + 1
-    if len(t) < per_cb * n_cb:
-        raise ValueError(f"{len(t)} stamps, want {per_cb * n_cb}")
-    out = {f"{name}_{k}": 0.0 for name in STAMP_PRODUCTS for k in STAMP_STEPS}
-    out["draw"] = 0.0
-    for cb in range(n_cb):
-        r = t[cb * per_cb:(cb + 1) * per_cb]
-        for i, name in enumerate(STAMP_PRODUCTS):
-            for j, k in enumerate(STAMP_STEPS):
-                out[f"{name}_{k}"] += (r[per * i + j + 1] - r[per * i + j]) / 1e3
-        out["draw"] += (r[-1] - r[-2]) / 1e3
-    out["span"] = (t[per_cb * n_cb - 1] - t[0]) / 1e3
-    return out

@@ -5,9 +5,8 @@ magpie_tts_tpu/ops/pallas_kernels/lt_sampler_batched.py
 ``sample_frame_codes_batched_pallas``: each slot's 8 local-transformer
 phases with its own seed and EOS flag, every LT weight read once for all
 slots. On CUDA tensors it launches the ``magpie_lt_sample_batched_f32`` /
-``_bf16`` entry point of csrc/frame_step_batched.cu (the LT launch of
-csrc/lt_persistent.cuh: one launch a frame on thread-block clusters, kernel
-C's LT part; the hidden rows' dtype picks one) or raises; on CPU tensors it runs
+``_bf16`` entry point of csrc/frame_step_batched.cu (kernel C's LT sequence,
+stopping at the codes; the hidden rows' dtype picks one) or raises; on CPU tensors it runs
 ``sample_frame_codes_batched_reference``: per slot, the plain
 ``models.local_transformer.sample_frame_codes``.
 
@@ -18,7 +17,6 @@ is a Mosaic tiling rule, not the model's.
 from __future__ import annotations
 
 import threading
-from typing import Optional
 
 import torch
 
@@ -31,7 +29,6 @@ ENTRY = "magpie_lt_sample_batched"
 launches = 0  # kernel launches (one per frame) since the last reset
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
-last_plan: Optional[dict] = None  # the last launch's plan: CTAs a cluster, clusters, slots
 
 
 def declare(lib) -> None:
@@ -53,15 +50,11 @@ def sample_frame_codes_batched_reference(hidden: torch.Tensor, weights: MagpieWe
 
 def sample_frame_codes_batched(hidden: torch.Tensor, weights: MagpieWeights,
                                config: MagpieConfig, seeds: torch.Tensor, temperature: float,
-                               top_k: int, forbid_eos: torch.Tensor, clusters: int = 0,
-                               cluster_ctas: int = 0, logits: Optional[torch.Tensor] = None):
+                               top_k: int, forbid_eos: torch.Tensor):
     """Sample 8 codes for each of B slots: hidden [B, d_model], seeds [B]
     int32 (each slot's frame seed), forbid_eos [B] bool. No value is read
-    back to the host. Returns (sampled [B, 8] int32, argmax [B, 8] int32).
-    Tests only: ``clusters`` / ``cluster_ctas`` ask for a plan in place of
-    the launch's choice, ``logits`` (float32 [B, 8, vocab] on the card)
-    receives every slot's masked logits."""
-    global launches, last_plan
+    back to the host. Returns (sampled [B, 8] int32, argmax [B, 8] int32)."""
+    global launches
     if hidden.device.type == "cpu":
         return sample_frame_codes_batched_reference(hidden, weights, config, seeds,
                                                     temperature, top_k, forbid_eos)
@@ -75,16 +68,11 @@ def sample_frame_codes_batched(hidden: torch.Tensor, weights: MagpieWeights,
     dev = hidden.device
     sampled = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
     argmax = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
-    outputs = dict(sampled=sampled, argmax=argmax)
-    if logits is not None:
-        fsb.check_tensor(ENTRY, "logits", logits, (B, c.num_codebooks, c.vocab_per_cb))
-        outputs["lt_logits"] = logits
-    plan = fsb.launch(fsb.entry_name(ENTRY, dtype), B,
-                      fsb.sampler_tensors(hidden, forbid_eos, seeds, weights, c), outputs, c,
-                      dev, top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature),
-                      lt_clusters=int(clusters), lt_ctas=int(cluster_ctas))
+    fsb.launch(fsb.entry_name(ENTRY, dtype), B,
+               fsb.sampler_tensors(hidden, forbid_eos, seeds, weights, c),
+               dict(sampled=sampled, argmax=argmax), c, dev,
+               top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
     with _launches_lock:
         launches += 1
         fsb.count_dtype(dtype_launches, dtype)
-        last_plan = plan
     return sampled, argmax

@@ -1,18 +1,17 @@
-"""The LT launch of kernels 4, 7 and C (csrc/lt_persistent.cuh) on the CPU.
+"""Kernel 4 as one persistent launch a frame (csrc/frame_persistent.cuh
+``lt_persistent_kernel``) and the LT samplers' draw, on the CPU.
 
-What of it lives in Python is checked here: its plan (cluster barriers and
-phases a frame, column tiles that cover every column once in a sum order of
-(K, N) alone, whatever B, the cluster size or the cluster count, a model of
-that order against float64, the clusters picked from B, shared memory that
-fits); the draw's
-exact top-k (``ops/sampling.radix_topk_mask``, the kernels' radix select's
-twin) against both bisections and, inside a whole draw, against the JAX
-package's sampler; and the plain versions kernels 4 and 7 are held against
-on the card, against the Pallas kernels they replace in interpret mode.
+What of it lives in Python is checked here: kernel 4's phase table
+(``frame_step.plan_lt``: kernel A's 8 LT phases, 6 grid barriers each, then
+the last draw) with A's products, so the split path's logits have A's sum
+order; items that cover every column once over any grid, in a sum order of
+(K, N) alone; a model of that order against float64 and bit-equal across
+grids; shared memory that fits. The draw's exact top-k
+(``ops/sampling.radix_topk_mask``, the kernels' radix select's twin) against
+both bisections and, inside a whole draw, against the JAX package's
+sampler; and the plain versions kernels 4 and 7 are held against on the
+card, against the Pallas kernels they replace in interpret mode.
 """
-
-import re
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,108 +33,88 @@ from tests.utils import tiny_magpie_config
 PROD = MagpieConfig()
 TINY = tiny_magpie_config()
 CONFIGS = {"357M": PROD, "tiny": TINY}
-# Clusters of 16 / 8 CTAs an H100 might hold at once (the launch asks the card).
-RESIDENT = ({16: 7, 8: 16}, {16: 8, 8: 16}, {16: 0, 8: 15})
-SLOTS = (1, 3, 8, 13, 32, 64)
+GRIDS = (33, 66, 132)   # a third, half and all of an H100's SMs
 TOP_K = 8
+LT_PRODUCTS = ("lt_in", "lt_qkv", "lt_sa_out", "lt_ff_proj", "lt_ff_out", "lt_out")
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_plan_counts_barriers_and_phases(name):
-    """7 cluster barriers a codebook, none after the last draw (PERF.md's
-    figure at 357M); 8 phases a codebook, the attention without a barrier;
-    the same table at every B."""
+    """6 grid barriers a codebook and none after the last draw (48 at
+    357M); the phases are kernel A's LT phases, in A's order, with A's
+    products and splits."""
     c = CONFIGS[name]
-    plans = [fs.plan_lt(c, B, RESIDENT[0]) for B in SLOTS]
-    for p in plans:
-        assert p.barriers == 7 * c.num_codebooks - 1
-        assert len(p.phases) == 8 * c.num_codebooks
-        assert p.phases == plans[0].phases and p.products == plans[0].products
-        assert [ph.name for ph in p.phases if not ph.barrier] == (
-            ["lt_attention"] * c.num_codebooks + ["draw"])
-    if name == "357M":
-        text = (Path(__file__).resolve().parents[1] / "PERF.md").read_text()
-        m = re.search(r"cluster\s+barriers\s+a\s+frame:\s+(\d+)", text)
-        assert m, "PERF.md states the LT launch's barrier count"
-        assert int(m.group(1)) == plans[0].barriers
+    plan = fs.plan_lt(c)
+    fused = fs.plan_frame(c, 20, True)
+    n_lt = 6 * c.num_codebooks
+    assert plan.barriers == n_lt and len(plan.phases) == n_lt + 1
+    assert plan.phases[:n_lt] == fused.phases[:n_lt]
+    assert plan.phases[-1] == fs.Phase("draw", "none", False)
+    assert [p.name for p in plan.products] == list(LT_PRODUCTS)
+    assert all(p == fused.product(p.name) for p in plan.products)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
-@pytest.mark.parametrize("ctas", [8, 16])
-def test_tiles_cover_every_column_once_in_an_order_of_k_and_n(name, ctas):
-    """Every column of every LT product is summed by exactly one CTA of a
-    cluster (whichever cluster: each starts on another tile), at most
-    LT_MAX_COLS wide; every row of a column by exactly one
-    row group; the sum order is the product's (a function of (K, N)) at
-    every B, cluster size and cluster count."""
+@pytest.mark.parametrize("grid", GRIDS)
+def test_items_cover_every_column_once_in_an_order_of_k_and_n(name, grid):
+    """Dealt round-robin over ``grid`` blocks, the items of every LT product
+    cover each (split, column) once, each split's rows once; a column's sum
+    order is the product's, a function of (K, N) only."""
     c = CONFIGS[name]
-    plans = [fs.plan_lt(c, B, RESIDENT[0], ctas=ctas) for B in SLOTS]
-    for p in plans[0].products:
-        assert 1 <= p.tiles <= fs.LT_TILES and p.cols <= fs.LT_MAX_COLS
-        assert p.gw * p.q <= 32 and p.groups == 8 * p.gw
-        for cluster in range(3):
-            seen = np.zeros(p.N, dtype=np.int32)
-            for rank in range(ctas):
-                for tile in plans[0].tiles(p.name, rank, cluster):
-                    seen[tile * p.cols:min(p.N, (tile + 1) * p.cols)] += 1
-            assert (seen == 1).all(), (p.name, cluster)
+    for p in fs.plan_lt(c).products:
+        seen = np.zeros((p.split, p.N), dtype=np.int32)
+        rows = np.zeros(p.K, dtype=np.int32)
+        for block in range(grid):
+            for i in range(block, p.items, grid):
+                (k0, k1), (c0, c1) = p.item(i)
+                seen[i // p.tiles, c0:c1] += 1
+                if c0 == 0:
+                    rows[k0:k1] += 1
+        assert (seen == 1).all() and (rows == 1).all(), p.name
+        again = fs.Product(p.name, p.K, p.N, fs.product_split(p.K, p.N))
         for col in (0, p.N // 2, p.N - 1):
-            groups, gw = p.sum_order(col)
-            assert sorted(k for g in groups for k in g) == list(range(p.K))
-            assert all(q.product(p.name).sum_order(col) == (groups, gw) for q in plans)
+            order = p.sum_order(col)
+            assert sorted(k for sp in order for g in sp for k in g) == list(range(p.K))
+            assert order == again.sum_order(col)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_product_model_matches_float64(name, dtype):
-    """A model of the launch's sum order (row groups, the warp tree, the
-    warps) against x @ W in float64, every LT product."""
+def test_product_model_matches_float64_and_keeps_bits_over_grids(name, dtype):
+    """A model of kernel 4's products (frame_step.gemv_model) against x @ W
+    in float64, and bit-equal over grids of 33, 66 and 132 blocks."""
     c = CONFIGS[name]
-    for p in fs.lt_products(c):
+    for p in fs.plan_lt(c).products:
         rng = np.random.default_rng(p.K + p.N)
         x = torch.tensor(rng.standard_normal(p.K), dtype=torch.float32).to(dtype).float()
         w = torch.tensor(rng.standard_normal((p.K, p.N)) * 0.02,
                          dtype=torch.float32).to(dtype).float()
-        got = fs.lt_product_model(x, p, w)
-        assert float((got.double() - x.double() @ w.double()).abs().max()) < 1e-4, p.name
-
-
-@pytest.mark.parametrize("resident", RESIDENT, ids=["r16-7", "r16-8", "r16-0"])
-@pytest.mark.parametrize("B", SLOTS)
-def test_plan_picks_clusters_from_b(resident, B):
-    """At most 4 slots a cluster and no more CTAs drawing than the cluster
-    has; every slot in exactly one cluster; 16 CTAs a cluster when the
-    clusters B needs fit on the card at once, else 8; as many clusters as
-    fit at once (at most B). The column tiles do not change with the plan."""
-    plan = fs.plan_lt(PROD, B, resident)
-    need = -(-B // fs.LT_MAX_SLOTS)
-    assert plan.ctas == (16 if resident[16] >= need else 8)
-    assert 1 <= plan.slots <= min(fs.LT_MAX_SLOTS, plan.ctas)
-    slots = [b for q in range(plan.clusters) for b in plan.slot_range(q)]
-    assert slots == list(range(B)) and len(plan.slot_range(plan.clusters - 1)) >= 1
-    fit = max(need, min(B, resident[plan.ctas]))
-    assert plan.clusters == -(-B // -(-B // fit))
-    assert plan.products == fs.plan_lt(PROD, B, resident, clusters=need).products
-    assert fs.lt_smem_bytes(PROD, plan.slots) <= fs.SMEM_LIMIT
-
-
-def test_plan_refuses_more_slots_than_a_cluster_takes():
-    with pytest.raises(ValueError):
-        fs.plan_lt(PROD, 64, RESIDENT[0], clusters=8)
-    with pytest.raises(ValueError):
-        fs.plan_lt(PROD, 65, RESIDENT[0])
-    with pytest.raises(ValueError):
-        fs.plan_lt(PROD, 4, RESIDENT[0], ctas=4)
+        outs = [fs.gemv_model(x, p, grid, dense=w) for grid in GRIDS]
+        assert all(torch.equal(o, outs[0]) for o in outs[1:]), p.name
+        assert float((outs[0].double() - x.double() @ w.double()).abs().max()) < 1e-4, p.name
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_shared_memory_fits_and_config_passes(name):
-    """Every slot count the launch instantiates fits an H100 block's shared
-    memory beside the persistent kernels'; check_config takes the config."""
+    """Kernel 4's block takes kernel A's shared memory, which fits an H100
+    block; check_config takes the config."""
     c = CONFIGS[name]
-    sizes = [fs.lt_smem_bytes(c, g) for g in (1, 2, 4)]
-    assert sizes == sorted(sizes) and sizes[-1] <= fs.SMEM_LIMIT
+    assert fs.smem_bytes(c) <= fs.SMEM_LIMIT
     fs.check_config("test", c, TOP_K)
+
+
+def test_cpu_tensor_runs_the_plain_version():
+    """On a CPU tensor kernel 4's wrapper runs its plain version and counts
+    no launch."""
+    jw = random_magpie_weights(TINY, seed=3)
+    pw = port_magpie_weights(jw)
+    hidden = t(np.random.default_rng(3).normal(0, 0.5, TINY.d_model).astype(np.float32))
+    before = lts.launches
+    with torch.no_grad():
+        got = lts.sample_frame_codes(hidden, pw, TINY, 9, 0.7, TOP_K, False)
+        want = lts.sample_frame_codes_reference(hidden, pw, TINY, 9, 0.7, TOP_K, False)
+    assert lts.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ------------------------------------------------------ the draw's exact top-k

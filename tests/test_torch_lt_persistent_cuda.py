@@ -1,4 +1,5 @@
-"""The LT launch of kernels 4, 7 and C (csrc/lt_persistent.cuh) on the card.
+"""Kernel 4 as one persistent launch a frame, and kernel 7 and kernel C's LT
+part (frame_sequence.cuh lt_phases), on the card.
 
 Each test needs a CUDA device and skips without one; the file imports neither
 jax nor the JAX package:
@@ -7,13 +8,12 @@ jax nor the JAX package:
 At 357M width in both dtypes: kernel 4 (B = 1) and kernel 7 (B = 1, 3, 8,
 13, 32, 64) against their plain versions at temperatures 0 and 0.7, EOS
 forbidden in some slots (codes exact in float32; in bf16 a code may differ
-only at a near-tie of the plain scores, the smoke's rule); every slot's
-logits bit-equal across cluster counts and cluster sizes; kernel C's codes
-equal to kernel 7's on the same rows; 200 frames replayed from one CUDA graph; a launch
-the card refuses raises and leaves no error behind. The small config's
-kernels against plain at every B. The draw alone (the draw probe) against
-the plain draw on logits with ties at the k-th key, +-0, forbidden entries,
-a narrow range and an outlier.
+only at a near-tie of the plain scores, the smoke's rule); kernel 4's codes
+equal to kernel A's on the same hidden row (the split path's codes are the
+fused path's) and equal over grids; kernel C's codes equal to kernel 7's on
+the same rows; kernel 4's phase stamps against its plan; 200 frames
+replayed from one CUDA graph; a launch the card refuses raises and leaves
+no error behind. The small config's kernels against plain at every B.
 """
 
 import numpy as np
@@ -22,7 +22,6 @@ import torch
 
 from magpie_tts_tpu_torch.config import MagpieConfig
 from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
-from magpie_tts_tpu_torch.ops import sampling
 from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
 from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
 from magpie_tts_tpu_torch.ops.kernels import lt_sampler as lts
@@ -78,10 +77,8 @@ def _flips(hidden, sampled, argmax, w, c, seed, temp, forbid):
     """The codes of one slot's frame that differ from the plain LT sampler
     fed the kernel's earlier codes, as (phase, gap, ulp): the plain winner's
     score minus the kernel's code's (in logits; at temp >= 0.01 the Gumbel
-    score times temp) and one bf16 ulp of the winner's logit; a drawn code
-    where the kernel's code or the plain winner lies within one ulp of the
-    plain k-th largest logit (the top-k set's edge) has gap 0 against that
-    ulp (chip_smoke.lt_flips)."""
+    score times temp) and one bf16 ulp of the winner's logit
+    (chip_smoke.lt_flips)."""
     from magpie_tts_tpu_torch.models import local_transformer as lt_mod
     from magpie_tts_tpu_torch.ops import sampling
     from magpie_tts_tpu_torch.ops.precision import matmul_f32
@@ -96,22 +93,18 @@ def _flips(hidden, sampled, argmax, w, c, seed, temp, forbid):
         hid = lt_mod._lt_layer_f32(seq, lt, c)[cb]
         logits = matmul_f32(hid.to(hidden.dtype), lt.out_proj_w[cb]) + lt.out_proj_b[cb].float()
         logits = sampling.mask_logits(logits, mask, forbid, c.audio_eos_id)
-        scored = [(logits, argmax[cb], 1.0, None)]
+        scored = [(logits, argmax[cb], 1.0)]
         if temp >= 0.01:
-            k = min(TOP_K, c.vocab_per_cb)
-            keep = sampling.exact_topk_mask(logits, k)
+            keep = sampling.exact_topk_mask(logits, min(TOP_K, c.vocab_per_cb))
             g = sampling.gumbel_from_seed(sampling.phase_seed(seed, cb).to(dev), cols)
             z = torch.where(keep, logits / temp + g, torch.full_like(logits, sampling.NEG_INF))
-            scored.append((z, sampled[cb], temp, float(logits.topk(k).values[-1])))
-        ulp_of = lambda v: 2.0 ** (np.floor(np.log2(abs(v))) - 7) if v != 0 else 0.0
-        for z, got, scale, kth in scored:
+            scored.append((z, sampled[cb], temp))
+        for z, got, scale in scored:
             want = int(torch.argmax(z))
             if got != want:
-                ulp, gap = ulp_of(float(logits[want])), float(z[want] - z[got]) * scale
-                if kth is not None and any(abs(float(logits[v]) - kth) < ulp_of(kth)
-                                           for v in (got, want)):
-                    gap, ulp = 0.0, ulp_of(kth)   # the top-k set's edge
-                flips.append((cb, gap, ulp))
+                lw = abs(float(logits[want]))
+                ulp = 2.0 ** (np.floor(np.log2(lw)) - 7) if lw > 0 else 0.0
+                flips.append((cb, float(z[want] - z[got]) * scale, ulp))
         if cb < c.num_codebooks - 1:
             seq[cb + 1] = lt_mod._in_proj(w.audio_emb[cb, sampled[cb]], lt)
     return flips
@@ -132,67 +125,73 @@ def _codes_agree(got, want, hidden, w, c, dtype, seeds, temp, forbid):
         assert flips and all(gap < ulp for _, gap, ulp in flips), (b, flips)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+
+
+@DTYPES
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_kernel4_matches_plain(full, card, dtype, temperature):
+    """Kernel 4 at B = 1 on 6 hidden rows, EOS forbidden in some, against
+    its plain version."""
+    c, w = full[dtype]
+    hidden, seeds, forbid = _inputs(c, card, 6, dtype, 40 + int(temperature * 10))
+    with torch.no_grad():
+        got = [lts.sample_frame_codes(hidden[b], w, c, int(seeds[b]), temperature, TOP_K,
+                                      bool(forbid[b])) for b in range(6)]
+        want = [lts.sample_frame_codes_reference(hidden[b], w, c, int(seeds[b]), temperature,
+                                                 TOP_K, bool(forbid[b])) for b in range(6)]
+    torch.cuda.synchronize()
+    stack = lambda runs, i: torch.stack([r[i] for r in runs])
+    _codes_agree((stack(got, 0), stack(got, 1)), (stack(want, 0), stack(want, 1)), hidden, w, c,
+                 dtype, seeds, temperature, forbid)
+
+
+@DTYPES
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_kernel4_codes_are_kernel_a_codes(full, card, dtype, temperature):
+    """Kernel 4 runs kernel A's LT phases: on the same hidden row, seed and
+    EOS flag its codes and argmax are A's, bit for bit; and over grids of
+    66 and 132 blocks they do not change."""
+    c, w = full[dtype]
+    hidden, seeds, forbid = _inputs(c, card, 4, dtype, 60 + int(temperature * 10))
+    S, E, L, D = c.max_seq, 8, c.dec_layers, c.d_model
+    gen = torch.Generator(device=card).manual_seed(4)
+    rnd = lambda *shape: (torch.randn(*shape, generator=gen, device=card) * 0.5).to(dtype)
+    kc, vc, xa_k, xa_v = rnd(L, S, D), rnd(L, S, D), rnd(L, E, c.d_xa), rnd(L, E, c.d_xa)
+    with torch.no_grad():
+        for b in range(4):
+            seed, fb = int(seeds[b]), bool(forbid[b])
+            sa, aa, _, _, _ = fs.frame_step(hidden[b], 20, xa_k, xa_v, kc, vc, w, c, seed,
+                                            temperature, TOP_K, fb, enc_length=E)
+            s4, a4 = lts.sample_frame_codes(hidden[b], w, c, seed, temperature, TOP_K, fb)
+            s66, a66 = lts.sample_frame_codes(hidden[b], w, c, seed, temperature, TOP_K, fb,
+                                              grid=66)
+            torch.cuda.synchronize()
+            assert torch.equal(s4, sa) and torch.equal(a4, aa), b
+            assert torch.equal(s66, s4) and torch.equal(a66, a4), b
+
+
+@DTYPES
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
 @pytest.mark.parametrize("B", SLOTS)
 def test_kernel7_matches_plain(full, card, dtype, temperature, B):
-    """Kernel 7 at 357M against its plain version, per-slot seeds and EOS
-    flags; at B = 1 kernel 4 too, with kernel 7's codes."""
+    """Kernel 7 at B slots, per-slot seeds and EOS flags, against its plain
+    version."""
     c, w = full[dtype]
-    hidden, seeds, forbid = _inputs(c, card, B, dtype, 700 + B)
+    hidden, seeds, forbid = _inputs(c, card, B, dtype, 700 + B + int(temperature * 10))
     with torch.no_grad():
-        sk, ak = ltsb.sample_frame_codes_batched(hidden, w, c, seeds, temperature, TOP_K, forbid)
-        sr, ar = ltsb.sample_frame_codes_batched_reference(hidden, w, c, seeds, temperature,
-                                                           TOP_K, forbid)
-        if B == 1:
-            s4, a4 = lts.sample_frame_codes(hidden[0], w, c, int(seeds[0]), temperature, TOP_K,
-                                            bool(forbid[0]))
-            assert torch.equal(s4, sk[0]) and torch.equal(a4, ak[0])
+        got = ltsb.sample_frame_codes_batched(hidden, w, c, seeds, temperature, TOP_K, forbid)
+        want = ltsb.sample_frame_codes_batched_reference(hidden, w, c, seeds, temperature,
+                                                         TOP_K, forbid)
     torch.cuda.synchronize()
-    plan = ltsb.last_plan
-    assert plan["ctas"] in (8, 16) and plan["slots"] <= 4
-    assert plan["clusters"] * plan["slots"] >= B > (plan["clusters"] - 1) * plan["slots"]
-    _codes_agree((sk, ak), (sr, ar), hidden, w, c, dtype, seeds, temperature, forbid)
-    eos = c.audio_eos_id
-    assert not bool((sk[forbid] == eos).any())
+    _codes_agree(got, want, hidden, w, c, dtype, seeds, temperature, forbid)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
-def test_logits_bit_equal_across_cluster_plans(full, card, dtype):
-    """Every slot's logits and codes are the same bits whatever the plan:
-    1, 2, 3 or 4 slots a cluster, 8 or 16 CTAs a cluster; kernel 4's equal
-    kernel 7's at B = 1 in both cluster sizes."""
-    c, w = full[dtype]
-    B = 8
-    hidden, seeds, forbid = _inputs(c, card, B, dtype, 81)
-    runs = []
-    with torch.no_grad():
-        for clusters, ctas in ((2, 16), (3, 8), (4, 8), (8, 16), (8, 8), (0, 0)):
-            lg = torch.empty(B, c.num_codebooks, c.vocab_per_cb, device=card)
-            s, a = ltsb.sample_frame_codes_batched(hidden, w, c, seeds, 0.7, TOP_K, forbid,
-                                                   clusters=clusters, cluster_ctas=ctas,
-                                                   logits=lg)
-            runs.append((s, a, lg))
-        one = []
-        for ctas in (8, 16):
-            lg = torch.empty(c.num_codebooks, c.vocab_per_cb, device=card)
-            s, a = lts.sample_frame_codes(hidden[0], w, c, int(seeds[0]), 0.7, TOP_K,
-                                          bool(forbid[0]), cluster_ctas=ctas, logits=lg)
-            one.append((s, a, lg))
-    torch.cuda.synchronize()
-    for other in runs[1:]:
-        assert all(torch.equal(x, y) for x, y in zip(runs[0], other))
-    for s, a, lg in one:
-        assert torch.equal(s, runs[0][0][0]) and torch.equal(a, runs[0][1][0])
-        assert torch.equal(lg, runs[0][2][0])
-    assert torch.isfinite(runs[0][2][runs[0][2] > -1e29]).all()
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@DTYPES
 @pytest.mark.parametrize("B", [3, 8, 32])
-def test_kernel_c_lt_part_is_kernel7s_launch(full, card, dtype, B):
-    """Kernel C's codes equal kernel 7's on the same rows (one launch, the
-    same plan), and C's frame agrees with its plain version's codes."""
+def test_kernel_c_lt_part_is_kernel7s(full, card, dtype, B):
+    """Kernel C's codes equal kernel 7's on the same rows (the same LT
+    sequence), and C's frame agrees with its plain version's codes."""
     c, w = full[dtype]
     hidden, seeds, forbid = _inputs(c, card, B, dtype, 900 + B)
     S, E, L, D = c.max_seq, 8, c.dec_layers, c.d_model
@@ -219,8 +218,8 @@ def test_kernel_c_lt_part_is_kernel7s_launch(full, card, dtype, B):
 @pytest.mark.parametrize("B", SLOTS)
 @pytest.mark.parametrize("temperature", [0.0, 0.7])
 def test_small_config_matches_plain(small, card, B, temperature):
-    """The tiny config (LT 32 wide, 40 logits: narrower than a row group)
-    at every B: kernels 4 and 7 against plain, codes exact."""
+    """The tiny config (LT 32 wide, 40 logits: narrower than a tile's row
+    groups) at every B: kernels 4 and 7 against plain, codes exact."""
     c, w = small[torch.float32]
     hidden, seeds, forbid = _inputs(c, card, B, torch.float32, 30 + B)
     with torch.no_grad():
@@ -232,6 +231,35 @@ def test_small_config_matches_plain(small, card, B, temperature):
     torch.cuda.synchronize()
     assert torch.equal(sk, sr) and torch.equal(ak, ar)
     assert torch.equal(s4, sr[0]) and torch.equal(a4, ar[0])
+
+
+def test_two_configs_in_one_process(full, small, card):
+    """Kernel 4 at the small config, then at 357M (more shared memory a
+    block), then small again: each launch runs and agrees with plain."""
+    for c, w in (small[torch.float32], full[torch.float32], small[torch.float32]):
+        hidden, _, _ = _inputs(c, card, 1, torch.float32, 77)
+        with torch.no_grad():
+            got = lts.sample_frame_codes(hidden[0], w, c, 3, 0.7, 8, False)
+            want = lts.sample_frame_codes_reference(hidden[0], w, c, 3, 0.7, 8, False)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_stamps_follow_the_plan(full, card):
+    """Kernel 4's phase stamps: one record a phase of plan_lt (48 barriers
+    and the last draw at 357M), in time order."""
+    c, w = full[torch.float32]
+    hidden, _, _ = _inputs(c, card, 1, torch.float32, 5)
+    stamps = torch.zeros(1 + fs.STAMP_WORDS * 128, dtype=torch.int64, device=card)
+    with torch.no_grad():
+        lts.sample_frame_codes(hidden[0], w, c, 5, 0.7, TOP_K, False, stamps=stamps)
+    torch.cuda.synchronize()
+    recs = fs.read_stamps(stamps)
+    plan = fs.plan_lt(c)
+    assert len(recs) == len(plan.phases)
+    assert all(r["start"] <= r["pro_end"] <= r["end"] for r in recs)
+    assert all(a["end"] <= b["start"] for a, b in zip(recs, recs[1:]))
+    assert [r["work"] for r in recs] == ["gemv"] * plan.barriers + ["none"]
 
 
 def test_200_frames_replayed_from_one_graph(full, card):
@@ -256,52 +284,14 @@ def test_200_frames_replayed_from_one_graph(full, card):
 
 
 def test_a_refused_launch_raises_and_clears_its_error(full, card):
-    """Clusters of 32 CTAs (more than the card takes) and more slots a
-    cluster than it holds raise; the next launches run and agree with plain."""
+    """A grid past what the card holds at once is refused by the cooperative
+    launch and raises; the next launches run and agree with plain."""
     c, w = full[torch.float32]
-    hidden, seeds, forbid = _inputs(c, card, 8, torch.float32, 32)
+    hidden, _, _ = _inputs(c, card, 1, torch.float32, 32)
     with torch.no_grad():
         with pytest.raises(RuntimeError, match="CUDA error"):
-            ltsb.sample_frame_codes_batched(hidden, w, c, seeds, 0.0, TOP_K, forbid,
-                                            cluster_ctas=32)
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            lts.sample_frame_codes(hidden[0], w, c, 1, 0.0, TOP_K, False, cluster_ctas=32)
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            ltsb.sample_frame_codes_batched(hidden, w, c, seeds, 0.0, TOP_K, forbid,
-                                            clusters=1, cluster_ctas=4)
-        sk, _ = ltsb.sample_frame_codes_batched(hidden, w, c, seeds, 0.0, TOP_K, forbid)
-        sr, _ = ltsb.sample_frame_codes_batched_reference(hidden, w, c, seeds, 0.0, TOP_K,
-                                                          forbid)
+            lts.sample_frame_codes(hidden[0], w, c, 1, 0.0, TOP_K, False, grid=100000)
+        got = lts.sample_frame_codes(hidden[0], w, c, 1, 0.0, TOP_K, False)
+        want = lts.sample_frame_codes_reference(hidden[0], w, c, 1, 0.0, TOP_K, False)
     torch.cuda.synchronize()
-    assert torch.equal(sk, sr)
-
-
-def _hard_logits(rng, rows=12, V=2024):
-    lg = rng.standard_normal((rows, V)).astype(np.float32)
-    lg[:, 2016] = sampling.NEG_INF
-    lg[:, 2018:2024] = sampling.NEG_INF
-    order = np.argsort(-lg, axis=-1)
-    for r, k in enumerate((1, 40, 80, 300)):
-        lg[r, order[r, max(0, k - 20):k + 20]] = lg[r, order[r, k - 1]]   # ties at the k-th key
-    lg[4, order[4, :600]] = np.float32(2.5)           # 600 ties above the k-th key
-    lg[5, :300], lg[5, 300:600] = np.float32(0.0), np.float32(-0.0)
-    lg[6, :2016] = np.float32(1.0)                    # one value but the forbidden
-    lg[7, :] = sampling.NEG_INF                       # nothing allowed
-    lg[8] *= 1e-3                                     # a narrow live range
-    lg[9, 7] = 1e20                                   # an outlier far above the rest
-    return lg
-
-
-@pytest.mark.parametrize("temperature", [0.0, 0.005, 0.7])
-@pytest.mark.parametrize("top_k", [1, 80, 4096])
-def test_draw_matches_plain_on_hard_logits(card, temperature, top_k):
-    """The draw of kernel A and the LT launch against the plain draw (the
-    radix select's twin, exact): codes and argmax equal."""
-    lg = _hard_logits(np.random.default_rng(top_k))
-    seeds = np.random.default_rng(1).integers(-2**31, 2**31, lg.shape[0]).astype(np.int32)
-    got = fs.draw_probe(torch.from_numpy(lg).to(card), torch.from_numpy(seeds).to(card),
-                        temperature, top_k, reps=2)
-    want = fs.draw_reference(torch.from_numpy(lg), torch.from_numpy(seeds), temperature, top_k)
-    torch.cuda.synchronize()
-    assert torch.equal(got[1].cpu(), want[1])
-    assert torch.equal(got[0].cpu(), want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
