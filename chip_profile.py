@@ -3,7 +3,7 @@ kernel's time goes, the fused frame against the split path, and where
 ``serve``'s time goes.
 
 Run from the root of a checkout:
-    python3 chip_profile.py [frame|split|fused|stream|slope|lt|serve|all] [--root DIR]
+    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|serve|all] [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
     weights, write row 300, for each (B, temperature, rows attended) of
@@ -39,6 +39,11 @@ slope: kernels A and 5 (B = 1), kernel 4 (B = 1, temp 0.7 and 0), kernel 7
     barrier wait (``stamp_ms``), and the barriers counted.
 lt: the LT samplers' rows of ``slope`` alone (kernels 4 and 7), and kernel
     4's phase-stamp breakdown in both dtypes (``profile_lt_stamps``).
+q8: kernel 10 (csrc/q8_dequant.cu) on every block-stored tensor of a 357M
+    Q8_0 GGUF (chip_smoke's writer, the converter's allowlist), float32 and
+    bf16: device ms a tensor by CUDA-graph slope (Q8_N dequants a graph)
+    beside its CUDA-event mean, and their sums (one ``materialize``); with
+    ``--root DIR`` another checkout's kernel, for turns.
 serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
@@ -139,7 +144,7 @@ def stamp_breakdown(run, plan=None, reps: int = 5) -> dict:
             barriers = len(recs) - 1
             continue
         pro_group = {"ln": "ln_epilogue", "none": "ln_epilogue", "sampling": "sampling",
-                     "attention": "attention"}
+                     "attention": "attention", "parts": "ln_epilogue"}
         names = [ph.name for ph in plan.phases] if plan is not None else [None] * len(recs)
         if len(names) != len(recs):
             raise AssertionError(f"{len(recs)} phases stamped, the plan has {len(names)}")
@@ -150,7 +155,8 @@ def stamp_breakdown(run, plan=None, reps: int = 5) -> dict:
                 if nxt is not None:
                     ph["wait"] += (nxt["start"] - r["end"]) / 1e6 / reps
             groups[pro_group[r["pro"]]] += (r["pro_end"] - r["start"]) / 1e6 / reps
-            work = {"gemv": "gemv", "attention": "attention"}.get(r["work"], "ln_epilogue")
+            work = {"gemv": "gemv", "gemm": "gemv",
+                    "attention": "attention"}.get(r["work"], "ln_epilogue")
             groups[work] += (r["end"] - r["pro_end"]) / 1e6 / reps
             if nxt is not None:
                 groups["barrier_wait"] += (nxt["start"] - r["end"]) / 1e6 / reps
@@ -292,10 +298,16 @@ def profile_slope(dev, lt_only: bool = False) -> None:
         emit({"phase": "slope", "path": "barrier_probe", **barrier_cost(dev, SLOPE_N)})
 
 
+LT_STAMP_B = (8, 32)   # kernel 7's slots in ``lt``'s stamp breakdown
+
+
 def profile_lt_stamps(dev) -> None:
-    """Kernel 4 at B = 1, dense, float32 and bf16, temp 0.7: the stamp
-    breakdown of one frame by phase group and by phase name
-    (frame_step.plan_lt)."""
+    """Kernel 4 at B = 1 and kernel 7 at LT_STAMP_B slots, dense, float32
+    and bf16, temp 0.7: the stamp breakdown of one frame by phase group and
+    by phase name (frame_step.plan_lt, plan_lt_batched). For kernel 7 the
+    GEMV group is the products' items after their first X tile, the
+    LayerNorm / epilogue group the X tiles' prologues and the slot phases'
+    LayerNorms, sampling the draws."""
     import torch
 
     from chip_smoke import prod_weights
@@ -312,8 +324,58 @@ def profile_lt_stamps(dev) -> None:
             run = lambda st: lts.sample_frame_codes(hidden, w, c, 7, 0.7, 80, False, stamps=st)
             emit({"phase": "lt_stamps", "path": "lt_sampler", "dtype": dtype, "B": 1,
                   "temperature": 0.7, **stamp_breakdown(run, fs.plan_lt(c))})
+            if hasattr(fs, "plan_lt_batched"):
+                from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+
+                for B in LT_STAMP_B:
+                    h = torch.randn(B, c.d_model, generator=gen, device=dev).to(hidden.dtype)
+                    seeds = torch.arange(B, dtype=torch.int32, device=dev)
+                    forbid = torch.zeros(B, dtype=torch.bool, device=dev)
+                    run = lambda st, h=h, seeds=seeds, forbid=forbid: (
+                        ltsb.sample_frame_codes_batched(h, w, c, seeds, 0.7, 80, forbid,
+                                                        stamps=st))
+                    emit({"phase": "lt_stamps", "path": "lt_sampler_batched", "dtype": dtype,
+                          "B": B, "temperature": 0.7,
+                          **stamp_breakdown(run, fs.plan_lt_batched(c, B))})
         del w
         torch.cuda.empty_cache()
+
+
+Q8_N = (2, 8)   # kernel 10's graph slopes: dequants a graph, lo / hi
+
+
+def profile_q8(dev) -> None:
+    """Kernel 10 on every block-stored tensor of a 357M Q8_0 GGUF, float32
+    and bf16: graph slope and event mean per tensor and summed."""
+    import torch
+
+    from chip_smoke import write_model_gguf
+    from magpie_tts_tpu_torch.config import MagpieConfig
+    from magpie_tts_tpu_torch.io.magpie_weights import load_magpie_weights, q8_blocks
+    from magpie_tts_tpu_torch.ops.kernels import q8_dequant
+    from magpie_tts_tpu_torch.scripts import timing
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "magpie_q8.gguf")
+        write_model_gguf(path, MagpieConfig(), seed=0, quant="q8_0")
+        _, native = load_magpie_weights(path, q8_native=True)
+    found = {name: blk.to(dev) for name, blk in q8_blocks(native).items()}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            total = {"graph_ms": 0.0, "event_ms": 0.0}
+            for name, blk in found.items():
+                args = (blk.q, blk.s, blk.torch_shape, blk.transform, dtype)
+                body = lambda i, h, args=args: (q8_dequant.dequantize(*args), h)[1]
+                graph = timing.graph_slope(body, blk.q, *Q8_N)["per_launch_ms"]
+                event = timing.event_mean(lambda args=args: q8_dequant.dequantize(*args), reps=10)
+                total["graph_ms"] += graph
+                total["event_ms"] += event
+                emit({"phase": "q8", "tensor": name, "shape": list(blk.q.shape),
+                      "transform": blk.transform, "dtype": str(dtype).replace("torch.", ""),
+                      "graph_ms": graph, "event_ms": event})
+                torch.cuda.empty_cache()
+            emit({"phase": "q8", "tensor": "all", "tensors": len(found),
+                  "dtype": str(dtype).replace("torch.", ""), **total})
 
 
 def profile_frame(dev) -> None:
@@ -683,9 +745,9 @@ def main() -> int:
     from magpie_tts_tpu_torch.runtime.engine import resolve_device
 
     what = args[0] if args else "all"
-    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "serve", "all"):
-        print("usage: python3 chip_profile.py [frame|split|fused|stream|slope|lt|serve|all] "
-              "[--root DIR]",
+    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "serve", "all"):
+        print("usage: python3 chip_profile.py "
+              "[frame|split|fused|stream|slope|lt|q8|serve|all] [--root DIR]",
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
@@ -700,6 +762,8 @@ def main() -> int:
     if what == "lt":
         profile_slope(dev, lt_only=True)
         profile_lt_stamps(dev)
+    if what == "q8":
+        profile_q8(dev)
     if what in ("split", "fused", "all"):
         profile_split(dev, split=what != "fused")
     if what in ("stream", "all"):

@@ -4,8 +4,9 @@
 (tests/test_pallas_kernels.py ``test_q8_in_kernel_dequant_tile_bitexact``,
 ``repeat(s, 32, in-axis) * q``), as ``Q8Blocks.materialize`` runs it once per
 program for every block-stored tensor. On CUDA tensors it launches
-csrc/q8_dequant.cu, which writes the loader's layout directly (a tiled
-transpose), or raises; on CPU tensors it runs ``dequantize_reference``: the
+csrc/q8_dequant.cu, which writes the loader's layout directly (one block a
+64 x 64 (a, b) tile for all Kk: 16-byte loads of the tile's rows, a
+transpose through shared memory, 16-byte stores along a), or raises; on CPU tensors it runs ``dequantize_reference``: the
 f32 product, a reshape to the GGUF shape and the loader's transform. Both are
 bit-identical to the dense load of the same file, in float32 or, rounded to
 nearest even, in bfloat16 (the kernel writes bf16 directly).
@@ -17,6 +18,7 @@ import ctypes
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from . import build
@@ -25,6 +27,9 @@ from .build import DTYPES, count_dtype
 launches = 0  # kernel launches since the last reset
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by output dtype
 QK = 32
+# csrc/q8_dequant.cu: a tile's a rows and b columns, its threads, the bytes
+# of a load, the loads a thread issues together.
+TILE_A, TILE_B, THREADS, LOAD_BYTES, LOADS = 64, 64, 256, 16, 4
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -65,6 +70,61 @@ def dequantize_reference(q: torch.Tensor, s: torch.Tensor, torch_shape,
     else:
         w = w.transpose(-1, -3)
     return w.contiguous().to(dtype)
+
+
+def tiled_model(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str,
+                dtype=torch.float32):
+    """A CPU model of the kernel's tiling, for the tests: every block
+    (b tile, a tile, lead slice) reads its rows' source runs (16 bytes where
+    every row is whole 16-byte runs, else bytes) as the kernel's loop deals
+    them to its threads, dequantizes them into its [a][b * Kk + kk] tile and
+    writes the Kk output runs along a (16 bytes of ``dtype``, else one value).
+    Returns (out, the times each source byte was read, the times each output
+    element was written); ``out`` holds NaN where nothing was written."""
+    A, B, Kk = _dims(torch_shape, transform)
+    G = math.prod(q.shape[:-2])
+    qf = q.reshape(G, A * B * Kk).numpy()
+    sf = s.reshape(G, -1).numpy()
+    out = np.full((G, Kk * B * A), np.nan, dtype=np.float32)
+    reads = np.zeros(A * B * Kk, dtype=np.int32)
+    writes = np.zeros(Kk * B * A, dtype=np.int32)
+    vb = LOAD_BYTES if (B * Kk) % LOAD_BYTES == 0 else 1
+    elt = torch.tensor([], dtype=dtype).element_size()
+    ve = 16 // elt if A % (16 // elt) == 0 else 1
+    tid = np.arange(THREADS)
+    for a0 in range(0, A, TILE_A):
+        for b0 in range(0, B, TILE_B):
+            na, nb = min(TILE_A, A - a0), min(TILE_B, B - b0)
+            tile = np.full((G, TILE_A, TILE_B * Kk), np.nan, dtype=np.float32)
+            per_row = TILE_B * Kk // vb
+            total = TILE_A * per_row
+            step = (LOADS if vb == LOAD_BYTES else 1) * THREADS
+            for v0 in range(0, total, step):      # each thread's loads, in flight together
+                for u in range(step // THREADS):
+                    v = v0 + u * THREADS + tid
+                    r, j0 = v // per_row, (v % per_row) * vb
+                    ok = (v < total) & (r < na) & (j0 < nb * Kk)
+                    r, j0 = r[ok], j0[ok]
+                    i0 = ((a0 + r) * B + b0) * Kk + j0
+                    scale = sf[:, i0 // QK]           # one scale a load
+                    for e in range(vb):
+                        reads[i0 + e] += 1
+                        tile[:, r, j0 + e] = scale * qf[:, i0 + e].astype(np.float32)
+            runs = TILE_A // ve
+            for u0 in range(0, Kk * TILE_B * runs, THREADS):
+                u = u0 + tid
+                run, rest = u % runs, u // runs
+                bb, kk = rest % TILE_B, rest // TILE_B
+                a = run * ve
+                ok = (u < Kk * TILE_B * runs) & (bb < nb) & (a < na)
+                a, bb, kk = a[ok], bb[ok], kk[ok]
+                for e in range(ve):
+                    o = (kk * B + b0 + bb) * A + a0 + a + e
+                    writes[o] += 1
+                    out[:, o] = tile[:, a + e, bb * Kk + kk]
+    lead = tuple(q.shape[:-2])
+    res = torch.from_numpy(out).reshape(out_shape(lead, torch_shape, transform))
+    return res.to(dtype), reads, writes
 
 
 def dequantize(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str,
