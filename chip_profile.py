@@ -144,7 +144,7 @@ def stamp_breakdown(run, plan=None, reps: int = 5) -> dict:
             barriers = len(recs) - 1
             continue
         pro_group = {"ln": "ln_epilogue", "none": "ln_epilogue", "sampling": "sampling",
-                     "attention": "attention", "parts": "ln_epilogue"}
+                     "attention": "attention"}
         names = [ph.name for ph in plan.phases] if plan is not None else [None] * len(recs)
         if len(names) != len(recs):
             raise AssertionError(f"{len(recs)} phases stamped, the plan has {len(names)}")
@@ -155,8 +155,7 @@ def stamp_breakdown(run, plan=None, reps: int = 5) -> dict:
                 if nxt is not None:
                     ph["wait"] += (nxt["start"] - r["end"]) / 1e6 / reps
             groups[pro_group[r["pro"]]] += (r["pro_end"] - r["start"]) / 1e6 / reps
-            work = {"gemv": "gemv", "gemm": "gemv",
-                    "attention": "attention"}.get(r["work"], "ln_epilogue")
+            work = {"gemv": "gemv", "attention": "attention"}.get(r["work"], "ln_epilogue")
             groups[work] += (r["end"] - r["pro_end"]) / 1e6 / reps
             if nxt is not None:
                 groups["barrier_wait"] += (nxt["start"] - r["end"]) / 1e6 / reps
@@ -298,16 +297,10 @@ def profile_slope(dev, lt_only: bool = False) -> None:
         emit({"phase": "slope", "path": "barrier_probe", **barrier_cost(dev, SLOPE_N)})
 
 
-LT_STAMP_B = (8, 32)   # kernel 7's slots in ``lt``'s stamp breakdown
-
-
 def profile_lt_stamps(dev) -> None:
-    """Kernel 4 at B = 1 and kernel 7 at LT_STAMP_B slots, dense, float32
-    and bf16, temp 0.7: the stamp breakdown of one frame by phase group and
-    by phase name (frame_step.plan_lt, plan_lt_batched). For kernel 7 the
-    GEMV group is the products' items after their first X tile, the
-    LayerNorm / epilogue group the X tiles' prologues and the slot phases'
-    LayerNorms, sampling the draws."""
+    """Kernel 4 at B = 1, dense, float32 and bf16, temp 0.7: the stamp
+    breakdown of one frame by phase group and by phase name
+    (frame_step.plan_lt)."""
     import torch
 
     from chip_smoke import prod_weights
@@ -324,19 +317,6 @@ def profile_lt_stamps(dev) -> None:
             run = lambda st: lts.sample_frame_codes(hidden, w, c, 7, 0.7, 80, False, stamps=st)
             emit({"phase": "lt_stamps", "path": "lt_sampler", "dtype": dtype, "B": 1,
                   "temperature": 0.7, **stamp_breakdown(run, fs.plan_lt(c))})
-            if hasattr(fs, "plan_lt_batched"):
-                from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
-
-                for B in LT_STAMP_B:
-                    h = torch.randn(B, c.d_model, generator=gen, device=dev).to(hidden.dtype)
-                    seeds = torch.arange(B, dtype=torch.int32, device=dev)
-                    forbid = torch.zeros(B, dtype=torch.bool, device=dev)
-                    run = lambda st, h=h, seeds=seeds, forbid=forbid: (
-                        ltsb.sample_frame_codes_batched(h, w, c, seeds, 0.7, 80, forbid,
-                                                        stamps=st))
-                    emit({"phase": "lt_stamps", "path": "lt_sampler_batched", "dtype": dtype,
-                          "B": B, "temperature": 0.7,
-                          **stamp_breakdown(run, fs.plan_lt_batched(c, B))})
         del w
         torch.cuda.empty_cache()
 

@@ -2295,23 +2295,29 @@ def write_ggufs(tmp: Path):
     return mcfg, ccfg
 
 
+Q8_SLOPE_N = (2, 8)  # kernel 10's graph slopes: dequants a graph, lo / hi
+
+
 def check_q8_dequant(tmp: Path, dev, dtype: str = "float32") -> dict:
     """Kernel 10 for every block-stored tensor of the production-width Q8_0
     GGUF (``load_magpie_weights(q8_native=True)``), writing ``dtype``: bit
     for bit against its plain version on the card and against the dense load
     of the same file cast to ``dtype``; times summed over the tensors (one
-    program entry's materialize)."""
+    program entry's materialize): ``ms`` by CUDA-graph slope (the device
+    time), ``event_ms`` the CUDA-event mean of eager calls (with the host's
+    enqueue)."""
     import torch
 
     from magpie_tts_tpu_torch.io.magpie_weights import load_magpie_weights, q8_blocks
     from magpie_tts_tpu_torch.ops.kernels import q8_dequant
+    from magpie_tts_tpu_torch.scripts import timing
 
     path = str(tmp / "magpie_q8.gguf")
     _, native = load_magpie_weights(path, q8_native=True)
     _, dense = load_magpie_weights(path)
     found = q8_blocks(native)
     dt = getattr(torch, dtype)
-    total = {"ms": 0.0, "plain_ms": 0.0}
+    total = {"ms": 0.0, "event_ms": 0.0, "plain_ms": 0.0}
     nbytes = 0
     with torch.no_grad():
         for name, blk in found.items():
@@ -2327,13 +2333,16 @@ def check_q8_dequant(tmp: Path, dev, dtype: str = "float32") -> dict:
             if not (torch.equal(got, plain) and torch.equal(got, want)):
                 raise AssertionError(f"q8 dequant of {name} {blk.torch_shape} ({blk.transform}) "
                                      f"differs from plain or from the dense load")
-            total["ms"] += time_ms(lambda: q8_dequant.dequantize(*args), reps=10)
+            body = lambda i, h, args=args: (q8_dequant.dequantize(*args), h)[1]
+            total["ms"] += timing.graph_slope(body, blk.q, *Q8_SLOPE_N)["per_launch_ms"]
+            total["event_ms"] += time_ms(lambda: q8_dequant.dequantize(*args), reps=10)
             total["plain_ms"] += time_ms(lambda: q8_dequant.dequantize_reference(*args), reps=5)
             nbytes += blk.q.numel() + F32 * blk.s.numel() + got.element_size() * got.numel()
             log(f"q8_dequant[{dtype}] {name} {tuple(blk.q.shape)} -> {tuple(got.shape)} "
                 f"({blk.transform}): equal to plain and to the dense load bit for bit")
     log(f"q8_dequant[{dtype}]: {len(found)} block-stored tensors, {nbytes / 1e6:.1f} MB moved: "
-        f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms per materialize")
+        f"kernel {total['ms']:.4f} ms by graph slope (event mean {total['event_ms']:.4f}), "
+        f"plain {total['plain_ms']:.4f} ms per materialize")
     return {"max_abs_err": 0.0, **total, "nodes": len(found), **bound(nbytes, 0)}
 
 

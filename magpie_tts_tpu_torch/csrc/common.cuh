@@ -144,6 +144,7 @@ __device__ __forceinline__ void block_layer_norm(const float* x, const T* w, O* 
 }
 
 constexpr float kNegBig = -1e30f;          // masked score / logit (jnp's _NEG)
+constexpr int kSampleThreads = 1024;        // threads of an LT sampling block
 constexpr int kMaxVocab = 4096;             // the largest vocabulary a sampler takes
 
 // The JAX package's int32 hash constants (magpie_tts_tpu/ops/sampling.py).

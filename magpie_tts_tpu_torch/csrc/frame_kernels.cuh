@@ -1,8 +1,8 @@
 // Per-slot kernels of a decode frame, launched by frame_sequence.cuh for
 // frame_step.cu (one slot) and frame_step_batched.cu (B slots): the
 // reduction of split-K partials into residual / LayerNorm, activation and QKV
-// rows and single-query attention; and the weight loads every GEMV / GEMM
-// shares, for the dense, int8-column and Q8_0-block
+// rows, single-query attention and one LT phase's sampling; and the weight
+// loads every GEMV / GEMM shares, for the dense, int8-column and Q8_0-block
 // weight streams. Every kernel
 // takes the slot from its grid (gridDim = 1 slot for frame_step.cu) and reads
 // partials laid out as part[(s * B + b) * N + n]; with B = 1 that is the
@@ -597,6 +597,74 @@ int attend(const AttnCall<T>& a, int B, int chunk, const AttnWork& w, cudaStream
   attention_pv_kernel<T><<<grid, kAttnThreads, 0, st>>>(a, w, chunk, nch);
   MAGPIE_CHECK_LAUNCH();
   return 0;
+}
+
+// One LT phase's sampling, one block of kSampleThreads per slot b: logits =
+// partials + bias, forbidden specials -> -1e30, then block_sample with the
+// slot's seed. The slot's flags are forbid_eos[b] and seeds[b]; a null array
+// gives every slot forbid_eos1 / seed1. The sampled code's embedding row is
+// kept for the next phase's input projection and added to the slot's
+// embedding sum (float32). With x (the fused frame), the last phase seeds the
+// decoder with the Pallas kernels' rounding points, x[b] = rnd(rnd(sum /
+// n_cb) + posemb[b]), h[b] = rnd(LayerNorm(x[b])) with layer 0's norm;
+// with new_valid it decides the new row's validity: may_continue[b] && no
+// sampled or argmax code of the frame is EOS. The split path's LT sampler
+// passes neither and stops at the codes.
+template <class T>
+__global__ void __launch_bounds__(kSampleThreads)
+lt_sample_kernel(const float* __restrict__ part, int S, int V, const T* __restrict__ bias,
+                 int cb, int ncb, const unsigned char* __restrict__ forbid_eos, int forbid_eos1,
+                 int bos_id, int eos_id, const int* __restrict__ seeds, int seed1,
+                 float temperature, int top_k, const T* __restrict__ emb_table, int D,
+                 int* __restrict__ codes, int* __restrict__ amax_out, float* __restrict__ emb_row,
+                 float* __restrict__ emb_acc, const T* __restrict__ posemb,
+                 int posemb_stride, const unsigned char* __restrict__ may_continue,
+                 int* __restrict__ new_valid, float* __restrict__ x,
+                 const T* __restrict__ ln_w, float eps, float* __restrict__ h) {
+  __shared__ float lg[kMaxVocab];
+  __shared__ float redv[32];
+  __shared__ int redi[32];
+  __shared__ int hist[256];
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const int b = blockIdx.x, B = gridDim.x;
+  const int forbid = forbid_eos ? forbid_eos[b] : forbid_eos1;
+  const uint32_t seed = (uint32_t)(seeds ? seeds[b] : seed1);
+
+  for (int v = tid; v < V; v += bd) {
+    const float l = sum_parts(part, S, B, V, b, v) + ld(bias[v]);
+    lg[v] = lt_forbidden(v, bos_id, eos_id, forbid) ? kNegBig : l;
+  }
+  int amax;
+  const int code = block_sample(lg, V, temperature, top_k, seed + (uint32_t)cb * kPhaseC, redv,
+                                redi, hist, amax);
+
+  const bool last = cb == ncb - 1;
+  const bool to_decoder = last && x != nullptr;
+  if (tid == 0) {
+    codes[b * ncb + cb] = code;
+    amax_out[b * ncb + cb] = amax;
+    if (last && new_valid) {
+      bool eos = false;
+      for (int c = 0; c < ncb; ++c) {
+        eos = eos || codes[b * ncb + c] == eos_id || amax_out[b * ncb + c] == eos_id;
+      }
+      new_valid[b] = may_continue[b] != 0 && !eos;
+    }
+  }
+  const T* er = emb_table + (size_t)code * D;
+  float* rb = emb_row + (size_t)b * D;
+  float* ab = emb_acc + (size_t)b * D;
+  for (int n = tid; n < D; n += bd) {
+    const float e = ld(er[n]);
+    rb[n] = e;
+    const float s = cb == 0 ? e : ab[n] + e;
+    ab[n] = s;
+    if (to_decoder) {
+      x[(size_t)b * D + n] =
+          rnd<T>(rnd<T>(s / (float)ncb) + ld(posemb[(size_t)b * posemb_stride + n]));
+    }
+  }
+  if (to_decoder) block_layer_norm<T>(x + (size_t)b * D, ln_w, h + (size_t)b * D, D, eps, redv);
 }
 
 }  // namespace

@@ -63,9 +63,6 @@
 
 #pragma once
 
-#include <algorithm>
-#include <mutex>
-
 #include "frame_sequence.cuh"
 
 namespace {
@@ -205,98 +202,6 @@ __global__ void __launch_bounds__(kPThreads) barrier_probe_kernel(unsigned* bar,
   unsigned target = 0u;
   if (threadIdx.x == 0) target = barrier_base(bar);
   for (int i = 0; i < n; ++i) grid_sync(bar, target);
-}
-
-// Blocks of a persistent kernel an SM on the current device, at its shared
-// memory (cached per kernel, device and size: the occupancy query runs once).
-// The kernel's dynamic shared memory limit is raised to the largest size
-// asked for on the device, so a launch at one config's size does not leave
-// the limit below another's (two configs in one process).
-int blocks_per_sm(const void* kernel, int smem, int* n_sm) {
-  struct Entry {
-    const void* kernel;
-    int device, smem, blocks, sms;
-  };
-  static std::mutex mu;
-  static Entry cache[64], limits[64];
-  static int used = 0, n_limits = 0;
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  std::lock_guard<std::mutex> lock(mu);
-  Entry* limit = nullptr;
-  for (int i = 0; i < n_limits; ++i) {
-    if (limits[i].kernel == kernel && limits[i].device == dev) limit = &limits[i];
-  }
-  if (limit == nullptr || smem > limit->smem) {
-    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-        cudaSuccess) {
-      return -1;
-    }
-    if (limit != nullptr) {
-      limit->smem = smem;
-    } else if (n_limits < 64) {
-      limits[n_limits++] = Entry{kernel, dev, smem, 0, 0};
-    }
-  }
-  for (int i = 0; i < used; ++i) {
-    if (cache[i].kernel == kernel && cache[i].device == dev && cache[i].smem == smem) {
-      *n_sm = cache[i].sms;
-      return cache[i].blocks;
-    }
-  }
-  int blocks = 0, sms = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kPThreads, smem) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return -1;
-  }
-  if (used < 64) cache[used++] = Entry{kernel, dev, smem, blocks, sms};
-  *n_sm = sms;
-  return blocks;
-}
-
-// Whether an attention of the frame fits the items (attend's conditions).
-template <class T>
-bool attn_fits(int d_head, int row_stride, int chunk) {
-  constexpr int VE = RowLanes<T>::kVE;
-  const int vpr = d_head / VE;
-  return chunk >= 16 && chunk <= kAttnMaxChunk && chunk % 16 == 0 && d_head % VE == 0 &&
-         vpr >= 1 && vpr <= 32 * RowLanes<T>::kPer && (vpr & (vpr - 1)) == 0 &&
-         d_head <= kAttnMaxDHead && row_stride % VE == 0;
-}
-
-// One cooperative launch of a persistent kernel (kPThreads threads a block)
-// with `smem` bytes of dynamic shared memory: `grid_req` blocks, or (0) the
-// co-resident maximum of kBlocksPerSm an SM; a grid below `min_grid` is
-// refused (cudaErrorInvalidValue), and one that cannot be co-resident by the
-// launch itself (cudaErrorCooperativeLaunchTooLarge). The launch's error is
-// read, which clears it: a refused launch does not fail the next one.
-template <class P>
-int cooperative_launch(void (*fn)(P), int grid_req, int min_grid, int smem, cudaStream_t st,
-                       const P& p) {
-  const void* kernel = reinterpret_cast<const void*>(fn);
-  int n_sm = 0;
-  const int per_sm = blocks_per_sm(kernel, smem, &n_sm);
-  if (per_sm < 0) {
-    const cudaError_t e = cudaGetLastError();
-    return e != cudaSuccess ? (int)e : (int)cudaErrorUnknown;
-  }
-  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-  const int grid = grid_req > 0 ? grid_req : std::min(per_sm, kBlocksPerSm) * n_sm;
-  if (grid < min_grid) return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kPThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, fn, p);
-  const cudaError_t last = cudaGetLastError();
-  return err != cudaSuccess ? (int)err : (int)last;
 }
 
 template <class T, int MODE, bool kLT>

@@ -1,12 +1,14 @@
-// The frame's arguments (FrameSeq, shared by every frame entry point) and
-// the host launch sequence of the cached decoder step for B slots,
-// decoder_layers: frame_step_batched.cu runs it through its batched GEMM
-// after the persistent LT launch (kernel C, lt_batched_persistent.cuh) or
-// after decoder_input (kernel 8). Kernels A, 4 and 5 (one slot) are
-// frame_persistent.cuh's persistent launches, kernel 7 the LT launch alone.
-// Everything is templated on the compute dtype T of the weights, caches and
-// hidden rows (float or __nv_bfloat16); a frame's float32 workspace is the
-// same in both.
+// The host launch sequences of a decode frame, shared by every frame entry
+// point: lt_phases (the 8 local-transformer phases and their sampling) and
+// decoder_layers (the cached decoder step). frame_step_batched.cu runs them
+// for B slots through its batched GEMM: a fused frame (kernel C) is
+// lt_phases + decoder_layers, the split path's LT sampler (7) lt_phases
+// alone, its decoder step (8) decoder_input + decoder_layers, so both entry
+// points of the pair launch the same kernels in the same order with the
+// same arguments. Kernels A, 4 and 5 (one slot) are frame_persistent.cuh's
+// persistent launches. Everything is templated on the compute dtype T of
+// the weights, caches and hidden rows (float or __nv_bfloat16); a frame's
+// float32 workspace is the same in both.
 
 #pragma once
 
@@ -90,6 +92,58 @@ struct FrameSeq {
     if (S <= 0) return S < 0 ? -S : (int)cudaErrorInvalidValue; \
     MAGPIE_CHECK_LAUNCH();                                    \
   } while (0)
+
+// The 8 LT phases: codes into sampled / argmax. With seed_decoder the last
+// phase also writes the decoder's input x = mean code embedding + posemb,
+// h = LayerNorm_0(x) and, with new_valid, the new row's validity.
+// mm(X, W, part, K, N) launches the [B, K] @ [K, N] split-K product of a
+// WeightRef<T> W, X rounded to T as it is read (X is a T row, or a float row
+// the JAX source rounds before its product), and returns its split count
+// (-error if it refused the product).
+template <class T, class Matmul>
+int lt_phases(const FrameSeq<T>& s, const Matmul& mm, bool seed_decoder, cudaStream_t st) {
+  const int B = s.B, LT = s.LT, LF = s.LF, V = s.V;
+  const size_t lt_slot = (size_t)s.ncb * LT;
+  int S;
+  for (int cb = 0; cb < s.ncb; ++cb) {
+    MAGPIE_MM(S, cb == 0 ? mm(s.hidden, dense_ref(s.lt_in_w), s.part, s.D, LT, st)
+                         : mm(s.emb_row, dense_ref(s.lt_in_w), s.part, s.D, LT, st));
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, s.lt_in_b,
+                                                   s.lt_pos + (size_t)cb * LT, s.lt_x, 0,
+                                                   s.lt_norm_self, s.eps, s.lt_h);
+    MAGPIE_CHECK_LAUNCH();
+    MAGPIE_MM(S, mm(s.lt_h, dense_ref(s.lt_qkv), s.part, LT, 3 * LT, st));
+    qkv_scatter_kernel<T><<<dim3((3 * LT + kRt - 1) / kRt, B), kRt, 0, st>>>(
+        s.part, S, LT, nullptr, s.lt_q, s.lt_k + (size_t)cb * LT, s.lt_v + (size_t)cb * LT,
+        lt_slot);
+    MAGPIE_CHECK_LAUNCH();
+    const AttnCall<T> lt_att{s.lt_q,   1,       LT,      s.lt_k, s.lt_v,  lt_slot,
+                             LT,       cb + 1,  nullptr, nullptr, 0,      0,
+                             nullptr,  1,       LT,      s.lt_scale, s.lt_attn};
+    if (const int err = attend(lt_att, B, s.lt_chunk, s.att, st)) return err;
+    MAGPIE_MM(S, mm(s.lt_attn, dense_ref(s.lt_sa_out), s.part, LT, LT, st));
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr,
+                                                   s.lt_x, 1, s.lt_norm_ff, s.eps, s.lt_h);
+    MAGPIE_CHECK_LAUNCH();
+    MAGPIE_MM(S, mm(s.lt_h, dense_ref(s.lt_ff_proj), s.part, LT, LF, st));
+    reduce_act_kernel<T><<<dim3((LF + kRt - 1) / kRt, B), kRt, 0, st>>>(
+        s.part, S, LF, nullptr, 1, s.gelu_tanh, s.lt_f);
+    MAGPIE_CHECK_LAUNCH();
+    MAGPIE_MM(S, mm(s.lt_f, dense_ref(s.lt_ff_out), s.part, LF, LT, st));
+    combine_ln_kernel<T, float><<<B, kRt, 0, st>>>(s.part, S, LT, nullptr, nullptr, nullptr,
+                                                   s.lt_x, 1, nullptr, s.eps, nullptr);
+    MAGPIE_CHECK_LAUNCH();
+    MAGPIE_MM(S, mm(s.lt_x, dense_ref(s.lt_out_w + (size_t)cb * LT * V), s.part, LT, V, st));
+    lt_sample_kernel<T><<<B, kSampleThreads, 0, st>>>(
+        s.part, S, V, s.lt_out_b + (size_t)cb * V, cb, s.ncb, s.forbid_eos, s.forbid_eos1,
+        s.bos_id, s.eos_id, s.seeds, s.seed1, s.temperature, s.top_k,
+        s.audio_emb + (size_t)cb * V * s.D, s.D, s.sampled, s.argmax, s.emb_row, s.emb_acc,
+        s.posemb, s.posemb_stride, s.may_continue, seed_decoder ? s.new_valid : nullptr,
+        seed_decoder ? s.x : nullptr, s.norm_self, s.eps, s.h);
+    MAGPIE_CHECK_LAUNCH();
+  }
+  return 0;
+}
 
 // The batched split path's decoder input: x[b] = x_in[b], h[b] =
 // LayerNorm_0(x[b]) (what the fused frame's last LT phase writes).

@@ -15,20 +15,17 @@
 //   write row. Replaces magpie_tts_tpu/ops/pallas_kernels/
 //   decoder_step_batched.py (decode_step_batched_pallas), with the same
 //   three weight streams.
-// Kernel 7 and kernel C's LT part are one persistent, cooperative launch a
-// frame (lt_batched_persistent.cuh: the design and what bounds it; C's adds
-// the seam into the decoder); the decoder step of C and 8 is
-// frame_sequence.cuh's launch sequence.
+// All three run frame_sequence.cuh's launch sequences.
 //
 // The TPU kernels are sequential grids (8 LT phases, 12 layers) that keep
 // the slots' LT rows, residuals and cache groups in VMEM and contract every
 // weight tile with all B rows on the MXU; the batched LT sampler pre-projects
 // the whole audio-embedding table through in_proj once per call. Hopper
-// blocks carry nothing between launches, so the decoder step is a fixed
-// sequence of kernels on one stream with every carried value in a workspace
-// the wrapper allocates, and the LT projects only the B sampled rows per
-// phase (the plain version's rounding; the weight is still read once for all
-// slots).
+// blocks carry nothing between launches, so, as in frame_step.cu, a frame is a
+// fixed sequence of kernels on one stream with every carried value in a
+// workspace the wrapper allocates, and the LT projects only the B sampled
+// rows per phase (the plain version's rounding; the weight is still read
+// once for all slots).
 //
 // What bounds it on the card: a frame reads ~360 MB of decoder and LT weights
 // in float32 (half in bf16, a quarter for the int8 / Q8_0 streams) plus the
@@ -61,9 +58,10 @@
 //   a slot's result does not depend on the others; the partials
 //   part[(s * B + b) * N + n] are reduced in a fixed order by the next kernel
 //   (no atomics).
-// The decoder's per-slot work (attention per slot and head in row chunks,
-// LayerNorm) runs the kernels of frame_kernels.cuh with a slot dimension in
-// the grid. TMA, fewer launches and CUDA graphs are later work.
+// Per-slot work (attention per slot and head in row chunks, sampling,
+// LayerNorm) runs the kernels of frame_kernels.cuh, shared with
+// frame_step.cu, with a slot dimension in the grid. TMA, fewer launches and
+// CUDA graphs are later work.
 //
 // Semantics the callers rely on:
 // - valid[b, r] (bool, row stride valid_stride, 0 to broadcast one row)
@@ -77,42 +75,75 @@
 // - The new K/V row is written at write_row for every slot, dead ones too.
 // - Numerics follow frame_step_batched_reference: float32 residual carry,
 //   erff GELU, softmax as exp(s - max) / sum, argmax ties to the lowest
-//   index, the exact top-k radix select and the Gumbel draw of common.cuh;
+//   index, the exact top-k bisection and the Gumbel draw of frame_step.cu;
 //   the bf16 entry points round where the Pallas kernels do
 //   (frame_kernels.cuh); float32 products carry split TF32's ~21 bits of
 //   each operand (the dropped lo * lo term is 2^-22 of a product).
 
-#include "batched_gemm.cuh"
-#include "lt_batched_persistent.cuh"
+#include <type_traits>
+
+#include "conv_mma.cuh"
+#include "frame_sequence.cuh"
 
 namespace {
 
-// Shared memory of gemm_mma_kernel: the X tile, then the dense ring, or the
-// raw int8 ring [kGemmStages][kKt][kTileN], its Q8_0 scale rows
-// [kGemmStages][kTileN] (float) and one dequantized stage [kKt][kSw] in T.
-// Mirrored by ops/kernels/batched_gemm.py gemm_smem.
+using conv_mma::cp_async_commit;
+using conv_mma::cp_async_wait;
+using conv_mma::fill_async;
+using conv_mma::ldsm_x2_trans;
+using conv_mma::ldsm_x4;
+using conv_mma::mma_bf16_zero;
+using conv_mma::mma_tf32;
+using conv_mma::ring_stride;
+using conv_mma::split_tf32;
+using conv_mma::window_stride;
+
+constexpr int kMaxSlots = 64;
+constexpr int kGemmThreads = conv_mma::kThreads;  // 8 warps (fill_async's stride)
+constexpr int kTileN = 64;                         // columns a block: a warp's n8 tile each
+constexpr int kKt = 32;                            // weight rows a ring stage (a Q8_0 block)
+constexpr int kGemmStages = 4;                     // ring stages
+constexpr int kMaxKChunk = 256;                    // rows of K a block, at most
+constexpr int kSw = ring_stride(kTileN);           // a T stage's row stride (72)
+static_assert(kGemmThreads == 8 * 32 && kTileN == 8 * 8, "one n8 tile per warp");
+
+// One product's plan: K, N and the rows of K a block takes (a multiple of
+// kKt, at most kMaxKChunk); the split count is ceil(K / kchunk).
+struct GemmPlan {
+  int K, N, kchunk;
+};
+constexpr int kMaxGemmPlans = 16;
+
+// Shared memory of gemm_mma_kernel: the X tile [16 * mt][window_stride(kchunk)]
+// in T, then the dense ring [kGemmStages][kKt][kSw] in T, or the raw int8 ring
+// [kGemmStages][kKt][kTileN], its Q8_0 scale rows [kGemmStages][kTileN]
+// (float) and one dequantized stage [kKt][kSw] in T. Mirrored by
+// ops/kernels/batched_gemm.py gemm_smem.
+template <class T>
+__host__ __device__ constexpr size_t gemm_x_bytes(int mt, int kchunk) {
+  return (size_t)16 * mt * window_stride<T>(kchunk) * sizeof(T);
+}
 template <class T>
 __host__ __device__ constexpr size_t gemm_smem(int mode, int mt, int kchunk) {
   return gemm_x_bytes<T>(mt, kchunk) +
          (mode == kStreamDense
-              ? gemm_ring_bytes<T>()
+              ? (size_t)kGemmStages * kKt * kSw * sizeof(T)
               : (size_t)kGemmStages * kKt * kTileN + (size_t)kGemmStages * kTileN * 4 +
                     (size_t)kKt * kSw * sizeof(T));
 }
 
 // part[(s * B + b) * N + n] = sum over k in split s of rnd<T>(X[b, k]) *
 // W[k, n]: block (n tile, split s), warp w the columns n0 + 8w .. + 7 of all
-// MT m16 tiles of slots (batched_gemm.cuh's tile body). X is [B, K] float
-// rows, or T rows (x_t); W is [K, N] in mode MODE, N a multiple of 16 bytes'
-// elements (the wrapper checks).
+// MT m16 tiles of slots. X is [B, K] float rows, or T rows (x_t); W is [K, N]
+// in mode MODE, N a multiple of 16 bytes' elements (the wrapper checks).
 template <class T, int MODE, int MT>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_mma_kernel(const void* __restrict__ X, int x_t, int B, const WeightRef<T> W,
                 float* __restrict__ part, int K, int N, int kchunk) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr bool kDense = MODE == kStreamDense;
-  const int tid = threadIdx.x;
-  const int sx = conv_mma::window_stride<T>(kchunk);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sx = window_stride<T>(kchunk);
   T* xs = reinterpret_cast<T*>(smem_raw);
   unsigned char* ring_raw = smem_raw + gemm_x_bytes<T>(MT, kchunk);
   T* ring = reinterpret_cast<T*>(ring_raw);                      // dense stages
@@ -131,40 +162,68 @@ gemm_mma_kernel(const void* __restrict__ X, int x_t, int B, const WeightRef<T> W
     const int kr = k0 + i * kKt;
     const int rows_ok = min(kKt, k1 - kr);
     if constexpr (kDense) {
-      gemm_fill_dense(ring + slot * kKt * kSw, W.w, kr, rows_ok, n0, N);
+      fill_async<T, 16>(ring + slot * kKt * kSw, W.w + (size_t)kr * N + n0, kKt, rows_ok,
+                        cols_ok, N, kTileN, kSw);
     } else {
-      conv_mma::fill_async<signed char, 16>(qring + slot * kKt * kTileN,
-                                            W.q + (size_t)kr * N + n0, kKt, rows_ok, cols_ok, N,
-                                            kTileN, kTileN);
+      fill_async<signed char, 16>(qring + slot * kKt * kTileN, W.q + (size_t)kr * N + n0, kKt,
+                                  rows_ok, cols_ok, N, kTileN, kTileN);
       if constexpr (MODE == kStreamQ8) {
-        conv_mma::fill_async<float, 16>(sring + slot * kTileN, W.s + (size_t)(kr / kKt) * N + n0,
-                                        1, rows_ok > 0 ? 1 : 0, cols_ok, N, kTileN, kTileN);
+        fill_async<float, 16>(sring + slot * kTileN, W.s + (size_t)(kr / kKt) * N + n0, 1,
+                              rows_ok > 0 ? 1 : 0, cols_ok, N, kTileN, kTileN);
       }
     }
   };
 #pragma unroll
   for (int i = 0; i < kGemmStages - 1; ++i) {
     if (i < steps) load_stage(i);
-    conv_mma::cp_async_commit();
+    cp_async_commit();
   }
 
-  gemm_x_tile<T, MT>(xs, sx, B, k0, k1, kchunk, [&](int r, int k) {
-    const size_t e = (size_t)r * K + k;
-    return x_t ? load_dense4(static_cast<const T*>(X), e >> 2)
-               : load_dense4(static_cast<const float*>(X), e >> 2);
-  });
+  // The X tile, rounded to T: rows b < B of X[b, k0 .. k1), zeros elsewhere,
+  // 4 elements a load and 4 loads in flight a thread.
+  {
+    const int c4s = kchunk / 4;
+    const int total = 16 * MT * c4s;
+    for (int i0 = tid; i0 < total; i0 += 4 * kGemmThreads) {
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kGemmThreads;
+        const int r = i / c4s, k = k0 + (i - r * c4s) * 4;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < total && r < B && k < k1) {
+          const size_t e = (size_t)r * K + k;
+          v[u] = x_t ? load_dense4(static_cast<const T*>(X), e >> 2)
+                     : load_dense4(static_cast<const float*>(X), e >> 2);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * kGemmThreads;
+        if (i < total) {
+          const int r = i / c4s, c = (i - r * c4s) * 4;
+          T* xr = xs + r * sx + c;
+          xr[0] = st<T>(v[u].x);
+          xr[1] = st<T>(v[u].y);
+          xr[2] = st<T>(v[u].z);
+          xr[3] = st<T>(v[u].w);
+        }
+      }
+    }
+  }
 
   float acc[MT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[mt][q] = 0.f;
+  const int g = lane >> 2, t = lane & 3;
 
   for (int i = 0; i < steps; ++i) {
-    conv_mma::cp_async_wait<kGemmStages - 2>();
+    cp_async_wait<kGemmStages - 2>();
     __syncthreads();  // stage i landed for every thread; step i - 1 is done
     if (i + kGemmStages - 1 < steps) load_stage(i + kGemmStages - 1);
-    conv_mma::cp_async_commit();
+    cp_async_commit();
     const int slot = i % kGemmStages;
     const T* ws = ring + slot * kKt * kSw;
     if constexpr (!kDense) {
@@ -179,10 +238,62 @@ gemm_mma_kernel(const void* __restrict__ X, int x_t, int B, const WeightRef<T> W
       __syncthreads();
       ws = wt;
     }
-    gemm_mma_stage<T, MT>(acc, ws, xs + i * kKt, sx);
+    const T* xk = xs + i * kKt;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+      for (int ks = 0; ks < kKt / 16; ++ks) {
+        uint32_t b[2];
+        ldsm_x2_trans(b, ws + (ks * 16 + (lane & 15)) * kSw + warp * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];
+          ldsm_x4(a, xk + (mt * 16 + (lane & 15)) * sx + ks * 16 + (lane >> 4) * 8);
+          float d[4];
+          mma_bf16_zero(d, a, b);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][q] += d[q];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < kKt / 8; ++ks) {
+        const float* bp = ws + (ks * 8 + t) * kSw + warp * 8 + g;
+        uint32_t bh[2], bl[2];
+        split_tf32(bp[0], bh[0], bl[0]);
+        split_tf32(bp[4 * kSw], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t raw[4], ah[4], al[4];
+          ldsm_x4(raw, xk + (mt * 16 + (lane & 15)) * sx + ks * 8 + (lane >> 4) * 4);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(raw[q]), ah[q], al[q]);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};  // 8 rows' products, from zero
+          mma_tf32(d, al, bh);
+          mma_tf32(d, ah, bl);
+          mma_tf32(d, ah, bh);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][q] += d[q];
+        }
+      }
+    }
   }
-  conv_mma::cp_async_wait<0>();
-  gemm_store<MT>(acc, part + (size_t)blockIdx.y * B * N, B, N, n0);
+  cp_async_wait<0>();
+
+  const int n = n0 + warp * 8 + 2 * t;
+  if (n < N) {
+    float* pb = part + (size_t)blockIdx.y * B * N + n;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int b = mt * 16 + g + half * 8;
+        if (b < B) {
+          *reinterpret_cast<float2*>(pb + (size_t)b * N) =
+              make_float2(acc[mt][2 * half], acc[mt][2 * half + 1]);
+        }
+      }
+    }
+  }
 }
 
 template <class T, int MODE, int MT>
@@ -224,7 +335,10 @@ int launch_gemm(const void* X, int x_t, int B, const WeightRef<T>& W, float* par
   const int elt = W.mode == kStreamDense ? (int)sizeof(T) : 1;
   const void* base = W.mode == kStreamDense ? static_cast<const void*>(W.w)
                                             : static_cast<const void*>(W.q);
-  const bool ok = gemm_takes(B, K, N, kchunk, elt, base) &&
+  const bool ok = B >= 1 && B <= kMaxSlots && K >= 1 && N >= 8 && kchunk >= kKt &&
+                  kchunk <= kMaxKChunk && kchunk % kKt == 0 && K % 4 == 0 &&
+                  ((size_t)N * elt) % 16 == 0 && N % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(base) % 16 == 0 &&
                   (W.mode != kStreamQ8 ||
                    (K % kKt == 0 && reinterpret_cast<uintptr_t>(W.s) % 16 == 0));
   if (!ok) return -(int)cudaErrorInvalidValue;
@@ -321,20 +435,11 @@ struct FrameStepBatchedArgs {
   float* att_sc;
   float* att_po;
   int* att_tk;
-  // the persistent LT launch (kernels 7 and C): the ff_out partials, the
-  // grid barrier's arrival count (zeroed by the wrapper) and the optional
-  // phase stamps (null: none)
-  float* part2;
-  unsigned* bar;
-  unsigned long long* stamps;
   // dims and scalars
   int batch, d_model, d_ffn, n_layers, max_seq, enc_rows, d_xa, n_heads, xa_heads;
   int lt_dim, lt_ffn, n_cb, vocab;
   int write_row, rows, valid_stride, posemb_stride, top_k, audio_bos_id, audio_eos_id;
   int gelu_tanh, stream_mode, sa_chunk, xa_chunk, lt_chunk, n_gemm_plans;
-  // the persistent LT launch's grid (0: the co-resident maximum; tests pass
-  // others) and the stamp buffer's phases
-  int grid, stamp_cap;
   float temperature, eps, sa_scale, xa_scale, lt_scale;
   // the GEMM plan of every (K, N) product of the sequence
   GemmPlan gemm_plans[kMaxGemmPlans];
@@ -408,78 +513,25 @@ Gemm<T> gemm_of(const FrameStepBatchedArgs& a) {
   return Gemm<T>{a.batch, a.gemm_plans, a.n_gemm_plans};
 }
 
-template <class T, int MT>
-int launch_lt_mt(const FrameStepBatchedArgs& a, const LtBatched<T>& p, size_t smem,
-                 cudaStream_t st) {
-  return cooperative_launch(lt_batched_persistent_kernel<T, MT>, a.grid, a.batch, (int)smem, st,
-                            p);
-}
-
-// The LT part of a frame for B slots (kernel 7; kernel C with the seam): one
-// cooperative launch of lt_batched_persistent_kernel, each product's split
-// rows from the wrapper's plan table. Refuses a product without a plan or one
-// the GEMM does not take, a grid below B, and what else the kernel does not
-// take (cudaErrorInvalidValue); a grid that cannot be co-resident is refused
-// by the launch. There is no other path.
-template <class T>
-int lt_batched(const FrameStepBatchedArgs& a, bool seam, cudaStream_t st) {
-  LtBatched<T> p{};
-  p.s = seq_of<T>(a);
-  const FrameSeq<T>& s = p.s;
-  p.part2 = a.part2, p.bar = a.bar, p.stamps = a.stamps, p.stamp_cap = a.stamp_cap;
-  p.seam = seam;
-  const int D = s.D, LT = s.LT, LF = s.LF, V = s.V;
-  const int K[kLtProducts] = {D, LT, LT, LT, LF, LT};
-  const int N[kLtProducts] = {LT, 3 * LT, LT, LF, LT, V};
-  const void* W[kLtProducts] = {s.lt_in_w, s.lt_qkv, s.lt_sa_out, s.lt_ff_proj, s.lt_ff_out,
-                                s.lt_out_w};
-  bool ok = a.bar != nullptr && a.part2 != nullptr && a.grid >= 0 && s.B >= 1 &&
-            s.B <= kMaxSlots && V <= kMaxVocab && s.ncb >= 1 && s.ncb <= s.lt_chunk &&
-            s.lt_chunk <= kAttnMaxChunk && attn_fits<T>(LT, LT, s.lt_chunk) &&
-            (a.stamps == nullptr || a.stamp_cap > 0) &&
-            (!seam || (s.x && s.h && s.new_valid && s.may_continue && s.posemb));
-  for (int i = 0; i < kLtProducts; ++i) {
-    int kc = 0;
-    for (int j = 0; j < a.n_gemm_plans && j < kMaxGemmPlans; ++j) {
-      if (a.gemm_plans[j].K == K[i] && a.gemm_plans[j].N == N[i]) kc = a.gemm_plans[j].kchunk;
-    }
-    ok = ok && gemm_takes(s.B, K[i], N[i], kc, (int)sizeof(T), W[i]);
-    p.kchunk[i] = kc;
-    p.kc_max = std::max(p.kc_max, kc);
-  }
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const int mt = (s.B + 15) / 16;
-  const size_t smem = lb_smem_layout<T>(mt, p.kc_max, D, LT, V).bytes;
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  switch (mt) {
-    case 1:
-      return launch_lt_mt<T, 1>(a, p, smem, st);
-    case 2:
-      return launch_lt_mt<T, 2>(a, p, smem, st);
-    case 3:
-      return launch_lt_mt<T, 3>(a, p, smem, st);
-    default:
-      return launch_lt_mt<T, 4>(a, p, smem, st);
-  }
-}
-
-// Kernel C: one fused frame for B slots: the persistent LT launch with the
-// seam, then the decoder's launch sequence.
+// Kernel C: one fused frame for B slots.
 template <class T>
 int frame_step_batched(const FrameStepBatchedArgs* a, void* stream) {
   if (a->stream_mode < kStreamDense || a->stream_mode > kStreamQ8) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = lt_batched<T>(*a, true, st);
-  if (!err) err = decoder_layers(seq_of<T>(*a), gemm_of<T>(*a), st);
+  const FrameSeq<T> s = seq_of<T>(*a);
+  const Gemm<T> mm = gemm_of<T>(*a);
+  int err = lt_phases(s, mm, true, st);
+  if (!err) err = decoder_layers(s, mm, st);
   return err ? err : (int)cudaGetLastError();
 }
 
 // Kernel 7 (the split path's batched LT sampler): the codes of B slots.
 template <class T>
 int lt_sample_batched(const FrameStepBatchedArgs* a, void* stream) {
-  const int err = lt_batched<T>(*a, false, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = lt_phases(seq_of<T>(*a), gemm_of<T>(*a), false, st);
   return err ? err : (int)cudaGetLastError();
 }
 

@@ -20,10 +20,10 @@
 // ms at 3.35 TB/s); no arithmetic to speak of: the stores are the work.
 // The design (one block a 64 x 64 (a, b) tile for all Kk):
 // - a tile row's 64 * Kk source bytes are contiguous ([a, b0 .. b0 + 63, 0 ..
-//   Kk - 1]), so they are read once, as 16-byte loads issued together (a
-//   16-byte run lies inside one 32-weight block: one scale a load), by one
-//   block; the grid no longer runs over Kk, so no tile is read Kk times at a
-//   stride of Kk bytes;
+//   Kk - 1]), so they are read once, by one block, as 16-byte loads issued
+//   together (a 16-byte run lies inside one 32-weight block: one scale a
+//   load); a grid over Kk would read each tile Kk times at a stride of Kk
+//   bytes (the conv_ffn tensors, Kk = 3, are 37% of the bytes read);
 // - each value is dequantized as s * q in float32 and staged in shared
 //   memory as [a][b * Kk + kk] (rows padded by one word);
 // - the Kk output tiles are written along a, 16 bytes a store (4 float32 or

@@ -1,15 +1,13 @@
 """The batched split-K GEMM of kernels C, 7 and 8, alone.
 
-Every matrix product of the batched frames (the decoder's qkv, sa_out,
-xa_q, xa_out, ff_proj, ff_out in csrc/frame_step_batched.cu
-``gemm_mma_kernel``, the LT's six as work items of the persistent LT launch,
-csrc/lt_batched_persistent.cuh) runs csrc/batched_gemm.cuh's tile body on
-the tensor cores: (column tile, split) with one n8 tile a warp, the weights through a cp.async
+Every matrix product of the batched frame sequence (the decoder's qkv,
+sa_out, xa_q, xa_out, ff_proj, ff_out and the LT's six) runs
+csrc/frame_step_batched.cu ``gemm_mma_kernel`` on the tensor cores: block
+(column tile, split) with one n8 tile a warp, the weights through a cp.async
 ring (int8 / Q8_0 stages dequantized in shared memory), X rows rounded to T
 as m16 tiles of slots, bf16 on ``mma.m16n8k16``, float32 as split TF32 on
 ``mma.m16n8k8``, each mma summed from zero and carried by float adds. The
-partials ``part[(s * B + b) * N + n]`` are reduced by the next kernel (or
-phase), in split order.
+partials ``part[(s * B + b) * N + n]`` are reduced by the next kernel.
 
 ``plan_gemm`` is the launch plan (rows of K a block, the split count), a
 function of K, N and the partial cap alone; the frame wrappers pass the plan
@@ -38,14 +36,13 @@ MODES = ("dense", "int8", "q8")
 launches = 0  # kernel launches since the last reset
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 
-# csrc/batched_gemm.cuh: threads (8 warps), columns a block (one n8 tile
+# csrc/frame_step_batched.cu: threads (8 warps), columns a block (one n8 tile
 # a warp), weight rows a ring stage (one Q8_0 block), ring stages, the most
-# rows of K a block, the most slots (four m16 tiles), the blocks a product aims at (2 per SM on 132 SMs), the
+# rows of K a block, the blocks a product aims at (2 per SM on 132 SMs), the
 # most partial rows (the workspace's), the most plans a frame passes, an H100
 # block's shared memory.
 THREADS, TILE_N, KT, STAGES = 256, 64, 32, 4
 KCHUNK_MAX = 256
-MAX_SLOTS = 64
 TARGET_BLOCKS = 264
 PART_CAP = 32
 MAX_PLANS = 16

@@ -40,7 +40,7 @@ import torch
 from ...config import MagpieConfig
 from ...io.magpie_weights import Int8DecoderStream, MagpieWeights, Q8DecoderStream
 from ..attention import attn_scale
-from . import batched_gemm, build, decode_attention
+from . import build, decode_attention
 
 MODES = ("dense", "int8", "q8")  # the weight streams, by stream_mode
 DTYPES, count_dtype = build.DTYPES, build.count_dtype
@@ -63,11 +63,8 @@ SPLIT_MAX_N = 256
 SPLIT_MIN_ROWS = 128
 SMEM_LIMIT = 227 * 1024
 STAMP_WORDS = 4  # a phase stamp: start, prologue end, barrier arrival (ns), kinds
-# prologue kinds (attention: a one-chunk one, in-block; parts: a product
-# phase's X tile summed split partials) and work kinds (gemm: a product's
-# items; slot: a slot phase, block b on slot b) of a stamp
-PRO_KINDS = ("none", "ln", "sampling", "attention", "parts")
-WORK_KINDS = ("none", "gemv", "attention", "gemm", "slot")
+PRO_KINDS = ("none", "ln", "sampling", "attention")  # attention: a one-chunk one, in-block
+WORK_KINDS = ("none", "gemv", "attention")
 
 
 def split_rows(K: int, S: int) -> int:
@@ -249,101 +246,6 @@ def plan_lt(config: MagpieConfig) -> FramePlan:
     prod = {}
     phases = _lt_phases(config, prod) + [Phase("draw", "none", False)]
     return FramePlan(tuple(prod.values()), tuple(phases))
-
-
-@dataclasses.dataclass(frozen=True)
-class BatchedProduct:
-    """One LT product [B, K] @ W[K, N] of the B-slot persistent launch
-    (kernels 7 and C): the items of the standalone GEMM, (column tile, K
-    split) of ``batched_gemm.plan_gemm(K, N)``, item i = split * tiles +
-    tile on block i % grid."""
-    name: str
-    K: int
-    N: int
-    plan: batched_gemm.GemmPlan
-
-    @property
-    def items(self) -> int:
-        return self.plan.blocks
-
-    def item(self, i: int):
-        """(rows k0..k1, columns c0..c1, split) of item i."""
-        tile, sp = i % self.plan.tiles, i // self.plan.tiles
-        k0, c0 = sp * self.plan.kchunk, tile * batched_gemm.TILE_N
-        return (k0, min(self.K, k0 + self.plan.kchunk)), (c0, min(self.N, c0 + batched_gemm.TILE_N)), sp
-
-    def deal(self, grid: int, block: int) -> list:
-        """The items block ``block`` of ``grid`` runs, in order."""
-        return list(range(block, self.items, grid))
-
-
-@dataclasses.dataclass(frozen=True)
-class LtBatchedPlan:
-    """The B-slot persistent LT launch's phase table (csrc/
-    lt_batched_persistent.cuh): its products and phases. A "gemm" phase
-    runs a product's items over the grid (its X tile's prologue: "rows",
-    or "parts" when it sums the previous product's partials); a "slot"
-    phase runs slot b in block b (its work: "ln", "attention" or "draw")."""
-    B: int
-    m_tiles: int
-    products: Tuple[BatchedProduct, ...]
-    phases: Tuple[Phase, ...]
-    prologues: Tuple[str, ...]
-
-    @property
-    def barriers(self) -> int:
-        return sum(ph.barrier for ph in self.phases)
-
-    def product(self, name: str) -> BatchedProduct:
-        return next(p for p in self.products if p.name == name)
-
-
-LT_BATCHED_PRODUCTS = ("lt_in", "lt_qkv", "lt_sa_out", "lt_ff_proj", "lt_ff_out", "lt_out")
-
-
-@functools.lru_cache(maxsize=None)
-def plan_lt_batched(config: MagpieConfig, B: int) -> LtBatchedPlan:
-    """Kernel 7's (and kernel C's LT part's) phase table for B slots, per
-    codebook: in_proj | x, LayerNorm (slot) | qkv | attention (slot) |
-    sa_out | x, LayerNorm (slot) | ff_proj | ff_out (GELU of ff_proj's
-    partials) | x + ff_out (slot) | logits | draw (slot), a grid barrier
-    after every phase but the last draw: 11 a codebook, 87 at 357M. The
-    products' items are plan_gemm's, whatever B; B sets the m16 slot tiles
-    and the slot phases' blocks (the grid must hold B)."""
-    if not 1 <= B <= batched_gemm.MAX_SLOTS:
-        raise ValueError(f"plan_lt_batched: {B} slots, the launch takes 1..{batched_gemm.MAX_SLOTS}")
-    shapes = batched_gemm.frame_products(config)
-    products = tuple(BatchedProduct(n, *shapes[n], batched_gemm.plan_gemm(*shapes[n]))
-                     for n in LT_BATCHED_PRODUCTS)
-    phases, prologues = [], []
-    ncb = config.num_codebooks
-    for cb in range(ncb):
-        for name, work, pro in (("lt_in", "gemm", "rows"), ("in_ln", "slot", "ln"),
-                                ("lt_qkv", "gemm", "rows"), ("attention", "slot", "attention"),
-                                ("lt_sa_out", "gemm", "rows"), ("ff_ln", "slot", "ln"),
-                                ("lt_ff_proj", "gemm", "rows"), ("lt_ff_out", "gemm", "parts"),
-                                ("out_x", "slot", "residual"), ("lt_out", "gemm", "rows"),
-                                ("draw", "slot", "draw")):
-            phases.append(Phase(name, work, not (name == "draw" and cb == ncb - 1)))
-            prologues.append(pro)
-    return LtBatchedPlan(B, batched_gemm.m_tiles(B), products, tuple(phases), tuple(prologues))
-
-
-def lt_batched_smem(config: MagpieConfig, B: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of a block of the B-slot LT launch (csrc
-    lb_smem_layout): the X tile of the widest split, the weight ring, the
-    slot phases' rows."""
-    c = config
-    kc_max = max(p.plan.kchunk for p in plan_lt_batched(c, B).products)
-    elt = batched_gemm.ELT[dtype]
-    x = 16 * batched_gemm.m_tiles(B) * batched_gemm.window_stride(kc_max, dtype) * elt
-    ring = batched_gemm.STAGES * batched_gemm.KT * (batched_gemm.TILE_N + 8) * elt
-    words = 0
-    for n in (c.lt_dim, c.d_model, c.d_model, c.vocab_per_cb, decode_attention.MAX_D_HEAD, 32,
-              decode_attention.CHUNK_MAX, decode_attention.THREADS * 8,
-              decode_attention.CHUNK_MAX, 256, 32):
-        words += -(-n // 4) * 4
-    return -(-x // 16) * 16 + ring + 4 * words
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,9 +32,9 @@ from ...config import MagpieConfig
 from ...io.magpie_weights import MagpieWeights
 from ..attention import attn_scale
 from . import batched_gemm, build, decode_attention
-from .frame_step import (DTYPES, MODES, check_config, check_stamps, compute_dtype,
-                         count_dtype, decoder_weight_tensors, entry_name, lt_weight_tensors,
-                         stream_mode, stream_tensors)
+from .frame_step import (DTYPES, MODES, check_config, compute_dtype, count_dtype,
+                         decoder_weight_tensors, entry_name, lt_weight_tensors, stream_mode,
+                         stream_tensors)
 
 launches = 0  # kernel launches (one per frame) since the last reset
 mode_launches = dict.fromkeys(MODES, 0)  # the same, by weight stream
@@ -56,12 +56,12 @@ class FrameStepBatchedArgs(ctypes.Structure):
         "qkv_q qkv_s sa_out_q sa_out_s ff_proj_q ff_proj_s ff_out_q ff_out_s "
         "sampled argmax hidden_out "
         "part x h q attn f xa lt_x lt_h lt_q lt_k lt_v lt_attn lt_f emb_row emb_acc "
-        "new_valid att_sc att_po att_tk part2 bar stamps").split()
+        "new_valid att_sc att_po att_tk").split()
     _ints = (
         "batch d_model d_ffn n_layers max_seq enc_rows d_xa n_heads xa_heads "
         "lt_dim lt_ffn n_cb vocab "
         "write_row rows valid_stride posemb_stride top_k audio_bos_id audio_eos_id "
-        "gelu_tanh stream_mode sa_chunk xa_chunk lt_chunk n_gemm_plans grid stamp_cap").split()
+        "gelu_tanh stream_mode sa_chunk xa_chunk lt_chunk n_gemm_plans").split()
     _floats = "temperature eps sa_scale xa_scale lt_scale".split()
     _fields_ = ([(n, ctypes.c_void_p) for n in _ptrs] +
                 [(n, ctypes.c_int) for n in _ints] +
@@ -132,19 +132,7 @@ def check_rows(who: str, config: MagpieConfig, write_row: int, rows: Optional[in
     return rows
 
 
-def lt_part2_floats(config: MagpieConfig) -> int:
-    """Floats a slot of the persistent LT launch's second partial buffer
-    holds (ff_out's partials): the most split partials of an LT product."""
-    return max(batched_gemm.plan_gemm(K, N).splits * N
-               for name, (K, N) in batched_gemm.frame_products(config).items()
-               if name.startswith("lt_"))
-
-
-def _workspace(config: MagpieConfig, B: int, device, rows: int, enc_rows: int,
-               lt: bool = False) -> dict:
-    """The frame's float32 workspace for B slots; with ``lt`` (kernels C and
-    7) also the persistent LT launch's ``part2`` and its grid barrier's
-    arrival count (zeroed: one fill beside the launch)."""
+def _workspace(config: MagpieConfig, B: int, device, rows: int, enc_rows: int) -> dict:
     c = config
     n_max = max(3 * c.d_model, c.d_ffn, c.vocab_per_cb, 3 * c.lt_dim, c.lt_ffn_dim, c.d_xa)
     per_slot = {"part": _PART_CAP * n_max, "x": c.d_model, "h": c.d_model, "q": c.d_model,
@@ -158,9 +146,6 @@ def _workspace(config: MagpieConfig, B: int, device, rows: int, enc_rows: int,
     out = dict(zip(padded, ws.split(list(padded.values()))))
     out["new_valid"] = torch.empty(B, dtype=torch.int32, device=device)
     out.update(decode_attention.frame_workspace(config, B, rows, enc_rows, device))
-    if lt:
-        out["part2"] = torch.empty(B * lt_part2_floats(c), dtype=torch.float32, device=device)
-        out["bar"] = torch.zeros(1, dtype=torch.int32, device=device)
     return out
 
 
@@ -195,17 +180,13 @@ def decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights: M
 
 
 def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfig, device,
-           stream=None, lt: bool = False, grid: int = 0,
-           stamps: Optional[torch.Tensor] = None, **scalars) -> None:
+           stream=None, **scalars) -> None:
     """Validate ``tensors`` ({name: (tensor, shape, dtype, broadcast_ok)}) and
     the weight ``stream``, allocate a B-slot workspace on ``device`` and call
     the library's ``entry`` on that card with a FrameStepBatchedArgs of the
     tensors, the stream's tensors and mode, the workspace, ``outputs``
     ({name: tensor}) and the config's dims; ``scalars`` fill the remaining
-    fields (unset pointers are null). ``lt`` (kernels C and 7): the entry
-    runs the persistent LT launch, with ``grid`` blocks (0: the co-resident
-    maximum; another value is for tests) and the optional phase ``stamps``
-    (``frame_step.check_stamps``)."""
+    fields (unset pointers are null)."""
     c = config
     for name, (t, shape, dtype, broadcast_ok) in tensors.items():
         check_tensor(entry, name, t, shape, dtype, broadcast_ok)
@@ -216,11 +197,8 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
     ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
     # self-attention covers rows [0, rows), cross-attention enc_rows rows
     rows, enc_rows = scalars.get("rows", 1), scalars.get("enc_rows", 1)
-    ptrs.update({k: v.data_ptr()
-                 for k, v in _workspace(c, B, device, rows, enc_rows, lt).items()})
+    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, device, rows, enc_rows).items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
-    if stamps is not None:
-        ptrs["stamps"] = stamps.data_ptr()
     plans, n_plans = batched_gemm.plan_table(c)
     args = FrameStepBatchedArgs(
         **ptrs, batch=B, d_model=c.d_model, d_ffn=c.d_ffn, n_layers=c.dec_layers,
@@ -230,8 +208,7 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
         eps=float(c.eps), sa_scale=attn_scale(c.d_model // c.dec_sa_heads),
         xa_scale=attn_scale(c.d_xa // c.dec_xa_heads), lt_scale=attn_scale(c.lt_dim),
         stream_mode=stream_mode(stream), **decode_attention.frame_chunks(c, rows, enc_rows),
-        gemm_plans=plans, n_gemm_plans=n_plans, grid=int(grid),
-        stamp_cap=check_stamps(entry, stamps), **scalars)
+        gemm_plans=plans, n_gemm_plans=n_plans, **scalars)
     cuda_stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):  # the launch goes to the caches' card
         err = getattr(lib, entry)(ctypes.addressof(args), cuda_stream)
@@ -283,7 +260,7 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
                "may_continue": (may_continue, (B,), torch.bool, False),
                "posemb": (posemb, (B, c.d_model), dtype, True)}
     launch(entry_name("magpie_frame_step_batched", dtype), B, tensors,
-           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream, lt=True,
+           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream,
            max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
            valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
            top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))

@@ -5,10 +5,8 @@ magpie_tts_tpu/ops/pallas_kernels/lt_sampler_batched.py
 ``sample_frame_codes_batched_pallas``: each slot's 8 local-transformer
 phases with its own seed and EOS flag, every LT weight read once for all
 slots. On CUDA tensors it launches the ``magpie_lt_sample_batched_f32`` /
-``_bf16`` entry point of csrc/frame_step_batched.cu (the hidden rows' dtype
-picks one): kernel C's persistent LT launch (csrc/lt_batched_persistent.cuh,
-phase table ``frame_step.plan_lt_batched``) without the seam into the
-decoder, one cooperative launch a frame, or raises; on CPU tensors it runs
+``_bf16`` entry point of csrc/frame_step_batched.cu (kernel C's LT sequence,
+stopping at the codes; the hidden rows' dtype picks one) or raises; on CPU tensors it runs
 ``sample_frame_codes_batched_reference``: per slot, the plain
 ``models.local_transformer.sample_frame_codes``.
 
@@ -19,7 +17,6 @@ is a Mosaic tiling rule, not the model's.
 from __future__ import annotations
 
 import threading
-from typing import Optional
 
 import torch
 
@@ -53,14 +50,10 @@ def sample_frame_codes_batched_reference(hidden: torch.Tensor, weights: MagpieWe
 
 def sample_frame_codes_batched(hidden: torch.Tensor, weights: MagpieWeights,
                                config: MagpieConfig, seeds: torch.Tensor, temperature: float,
-                               top_k: int, forbid_eos: torch.Tensor, grid: Optional[int] = None,
-                               stamps: Optional[torch.Tensor] = None):
+                               top_k: int, forbid_eos: torch.Tensor):
     """Sample 8 codes for each of B slots: hidden [B, d_model], seeds [B]
     int32 (each slot's frame seed), forbid_eos [B] bool. No value is read
-    back to the host. Returns (sampled [B, 8] int32, argmax [B, 8] int32).
-    ``grid`` (tests only, at least B) launches that many blocks in place of
-    the co-resident maximum; ``stamps`` receives the launch's phase stamps
-    (``frame_step.check_stamps`` / ``read_stamps``)."""
+    back to the host. Returns (sampled [B, 8] int32, argmax [B, 8] int32)."""
     global launches
     if hidden.device.type == "cpu":
         return sample_frame_codes_batched_reference(hidden, weights, config, seeds,
@@ -77,9 +70,8 @@ def sample_frame_codes_batched(hidden: torch.Tensor, weights: MagpieWeights,
     argmax = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
     fsb.launch(fsb.entry_name(ENTRY, dtype), B,
                fsb.sampler_tensors(hidden, forbid_eos, seeds, weights, c),
-               dict(sampled=sampled, argmax=argmax), c, dev, lt=True, grid=grid or 0,
-               stamps=stamps, top_k=min(int(top_k), c.vocab_per_cb),
-               temperature=float(temperature))
+               dict(sampled=sampled, argmax=argmax), c, dev,
+               top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
     with _launches_lock:
         launches += 1
         fsb.count_dtype(dtype_launches, dtype)

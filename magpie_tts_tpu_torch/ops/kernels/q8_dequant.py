@@ -6,8 +6,10 @@
 program for every block-stored tensor. On CUDA tensors it launches
 csrc/q8_dequant.cu, which writes the loader's layout directly (one block a
 64 x 64 (a, b) tile for all Kk: 16-byte loads of the tile's rows, a
-transpose through shared memory, 16-byte stores along a), or raises; on CPU tensors it runs ``dequantize_reference``: the
-f32 product, a reshape to the GGUF shape and the loader's transform. Both are
+transpose through shared memory, 16-byte stores along a; ``tiled_model``
+is a CPU model of its loops), or raises; on CPU tensors it runs
+``dequantize_reference``: the f32 product, a reshape to the GGUF shape and
+the loader's transform. Both are
 bit-identical to the dense load of the same file, in float32 or, rounded to
 nearest even, in bfloat16 (the kernel writes bf16 directly).
 """
@@ -108,7 +110,7 @@ def tiled_model(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str,
                     i0 = ((a0 + r) * B + b0) * Kk + j0
                     scale = sf[:, i0 // QK]           # one scale a load
                     for e in range(vb):
-                        reads[i0 + e] += 1
+                        np.add.at(reads, i0 + e, 1)
                         tile[:, r, j0 + e] = scale * qf[:, i0 + e].astype(np.float32)
             runs = TILE_A // ve
             for u0 in range(0, Kk * TILE_B * runs, THREADS):
@@ -120,7 +122,7 @@ def tiled_model(q: torch.Tensor, s: torch.Tensor, torch_shape, transform: str,
                 a, bb, kk = a[ok], bb[ok], kk[ok]
                 for e in range(ve):
                     o = (kk * B + b0 + bb) * A + a0 + a + e
-                    writes[o] += 1
+                    np.add.at(writes, o, 1)
                     out[:, o] = tile[:, a + e, bb * Kk + kk]
     lead = tuple(q.shape[:-2])
     res = torch.from_numpy(out).reshape(out_shape(lead, torch_shape, transform))
