@@ -3,7 +3,8 @@ kernel's time goes, the fused frame against the split path, and where
 ``serve``'s time goes.
 
 Run from the root of a checkout:
-    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|serve|all] [--root DIR]
+    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|serve|admission|all]
+                            [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
     weights, write row 300, for each (B, temperature, rows attended) of
@@ -48,10 +49,19 @@ serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
     wall seconds spent in admission, segments and ``decode_batch``) and a
-    profiled run. ``busy_share`` is the device's busy time inside serve's
-    loop window (the ``serve.loop`` span, the window of serve's
-    aggregate-fps line) over that window's length; busy time is the union of
-    the kernels' intervals, copies excluded.
+    profiled run. ``admit_ms_per_request`` is admission's wall
+    (``_admit_pending``) over the requests admitted, ``admit_share`` that
+    wall over serve's loop seconds, ``admitted`` the requests each admission
+    took in. ``busy_share`` is the device's busy time
+    inside serve's loop window (the ``serve.loop`` span, the window of
+    serve's aggregate-fps line) over that window's length; busy time is the
+    union of the kernels' intervals, copies excluded. With ``--root DIR``
+    another checkout's package, for turns.
+
+admission: ``prepare_batch`` (profile_admission): rows of groups against
+    the request alone with the products folded (the port's) and as a
+    per-request-shaped bmm, device work by family at M = 1 / 8 / 32, and bf16
+    at M = 1 on the float32 copies against widening per product.
 
 Every result is one JSON line on stdout; the card's nvidia-smi name and power
 limit come first.
@@ -517,16 +527,31 @@ def profile_serve() -> None:
         for slots, n_req in SERVE_CASES:
             stages = [(ContinuousBatchingEngine, "_admit_pending"),
                       (ContinuousBatchingEngine, "_segment"), (CodecEngine, "decode_batch")]
-            with _StageTimer(stages) as timer:
-                log, frames = _serve_once(tmp, slots, n_req, 0)
+            admitted = []    # requests each admission took in
+            admit = ContinuousBatchingEngine._admit_pending
+
+            def counted(engine):
+                before = len(engine._queue)
+                admit(engine)
+                if before > len(engine._queue):
+                    admitted.append(before - len(engine._queue))
+            ContinuousBatchingEngine._admit_pending = counted
+            try:
+                with _StageTimer(stages) as timer:
+                    log, frames = _serve_once(tmp, slots, n_req, 0)
+            finally:
+                ContinuousBatchingEngine._admit_pending = admit
             m = fps_re.search(log)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 plog, _ = _serve_once(tmp, slots, n_req, 0)
                 torch.cuda.synchronize()
             pm = fps_re.search(plog)
+            admit_s = timer.seconds["_admit_pending"]
             emit({"phase": "serve", "slots": slots, "requests": n_req, "frames": frames,
                   "serve_s": float(m.group(2)), "fps": float(m.group(3)),
                   "stage_wall_s": timer.seconds,
+                  "admit_ms_per_request": admit_s * 1e3 / n_req, "admitted": admitted,
+                  "admit_share": admit_s / float(m.group(2)),
                   "profiled": {"serve_s": float(pm.group(2)), "fps": float(pm.group(3)),
                                **_busy_share(prof)}})
 
@@ -705,6 +730,127 @@ def profile_stream(dev) -> None:
                           "temperature": 0.7, **stamp_breakdown(run)})
 
 
+ADMIT_BUCKET, ADMIT_M_MAX = 32, 32
+
+
+def _per_request_products(a, b):
+    """``matmul_f32`` with every product of a weight in the request's own
+    shape: a strided-batched ``bmm`` over the leading dims (the weight
+    broadcast, stride 0) in place of torch.matmul's M x T rows."""
+    import torch
+
+    a, b = a.float(), b.float()
+    if b.dim() != 2:
+        return torch.matmul(a, b)
+    if a.dim() == 2:
+        return torch.bmm(a[:, None, :], b.expand(a.shape[0], *b.shape))[:, 0]
+    a3 = a.reshape(-1, *a.shape[-2:])
+    out = torch.bmm(a3, b.expand(a3.shape[0], *b.shape))
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def profile_admission(dev) -> None:
+    """``prepare_batch`` at 357M, bucket 32, random weights: (1) rows of
+    groups of M = 2, 8, 32 against each request's group of 1, in both
+    dtypes, with the products as the port runs them (torch.matmul folds M x
+    T rows) and as a strided-batched bmm of the request's own shape: the
+    share of elements bit-equal and the largest difference over the largest
+    value; (2) device work at M = 1, 8, 32 by family (torch.profiler:
+    cuBLAS GEMM / GEMV / split-K reduce, PyTorch kernels, copies and fills);
+    (3) bf16 at M = 1 on the float32 copies against widening per product,
+    host ms in turns (copy, widen, widen, copy)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from magpie_tts_tpu_torch.config import MagpieConfig
+    from magpie_tts_tpu_torch.io.magpie_weights import random_magpie_weights
+    from magpie_tts_tpu_torch.models import decoder as decoder_mod
+    from magpie_tts_tpu_torch.models import magpie as magpie_mod
+    from magpie_tts_tpu_torch.ops import attention, conv_ffn
+
+    c = MagpieConfig()
+    w32 = random_magpie_weights(c, seed=0).to(device=dev)
+    rng = np.random.default_rng(3)
+    lens = [int(n) for n in rng.integers(1, ADMIT_BUCKET + 1, ADMIT_M_MAX)]
+    lens[0], lens[1] = 1, ADMIT_BUCKET
+    tokens = np.zeros((ADMIT_M_MAX, ADMIT_BUCKET), np.int64)
+    for i, n in enumerate(lens):
+        tokens[i, :n] = rng.integers(2, c.text_vocab_size - 2, n)
+    tokens = torch.from_numpy(tokens).to(dev)
+    spk = [i % c.num_speakers for i in range(ADMIT_M_MAX)]
+    modules = (attention, conv_ffn, decoder_mod)
+    folded = attention.matmul_f32
+
+    def group(m, w, first=0):
+        return magpie_mod.prepare_batch(tokens[first:first + m], lens[first:first + m],
+                                        spk[first:first + m], w, c)
+
+    def family(name):
+        if name.startswith(("Memcpy", "Memset")):
+            return name.split()[0].lower()
+        if "splitKreduce" in name:
+            return "cublas_splitk_reduce"
+        if "gemv" in name.lower():
+            return "cublas_gemv"
+        if "gemm" in name.lower() or "cutlass" in name:
+            return "cublas_gemm"
+        return "torch"
+
+    for dtype in ("float32", "bfloat16"):
+        w = magpie_mod.float32_products(w32.to(dtype=getattr(torch, dtype)))
+        with torch.no_grad():
+            for form, fn in (("folded", folded), ("per_request_bmm", _per_request_products)):
+                for mod in modules:
+                    mod.matmul_f32 = fn
+                try:
+                    alone = [group(1, w, i) for i in range(ADMIT_M_MAX)]
+                    for m in (2, 8, ADMIT_M_MAX):
+                        got = group(m, w)
+                        equal, rel = [], []
+                        for k in range(5):
+                            a = torch.cat([alone[i][k] for i in range(m)])
+                            equal.append(float((got[k] == a).float().mean()))
+                            rel.append(float((got[k].float() - a.float()).abs().max()
+                                             / a.float().abs().max()))
+                        emit({"phase": "admission", "what": "rows_vs_alone", "dtype": dtype,
+                              "products": form, "M": m, "share_bit_equal": min(equal),
+                              "max_rel": max(rel)})
+                finally:
+                    for mod in modules:
+                        mod.matmul_f32 = folded
+            work = {}
+            for m in (1, 8, ADMIT_M_MAX):
+                group(m, w)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    group(m, w)
+                    torch.cuda.synchronize()
+                fams: dict = {}
+                for e in prof.events():
+                    if e.device_type == DeviceType.CUDA:
+                        fams[family(e.name)] = fams.get(family(e.name), 0) + 1
+                work[m] = fams
+            emit({"phase": "admission", "what": "device_work", "dtype": dtype,
+                  "by_family": work, "total": {m: sum(f.values()) for m, f in work.items()}})
+            if dtype == "bfloat16":
+                widen = w32.to(dtype=torch.bfloat16)
+                ms = {"copy": [], "widen": []}
+                for who in ("copy", "widen", "widen", "copy"):
+                    weights = w if who == "copy" else widen
+                    group(1, weights)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        group(1, weights)
+                    torch.cuda.synchronize()
+                    ms[who].append((time.perf_counter() - t0) * 1e3 / 5)
+                emit({"phase": "admission", "what": "bf16_m1_host_ms", **ms,
+                      "copy_bytes": sum(getattr(getattr(w, part), n).numel() * 4
+                                        for part, names in magpie_mod.PREPARE_PRODUCTS.items()
+                                        for n in names)})
+
+
 def main() -> int:
     import torch
 
@@ -725,9 +871,10 @@ def main() -> int:
     from magpie_tts_tpu_torch.runtime.engine import resolve_device
 
     what = args[0] if args else "all"
-    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "serve", "all"):
+    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "serve",
+                    "admission", "all"):
         print("usage: python3 chip_profile.py "
-              "[frame|split|fused|stream|slope|lt|q8|serve|all] [--root DIR]",
+              "[frame|split|fused|stream|slope|lt|q8|serve|admission|all] [--root DIR]",
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
@@ -750,6 +897,8 @@ def main() -> int:
         profile_stream(dev)
     if what in ("serve", "all"):
         profile_serve()
+    if what in ("admission", "all"):
+        profile_admission(dev)
     return 0
 
 

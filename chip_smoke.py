@@ -89,6 +89,13 @@ Phases (each raises on failure, so the process exits non-zero):
    kernels counted: the persistent kernel once a step and nothing of the
    launch sequence A and 5 ran before.
 
+11. admission (after the fused-codec serve): ``prepare_batch`` at M = 1, 2,
+   4, 8 and 32 requests and token buckets 32 and 128, in both dtypes, in
+   turns against M calls of ``prepare`` (host ms a group and a request),
+   every row held against its request alone (ADMIT_REL, ADMIT_ULP_*); the
+   serve runs of phases 4 and 6 check one ``prepare_batch`` per (bucket,
+   power-of-two chunk) group of each admission.
+
 The line before last is a JSON summary of the kernels (float32 rows, then
 the ``[bf16]`` rows, then the weight streams, then the probe rows with
 ``"path": "probe"``; kernel 9's rows also carry ``kernel_b_ms``, kernel B's
@@ -562,8 +569,9 @@ def _batched_state(dev, dtype: str):
     xa_v = torch.nn.functional.pad(xa_v, pad).contiguous()
     scale = float(k_ctx[:, :, :c.context_frames].float().std())
     gen = torch.Generator(device=dev).manual_seed(2)
-    k_base = (torch.randn(k_ctx.shape, generator=gen, device=dev) * scale).to(k_ctx.dtype)
-    v_base = (torch.randn(v_ctx.shape, generator=gen, device=dev) * scale).to(k_ctx.dtype)
+    shape = (Bmax, c.dec_layers, c.max_seq, c.d_model)
+    k_base = (torch.randn(shape, generator=gen, device=dev) * scale).to(k_ctx.dtype)
+    v_base = (torch.randn(shape, generator=gen, device=dev) * scale).to(k_ctx.dtype)
     return c, w, hidden, xa_k, xa_v, k_base, v_base, enc
 
 
@@ -2730,27 +2738,109 @@ def run_batched_streams(tmp: Path, dev, q8_nodes: int, dtype: str = "float32") -
     return runs
 
 
-def time_prepare(tmp: Path, dev) -> dict:
-    """CUDA-event ms of ``prepare`` (serve's admission: encoder, prefill, BOS
-    step; plain PyTorch) for a 32-token request on the GGUF's weights, in
-    bfloat16 and float32, alternating (bf16, f32, f32, bf16), 10 calls
-    each."""
+# Admission (phase 11): groups of ADMIT_M requests a prepare_batch, per
+# token bucket. A row of a group against the request's prepare alone:
+# cuBLAS picks its algorithm by shape, so the float32 sums differ in their
+# last bits (~2e-6 of the tensor's largest value at 357M, H100) and in bf16
+# every later rounding spreads a flipped value (69-87% within 1 scaled ulp,
+# at most 10.9). The bars (as tests/test_torch_admission_cuda.py holds
+# them): float32 max |diff| over the tensor's max |value| ADMIT_REL; bf16
+# ADMIT_ULP_SHARE within 1 scaled ulp and none past ADMIT_ULP_MAX.
+ADMIT_M = (1, 2, 4, 8, 32)
+ADMIT_BUCKETS = (32, 128)
+ADMIT_REL, ADMIT_ULP_SHARE, ADMIT_ULP_MAX = 1e-5, 0.5, 16.0
+
+
+def _wall_ms(fn) -> float:
+    """Host ms of fn() to its last device work (the admission is host-bound:
+    ~1000 small launches a pass)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def time_admission(tmp: Path, dev, card: str) -> dict:
+    """Admission (serve's ``prepare_batch``; plain PyTorch: encoder, XA
+    K/V, prefill, BOS step) on the GGUF's weights: for each dtype, token
+    bucket and M of ADMIT_M, one group of M requests (mixed lengths, 1 and
+    the full bucket among them, every speaker) against M calls of
+    ``prepare``, in turns (group, requests, requests, group; host ms to the
+    last device work, one warm-up of each first). Every row of each group is
+    held against its request's ``prepare`` (ADMIT_REL, ADMIT_ULP_*). bf16
+    multiplies with ``float32_products`` as the engines do. Returns
+    {dtype: {bucket: {M: {"group_ms", "alone_ms", "ms_a_request", ...}}}}."""
     import torch
 
     from magpie_tts_tpu_torch.io.magpie_weights import load_magpie_weights
     from magpie_tts_tpu_torch.models import magpie as magpie_mod
 
-    c, w = load_magpie_weights(str(tmp / "magpie.gguf"))
-    tokens = torch.tensor(np.random.default_rng(9).integers(2, c.text_vocab_size - 2, 32),
-                          device=dev)
-    out = {"bfloat16": [], "float32": []}
-    with torch.no_grad():
-        for dtype in ("bfloat16", "float32", "float32", "bfloat16"):
-            wd = w.to(device=dev, dtype=getattr(torch, dtype))
-            out[dtype].append(time_ms(lambda: magpie_mod.prepare(tokens, 20, 0, wd, c), reps=10))
-    log(f"prepare of a 32-token request (serve's admission), CUDA-event ms, in the order "
-        f"bf16 / f32 / f32 / bf16: {out['bfloat16'][0]:.3f} / {out['float32'][0]:.3f} / "
-        f"{out['float32'][1]:.3f} / {out['bfloat16'][1]:.3f}")
+    c, w32 = load_magpie_weights(str(tmp / "magpie.gguf"))
+    n_rows = c.context_frames + 1
+    rng = np.random.default_rng(14)
+    out = {}
+    for dtype in ("float32", BF):
+        w = magpie_mod.float32_products(w32.to(device=dev, dtype=getattr(torch, dtype)))
+        out[dtype] = {}
+        for bucket in ADMIT_BUCKETS:
+            m_max = max(ADMIT_M)
+            lens = [int(n) for n in rng.integers(1, bucket + 1, m_max)]
+            lens[0], lens[1] = 1, bucket
+            spk = [i % c.num_speakers for i in range(m_max)]
+            tokens = np.zeros((m_max, bucket), np.int64)
+            for i, n in enumerate(lens):
+                tokens[i, :n] = rng.integers(2, c.text_vocab_size - 2, n)
+            tokens = torch.from_numpy(tokens).to(dev)
+            res = out[dtype][bucket] = {}
+            with torch.no_grad():
+                for m in ADMIT_M:
+                    group = lambda: magpie_mod.prepare_batch(tokens[:m], lens[:m], spk[:m], w, c)
+                    got, alone = [], []
+                    requests = lambda: alone.append(
+                        [magpie_mod.prepare(tokens[i], lens[i], spk[i], w, c) for i in range(m)])
+                    group(), requests()     # warm-up
+                    times = {"group": [], "alone": []}
+                    for who in ("group", "alone", "alone", "group"):
+                        times[who].append(_wall_ms(
+                            (lambda: got.append(group())) if who == "group" else requests))
+                    g, a = got[-1], alone[-1]
+                    want = [torch.stack([r[0] for r in a]), torch.stack([r[1] for r in a]),
+                            torch.stack([r[2].k_cache[:, :n_rows] for r in a]),
+                            torch.stack([r[2].v_cache[:, :n_rows] for r in a]),
+                            torch.stack([r[2].hidden for r in a])]
+                    check = {}
+                    for name, x, y in zip(("xa_k", "xa_v", "k_rows", "v_rows", "hidden"), g, want):
+                        if x.shape != y.shape or not bool(torch.isfinite(x).all()):
+                            raise AssertionError(f"admission {dtype} bucket {bucket} M={m}: "
+                                                 f"{name} {tuple(x.shape)} against "
+                                                 f"{tuple(y.shape)}, or not finite")
+                        if dtype == BF:
+                            d = scaled_ulps(x, y)
+                            check[name] = ulp_summary(d)
+                            ok = ulp_ok(d, ADMIT_ULP_SHARE, ADMIT_ULP_MAX)
+                        else:
+                            check[name] = float((x - y).abs().max() / y.abs().max())
+                            ok = check[name] <= ADMIT_REL
+                        if not ok:
+                            raise AssertionError(
+                                f"admission {dtype} bucket {bucket} M={m}: {name} against the "
+                                f"requests alone {check[name]}, bar "
+                                f"{(ADMIT_ULP_SHARE, ADMIT_ULP_MAX) if dtype == BF else ADMIT_REL}")
+                    equal = all(torch.equal(x, y) for x, y in zip(g, want))
+                    res[m] = {"group_ms": times["group"], "alone_ms": times["alone"],
+                              "ms_a_request": float(np.mean(times["group"])) / m,
+                              "alone_ms_a_request": float(np.mean(times["alone"])) / m,
+                              "rows_bit_equal": equal, "rows_vs_alone": check}
+                    log(f"admission {dtype} bucket {bucket} M={m}: group "
+                        f"{times['group'][0]:.3f} / {times['group'][1]:.3f} ms, {m} prepare calls "
+                        f"{times['alone'][0]:.3f} / {times['alone'][1]:.3f} ms (turns group, "
+                        f"calls, calls, group); ms a request {res[m]['ms_a_request']:.3f} "
+                        f"grouped, {res[m]['alone_ms_a_request']:.3f} alone; rows against the "
+                        f"requests alone: bit-equal {equal}, "
+                        f"{'scaled ulps' if dtype == BF else 'rel'} {check}; on {card}")
     return out
 
 
@@ -2763,7 +2853,9 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
               dtype: str = "bfloat16", fused_codec: bool = False) -> dict:
     """cli.main serve at full width: six JSONL requests and a malformed line on
     a stdin stand-in; checks every result, the error line, the WAVs, and the
-    launch counts: kernel C once per segment frame, or with ``split``
+    launch counts: one ``prepare_batch`` a (bucket, power-of-two chunk)
+    group of each admission, as the JAX engine groups; kernel C once per
+    segment frame, or with ``split``
     (``MAGPIE_NO_FUSED=1``) kernels 7 and 8 once per segment frame and kernel
     C never; codec conv 92 per ``decode_batch`` (N utterances a call), or with
     ``fused_codec`` (MAGPIE_FUSED_CODEC=1) 38 and kernel 9 three times; every
@@ -2775,20 +2867,44 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
     from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
     from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+    from magpie_tts_tpu_torch.models import magpie as magpie_mod
     from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
-    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
+    from magpie_tts_tpu_torch.runtime.engine import CodecEngine, pick_bucket
 
     hop = ccfg.hop_length
     lines = [json.dumps({"id": f"r{i}", "text": t, "seed": i})
              for i, t in enumerate(SERVE_TEXTS)]
     lines.insert(3, '{"id": "bad", "text": ')
     counts = {"segments": 0, "decode_batch": 0}
+    groups = {"want": [], "got": []}   # (bucket, m) of each admission group
 
     def counted(fn, key):
         def wrapper(*a, **k):
             counts[key] += 1
             return fn(*a, **k)
         return wrapper
+
+    def admit_counted(engine):
+        """The (bucket, m) groups the JAX engine's rule makes of what this
+        call admits: the queue's head, as many as slots are free, by token
+        bucket in queue order, power-of-two chunks of at most n_slots."""
+        n = min(sum(r is None for r in engine._slot_req), len(engine._queue))
+        by_bucket: dict = {}
+        for req in list(engine._queue)[:n]:
+            bucket = pick_bucket(engine.token_buckets, len(req.token_ids))
+            by_bucket[bucket] = by_bucket.get(bucket, 0) + 1
+        for bucket, left in by_bucket.items():
+            while left:
+                m = 1
+                while m * 2 <= left and m * 2 <= engine.n_slots:
+                    m *= 2
+                groups["want"].append((bucket, m))
+                left -= m
+        return admit_fn(engine)
+
+    def prepare_counted(tokens, *a, **k):
+        groups["got"].append((tokens.shape[1], tokens.shape[0]))
+        return prepare_fn(tokens, *a, **k)
 
     out_dir = tmp / f"serve_{dtype}{'_split' if split else ''}{'_fc' if fused_codec else ''}"
     argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
@@ -2798,8 +2914,11 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
         argv += ["--dtype", dtype]
     out, err = io.StringIO(), io.StringIO()
     seg_fn, dec_fn, stdin = ContinuousBatchingEngine._segment, CodecEngine.decode_batch, sys.stdin
+    admit_fn, prepare_fn = ContinuousBatchingEngine._admit_pending, magpie_mod.prepare_batch
     ContinuousBatchingEngine._segment = counted(seg_fn, "segments")
     CodecEngine.decode_batch = counted(dec_fn, "decode_batch")
+    ContinuousBatchingEngine._admit_pending = admit_counted
+    magpie_mod.prepare_batch = prepare_counted
     sys.stdin = io.StringIO("\n".join(lines) + "\n")
     kernels = (fsb, ltsb, dsb, cc, crf)
     if split:
@@ -2815,6 +2934,7 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
             k.launches for k in kernels)
     finally:
         ContinuousBatchingEngine._segment, CodecEngine.decode_batch = seg_fn, dec_fn
+        ContinuousBatchingEngine._admit_pending, magpie_mod.prepare_batch = admit_fn, prepare_fn
         sys.stdin = stdin
         os.environ.pop("MAGPIE_NO_FUSED", None)
     log(err.getvalue().rstrip())
@@ -2846,6 +2966,9 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
                              f"for {counts['decode_batch']} decode_batch calls, want {per_call} "
                              f"per call")
     check_dtype_launches(kernels, dtype, f"serve {dtype} split {split}")
+    if not groups["got"] or groups["got"] != groups["want"]:
+        raise AssertionError(f"serve admission: prepare_batch groups (bucket, m) {groups['got']}, "
+                             f"want one a power-of-two chunk of each bucket {groups['want']}")
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) aggregate fps", err.getvalue())
     fps = float(m.group(2)) if m else float("nan")
     log(f"serve path {dtype}{' MAGPIE_NO_FUSED=1' if split else ''}"
@@ -2854,7 +2977,8 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
         f"lt_sampler_batched / decoder_step_batched launches {batched_launches} / {lt_launches} / "
         f"{dec_launches}, "
         f"conv / res_layer_fused launches {conv_launches} / {res_launches} "
-        f"({counts['decode_batch']} decode_batch calls), {fps} aggregate fps (cli.main serve "
+        f"({counts['decode_batch']} decode_batch calls), admission groups (bucket, m) "
+        f"{groups['got']}, {fps} aggregate fps (cli.main serve "
         f"wall {wall:.2f} s incl. load) on {card}")
     return {"batched_launches": batched_launches, "lt_launches": lt_launches,
             "dec_launches": dec_launches, "conv_launches": conv_launches,
@@ -3159,7 +3283,7 @@ def main() -> int:
                 streams[dt, on] = run_stream(tmp, mcfg, ccfg, card, fc[dt, on], dt, on)
         bf_serve_fc = run_serve(tmp, mcfg, ccfg, card, dtype=BF, fused_codec=True)
         warm = run_warmup(tmp, card)
-        prep_ms = time_prepare(tmp, dev)
+        admission = time_admission(tmp, dev, card)
         # float32, as before
         main_res = run_main_path(tmp, mcfg, ccfg, card, count_kernels=True)
         split_main = run_main_path(tmp, mcfg, ccfg, card, split=True, count_kernels=True)
@@ -3195,9 +3319,13 @@ def main() -> int:
         f"ms (float32 {fs_res['ms']}), C at B=8 {bf_batched['C']['ms']} ms (float32 "
         f"{fsb_res['ms']}), codec conv {bf_conv['ms']} ms per 32-frame decode (float32 "
         f"{cc_res['ms']}); codes differing from plain (near-ties) A "
-        f"{bf_single['temp07_code_flips']}, C {bf_batched['temp07_code_flips']}; prepare bf16 "
-        f"{prep_ms['bfloat16']} ms, float32 "
-        f"{prep_ms['float32']} ms; on {card}")
+        f"{bf_single['temp07_code_flips']}, C {bf_batched['temp07_code_flips']}; on {card}")
+    log("summary, admission (prepare_batch, host ms a request grouped / alone, M = "
+        + " / ".join(str(m) for m in ADMIT_M) + "): " + "; ".join(
+            f"{dt} bucket {b}: " + " / ".join(
+                f"{admission[dt][b][m]['ms_a_request']:.3f}" for m in ADMIT_M) + " against "
+            + " / ".join(f"{admission[dt][b][m]['alone_ms_a_request']:.3f}" for m in ADMIT_M)
+            for dt in ("float32", BF) for b in ADMIT_BUCKETS) + f"; on {card}")
     log(f"summary, streaming (--stream, temp 0, 'hello world', 4 frames a chunk, 32 context "
         f"frames): time to first audio / real-time factor: float32 "
         f"{streams['float32', False]['ttfa_ms']} ms / {streams['float32', False]['rtf']}x, with "

@@ -21,13 +21,14 @@ kernel). ``prefill`` always runs on the dense weights, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ..config import MagpieConfig
 from ..io.magpie_weights import DecoderWeights, Int8DecoderStream, MagpieWeights, Q8DecoderStream
-from ..ops.attention import attend, cross_attention, precompute_cross_attention_kv
+from ..ops.attention import (_merge_heads, _split_heads, attend, cross_attention,
+                             precompute_cross_attention_kv)
 from ..ops.conv_ffn import conv_ffn, gelu
 from ..ops.norms import layer_norm
 from ..ops.precision import matmul_f32
@@ -55,27 +56,27 @@ def stream_matmul(x: torch.Tensor, dec: DecoderWeights, stream, name: str,
 
 def precompute_xa_kv(enc_out: torch.Tensor, dec: DecoderWeights,
                      config: MagpieConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """enc_out: [enc_seq, d_model] -> (xa_k, xa_v) each [L, enc_seq, d_xa].
-    The memory norm is folded into this precompute."""
+    """enc_out: [..., enc_seq, d_model] -> (xa_k, xa_v) each
+    [..., L, enc_seq, d_xa]. The memory norm is folded into this precompute."""
     ks, vs = [], []
     for l in range(dec.qkv.shape[0]):
         mem = layer_norm(enc_out, dec.norm_xa_mem[l], config.eps)
         k, v = precompute_cross_attention_kv(mem, dec.xa_kv[l])
         ks.append(k)
         vs.append(v)
-    return torch.stack(ks).contiguous(), torch.stack(vs).contiguous()
+    return torch.stack(ks, dim=-3).contiguous(), torch.stack(vs, dim=-3).contiguous()
 
 
 def prefill(context: torch.Tensor, xa_k: torch.Tensor, xa_v: torch.Tensor,
             k_cache: torch.Tensor, v_cache: torch.Tensor,
             weights: MagpieWeights, config: MagpieConfig,
-            enc_length: Optional[int] = None) -> None:
-    """Run the speaker-context frames [T_ctx, d_model] through all layers,
-    writing their K/V into ``cache[:, :T_ctx]`` in place."""
+            enc_length: Union[int, torch.Tensor, None] = None) -> None:
+    """Run the speaker-context frames [..., T_ctx, d_model] through all
+    layers, writing their K/V into ``cache[..., :, :T_ctx]`` (caches
+    [..., L, rows, d_model]) in place. xa_k / xa_v: [..., L, enc_seq, d_xa];
+    ``enc_length``: an int, or one length per leading index."""
     dec = weights.decoder
-    t_ctx = context.shape[0]
-    n_heads = config.dec_sa_heads
-    d_head = config.d_model // n_heads
+    t_ctx = context.shape[-2]
     x = context + dec.pos_emb[:t_ctx]
     idx = torch.arange(t_ctx, device=x.device)
     mask = (idx[None, :] <= idx[:, None])[None]
@@ -83,15 +84,15 @@ def prefill(context: torch.Tensor, xa_k: torch.Tensor, xa_v: torch.Tensor,
         h = layer_norm(x, dec.norm_self[l], config.eps)
         qkv = matmul_f32(h, dec.qkv[l]).to(x.dtype)
         q, k_new, v_new = qkv.chunk(3, dim=-1)
-        k_cache[l, :t_ctx] = k_new
-        v_cache[l, :t_ctx] = v_new
-        qh, kh, vh = (t.reshape(t_ctx, n_heads, d_head).transpose(0, 1)
-                      for t in (q, k_new, v_new))
-        attn = attend(qh, kh, vh, mask).transpose(0, 1).reshape(t_ctx, config.d_model)
+        k_cache[..., l, :t_ctx, :] = k_new
+        v_cache[..., l, :t_ctx, :] = v_new
+        qh, kh, vh = (_split_heads(t, config.dec_sa_heads) for t in (q, k_new, v_new))
+        attn = _merge_heads(attend(qh, kh, vh, mask))
         x = x + matmul_f32(attn, dec.sa_out[l]).to(x.dtype)
         qn = layer_norm(x, dec.norm_xa_q[l], config.eps)
-        x = x + cross_attention(qn, xa_k[l], xa_v[l], dec.xa_q[l], dec.xa_out[l],
-                                config.dec_xa_heads, enc_length=enc_length).to(x.dtype)
+        x = x + cross_attention(qn, xa_k[..., l, :, :], xa_v[..., l, :, :], dec.xa_q[l],
+                                dec.xa_out[l], config.dec_xa_heads,
+                                enc_length=enc_length).to(x.dtype)
         h = layer_norm(x, dec.norm_ff[l], config.eps)
         x = x + conv_ffn(h, dec.ff_proj[l], dec.ff_out[l], gelu_tanh=config.gelu_tanh)
 
@@ -133,40 +134,43 @@ def decode_rows(x_pe: torch.Tensor, write_row: int, valid_mask: torch.Tensor,
                 xa_k: torch.Tensor, xa_v: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor,
                 weights: MagpieWeights, config: MagpieConfig,
-                enc_length: Optional[int] = None, stream=None) -> torch.Tensor:
+                enc_length: Union[int, torch.Tensor, None] = None,
+                stream=None) -> torch.Tensor:
     """The 12 layers of ``decode_step_masked`` on an input that already holds
     its position embedding (the batched frame kernel receives posemb rows).
 
-    The residual carry stays float32 and attention covers the rows of the
-    whole ``max_seq`` buffer that ``valid_mask`` admits, the frame-step
-    kernels' rounding points. ``stream`` supplies qkv / sa_out / ff_proj /
-    ff_out (``stream_matmul``).
+    x_pe [..., d_model]; valid_mask [..., rows]; xa_k / xa_v
+    [..., L, enc_seq, d_xa]; caches [..., L, rows, d_model]; ``enc_length``
+    an int or one length per leading index (prepare's BOS step runs M rows
+    at once). The residual carry stays float32 and attention covers the
+    rows of the whole cache buffer that ``valid_mask`` admits, the
+    frame-step kernels' rounding points. ``stream`` supplies qkv / sa_out /
+    ff_proj / ff_out (``stream_matmul``).
     """
     dec = weights.decoder
     n_heads = config.dec_sa_heads
     d_model = config.d_model
-    d_head = d_model // n_heads
     wdt = x_pe.dtype
     xf = x_pe.float()
-    max_seq = k_cache.shape[1]
-    length_mask = valid_mask[None, None, :]
+    lead = x_pe.shape[:-1]
+    length_mask = valid_mask[..., None, None, :]
 
     for l in range(dec.qkv.shape[0]):
         h = layer_norm(xf, dec.norm_self[l], config.eps).to(wdt)
         qkv = stream_matmul(h, dec, stream, "qkv", l).to(wdt)
-        q = qkv[:d_model]
-        k_cache[l, write_row] = qkv[d_model:2 * d_model]
-        v_cache[l, write_row] = qkv[2 * d_model:]
-        qh = q.reshape(n_heads, 1, d_head)
-        kh = k_cache[l].reshape(max_seq, n_heads, d_head).transpose(0, 1)
-        vh = v_cache[l].reshape(max_seq, n_heads, d_head).transpose(0, 1)
-        attn = attend(qh, kh.to(wdt), vh.to(wdt), length_mask).reshape(d_model)
+        q = qkv[..., :d_model]
+        k_cache[..., l, write_row, :] = qkv[..., d_model:2 * d_model]
+        v_cache[..., l, write_row, :] = qkv[..., 2 * d_model:]
+        qh = q.reshape(*lead, n_heads, 1, d_model // n_heads)
+        kh = _split_heads(k_cache[..., l, :, :], n_heads)
+        vh = _split_heads(v_cache[..., l, :, :], n_heads)
+        attn = attend(qh, kh.to(wdt), vh.to(wdt), length_mask).reshape(*lead, d_model)
         xf = xf + stream_matmul(attn, dec, stream, "sa_out", l)
 
         q = layer_norm(xf, dec.norm_xa_q[l], config.eps).to(wdt)
-        xf = xf + cross_attention(q[None, :], xa_k[l], xa_v[l], dec.xa_q[l],
-                                  dec.xa_out[l], config.dec_xa_heads,
-                                  enc_length=enc_length, out_dtype=torch.float32)[0]
+        xf = xf + cross_attention(q[..., None, :], xa_k[..., l, :, :], xa_v[..., l, :, :],
+                                  dec.xa_q[l], dec.xa_out[l], config.dec_xa_heads,
+                                  enc_length=enc_length, out_dtype=torch.float32)[..., 0, :]
 
         h = layer_norm(xf, dec.norm_ff[l], config.eps).to(wdt)
         f = gelu(stream_matmul(h, dec, stream, "ff_proj", l),

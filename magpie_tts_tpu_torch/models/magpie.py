@@ -1,7 +1,9 @@
 """Magpie pipeline assembly (magpie_tts_tpu/models/magpie.py): embeddings,
 prefill, and the autoregressive decode loops.
 
-1. ``prepare``     encoder + XA-KV precompute + context prefill + BOS step (plain PyTorch).
+1. ``prepare_batch`` encoder + XA-KV precompute + context prefill + BOS step for
+                   M requests in one pass (plain PyTorch); ``prepare`` is its
+                   M = 1 case.
 2. ``decode_loop`` a Python loop over frames; each iteration is one call of
                    ``ops.kernels.frame_step.frame_step`` (the CUDA kernel on a
                    CUDA device, the plain LT sampler + embedding + decoder step
@@ -19,7 +21,8 @@ environment variable is set (the JAX package's debug switch).
 ``int8_stream`` is the JAX package's one stream slot: None (dense), an
 ``Int8DecoderStream`` or a ``Q8DecoderStream``; the loops hand it to the
 frame and decoder-step kernels, which dispatch on its type. ``prepare``
-(encoder, prefill, BOS step) always runs on the dense weights. Weights that
+(encoder, prefill, BOS step) always runs on the dense weights, in bfloat16
+on the engines' ``float32_products`` copy of its matrices. Weights that
 hold ``Q8Blocks`` (``--serve-q8``) are dequantized at program entry
 (``materialize_weights``, kernel 10 on the card), once per call.
 """
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from ..config import MagpieConfig
-from ..io.magpie_weights import MagpieWeights, materialize_weights
+from ..io.magpie_weights import MagpieWeights, has_q8_blocks, materialize_weights
 from ..ops import sampling
 from ..ops.kernels.decoder_step import decode_step
 from ..ops.kernels.decoder_step_batched import decode_step_batched
@@ -61,11 +64,6 @@ def resolve_use_fused(use_fused: Optional[bool]) -> bool:
     return not os.environ.get("MAGPIE_NO_FUSED") if use_fused is None else bool(use_fused)
 
 
-def speaker_context(weights: MagpieWeights, speaker_id: int) -> torch.Tensor:
-    """Baked speaker context frames [context_frames, d_model]."""
-    return weights.baked_context[speaker_id]
-
-
 @dataclasses.dataclass
 class DecodeState:
     """What the decode loop carries from frame to frame."""
@@ -81,29 +79,84 @@ class DecodeState:
 def prepare(tokens: torch.Tensor, enc_length: int, speaker_id: int,
             weights: MagpieWeights, config: MagpieConfig
             ) -> Tuple[torch.Tensor, torch.Tensor, DecodeState]:
-    """Everything before the AR loop; tokens may be right-padded to a bucket.
-    Returns (xa_k, xa_v, state) with state.hidden the BOS-step output."""
+    """Everything before the AR loop for one request (``prepare_batch`` at
+    M = 1); tokens [T] may be right-padded to a bucket. Returns (xa_k, xa_v
+    [L, T, d_xa], state) with state.hidden the BOS-step output and the
+    context + BOS rows in a fresh [L, max_seq, d_model] cache."""
+    xa_k, xa_v, k_rows, v_rows, hidden = prepare_batch(tokens[None], [enc_length], [speaker_id],
+                                                       weights, config)
+    n_rows = k_rows.shape[2]
+    k_cache = k_rows.new_zeros(config.dec_layers, config.max_seq, config.d_model)
+    v_cache = torch.zeros_like(k_cache)
+    k_cache[:, :n_rows] = k_rows[0]
+    v_cache[:, :n_rows] = v_rows[0]
+    state = DecodeState(
+        k_cache=k_cache, v_cache=v_cache, hidden=hidden[0], pos=n_rows, frame_idx=0,
+        codes=np.zeros((config.max_dec_steps, config.num_codebooks), np.int32), done=False)
+    return xa_k[0], xa_v[0], state
+
+
+def prepare_batch(tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
+                  weights: MagpieWeights, config: MagpieConfig):
+    """``prepare`` of M requests in one pass (the JAX package's
+    ``jax.vmap(prepare)``): tokens [M, T] (right-padded to one bucket),
+    ``enc_lengths`` and ``speaker_ids`` M ints. Every product and attention
+    runs once for the M rows; each row's cross-attention masks its own
+    encoder length, and the BOS step at position ``context_frames`` attends
+    to that row's ``context_frames + 1`` rows.
+
+    Returns (xa_k, xa_v [M, L, T, d_xa], k_rows, v_rows
+    [M, L, context_frames + 1, d_model] (the context and BOS rows, cache rows
+    0..context_frames), hidden [M, d_model]). The callers place the rows in
+    their own caches, so no M full ``max_seq`` caches are built here.
+    ``weights`` may be ``float32_products(w)`` of the engine's weights."""
     weights = materialize_weights(weights)
     dtype = weights.text_emb.dtype
     device = weights.text_emb.device
+    M = tokens.shape[0]
+    n_rows = config.context_frames + 1
+    enc = torch.tensor([int(n) for n in enc_lengths], dtype=torch.int64).to(device)
+    spk = torch.tensor([int(s) for s in speaker_ids], dtype=torch.int64).to(device)
     enc_out = run_encoder(tokens, weights, config)
     xa_k, xa_v = decoder_mod.precompute_xa_kv(enc_out, weights.decoder, config)
-    k_cache = torch.zeros(config.dec_layers, config.max_seq, config.d_model,
-                          dtype=dtype, device=device)
-    v_cache = torch.zeros_like(k_cache)
-    context = speaker_context(weights, speaker_id).to(dtype)
-    decoder_mod.prefill(context, xa_k, xa_v, k_cache, v_cache, weights, config,
-                        enc_length=enc_length)
-    bos = torch.full((config.num_codebooks,), config.audio_bos_id, dtype=torch.int32,
+    k_rows = torch.zeros(M, config.dec_layers, n_rows, config.d_model, dtype=dtype,
+                         device=device)
+    v_rows = torch.zeros_like(k_rows)
+    context = weights.baked_context[spk].to(dtype)
+    decoder_mod.prefill(context, xa_k, xa_v, k_rows, v_rows, weights, config, enc_length=enc)
+    bos = torch.full((M, config.num_codebooks), config.audio_bos_id, dtype=torch.int32,
                      device=device)
     bos_emb = audio_frame_embedding(bos, weights, config).to(dtype)
-    hidden = decoder_mod.decode_step(bos_emb, config.context_frames, xa_k, xa_v, k_cache,
-                                     v_cache, weights, config, enc_length=enc_length)
-    state = DecodeState(
-        k_cache=k_cache, v_cache=v_cache, hidden=hidden, pos=config.context_frames + 1,
-        frame_idx=0, codes=np.zeros((config.max_dec_steps, config.num_codebooks), np.int32),
-        done=False)
-    return xa_k, xa_v, state
+    x_pe = bos_emb + weights.decoder.pos_emb[config.context_frames]
+    every_row = torch.ones(n_rows, dtype=torch.bool, device=device)
+    hidden = decoder_mod.decode_rows(x_pe, config.context_frames, every_row, xa_k, xa_v,
+                                     k_rows, v_rows, weights, config, enc_length=enc)
+    return xa_k, xa_v, k_rows, v_rows, hidden
+
+
+# The matrices prepare multiplies: encoder and decoder fields.
+PREPARE_PRODUCTS = {"encoder": ("qkv", "sa_out", "ff_proj", "ff_out"),
+                     "decoder": ("qkv", "sa_out", "xa_q", "xa_kv", "xa_out", "ff_proj", "ff_out")}
+
+
+def float32_products(weights: MagpieWeights) -> MagpieWeights:
+    """``weights`` with the matrices ``prepare`` multiplies (the encoder's
+    qkv / sa_out / ff_proj / ff_out, the decoder's qkv / sa_out / xa_q /
+    xa_kv / xa_out / ff_proj / ff_out) as float32 copies, the rest shared.
+
+    ``matmul_f32`` widens a bfloat16 operand to float32 on every product;
+    with these copies it widens no weight, and since widening is exact the
+    results are bit-equal (activations keep their bfloat16 rounding points).
+    An engine makes the copy once, beside its weights (~0.74 GB at 357M in
+    bfloat16). Float32 weights come back unchanged; Q8_0 blocks
+    (``--serve-q8``) are not copied: their ``prepare`` widens per product.
+    """
+    if weights.text_emb.dtype == torch.float32 or has_q8_blocks(weights):
+        return weights
+    parts = {part: dataclasses.replace(getattr(weights, part), **{
+        name: getattr(getattr(weights, part), name).float() for name in names})
+        for part, names in PREPARE_PRODUCTS.items()}
+    return dataclasses.replace(weights, **parts)
 
 
 def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
@@ -159,28 +212,18 @@ def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
 def synthesize_codes_program(tokens: torch.Tensor, enc_length: int, speaker_id: int,
                              key: Tuple[int, int], temperature: float,
                              weights: MagpieWeights, config: MagpieConfig, top_k: int,
-                             use_fused: Optional[bool] = None, int8_stream=None):
-    """The full single-utterance synthesis: returns (codes [max_dec_steps, 8], n_frames)."""
+                             use_fused: Optional[bool] = None, int8_stream=None,
+                             prepare_weights: Optional[MagpieWeights] = None):
+    """The full single-utterance synthesis: returns (codes [max_dec_steps, 8], n_frames).
+    ``prepare_weights``: what ``prepare`` multiplies with (an engine's
+    ``float32_products`` copy), default ``weights``."""
     with torch.no_grad():
         weights = materialize_weights(weights)
-        xa_k, xa_v, state = prepare(tokens, enc_length, speaker_id, weights, config)
+        xa_k, xa_v, state = prepare(tokens, enc_length, speaker_id, prepare_weights or weights,
+                                    config)
         state = decode_loop(xa_k, xa_v, state, enc_length, weights, config, key,
                             temperature, top_k, use_fused=use_fused, int8_stream=int8_stream)
     return state.codes, state.frame_idx
-
-
-def prepare_batch(tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
-                  weights: MagpieWeights, config: MagpieConfig):
-    """``prepare`` of every row of tokens [B, T]. Returns (xa_k, xa_v
-    [B, L, T, d_xa], k_cache, v_cache [B, L, max_seq, d_model], hidden [B, d_model])."""
-    outs = [prepare(tokens[b], int(enc_lengths[b]), int(speaker_ids[b]), weights, config)
-            for b in range(tokens.shape[0])]
-    xa_k = torch.stack([o[0] for o in outs])
-    xa_v = torch.stack([o[1] for o in outs])
-    k_cache = torch.stack([o[2].k_cache for o in outs])
-    v_cache = torch.stack([o[2].v_cache for o in outs])
-    hidden = torch.stack([o[2].hidden for o in outs])
-    return xa_k, xa_v, k_cache, v_cache, hidden
 
 
 # Frames between the lockstep loop's host reads of the all-done flag: each
@@ -204,9 +247,12 @@ def synthesize_codes_batched_program(
         tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
         keys: Sequence[Tuple[int, int]], temperature: float, weights: MagpieWeights,
         config: MagpieConfig, top_k: int, max_steps: Optional[int] = None,
-        use_fused: Optional[bool] = None, int8_stream=None):
+        use_fused: Optional[bool] = None, int8_stream=None,
+        prepare_weights: Optional[MagpieWeights] = None):
     """Lockstep batched synthesis: tokens [B, T] -> (codes [B, N, 8] int32,
-    n_frames [B] int32), both on the weights' device.
+    n_frames [B] int32), both on the weights' device. The B streams are
+    prepared in one ``prepare_batch`` (on ``prepare_weights``, default
+    ``weights``).
 
     Streams that hit EOS idle (their ``frame_idx`` / codes freeze) while the
     rest continue. Per frame, as in the JAX loop: every stream's key splits
@@ -224,9 +270,13 @@ def synthesize_codes_batched_program(
     with torch.no_grad():
         weights = materialize_weights(weights)
         device = weights.text_emb.device
-        xa_k, xa_v, k_cache, v_cache, hidden = prepare_batch(tokens, enc_lengths, speaker_ids,
-                                                             weights, config)
-        B = tokens.shape[0]
+        xa_k, xa_v, k_rows, v_rows, hidden = prepare_batch(
+            tokens, enc_lengths, speaker_ids, prepare_weights or weights, config)
+        B, L, n_rows, D = k_rows.shape
+        k_cache = k_rows.new_zeros(B, L, config.max_seq, D)
+        v_cache = torch.zeros_like(k_cache)
+        k_cache[:, :, :n_rows] = k_rows
+        v_cache[:, :, :n_rows] = v_rows
         seeds, _ = sampling.frame_seeds_batch(np.array(keys, np.uint32), max_steps)
         seeds = torch.from_numpy(seeds).to(device)                          # [steps, B]
         enc = torch.tensor(list(enc_lengths), dtype=torch.int32, device=device)

@@ -9,7 +9,7 @@ fused-QKV layout.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -70,17 +70,22 @@ def precompute_cross_attention_kv(memory_normed: torch.Tensor, xa_kv_w: torch.Te
 
 def cross_attention(query: torch.Tensor, xa_k: torch.Tensor, xa_v: torch.Tensor,
                     q_w: torch.Tensor, out_w: torch.Tensor, n_heads: int,
-                    enc_length: Optional[int] = None, out_dtype=None) -> torch.Tensor:
-    """query: [..., Tq, d_model] (already normed); xa_k/xa_v: [enc_seq, d_xa].
-    ``enc_length`` masks padded encoder key positions. The output rounds to
-    ``out_dtype`` (default: the query's; the decode step keeps float32)."""
+                    enc_length: Union[int, torch.Tensor, None] = None,
+                    out_dtype=None) -> torch.Tensor:
+    """query: [..., Tq, d_model] (already normed); xa_k/xa_v: [..., enc_seq, d_xa].
+    ``enc_length`` masks padded encoder key positions: an int for every row,
+    or a tensor of the leading dims [...] (one length a row). The output
+    rounds to ``out_dtype`` (default: the query's; the decode step keeps
+    float32)."""
     q = matmul_f32(query, q_w).to(query.dtype)
     qh = _split_heads(q, n_heads)
     kh = _split_heads(xa_k, n_heads)
     vh = _split_heads(xa_v, n_heads)
     mask = None
     if enc_length is not None:
-        mask = (torch.arange(xa_k.shape[-2], device=xa_k.device) < enc_length)[None, None, :]
+        limit = enc_length[..., None] if torch.is_tensor(enc_length) else enc_length
+        keys = torch.arange(xa_k.shape[-2], device=xa_k.device)
+        mask = (keys < limit)[..., None, None, :]
     out = _merge_heads(attend(qh, kh, vh, mask))
     return matmul_f32(out, out_w).to(out_dtype or query.dtype)
 

@@ -2,7 +2,8 @@
 and leave a RUNNING batch.
 
 The decode loop runs in segments of ``segment_frames`` frames; between
-segments the host retires finished slots and admits queued requests. The
+segments the host retires finished slots and admits queued requests, each
+token bucket's in power-of-two groups with one ``prepare_batch`` a group. The
 ring cache keeps the JAX engine's design: every slot writes its new K/V row at
 the same physical row ``ring_p + j`` (one shared ``write_row`` for the batched
 frame kernel); what differs per slot is its logical position (for the
@@ -68,6 +69,8 @@ class ContinuousBatchingEngine:
         # Q8_0 blocks (--serve-q8 loads) dequantize once here: this engine
         # serves dense weights (the per-frame stream is a MagpieEngine surface).
         self.weights = materialize_weights(weights.to(device=self.device, dtype=compute_dtype))
+        # What admission multiplies with: bf16 products on float32 copies.
+        self.prepare_weights = magpie_mod.float32_products(self.weights)
 
         B, L = n_slots, config.dec_layers
         S, D = config.max_seq, config.d_model
@@ -107,36 +110,45 @@ class ContinuousBatchingEngine:
 
     # ---- admission, segment, retirement -------------------------------------
 
-    def _place(self, slot: int, req: _Request, bucket: int) -> None:
-        """Prefill one request and roll its context + BOS rows into its slot
-        so they end at ring row ``ring_p - 1``."""
-        c = self.config
+    def _admit_group(self, bucket: int, chunk: List[tuple]) -> None:
+        """Prefill the M requests of ``chunk`` [(slot, request)] in one
+        ``prepare_batch`` and place them with indexed writes: each slot's
+        context + BOS rows end at ring row ``ring_p - 1`` (wrapping past row
+        0), its XA K/V fill rows [0, bucket) of a zeroed slot."""
+        c, dev = self.config, self.device
         S, n_rows = c.max_seq, c.context_frames + 1
-        tokens = torch.zeros(bucket, dtype=torch.int64, device=self.device)
-        tokens[:len(req.token_ids)] = torch.tensor(req.token_ids, dtype=torch.int64)
-        xa_k, xa_v, st = magpie_mod.prepare(tokens, len(req.token_ids), req.speaker_id,
-                                            self.weights, c)
+        tokens = np.zeros((len(chunk), bucket), np.int64)
+        for i, (_, req) in enumerate(chunk):
+            tokens[i, :len(req.token_ids)] = req.token_ids
+        lens = [len(req.token_ids) for _, req in chunk]
+        xa_k, xa_v, k_rows, v_rows, hidden = magpie_mod.prepare_batch(
+            torch.from_numpy(tokens).to(dev), lens, [req.speaker_id for _, req in chunk],
+            self.prepare_weights, c)
         start = self.ring_p - n_rows
-        rows = (torch.arange(n_rows, device=self.device) + start) % S
-        for cache, new in ((self.k_cache, st.k_cache), (self.v_cache, st.v_cache)):
-            cache[slot].zero_()
-            cache[slot, :, rows] = new[:, :n_rows]
+        rows = (torch.arange(n_rows, device=dev) + start) % S
+        slots = torch.tensor([slot for slot, _ in chunk], dtype=torch.int64).to(dev)
+        for cache, new in ((self.k_cache, k_rows), (self.v_cache, v_rows)):
+            cache.index_fill_(0, slots, 0)
+            cache[slots[:, None], :, rows] = new.transpose(1, 2)   # [M, n_rows, L, D]
         for xa, new in ((self.xa_k, xa_k), (self.xa_v, xa_v)):
-            xa[slot].zero_()
-            xa[slot, :, :bucket] = new
-        self.hidden[slot] = st.hidden
-        self.valid[slot] = False
-        self.valid[slot, rows] = True
-        self.enc_lengths[slot] = len(req.token_ids)
-        self.logical_pos[slot] = n_rows
-        self.frame_count[slot] = 0
+            xa.index_fill_(0, slots, 0)
+            xa[slots, :, :bucket] = new
+        vmask = torch.zeros(S, dtype=torch.bool, device=dev)
+        vmask[rows] = True
+        self.hidden[slots] = hidden
+        self.valid[slots] = vmask
+        self.enc_lengths[slots] = torch.tensor(lens, dtype=torch.int32).to(dev)
+        self.logical_pos[slots] = n_rows
+        self.frame_count[slots] = 0
         self._rows_hi = S if start < 0 else max(self._rows_hi, self.ring_p)
-        key = sampling.fold_in(sampling.prng_key(req.seed), req.req_id)
-        self.keys[slot] = key
+        for slot, req in chunk:
+            self.keys[slot] = sampling.fold_in(sampling.prng_key(req.seed), req.req_id)
 
     def _admit_pending(self) -> None:
         """Pop queued requests into free slots (lowest slot first), grouped by
-        token bucket in queue order, as the JAX engine admits them."""
+        token bucket in queue order, as the JAX engine admits them: each
+        bucket's requests in power-of-two chunks (the largest ``m`` <= the
+        requests left and <= ``n_slots``), one ``prepare_batch`` a chunk."""
         free = [s for s in range(self.n_slots) if self._slot_req[s] is None]
         pairs = []
         while free and self._queue:
@@ -147,13 +159,18 @@ class ContinuousBatchingEngine:
                                  []).append((slot, req))
         with torch.no_grad():
             for bucket, group in by_bucket.items():
-                for slot, req in group:
-                    self._place(slot, req, bucket)
-                    self.active[slot] = True
-                    self._done_host[slot] = False
-                    self._counts_host[slot] = 0
-                    self._slot_req[slot] = req.req_id
-                    self._partial[req.req_id] = []
+                while group:
+                    m = 1
+                    while m * 2 <= len(group) and m * 2 <= self.n_slots:
+                        m *= 2
+                    self._admit_group(bucket, group[:m])
+                    group = group[m:]
+        for slot, req in pairs:
+            self.active[slot] = True
+            self._done_host[slot] = False
+            self._counts_host[slot] = 0
+            self._slot_req[slot] = req.req_id
+            self._partial[req.req_id] = []
 
     def _segment(self, temperature: float, top_k: int) -> np.ndarray:
         """``segment_frames`` batched frames at ring rows ring_p + j; one

@@ -24,12 +24,13 @@ from ..runtime.engine import check_dtype, pick_bucket, resolve_device, split_to_
 def batched_synthesize_program(tokens: torch.Tensor, enc_lengths: Sequence[int],
                                speaker_ids: Sequence[int], keys, temperature: float,
                                weights: MagpieWeights, config: MagpieConfig, top_k: int,
-                               use_fused: Optional[bool] = None):
+                               use_fused: Optional[bool] = None,
+                               prepare_weights: Optional[MagpieWeights] = None):
     """tokens [B, T]; enc_lengths, speaker_ids: B ints; keys: B (k0, k1).
     Returns (codes [B, N, 8], n_frames [B]) on the weights' device."""
     return magpie_mod.synthesize_codes_batched_program(
         tokens, enc_lengths, speaker_ids, keys, temperature, weights, config, top_k,
-        use_fused=use_fused)
+        use_fused=use_fused, prepare_weights=prepare_weights)
 
 
 class BatchedMagpieEngine:
@@ -49,6 +50,8 @@ class BatchedMagpieEngine:
         # Q8_0 blocks (--serve-q8 loads) dequantize once here: this engine
         # serves dense weights (the per-frame stream is a MagpieEngine surface).
         self.weights = materialize_weights(weights.to(device=self.device, dtype=compute_dtype))
+        # What the B streams' prepare multiplies with: bf16 products on float32 copies.
+        self.prepare_weights = magpie_mod.float32_products(self.weights)
         self.token_buckets = tuple(token_buckets)
         self.split_token_id = split_token_id
 
@@ -111,6 +114,7 @@ class BatchedMagpieEngine:
         keys = list(keys) + [(0, 0)] * (B - len(keys))
         codes, n_frames = batched_synthesize_program(
             torch.from_numpy(tokens).to(self.device), enc_lengths.tolist(), spk.tolist(),
-            keys, temperature, self.weights, self.config, top_k, use_fused=self.use_fused)
+            keys, temperature, self.weights, self.config, top_k, use_fused=self.use_fused,
+            prepare_weights=self.prepare_weights)
         codes, n_frames = codes.cpu().numpy(), n_frames.cpu().numpy()
         return [codes[i, :n_frames[i]] for i in range(len(chunk_lists))]

@@ -101,6 +101,13 @@ class MagpieEngine:
         self.use_fused = use_fused
         self.device = resolve_device(device)
         self.weights = weights.to(device=self.device, dtype=compute_dtype)
+        # What prepare multiplies with: bf16 products on float32 copies of
+        # dense weights (None: the weights themselves). Q8_0 blocks
+        # (--serve-q8) materialize per call and their prepare widens per
+        # product: a copy kept for the engine's life would hold what the
+        # blocks save.
+        prep = magpie_mod.float32_products(self.weights)
+        self.prepare_weights = None if prep is self.weights else prep
         self.int8_stream = None
         if q8_stream is not None:
             self.int8_stream = q8_stream.to(self.device)
@@ -136,7 +143,8 @@ class MagpieEngine:
                 key = sampling.fold_in(key, i)
             codes, n_frames = magpie_mod.synthesize_codes_program(
                 tokens, enc_length, speaker_id, key, temperature, self.weights,
-                self.config, top_k, use_fused=self.use_fused, int8_stream=self.int8_stream)
+                self.config, top_k, use_fused=self.use_fused, int8_stream=self.int8_stream,
+                prepare_weights=self.prepare_weights)
             parts.append(codes[:n_frames])
         codes = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
         return SynthesisResult(codes=codes, n_frames=codes.shape[0])
@@ -176,8 +184,8 @@ class MagpieEngine:
         tokens, enc_length = self._pad_tokens(token_ids)
         with torch.no_grad():
             weights = materialize_weights(self.weights)
-            xa_k, xa_v, state = magpie_mod.prepare(tokens, enc_length, speaker_id, weights,
-                                                   self.config)
+            xa_k, xa_v, state = magpie_mod.prepare(tokens, enc_length, speaker_id,
+                                                   self.prepare_weights or weights, self.config)
         return {"xa_k": xa_k, "xa_v": xa_v, "state": state, "enc_length": enc_length,
                 "weights": weights, "chunk_idx": 0}
 
