@@ -96,6 +96,18 @@ Phases (each raises on failure, so the process exits non-zero):
    serve runs of phases 4 and 6 check one ``prepare_batch`` per (bucket,
    power-of-two chunk) group of each admission.
 
+12. the oracle and the acceptance tooling (last, on the same GGUFs): the
+   native GGUF reader bit-equal to the numpy reader on the float32 and Q8_0
+   files (dense, dequantized at load, block-stored), with each load's
+   seconds; ``tools.dump_golden`` on cuda against a CPU dump of the same file
+   (max abs by dump prefix; codes equal, floats within verify_golden's
+   tolerances or DUMP_REL of each dump's largest value); ``tools.acceptance --device cuda`` PASS on the
+   float32 file against that CPU tree's model dumps (kernel A's launches in stage 3 against the frames decoded,
+   kernel B's 92 in stage 5) and on the Q8_0 file (stage 3b: kernel 10 and
+   A's Q8_0 stream reproduce the dequantize-at-load codes); the standard
+   path on cuda at temperature 0 against the cached engine for 8 frames
+   (equal, or near-ties only by ``codes_agree``); the phase's wall seconds.
+
 The line before last is a JSON summary of the kernels (float32 rows, then
 the ``[bf16]`` rows, then the weight streams, then the probe rows with
 ``"path": "probe"``; kernel 9's rows also carry ``kernel_b_ms``, kernel B's
@@ -111,6 +123,7 @@ import io
 import os
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3165,6 +3178,234 @@ def probe_rows(res: dict) -> list:
     return rows
 
 
+# ------------------------------------------------------- oracle and acceptance
+
+ORACLE_TEXT = "hello world"
+ORACLE_FRAMES = 4       # dump_golden's greedy frames (the CPU reference tree's)
+STANDARD_FRAMES = 8     # the standard path against the cached engine
+DUMP_REL = 1e-4        # cuda vs cpu float dumps, relative to a dump's largest |value|
+EXACT_DUMPS = ("tokens", "greedy_codes", "lt_greedy_codes", "codec_latent")
+DUMP_PREFIXES = ("tokens", "text_embedding", "encoder_input", "encoder_layer", "encoder_output",
+                 "xa_", "decoder_input", "decoder_layer", "decoder_output", "final_proj",
+                 "lt_logits", "lt_greedy_codes", "greedy_codes", "codec_latent", "codec_pre",
+                 "codec_stage", "codec_audio")
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def check_readers(tmp: Path, card: str):
+    """The native reader against the numpy one on the production-width GGUFs:
+    metadata equal, and every load (float32 dense, Q8_0 dequantized at load,
+    Q8_0 block-stored) bit-equal through both, each load's seconds printed.
+    Returns the float32 weights (native) and the seconds by load."""
+    import torch
+
+    from magpie_tts_tpu_torch.io import native
+    from magpie_tts_tpu_torch.io.gguf import GGUFReader
+    from magpie_tts_tpu_torch.io.magpie_weights import Q8Blocks, load_magpie_weights, q8_blocks
+    from magpie_tts_tpu_torch.io.tree import flatten_tensors, map_tensors
+
+    _, build_s = _timed(native.load_library)
+    log(f"native GGUF reader: {native.library_path().name} built in "
+        f"{native.build_seconds if native.build_seconds is not None else 0.0:.2f} s "
+        f"(load {build_s:.2f} s)")
+    seconds, kept = {}, None
+    for model, q8_native in (("magpie.gguf", False), ("magpie_q8.gguf", False),
+                             ("magpie_q8.gguf", True)):
+        path = str(tmp / model)
+        tag = f"{model}{' block-stored' if q8_native else ''}"
+        nat, s_nat = _timed(lambda: load_magpie_weights(path, q8_native=q8_native))
+        ref, s_ref = _timed(lambda: load_magpie_weights(path, reader=GGUFReader(path),
+                                                        q8_native=q8_native))
+        if native.open_gguf(path).metadata != GGUFReader(path).metadata or nat[0] != ref[0]:
+            raise AssertionError(f"{tag}: metadata or config differ between the readers")
+        a, b = (flatten_tensors(map_tensors(w, lambda x: x.q if isinstance(x, Q8Blocks) else x,
+                                            is_leaf=lambda x: isinstance(x, Q8Blocks)))
+                for w in (nat[1], ref[1]))
+        blocks_a, blocks_b = q8_blocks(nat[1]), q8_blocks(ref[1])
+        same = list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+        same = same and list(blocks_a) == list(blocks_b) and all(
+            torch.equal(blk.q, blocks_b[k].q) and torch.equal(blk.s, blocks_b[k].s)
+            for k, blk in blocks_a.items())
+        if not same or bool(blocks_a) != q8_native:
+            raise AssertionError(f"{tag}: the weights loaded through the native reader differ "
+                                 f"from the numpy reader's")
+        seconds[tag] = {"native_s": s_nat, "numpy_s": s_ref}
+        log(f"reader {tag}: bit-equal through both readers; load {s_nat:.3f} s native, "
+            f"{s_ref:.3f} s numpy (host of {card})")
+        if model == "magpie.gguf":
+            kept = nat
+    return kept, seconds
+
+
+def dump_prefix_errors(ref_dir: Path, cand_dir: Path) -> dict:
+    """Two dump trees by dump prefix: the max abs difference, the largest
+    |value| of the reference's dumps, and the difference over it. Raises
+    where a token / code dump differs, or a float dump differs by more than
+    verify_golden's tolerance for it and by more than DUMP_REL of its
+    largest value (random codec weights at full width drive the stages to
+    ~1e8, where the absolute bars are below float32's reordering)."""
+    from magpie_tts_tpu_torch.io.golden import read_golden
+    from magpie_tts_tpu_torch.tools.verify_golden import tolerance_for
+
+    errs, bad = {}, []
+    for path in sorted(ref_dir.glob("*.bin")):
+        a, b = read_golden(str(path)), read_golden(str(cand_dir / path.name))
+        if a.shape != b.shape:
+            raise AssertionError(f"dump {path.stem}: shape {a.shape} vs {b.shape}")
+        err = float(np.abs(a.astype(np.float64) - b).max()) if a.size else 0.0
+        top = float(np.abs(a).max()) if a.size else 0.0
+        e = errs.setdefault(next(p for p in DUMP_PREFIXES if path.stem.startswith(p)),
+                            {"max_abs": 0.0, "max_ref": 0.0, "rel": 0.0})
+        e["max_abs"], e["max_ref"] = max(e["max_abs"], err), max(e["max_ref"], top)
+        e["rel"] = max(e["rel"], err / top if top else err)
+        if err > (0.0 if path.stem in EXACT_DUMPS else
+                  max(tolerance_for(path.stem, ()), DUMP_REL * top)):
+            bad.append(f"{path.stem} max abs {err:.3e} at max |value| {top:.3e}")
+    log("dump tree diff by prefix (max abs / max |value| / relative): " + ", ".join(
+        f"{k} {v['max_abs']:.3e} / {v['max_ref']:.3e} / {v['rel']:.3e}" for k, v in errs.items()))
+    if bad:
+        raise AssertionError(f"{cand_dir} against {ref_dir}: " + "; ".join(bad))
+    return errs
+
+
+def run_tool(main, argv) -> str:
+    """A tool's main(argv) with its stdout / stderr captured; raises unless rc 0."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv} returned {rc}:\n{out.getvalue()}"
+                             f"{err.getvalue()}")
+    return out.getvalue() + err.getvalue()
+
+
+def standard_against_cached(w, c, tokens, std: np.ndarray, cached: np.ndarray, dev) -> dict:
+    """The standard path's temperature-0 codes against the cached engine's
+    (kernel A): equal, or the first frame that differs differs only at
+    near-ties of the plain LT scores on the standard path's hidden
+    (``codes_agree``); later frames then follow other codes."""
+    import torch
+
+    from magpie_tts_tpu_torch.models import decoder as decoder_mod
+    from magpie_tts_tpu_torch.models.encoder import run_encoder
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding, speaker_context
+
+    n = min(len(std), len(cached))
+    differ = [i for i in range(n) if not np.array_equal(std[i], cached[i])]
+    if not differ:
+        if len(std) != len(cached):
+            raise AssertionError(f"standard path made {len(std)} frames, the engine "
+                                 f"{len(cached)}, with equal codes")
+        return {"frames": n, "equal": True, "first_diff": None}
+    i = differ[0]
+    with torch.no_grad():
+        frames = np.concatenate([np.full((1, c.num_codebooks), c.audio_bos_id), std[:i]])
+        emb = audio_frame_embedding(torch.as_tensor(frames, device=dev), w, c)
+        dec_input = torch.cat([speaker_context(w, 0).to(emb.dtype), emb])
+        enc = run_encoder(torch.as_tensor(tokens, device=dev), w, c)
+        hidden = decoder_mod.decode_full(dec_input, enc, w, c)[-1:]
+    got = torch.as_tensor(cached[i:i + 1], device=dev, dtype=torch.int32)
+    want = torch.as_tensor(std[i:i + 1], device=dev, dtype=torch.int32)
+    codes_agree(f"standard vs kernel A frame {i}", (got, got), (want, want), hidden, w, c,
+                [0], 0.0, [i < c.min_generated_frames])
+    return {"frames": n, "equal": False, "first_diff": i}
+
+
+def run_oracle_acceptance(tmp: Path, mcfg, card: str, q8_nodes: int) -> dict:
+    """The verification oracle and the acceptance tooling at 357M width on
+    the card: the native reader bit-equal to the numpy one (load seconds),
+    dump_golden on cuda against a CPU dump of the same file (max abs by dump
+    prefix, ``dump_prefix_errors``), acceptance --device cuda on the float32
+    file against that CPU tree's model dumps (kernel A's launches in stage 3
+    counted against the frames it decoded, kernel B's in stage 5) and on the
+    Q8_0 file for stage 3b (kernel 10 and A's Q8_0 stream), and the standard
+    path on cuda at temperature 0 against the cached engine for 8 frames."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.native import open_gguf
+    from magpie_tts_tpu_torch.models.standard import synthesize_codes_standard
+    from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
+    from magpie_tts_tpu_torch.ops.kernels import frame_step as fs
+    from magpie_tts_tpu_torch.ops.kernels import q8_dequant
+    from magpie_tts_tpu_torch.text.tokenizer import MagpieTokenizer
+    from magpie_tts_tpu_torch.tools import acceptance, dump_golden
+
+    t0 = time.perf_counter()
+    (config, weights), load_s = check_readers(tmp, card)
+    model, q8_model, codec = (str(tmp / n) for n in ("magpie.gguf", "magpie_q8.gguf",
+                                                    "codec.gguf"))
+    trees = {d: tmp / f"golden_{d}" for d in ("cpu", "cuda")}
+    for d, tree in trees.items():
+        log(run_tool(dump_golden.main, ["-m", model, "-c", codec, "-t", ORACLE_TEXT,
+                                        "-o", str(tree), "--frames", str(ORACLE_FRAMES),
+                                        "--device", d]).rstrip())
+    errs = dump_prefix_errors(trees["cpu"], trees["cuda"])
+    log(f"dump_golden cuda vs cpu: {sum(1 for _ in trees['cpu'].glob('*.bin'))} dumps, codes "
+        f"equal, floats within verify_golden's tolerances or {DUMP_REL:g} of each dump's "
+        f"largest value; on {card}")
+    # verify_golden's codec bars are absolute (1e-2 on the stages, 4.5e-3 on
+    # the audio), set for the real checkpoint's magnitudes; random codec
+    # weights at full width grow the stages' values by orders of magnitude
+    # (printed above), so acceptance's stage 4 reads the model's dumps here
+    # and the codec's are held by the relative bar above.
+    model_tree = tmp / "golden_cpu_model"
+    shutil.copytree(trees["cpu"], model_tree, ignore=shutil.ignore_patterns("codec_*"))
+
+    kernels = (fs, cc, q8_dequant)
+    reset_counts(kernels)
+    def steps(out: str, cap: int) -> tuple:
+        """(frames decoded, frame steps run): one step a kept frame, plus the
+        EOS frame's when it stopped before the cap."""
+        frames = int(re.search(r"greedy: (\d+) frames", out).group(1))
+        return frames, frames + (1 if frames < cap else 0)
+
+    reset_counts(kernels)
+    out = run_tool(acceptance.main, ["-m", model, "-c", codec, "-r", str(model_tree),
+                                     "-t", ORACLE_TEXT, "--max-frames", str(ORACLE_FRAMES),
+                                     "--device", "cuda"])
+    counts = (dict(fs.mode_launches), cc.launches, q8_dequant.launches)
+    log(out.rstrip())
+    frames, want = steps(out, ORACLE_FRAMES)
+    if "ACCEPTANCE: PASS" not in out or counts != ({"dense": want, "int8": 0, "q8": 0}, 92, 0):
+        raise AssertionError(f"acceptance on {model}: frame_step / codec conv / q8 dequant "
+                             f"launches {counts}, want {want} dense / 92 / 0 ({frames} frames)")
+    log(f"acceptance --device cuda on {model}: PASS; kernel A {want} launches for {frames} "
+        f"frames in stage 3, kernel B 92 in stage 5")
+    reset_counts(kernels)
+    out_q8 = run_tool(acceptance.main, ["-m", q8_model, "-t", ORACLE_TEXT, "--max-frames",
+                                        str(STANDARD_FRAMES), "--device", "cuda"])
+    counts_q8 = (dict(fs.mode_launches), q8_dequant.launches)
+    log(out_q8.rstrip())
+    frames_q8, want_q8 = steps(out_q8, STANDARD_FRAMES)
+    if ("ACCEPTANCE: PASS" not in out_q8 or not re.search(r"ok\s+q8_native_codes", out_q8)
+            or counts_q8 != ({"dense": want_q8, "int8": 0, "q8": want_q8}, q8_nodes)):
+        raise AssertionError(f"acceptance on {q8_model}: stage 3b not ok, or frame_step by "
+                             f"stream / q8 dequant launches {counts_q8} ({frames_q8} frames)")
+    log(f"acceptance --device cuda on {q8_model}: PASS; stage 3b {frames_q8} frames, kernel A "
+        f"{want_q8} dense + {want_q8} Q8_0-stream launches, kernel 10 {q8_nodes}")
+
+    tokens = MagpieTokenizer.from_gguf_metadata(open_gguf(model).metadata).encode(ORACLE_TEXT)
+    dev = torch.device("cuda")
+    w = weights.to(device=dev)
+    std, std_s = _timed(lambda: synthesize_codes_standard(tokens, w, config, temperature=0.0,
+                                                          max_steps=STANDARD_FRAMES))
+    cached = dump_golden.greedy_codes(weights, config, tokens, 0, STANDARD_FRAMES, dev)
+    agree = standard_against_cached(w, config, tokens, std, cached, dev)
+    wall = time.perf_counter() - t0
+    log(f"standard path on cuda, temp 0, {STANDARD_FRAMES} frames ({std_s:.2f} s): "
+        f"{'equal to' if agree['equal'] else 'near-ties only against'} the cached engine's "
+        f"kernel A codes (first difference {agree['first_diff']}); oracle and acceptance phase "
+        f"{wall:.1f} s wall on {card}")
+    return {"load_s": load_s, "dump_errs": {k: v["max_abs"] for k, v in errs.items()},
+            "stage3_launches": want,
+            "stage3_frames": frames, "standard": agree, "wall_s": wall}
+
+
 def kernel_ptxas(build_log: str, kinds) -> list:
     """The -Xptxas -v lines of the named kernels (both dtypes; the GEMM's
     stream mode and m16 tiles from its template arguments): each entry
@@ -3291,6 +3532,7 @@ def main() -> int:
         split_serve = run_serve(tmp, mcfg, ccfg, card, split=True, dtype="float32")
         quant_main = run_quantized_main_paths(tmp, mcfg, ccfg, card, nodes)
         quant_batched = run_batched_streams(tmp, dev, nodes)
+        oracle = run_oracle_acceptance(tmp, mcfg, card, nodes)
 
     log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames, --no-fused "
         f"{split_main['fps']} fps over {split_main['n_frames']} frames; serve {serve_res['fps']} "
@@ -3350,6 +3592,16 @@ def main() -> int:
         f"{decode_times['float32']['wall_ms']:.4f} / {decode_times['float32']['device_ms']:.4f} "
         f"ms, bf16 {decode_times[BF]['wall_ms']:.4f} / {decode_times[BF]['device_ms']:.4f} ms; "
         f"on {card}")
+    log("summary, oracle and acceptance (357M random GGUFs): load seconds native / numpy "
+        + ", ".join(f"{k} {v['native_s']:.3f} / {v['numpy_s']:.3f}"
+                    for k, v in oracle["load_s"].items())
+        + f" (host); dump_golden cuda vs cpu max abs: decoder_output "
+        f"{oracle['dump_errs']['decoder_output']:.3e}, codec_audio "
+        f"{oracle['dump_errs'].get('codec_audio', float('nan')):.3e}; acceptance PASS on the "
+        f"float32 and Q8_0 files, kernel A {oracle['stage3_launches']} launches for "
+        f"{oracle['stage3_frames']} frames in stage 3; standard path vs kernel A at temp 0: "
+        f"{'equal' if oracle['standard']['equal'] else 'near-ties only'} over "
+        f"{oracle['standard']['frames']} frames; phase {oracle['wall_s']:.1f} s; on {card}")
     fr = probes["frames"]
     log(f"summary, probes (device-only frame times by CUDA-graph slope, bf16, pos "
         f"context_frames + 40, {PROBE_FRAME_N[0]} / {PROBE_FRAME_N[1]} frames): kernel A "

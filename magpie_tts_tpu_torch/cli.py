@@ -233,8 +233,8 @@ def serve(argv) -> int:
     import torch
 
     from .io.codec_weights import load_codec_weights
-    from .io.gguf import GGUFReader
     from .io.magpie_weights import load_magpie_weights
+    from .io.native import open_gguf
     from .io.wav import write_wav
     from .parallel.continuous import ContinuousBatchingEngine
     from .runtime.engine import CodecEngine
@@ -250,7 +250,7 @@ def serve(argv) -> int:
               file=sys.stderr)
         return 1
     try:
-        reader = GGUFReader(args.model)
+        reader = open_gguf(args.model)
         config, weights = load_magpie_weights(args.model, reader=reader)
         if args.gelu is not None:
             import dataclasses

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import CodecConfig
-from .gguf import GGUFReader
+from .native import Reader, open_gguf
 from .tree import flatten_tensors, map_tensors
 
 
@@ -101,9 +101,9 @@ def _wio(x: np.ndarray) -> np.ndarray:
 
 
 def load_codec_weights(path: str, config: Optional[CodecConfig] = None,
-                       dtype=torch.float32, reader: Optional[GGUFReader] = None):
+                       dtype=torch.float32, reader: Optional[Reader] = None):
     if reader is None:
-        reader = GGUFReader(path)
+        reader = open_gguf(path)
     if config is None:
         config = CodecConfig.from_gguf_metadata(reader.metadata)
     get = reader.tensor

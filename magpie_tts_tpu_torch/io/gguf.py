@@ -5,9 +5,11 @@ little-endian, header = magic 'GGUF' + u32 version + i64 n_tensors + i64 n_kv,
 then KV pairs, then tensor infos (name, n_dims, dims (reversed, i.e. GGUF stores
 the innermost/fastest dim first), type, offset), then 32-byte-aligned data section.
 
-The PyTorch port reads every checkpoint through this reader (the JAX package's
-C++ fast path, native/gguf_reader.cpp, is not ported); the writer builds the
-synthetic checkpoints of the tests and of chip_smoke.py.
+The port's loaders open checkpoints through the native reader
+(``io.native.open_gguf``, a ctypes binding of native/gguf_reader.cpp); this
+reader stays for callers that name it (the writer's round trips, tests that
+hold the two readers to each other), and the writer builds the synthetic
+checkpoints of the tests and of chip_smoke.py.
 """
 
 from __future__ import annotations

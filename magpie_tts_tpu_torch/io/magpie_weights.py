@@ -25,7 +25,8 @@ import torch
 
 from ..config import MagpieConfig
 from . import quant
-from .gguf import GGML_Q8_0, GGUFReader
+from .gguf import GGML_Q8_0
+from .native import Reader, open_gguf
 from .tree import flatten_tensors, map_tensors
 
 
@@ -213,7 +214,7 @@ def _q8_stream(split) -> Q8DecoderStream:
     return Q8DecoderStream(**kw)
 
 
-def q8_stream_from_gguf(reader: GGUFReader, config: MagpieConfig) -> Q8DecoderStream:
+def q8_stream_from_gguf(reader: Reader, config: MagpieConfig) -> Q8DecoderStream:
     """The native Q8_0 stream of a Q8_0-quantized Magpie GGUF (CPU tensors).
     Raises ValueError if any of the four streamed matrices is not Q8_0."""
     c = config
@@ -302,7 +303,7 @@ def q8_blocks_from_numpy(q: np.ndarray, s: np.ndarray, torch_shape, transform: s
                     torch_shape=tuple(int(n) for n in torch_shape), transform=transform)
 
 
-def _q8_blocks_from_reader(reader: GGUFReader, names, torch_shape, transform) -> Q8Blocks:
+def _q8_blocks_from_reader(reader: Reader, names, torch_shape, transform) -> Q8Blocks:
     """Stacked Q8Blocks of one tensor (or an [L]-stack of same-shape tensors)
     read RAW from a Q8_0 GGUF."""
     n = int(np.prod(torch_shape))
@@ -393,7 +394,7 @@ def _conv_ffn_w(x: np.ndarray) -> np.ndarray:
 
 
 def load_magpie_weights(path: str, config: Optional[MagpieConfig] = None,
-                        dtype=torch.float32, reader: Optional[GGUFReader] = None,
+                        dtype=torch.float32, reader: Optional[Reader] = None,
                         q8_native: bool = False):
     """Load a Magpie GGUF checkpoint into (config, MagpieWeights) on the CPU.
 
@@ -405,7 +406,7 @@ def load_magpie_weights(path: str, config: Optional[MagpieConfig] = None,
     normally.
     """
     if reader is None:
-        reader = GGUFReader(path)
+        reader = open_gguf(path)
     if config is None:
         config = MagpieConfig.from_gguf_metadata(reader.metadata)
     get = reader.tensor

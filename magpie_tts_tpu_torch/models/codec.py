@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..config import CodecConfig
 from ..io.codec_weights import CodecWeights, ResBlockWeights
-from ..ops.kernels.codec_conv import snake_causal_conv
+from ..ops.kernels.codec_conv import snake_causal_conv, snake_causal_conv_reference
 from ..ops.kernels.codec_res_fused import MAX_CHANNELS, res_layer_fused, stack_res_layer
 
 
@@ -99,26 +99,27 @@ def grouped_conv_transpose1d(x: torch.Tensor, w_pt: torch.Tensor, b: torch.Tenso
 
 
 def residual_block(x: torch.Tensor, blk: ResBlockWeights, dilation: int,
-                   leaky_slope: float) -> torch.Tensor:
-    h = snake_causal_conv(x, blk.in_conv_w, blk.in_conv_b, blk.in_alpha, dilation,
-                          leaky_slope)
-    return snake_causal_conv(h, blk.sk_conv_w, blk.sk_conv_b, blk.sk_alpha, 1,
-                             leaky_slope, residual=x)
+                   leaky_slope: float, plain: bool = False) -> torch.Tensor:
+    conv = snake_causal_conv_reference if plain else snake_causal_conv
+    h = conv(x, blk.in_conv_w, blk.in_conv_b, blk.in_alpha, dilation, leaky_slope)
+    return conv(h, blk.sk_conv_w, blk.sk_conv_b, blk.sk_alpha, 1, leaky_slope, residual=x)
 
 
 def res_layer(x: torch.Tensor, branches, dilations, leaky_slope: float,
-              fused=None) -> torch.Tensor:
+              fused=None, plain: bool = False) -> torch.Tensor:
     """Mean of 3 parallel kernel branches, each 3 sequential dilated blocks.
     Under MAGPIE_FUSED_CODEC a layer of <= 128 channels is one fused launch,
-    on ``fused`` (this layer's ``stack_res_layer``; stacked here if None)."""
-    if x.shape[-1] <= MAX_CHANNELS and resolve_fused_codec():
+    on ``fused`` (this layer's ``stack_res_layer``; stacked here if None).
+    ``plain=True`` runs the plain PyTorch convs on any device (the JAX
+    package's ``use_pallas=False``; the per-layer traces use it)."""
+    if not plain and x.shape[-1] <= MAX_CHANNELS and resolve_fused_codec():
         layer = fused if fused is not None else stack_res_layer(branches, dilations)
         return res_layer_fused(x, layer, leaky_slope)
     acc = None
     for branch in branches:
         h = x
         for blk, dilation in zip(branch, dilations):
-            h = residual_block(h, blk, dilation, leaky_slope)
+            h = residual_block(h, blk, dilation, leaky_slope, plain)
         acc = h if acc is None else acc + h
     return acc / len(branches)
 

@@ -1,6 +1,8 @@
 """Main decoder (magpie_tts_tpu/models/decoder.py): 12 pre-norm layers
 (causal SA, 1-head XA, pointwise FFN), plain PyTorch.
 
+- ``decode_full``       the full-sequence forward over [context; frames]: the
+                        uncached oracle of ``models.standard`` and the traces.
 - ``precompute_xa_kv``  cross-attention K/V from the encoder output, once per utterance.
 - ``prefill``           the speaker-context frames through all layers, filling the cache.
 - ``decode_step``       one autoregressive position against the fixed-capacity cache;
@@ -27,7 +29,7 @@ import torch
 
 from ..config import MagpieConfig
 from ..io.magpie_weights import DecoderWeights, Int8DecoderStream, MagpieWeights, Q8DecoderStream
-from ..ops.attention import (_merge_heads, _split_heads, attend, cross_attention,
+from ..ops.attention import (_merge_heads, _split_heads, attend, cross_attention, mha_full,
                              precompute_cross_attention_kv)
 from ..ops.conv_ffn import conv_ffn, gelu
 from ..ops.norms import layer_norm
@@ -65,6 +67,45 @@ def precompute_xa_kv(enc_out: torch.Tensor, dec: DecoderWeights,
         ks.append(k)
         vs.append(v)
     return torch.stack(ks, dim=-3).contiguous(), torch.stack(vs, dim=-3).contiguous()
+
+
+def layer_weights(dec: DecoderWeights, l: int) -> tuple:
+    """Decoder layer ``l``'s weights in ``_layer_full``'s order."""
+    return (dec.norm_self[l], dec.qkv[l], dec.sa_out[l], dec.norm_xa_q[l], dec.norm_xa_mem[l],
+            dec.xa_q[l], dec.xa_kv[l], dec.xa_out[l], dec.norm_ff[l], dec.ff_proj[l],
+            dec.ff_out[l])
+
+
+def _layer_full(x: torch.Tensor, enc_out: torch.Tensor, lw, config: MagpieConfig,
+                enc_length=None) -> torch.Tensor:
+    """One decoder layer over a whole sequence x [seq, d_model]: causal
+    self-attention, cross-attention with K/V recomputed from the encoder
+    output's memory norm, then the pointwise FFN; each sublayer's output
+    rounds to x's dtype, as in the JAX source."""
+    (norm_self, qkv, sa_out, norm_xa_q, norm_xa_mem, xa_q, xa_kv, xa_out,
+     norm_ff, ff_proj, ff_out) = lw
+    h = layer_norm(x, norm_self, config.eps)
+    x = x + mha_full(h, qkv, sa_out, config.dec_sa_heads)
+    q = layer_norm(x, norm_xa_q, config.eps)
+    mem = layer_norm(enc_out, norm_xa_mem, config.eps)
+    k, v = precompute_cross_attention_kv(mem, xa_kv)
+    x = x + cross_attention(q, k, v, xa_q, xa_out, config.dec_xa_heads, enc_length=enc_length)
+    h = layer_norm(x, norm_ff, config.eps)
+    return x + conv_ffn(h, ff_proj, ff_out, gelu_tanh=config.gelu_tanh)
+
+
+def decode_full(dec_input: torch.Tensor, enc_out: torch.Tensor, weights: MagpieWeights,
+                config: MagpieConfig, enc_length=None) -> torch.Tensor:
+    """Full-sequence decoder: dec_input [seq, d_model] (context + frame
+    embeddings, position embeddings added here from offset 0), enc_out
+    [enc_seq, d_model] -> the normed output [seq, d_model]. Row
+    ``context_frames`` of ``[context; BOS]`` is the BOS-step hidden that
+    ``models.magpie.prepare`` computes with its cache."""
+    dec = weights.decoder
+    x = dec_input + dec.pos_emb[:dec_input.shape[-2]]
+    for l in range(dec.qkv.shape[0]):
+        x = _layer_full(x, enc_out, layer_weights(dec, l), config, enc_length)
+    return layer_norm(x, dec.norm_out, config.eps)
 
 
 def prefill(context: torch.Tensor, xa_k: torch.Tensor, xa_v: torch.Tensor,

@@ -59,6 +59,12 @@ def audio_frame_embedding(codes: torch.Tensor, weights: MagpieWeights,
     return mean.to(per_cb.dtype)
 
 
+def speaker_context(weights: MagpieWeights, speaker_id) -> torch.Tensor:
+    """Baked speaker context frames: [context_frames, d_model] for one id, or
+    [M, context_frames, d_model] for an int tensor of M ids."""
+    return weights.baked_context[speaker_id]
+
+
 def resolve_use_fused(use_fused: Optional[bool]) -> bool:
     """None -> the fused frame kernels unless MAGPIE_NO_FUSED is set."""
     return not os.environ.get("MAGPIE_NO_FUSED") if use_fused is None else bool(use_fused)
@@ -122,7 +128,7 @@ def prepare_batch(tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids:
     k_rows = torch.zeros(M, config.dec_layers, n_rows, config.d_model, dtype=dtype,
                          device=device)
     v_rows = torch.zeros_like(k_rows)
-    context = weights.baked_context[spk].to(dtype)
+    context = speaker_context(weights, spk).to(dtype)
     decoder_mod.prefill(context, xa_k, xa_v, k_rows, v_rows, weights, config, enc_length=enc)
     bos = torch.full((M, config.num_codebooks), config.audio_bos_id, dtype=torch.int32,
                      device=device)

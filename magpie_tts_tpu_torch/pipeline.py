@@ -10,8 +10,8 @@ import torch
 
 from .config import MagpieConfig
 from .io.codec_weights import load_codec_weights
-from .io.gguf import GGUFReader
 from .io.magpie_weights import load_magpie_weights, q8_stream_from_gguf
+from .io.native import open_gguf
 from .io.wav import write_wav
 from .runtime import streaming
 from .runtime.engine import CodecEngine, MagpieEngine, check_dtype
@@ -43,7 +43,7 @@ class MagpiePipeline:
         (Q8DecoderStream), and every other allowlisted tensor stays as its
         blocks (Q8Blocks), dequantized at program entry."""
         check_dtype(compute_dtype)
-        reader = GGUFReader(model_path)
+        reader = open_gguf(model_path)
         config, weights = load_magpie_weights(model_path, reader=reader, q8_native=serve_q8)
         if gelu_flavor is not None:
             config = dataclasses.replace(config, gelu_flavor=gelu_flavor)
