@@ -108,6 +108,22 @@ Phases (each raises on failure, so the process exits non-zero):
    path on cuda at temperature 0 against the cached engine for 8 frames
    (equal, or near-ties only by ``codes_agree``); the phase's wall seconds.
 
+13. whole loops and the device list (last): ``scripts.parity_decode``'s arms
+   at 357M over 3 texts x 300 forced frames at temp 0 in float32 and bf16
+   (kernel A against kernels 4 + 5 on every text, the plain loop on the CPU
+   on text 0; float32 also at temp 0.7, A against 4 + 5), exact in float32
+   between the card's arms and near-ties only elsewhere;
+   ``scripts.parity_batched``'s at B = 32 x 100 frames (kernel C against
+   7 + 8, the plain lockstep loop on the CPU at BATCHED_PLAIN_B slots);
+   ``probe_lockstep``'s host slopes of the fused and split lockstep loops
+   (bf16, B = 32, 100 / 400 frames) beside kernel C's graph slope (the host
+   glue's share of a lockstep frame);
+   ``BatchedMagpieEngine`` over a mesh of every card present and over
+   ``["cuda:0", "cuda:0"]`` against the unmeshed engine at temp 0 and 0.7.
+   Each arm's launch counters are reset before it and checked after it; the
+   kernels line's rows of A, 4, 5, C, 7 and 8 carry the phase's launches as
+   ``whole_loop_launches``.
+
 The line before last is a JSON summary of the kernels (float32 rows, then
 the ``[bf16]`` rows, then the weight streams, then the probe rows with
 ``"path": "probe"``; kernel 9's rows also carry ``kernel_b_ms``, kernel B's
@@ -3406,6 +3422,162 @@ def run_oracle_acceptance(tmp: Path, mcfg, card: str, q8_nodes: int) -> dict:
             "stage3_frames": frames, "standard": agree, "wall_s": wall}
 
 
+# Phase 13, whole loops and the device list (scripts.parity_decode /
+# parity_batched, probe_lockstep, parallel.mesh), at 357M width.
+PARITY_FRAMES, PARITY_TEXTS = 300, 3   # the VERDICT bar: >= 3 texts x >= 300 frames
+PARITY_PLAIN_TEXTS = 1                 # the plain (CPU) arm: text 0, all 300 frames
+BATCHED_B, BATCHED_FRAMES = 32, 100    # parity_batched's defaults
+BATCHED_PLAIN_B = {"float32": 4, "bfloat16": 2}   # the plain lockstep arm's slots (CPU)
+LOCKSTEP_N = (100, 400, 3)             # probe_lockstep: frames lo / hi, runs each (best of)
+MESH_B, MESH_FRAMES = 8, 100           # the device-list engines: slots, forced frames
+
+
+def mesh_codes_agree(who: str, ref_engine, reqs, got, want, temp: float, seed: int) -> list:
+    """A meshed engine's codes (one request each, in slot order) against the
+    unmeshed engine's: equal, or each differing slot parting first at a
+    near-tie of the unmeshed loop re-run to that frame (parity_decode's
+    rule). Returns the near-tied slots. The unmeshed engine admits all B
+    rows in one ``prepare_batch``, a mesh entry its slice: cuBLAS picks its
+    algorithm by shape, so the rows may differ in their last bits."""
+    from magpie_tts_tpu_torch.ops import sampling
+    from magpie_tts_tpu_torch.parallel.serving import pad_wave
+    from magpie_tts_tpu_torch.scripts import parity_batched as pb
+    from magpie_tts_tpu_torch.scripts import parity_decode as pd
+
+    base = sampling.prng_key(seed)
+    tokens, lens, spk, keys = pad_wave(reqs, [0] * len(reqs),
+                                       [sampling.fold_in(base, i) for i in range(MESH_B)],
+                                       MESH_B, ref_engine.token_buckets)
+    inputs = {"tokens": tokens, "lens": lens.tolist(), "spk": spk.tolist(), "keys": keys}
+    replica = (ref_engine.weights, ref_engine.prepare_weights)
+    ties = []
+    for b, (g, w) in enumerate(zip(got, want)):
+        def classify(frame, row_a, row_b, b=b):
+            hidden, wt, sd, forbid = pb.rerun_hidden(inputs, replica, ref_engine.config, True,
+                                                     b, frame, temp)
+            return (pd.frame_gaps(hidden, row_a, wt, ref_engine.config, sd, temp, 80, forbid)
+                    + pd.frame_gaps(hidden, row_b, wt, ref_engine.config, sd, temp, 80, forbid))
+        res = pd.compare_rows(f"slot {b}", "unmeshed", who, w, g, False, classify)
+        if not res["ok"]:
+            raise AssertionError(res["line"])
+        if res["status"] == "NEAR-TIE":
+            log(res["line"])
+            ties.append(b)
+    return ties
+
+
+def run_whole_loops(dev, card: str, probes: dict) -> dict:
+    """Whole decode loops at 357M width, float32 then bf16: parity_decode's
+    arms over PARITY_TEXTS x PARITY_FRAMES forced frames at temp 0 (kernel A
+    against kernels 4 + 5 on every text, the plain loop on the CPU on the
+    first PARITY_PLAIN_TEXTS; float32 also at temp 0.7, fused against split),
+    parity_batched's at B = 32 x 100 frames (kernel C against 7 + 8, the plain
+    lockstep loop on the CPU at BATCHED_PLAIN_B slots); probe_lockstep's host
+    slopes (bf16, B = 32, LOCKSTEP_N) beside kernel C's graph slope
+    from the probe phase; and BatchedMagpieEngine over a mesh of every card
+    present and over ["cuda:0", "cuda:0"] against the unmeshed engine at
+    temp 0 and 0.7. Every arm's launch counters are reset before it and
+    checked after it (the scripts' check_launches)."""
+    import torch
+
+    from magpie_tts_tpu_torch.parallel import mesh as mesh_mod
+    from magpie_tts_tpu_torch.parallel.serving import BatchedMagpieEngine
+    from magpie_tts_tpu_torch.scripts import opt_slope_probe
+    from magpie_tts_tpu_torch.scripts import parity_batched as pb
+    from magpie_tts_tpu_torch.scripts import parity_decode as pd
+
+    t_phase = time.perf_counter()
+    _, w = prod_weights(dev)          # random_magpie_weights(MagpieConfig(), seed=0), float32
+    cfg = pd.parity_config(PARITY_FRAMES)
+    bcfg = pd.parity_config(BATCHED_FRAMES)
+    texts = pd.make_token_lists(cfg, PARITY_TEXTS)
+    out = {"decode": {}, "batched": {}, "launches": {}}
+
+    def report(who: str, res: dict) -> None:
+        for r in res["pairs"]:
+            if r["status"] != "EXACT" or who.startswith("parity_decode"):
+                log(r["line"])
+        if not res["ok"]:
+            raise AssertionError(f"{who}: parity FAIL")
+        log(f"{who}: PASS, near-ties {res['near_ties']}, arms " + "; ".join(
+            f"{arm} {run['seconds']:.2f} s, launches {run['launches']}"
+            for arm, run in res["arms"].items()) + f"; on {card}")
+
+    for dt in ("float32", BF):
+        dtype = getattr(torch, dt)
+        t0 = time.perf_counter()
+        res = pd.run_parity(cfg, w, texts, ("fused", "split", "plain"), dev, dtype, 0.0,
+                            plain_texts=PARITY_PLAIN_TEXTS)
+        report(f"parity_decode {dt} temp 0 ({PARITY_TEXTS} texts x {PARITY_FRAMES} frames, "
+               f"plain on {PARITY_PLAIN_TEXTS})", res)
+        out["decode"][dt] = {"fps": {a: r["fps"] for a, r in res["arms"].items()},
+                             "near_ties": res["near_ties"],
+                             "wall_s": time.perf_counter() - t0}
+        for arm in ("fused", "split"):
+            for k, n in res["arms"][arm]["launches"].items():
+                out["launches"][dt, k] = out["launches"].get((dt, k), 0) + n
+        if dt == "float32":
+            res07 = pd.run_parity(cfg, w, texts, ("fused", "split"), dev, dtype, 0.7)
+            report(f"parity_decode float32 temp 0.7 ({PARITY_TEXTS} texts, fused vs split)",
+                   res07)
+            out["decode"]["float32 temp 0.7 fps"] = {a: r["fps"]
+                                                      for a, r in res07["arms"].items()}
+        t0 = time.perf_counter()
+        inputs = pb.make_inputs(bcfg, BATCHED_B, 0)
+        res = pb.run_parity(bcfg, w, inputs, ("fused", "split", "plain"), dev, dtype, 0.0,
+                            plain_batch=BATCHED_PLAIN_B[dt])
+        report(f"parity_batched {dt} temp 0 (B={BATCHED_B} x {BATCHED_FRAMES} frames, plain "
+               f"on {BATCHED_PLAIN_B[dt]} slots)", res)
+        for arm in ("fused", "split"):
+            for k, n in res["arms"][arm]["launches"].items():
+                out["launches"][dt, k] = out["launches"].get((dt, k), 0) + n
+        out["batched"][dt] = {"near_ties": res["near_ties"],
+                              "aggregate_fps": {a: int(r["n_frames"].sum()) / r["seconds"]
+                                                for a, r in res["arms"].items()},
+                              "wall_s": time.perf_counter() - t0}
+
+    n_lo, n_hi, reps = LOCKSTEP_N
+    lock = opt_slope_probe.probe_lockstep(dev, n_lo, n_hi, reps)
+    graph_c = probes["frames"]["fused"]["graph_ms"]
+    out["lockstep"] = {o["kernel"]: o["host_ms"] for o in lock}
+    out["lockstep_glue_share"] = 1.0 - graph_c / out["lockstep"]["C"]
+    log(f"probe_lockstep (bf16, B={lock[0]['B']}, {n_lo} / {n_hi} frames, host slope): fused "
+        f"{out['lockstep']['C']:.4f} ms a frame, split {out['lockstep']['7+8']:.4f}; kernel C's "
+        f"CUDA-graph slope {graph_c:.4f} ms (probe phase, pos +40): host glue "
+        f"{100 * out['lockstep_glue_share']:.1f}% of a fused lockstep frame; on {card}")
+
+    mcfg = pd.parity_config(MESH_FRAMES)
+    reqs = pd.make_token_lists(mcfg, MESH_B)
+    unmeshed = BatchedMagpieEngine(w, mcfg, batch_size=MESH_B, device=dev)
+    meshes = {"every card": mesh_mod.make_mesh(),
+              "cuda:0 x2": mesh_mod.make_mesh(devices=["cuda:0", "cuda:0"])}
+    out["mesh"] = {}
+    for temp in (0.0, 0.7):
+        t0 = time.perf_counter()
+        want = unmeshed.synthesize_batch(reqs, temperature=temp, seed=5)
+        t_ref = time.perf_counter() - t0
+        for name, mesh in meshes.items():
+            eng = BatchedMagpieEngine(w, mcfg, batch_size=MESH_B, mesh=mesh)
+            reset_counts(tuple(pd.all_kernels(batched=True).values()))
+            t0 = time.perf_counter()
+            got = eng.synthesize_batch(reqs, temperature=temp, seed=5)
+            secs = time.perf_counter() - t0
+            launches = pd.read_launches(batched=True)
+            want_c = len(mesh) * MESH_FRAMES
+            if launches != {"C": want_c, "7": 0, "8": 0}:
+                raise AssertionError(f"mesh {name}: launches {launches}, want C {want_c}")
+            ties = mesh_codes_agree(name, unmeshed, reqs, got, want, temp, 5)
+            out["mesh"][name, temp] = {"seconds": secs, "unmeshed_s": t_ref, "ties": ties}
+            log(f"BatchedMagpieEngine mesh {name} ({[str(d) for d in mesh]}), B={MESH_B} x "
+                f"{MESH_FRAMES} frames, temp {temp}: codes "
+                f"{'equal to' if not ties else f'near-ties only (slots {ties}) against'} the "
+                f"unmeshed engine's; kernel C {launches['C']} launches; {secs:.3f} s (unmeshed "
+                f"{t_ref:.3f} s, host clock); on {card}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"whole loops and the device list: phase {out['wall_s']:.1f} s wall on {card}")
+    return out
+
+
 def kernel_ptxas(build_log: str, kinds) -> list:
     """The -Xptxas -v lines of the named kernels (both dtypes; the GEMM's
     stream mode and m16 tiles from its template arguments): each entry
@@ -3533,6 +3705,14 @@ def main() -> int:
         quant_main = run_quantized_main_paths(tmp, mcfg, ccfg, card, nodes)
         quant_batched = run_batched_streams(tmp, dev, nodes)
         oracle = run_oracle_acceptance(tmp, mcfg, card, nodes)
+    loops = run_whole_loops(dev, card, probes)
+    for res, dt, k in ((fs_res, "float32", "A"), (split_res["lt"], "float32", "4"),
+                       (split_res["dec"], "float32", "5"), (fsb_res, "float32", "C"),
+                       (splitb_res["lt"], "float32", "7"), (splitb_res["dec"], "float32", "8"),
+                       (bf_single["A"], BF, "A"), (bf_single["4"], BF, "4"),
+                       (bf_single["5"], BF, "5"), (bf_batched["C"], BF, "C"),
+                       (bf_batched["7"], BF, "7"), (bf_batched["8"], BF, "8")):
+        res["whole_loop_launches"] = loops["launches"][dt, k]
 
     log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames, --no-fused "
         f"{split_main['fps']} fps over {split_main['n_frames']} frames; serve {serve_res['fps']} "
@@ -3602,6 +3782,19 @@ def main() -> int:
         f"{oracle['stage3_frames']} frames in stage 3; standard path vs kernel A at temp 0: "
         f"{'equal' if oracle['standard']['equal'] else 'near-ties only'} over "
         f"{oracle['standard']['frames']} frames; phase {oracle['wall_s']:.1f} s; on {card}")
+    dl, bl = loops["decode"], loops["batched"]
+    log(f"summary, whole loops (357M, temp 0; parity_decode {PARITY_TEXTS} texts x "
+        f"{PARITY_FRAMES} frames, fps by the host clock; parity_batched B={BATCHED_B} x "
+        f"{BATCHED_FRAMES}): " + "; ".join(
+            f"{dt} fps fused / split / plain {dl[dt]['fps']['fused']:.1f} / "
+            f"{dl[dt]['fps']['split']:.1f} / {dl[dt]['fps']['plain']:.2f}, near-ties "
+            f"{dl[dt]['near_ties']}; batched near-ties {bl[dt]['near_ties']}"
+            for dt in ("float32", BF))
+        + f"; probe_lockstep bf16 fused / split {loops['lockstep']['C']:.4f} / "
+        f"{loops['lockstep']['7+8']:.4f} ms a frame (host glue "
+        f"{100 * loops['lockstep_glue_share']:.1f}% of fused); mesh codes equal: "
+        f"{all(not v['ties'] for v in loops['mesh'].values())}; phase {loops['wall_s']:.1f} s; "
+        f"on {card}")
     fr = probes["frames"]
     log(f"summary, probes (device-only frame times by CUDA-graph slope, bf16, pos "
         f"context_frames + 40, {PROBE_FRAME_N[0]} / {PROBE_FRAME_N[1]} frames): kernel A "
@@ -3651,7 +3844,7 @@ def main() -> int:
                                         "f64_within_1ulp", "plain_f64_within_1ulp",
                                         "families", "graph_ms", "library_covers",
                                         "graph_ms_b32", "graph_ms_b64", "draw_us",
-                                        "device_kernels")
+                                        "device_kernels", "whole_loop_launches")
                     if k in res})
         return row
 

@@ -256,9 +256,24 @@ def synthesize_codes_batched_program(
         use_fused: Optional[bool] = None, int8_stream=None,
         prepare_weights: Optional[MagpieWeights] = None):
     """Lockstep batched synthesis: tokens [B, T] -> (codes [B, N, 8] int32,
-    n_frames [B] int32), both on the weights' device. The B streams are
-    prepared in one ``prepare_batch`` (on ``prepare_weights``, default
-    ``weights``).
+    n_frames [B] int32), both on the weights' device (``lockstep_loop``'s
+    codes and frame counts)."""
+    s = lockstep_loop(tokens, enc_lengths, speaker_ids, keys, temperature, weights, config,
+                      top_k, max_steps=max_steps, use_fused=use_fused, int8_stream=int8_stream,
+                      prepare_weights=prepare_weights)
+    return s.codes, s.frame_idx
+
+
+def lockstep_loop(
+        tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
+        keys: Sequence[Tuple[int, int]], temperature: float, weights: MagpieWeights,
+        config: MagpieConfig, top_k: int, max_steps: Optional[int] = None,
+        use_fused: Optional[bool] = None, int8_stream=None,
+        prepare_weights: Optional[MagpieWeights] = None) -> BatchedDecodeState:
+    """The lockstep loop over B streams, returning its final state (the
+    hidden rows after the last step run included, which the parity scripts
+    read). The B streams are prepared in one ``prepare_batch`` (on
+    ``prepare_weights``, default ``weights``).
 
     Streams that hit EOS idle (their ``frame_idx`` / codes freeze) while the
     rest continue. Per frame, as in the JAX loop: every stream's key splits
@@ -319,4 +334,4 @@ def synthesize_codes_batched_program(
                                                s.v_cache, weights, config, enc, rows=pos + 1,
                                                stream=int8_stream)
             s.step += 1
-    return s.codes, s.frame_idx
+    return s

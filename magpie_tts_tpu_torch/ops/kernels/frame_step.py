@@ -575,8 +575,9 @@ def launch(entry: str, tensors: dict, outputs: dict, config: MagpieConfig, devic
     ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
     # self-attention covers rows [0, pos], cross-attention enc_len rows
     rows, enc_rows = scalars.get("pos", 0) + 1, scalars.get("enc_len", 1)
-    ptrs.update({k: v.data_ptr()
-                 for k, v in _workspace(c, device, rows, enc_rows).items()})
+    # Referenced until the kernel is enqueued (frame_step_batched.launch).
+    ws = _workspace(c, device, rows, enc_rows)
+    ptrs.update({k: v.data_ptr() for k, v in ws.items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
     scalars.update(plan_fields(c), grid=int(grid), stamp_cap=check_stamps(entry, stamps))
     if stamps is not None:

@@ -197,7 +197,12 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
     ptrs.update({name: t.data_ptr() for name, t in quantized.items()})
     # self-attention covers rows [0, rows), cross-attention enc_rows rows
     rows, enc_rows = scalars.get("rows", 1), scalars.get("enc_rows", 1)
-    ptrs.update({k: v.data_ptr() for k, v in _workspace(c, B, device, rows, enc_rows).items()})
+    # The workspace stays referenced until the kernels are enqueued: freed
+    # earlier, its memory could go at once to another host thread launching
+    # on this card's stream (a mesh with a repeated device), and both
+    # launches would share it.
+    ws = _workspace(c, B, device, rows, enc_rows)
+    ptrs.update({k: v.data_ptr() for k, v in ws.items()})
     ptrs.update({k: v.data_ptr() for k, v in outputs.items()})
     plans, n_plans = batched_gemm.plan_table(c)
     args = FrameStepBatchedArgs(

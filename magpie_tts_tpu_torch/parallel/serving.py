@@ -1,14 +1,21 @@
-"""Lockstep batched serving (magpie_tts_tpu/parallel/serving.py) on one device.
+"""Lockstep batched serving over a device list (magpie_tts_tpu/parallel/serving.py).
 
 B utterances decode in lockstep: one ``frame_step_batched`` call per frame
 (split path: the batched sampler and decoder step) until every stream hit
-EOS or the step budget. The JAX engine's ``mesh``
-(data parallelism over chips) is not ported here; more than one device is
-``continuous.MultiChipContinuousServer``'s job.
+EOS or the step budget. With a ``mesh`` (``parallel.mesh.make_mesh``, a
+list of devices) of more than one entry, the batch is cut into equal,
+contiguous slices, and each entry runs the lockstep program on its slice
+with its own copy of the weights; each slice's loop ends on its own
+streams' EOS, and the codes come back in batch order. The slices run
+concurrently from a thread per entry, as ``MultiChipContinuousServer``
+runs its engines (the host glue of one slice overlaps another's kernels;
+entries on one card queue on its stream in turn). Tensor parallelism is
+retired (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
 import numpy as np
@@ -19,6 +26,7 @@ from ..io.magpie_weights import MagpieWeights, materialize_weights
 from ..models import magpie as magpie_mod
 from ..ops import sampling
 from ..runtime.engine import check_dtype, pick_bucket, resolve_device, split_to_buckets
+from . import mesh as mesh_mod
 
 
 def batched_synthesize_program(tokens: torch.Tensor, enc_lengths: Sequence[int],
@@ -33,25 +41,60 @@ def batched_synthesize_program(tokens: torch.Tensor, enc_lengths: Sequence[int],
         use_fused=use_fused, prepare_weights=prepare_weights)
 
 
+def pad_wave(chunk_lists, speaker_ids, keys, batch_size: int, buckets: Sequence[int]):
+    """<= B token chunks as the lockstep program's inputs, padded to B rows
+    (padding rows: one token, speaker 0, zero key): (tokens [B, bucket]
+    int64, enc_lengths [B], speaker ids [B], B keys)."""
+    B = batch_size
+    bucket = pick_bucket(buckets, max(len(ch) for ch in chunk_lists))
+    tokens = np.zeros((B, bucket), np.int64)
+    enc_lengths = np.ones(B, np.int64)
+    spk = np.zeros(B, np.int64)
+    for i, ids in enumerate(chunk_lists):
+        tokens[i, :len(ids)] = ids
+        enc_lengths[i] = len(ids)
+        spk[i] = speaker_ids[i]
+    return tokens, enc_lengths, spk, list(keys) + [(0, 0)] * (B - len(keys))
+
+
 class BatchedMagpieEngine:
-    """Fixed-batch lockstep serving engine on one device. ``use_fused``
-    (None: fused unless MAGPIE_NO_FUSED) picks the fused frame kernel or the
-    split sampler + decoder step."""
+    """Fixed-batch lockstep serving engine on one device, or data-parallel
+    over a ``mesh`` (a list of devices; ``batch_size`` must divide over its
+    entries). ``device`` defaults to ``cuda`` without a mesh and to the
+    mesh's devices with one; a ``device`` that is not the mesh's raises.
+    ``use_fused`` (None: fused unless MAGPIE_NO_FUSED) picks the fused frame
+    kernel or the split sampler + decoder step."""
 
     def __init__(self, weights: MagpieWeights, config: MagpieConfig, batch_size: int,
-                 device="cuda", compute_dtype=torch.float32,
+                 mesh: Optional[Sequence] = None, device=None, compute_dtype=torch.float32,
                  token_buckets: Sequence[int] = (32, 64, 128, 256),
                  split_token_id: int = 93, use_fused: Optional[bool] = None):
         check_dtype(compute_dtype)
         self.config = config
         self.use_fused = use_fused
         self.batch_size = batch_size
-        self.device = resolve_device(device)
-        # Q8_0 blocks (--serve-q8 loads) dequantize once here: this engine
-        # serves dense weights (the per-frame stream is a MagpieEngine surface).
-        self.weights = materialize_weights(weights.to(device=self.device, dtype=compute_dtype))
-        # What the B streams' prepare multiplies with: bf16 products on float32 copies.
-        self.prepare_weights = magpie_mod.float32_products(self.weights)
+        if mesh is None:
+            devices = [resolve_device("cuda" if device is None else device)]
+        else:
+            devices = mesh_mod.make_mesh(devices=mesh)
+            if device is not None and not all(mesh_mod.same_device(d, device)
+                                               for d in devices):
+                raise ValueError(f"BatchedMagpieEngine: device {device} is not the mesh's "
+                                 f"devices {[str(d) for d in devices]}")
+        self.mesh = devices if mesh is not None else None
+        self._slices = mesh_mod.batch_sharding(devices, batch_size)
+        # One copy of the weights a device. Q8_0 blocks (--serve-q8 loads)
+        # dequantize once here: this engine serves dense weights (the
+        # per-frame stream is a MagpieEngine surface). prepare multiplies
+        # bf16 products on float32 copies.
+        prepared = {}
+        self._replicas = []
+        for d, w in zip(devices, mesh_mod.shard_weights(weights, devices, config)):
+            if d not in prepared:
+                w = materialize_weights(w.to(dtype=compute_dtype))
+                prepared[d] = (w, magpie_mod.float32_products(w))
+            self._replicas.append((d, *prepared[d]))
+        self.device, self.weights, self.prepare_weights = self._replicas[0]
         self.token_buckets = tuple(token_buckets)
         self.split_token_id = split_token_id
 
@@ -100,21 +143,25 @@ class BatchedMagpieEngine:
                 for parts in results]
 
     def _dispatch_wave(self, chunk_lists, speaker_ids, keys, temperature, top_k):
-        """One lockstep run over <= B token chunks, padded to B rows (padding
-        rows: one token, speaker 0, zero key). Returns per-chunk codes."""
-        B = self.batch_size
-        bucket = pick_bucket(self.token_buckets, max(len(ch) for ch in chunk_lists))
-        tokens = np.zeros((B, bucket), np.int64)
-        enc_lengths = np.ones(B, np.int64)
-        spk = np.zeros(B, np.int64)
-        for i, ids in enumerate(chunk_lists):
-            tokens[i, :len(ids)] = ids
-            enc_lengths[i] = len(ids)
-            spk[i] = speaker_ids[i]
-        keys = list(keys) + [(0, 0)] * (B - len(keys))
-        codes, n_frames = batched_synthesize_program(
-            torch.from_numpy(tokens).to(self.device), enc_lengths.tolist(), spk.tolist(),
-            keys, temperature, self.weights, self.config, top_k, use_fused=self.use_fused,
-            prepare_weights=self.prepare_weights)
-        codes, n_frames = codes.cpu().numpy(), n_frames.cpu().numpy()
+        """One lockstep run over <= B token chunks (``pad_wave``), one slice of
+        the B rows per mesh entry. Returns per-chunk codes."""
+        tokens, enc_lengths, spk, keys = pad_wave(chunk_lists, speaker_ids, keys,
+                                                  self.batch_size, self.token_buckets)
+
+        def run(i):
+            device, weights, prep = self._replicas[i]
+            sl = self._slices[i]
+            codes, n_frames = batched_synthesize_program(
+                torch.from_numpy(tokens[sl]).to(device), enc_lengths[sl].tolist(),
+                spk[sl].tolist(), keys[sl], temperature, weights, self.config, top_k,
+                use_fused=self.use_fused, prepare_weights=prep)
+            return codes.cpu().numpy(), n_frames.cpu().numpy()
+
+        if len(self._replicas) == 1:
+            parts = [run(0)]
+        else:
+            with ThreadPoolExecutor(max_workers=len(self._replicas)) as pool:
+                parts = list(pool.map(run, range(len(self._replicas))))
+        codes = np.concatenate([c for c, _ in parts])
+        n_frames = np.concatenate([n for _, n in parts])
         return [codes[i, :n_frames[i]] for i in range(len(chunk_lists))]

@@ -19,6 +19,9 @@ Probes:
   lt        kernel 7, the batched LT sampler
   q8        kernels A and C with the dense, int8 and Q8_0 weight streams, at
             pos +40 and +340
+  lockstep  the whole lockstep loop (``synthesize_codes_batched_program``),
+            fused (C) then split (7 + 8), glue included: a host-clock slope
+            over ``max_steps`` (LOCKSTEP_N_LO / LOCKSTEP_N_HI frames)
 A probe name may carry the position offset: ``fused:340``. The frame probes
 run in bf16 (the TPU script's DT), B = MAGPIE_PROBE_B (default 32; any 1..64),
 temp MAGPIE_PROBE_TEMP (default 0.7) for ``fused``, each launch seeded with
@@ -42,6 +45,7 @@ from . import timing
 
 N_LO, N_HI = 50, 450
 FRAME_N_LO, FRAME_N_HI = 20, 100   # frame kernels: 2-8 ms a launch, ~260 graph nodes each
+LOCKSTEP_N_LO, LOCKSTEP_N_HI = 50, 450   # the TPU probe's N_LO / N_HI, in frames
 REPS = timing.REPS
 MAX_LAUNCHES = 4096  # the longest frame chain a probe seeds
 DT = torch.bfloat16
@@ -292,13 +296,64 @@ def probe_q8(device, n_lo: int = FRAME_N_LO, n_hi: int = FRAME_N_HI, reps: int =
     return out
 
 
+def probe_lockstep(device, n_lo: int = LOCKSTEP_N_LO, n_hi: int = LOCKSTEP_N_HI,
+                   reps: int = REPS, config=None, B: int = None) -> list:
+    """The product-level lockstep loop (``models.magpie
+    .synthesize_codes_batched_program``), fused (kernel C) then split
+    (kernels 7 + 8 with the embedding glue), as scripts/opt_slope_probe.py's
+    ``probe_lockstep``: B streams of T = 64 tokens, temp 0.7, top_k 80, bf16
+    weights (seed 0; ``config`` default ``MagpieConfig()``). Each arm's ms a
+    frame is ``parity_batched.time_loop``'s slope of the whole call's host
+    wall time over ``n_lo`` / ``n_hi`` forced frames (fresh keys each run,
+    best of ``reps``): the per-frame cost INCLUDING all loop glue (the
+    per-frame masks, the EOS bookkeeping, the host's launch enqueue, the
+    all-done read every 8 frames). No CUDA graph: the glue is the point.
+
+    What it answers on the H100: how much of a lockstep frame is host glue.
+    Set its slope beside the CUDA-graph slope of one kernel-C frame (or of
+    7 + 8) at the same B and dtype (PERF.md's kernel table, rows 6-8, or
+    ``probe_fused`` / ``probe_split`` here): the difference is what the host
+    adds to each frame."""
+    from ..io.magpie_weights import random_magpie_weights
+    from ..models import magpie as magpie_mod
+    from ..ops import sampling
+    from .parity_batched import T_TOKENS, time_loop
+
+    if config is None:
+        c, _, w = _weights(device)
+    else:
+        c, w = config, random_magpie_weights(config, seed=0).to(device=device, dtype=DT)
+    replica = (w, magpie_mod.float32_products(w))
+    B = B or probe_b()
+
+    def make(cfg, B, seed):
+        toks = np.full((B, T_TOKENS), 2, np.int64)
+        toks[:, 0] = cfg.text_bos_id
+        toks[:, -1] = cfg.text_eos_id
+        base = sampling.prng_key(seed)
+        return {"tokens": toks, "lens": [T_TOKENS] * B, "spk": [0] * B,
+                "keys": [sampling.fold_in(base, i) for i in range(B)]}
+
+    out = []
+    for label, fused, kernel in (("fused kernel", True, "C"), ("split kernels", False, "7+8")):
+        t = time_loop(c, replica, B, n_lo, n_hi, fused, reps, make)
+        res = {**t, "per_launch_ms": t["ms_a_step"]}
+        name = f"lockstep loop [{label}] B={B}"
+        print(f"{name:46s} host {timing.fmt(res).replace('us/launch', 'us/frame')}",
+              file=sys.stderr, flush=True)
+        line = {"probe": name, "host_ms": res["per_launch_ms"], "host": res, "kernel": kernel,
+                "B": B}
+        print(json.dumps(line), flush=True)
+        out.append(line)
+    return out
+
+
 PROBES = {"minimal": probe_minimal, "constblk": probe_constblk, "dec": probe_dec,
           "lt": probe_lt, "fused": probe_fused, "split": probe_split, "single": probe_single,
-          "q8": probe_q8}
+          "q8": probe_q8, "lockstep": probe_lockstep}
 # The TPU script's probes that have no counterpart here (ROADMAP.md).
 NOT_PORTED = {"anatomy": "uses the TPU kernels' trace-time ablation knobs; on the H100 "
-                         "chip_profile.py's per-family device times answer it",
-              "lockstep": "queued (ROADMAP.md, Queue 1)"}
+                         "chip_profile.py's per-family device times answer it"}
 
 
 def main(argv=None) -> int:

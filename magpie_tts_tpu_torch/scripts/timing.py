@@ -171,24 +171,33 @@ def copies_past_l2(nbytes: int) -> int:
     return max(2, -(-int(1.2 * L2_BYTES) // max(int(nbytes), 1)))
 
 
-def parse_device(argv, prog: str, doc: str, names: bool = False):
-    """--device (default cuda) and, with ``names``, the probe names; returns
-    (torch.device, names). A CUDA device that is not there exits non-zero:
-    the probes have no CPU fallback, ``--device cpu`` asks for the plain
-    versions."""
+def parse_args(argv, prog: str, doc: str, build=None):
+    """A script's arguments (``build(parser)`` adds them) plus ``--device``
+    (default cuda); returns (args, torch.device). A CUDA device that is not
+    there exits 1: the scripts have no CPU fallback, ``--device cpu`` asks
+    for the plain versions."""
     import argparse
 
     from ..runtime.engine import resolve_device
 
-    ap = argparse.ArgumentParser(prog=prog, description=doc)
-    if names:
-        ap.add_argument("probes", nargs="*")
+    ap = argparse.ArgumentParser(prog=prog, description=doc,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    if build is not None:
+        build(ap)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         ap.exit(1, f"{prog}: {e}\n")
+    return args, device
+
+
+def parse_device(argv, prog: str, doc: str, names: bool = False):
+    """``parse_args`` with, when ``names``, the probe names; returns
+    (torch.device, names)."""
+    build = (lambda ap: ap.add_argument("probes", nargs="*")) if names else None
+    args, device = parse_args(argv, prog, doc, build)
     return device, getattr(args, "probes", None)
 
 

@@ -320,4 +320,6 @@ def test_probe_entry_points_default_to_the_card(module, monkeypatch):
 
 def test_slope_probe_refuses_unported_probes():
     assert opt_slope_probe.main(["anatomy", "--device", "cpu"]) == 2
-    assert opt_slope_probe.main(["lockstep", "--device", "cpu"]) == 2
+    assert opt_slope_probe.main(["no_such_probe", "--device", "cpu"]) == 2
+    # lockstep is ported (tests/test_torch_parity_scripts.py runs it on the CPU)
+    assert "lockstep" in opt_slope_probe.PROBES and "lockstep" not in opt_slope_probe.NOT_PORTED
