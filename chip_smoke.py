@@ -3151,7 +3151,9 @@ def probe_rows(res: dict) -> list:
     with the data L2-resident (graph_hbm_ms: rotated past the L2; eager_ms:
     issued from Python), plain_ms the plain version's CUDA-event mean,
     library_ms the library call's graph slope (cuBLAS bf16 matmul, SDPA,
-    torch.add), launches the probe path's."""
+    torch.add), launches the probe path's; the attends add SDPA's slope from
+    HBM and the main path's attention (decode_attention) L2-resident and
+    from HBM."""
     src = "magpie_tts_tpu_torch/csrc/"
     launches = res["launches"]
     rows = []
@@ -3177,7 +3179,9 @@ def probe_rows(res: dict) -> list:
         r = res[f"attend_{mode}"]
         row(f"probe_attend[{mode}]", "probe_attend.cu", replaces, launches["attend"][mode], r,
             r["graph_l2_ms"], r["library_ms"], r, graph_hbm_ms=r["graph_hbm_ms"],
-            eager_ms=r["eager_ms"], rows=r["rows"], rel_err=r["rel_err"])
+            eager_ms=r["eager_ms"], rows=r["rows"], rel_err=r["rel_err"],
+            library_hbm_ms=r["library_hbm_ms"], main_attention_ms=r["main_attention_ms"],
+            main_attention_hbm_ms=r["main_attention_hbm_ms"])
     for name, replaces, variant in (("minimal", "scripts/opt_slope_probe.py:69", "minimal"),
                                     ("constblk", "scripts/opt_slope_probe.py:89", "constblk"),
                                     ("grid1", "scripts/opt_launch_probe.py:43", "minimal"),

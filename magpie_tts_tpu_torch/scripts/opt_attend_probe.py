@@ -11,9 +11,11 @@ one attend of all 8 slots, added into the output as the TPU kernel's grid
 steps add), twice: with one K / V copy, resident in the 50 MB L2 (the TPU
 probe's compute-only question), and rotating over copies past the L2 (the
 decode loop's case). Beside them: the eager slope, the plain version, and
+two yardsticks timed the same two ways on the same K / V:
 ``F.scaled_dot_product_attention`` on the strided head view of the same
 memory (with the kernels it launched: a copy kernel there means it copied
-the view).
+the view), and the main path's attention (ops/kernels/decode_attention.py,
+the frame kernels' two launches, q as float32).
 
     python -m magpie_tts_tpu_torch.scripts.opt_attend_probe [--device cuda|cpu]
 """
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.kernels import probe_attend
+from ..ops.kernels import decode_attention, probe_attend
 from . import timing
 
 D, H, S, GB = 768, 12, 640, 8
@@ -99,10 +101,29 @@ def _rotation(x: dict, mode: str) -> list:
                   for _ in range(n - 1)]
 
 
+def main_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rows: int) -> torch.Tensor:
+    """The main path's attention yardstick: ``decode_attention`` (the frame
+    kernels' two-launch attention, alone) on q as float32 [G, D] and bf16
+    K / V -> [G, D] float32 (values in bf16)."""
+    return decode_attention.decode_attention(q.float(), k, v, k.shape[2] // DH,
+                                             probe_attend.INV, rows=rows)
+
+
+def _bf16_kv(y: dict, mode: str) -> tuple:
+    """The bf16 K / V the yardsticks read: as they are, or in the i8 modes
+    their dequantized values (i8cast's function)."""
+    if mode not in probe_attend.INT8_MODES:
+        return y["k"], y["v"]
+    deq = lambda t, s: (t.float() * s[..., None]).to(torch.bfloat16)
+    return deq(y["k"], y["sk"]), deq(y["v"], y["sv"])
+
+
 def slopes(mode: str, rows: int, x: dict, device, i_lo: int = I_LO, i_hi: int = I_HI,
            reps: int = 6) -> dict:
     """ns per slot-attend (graph slope, L2-resident and HBM; eager slope),
-    the plain version's and SDPA's ms, and the bound."""
+    the plain version's ms, SDPA's and the main path's attention's ms
+    (graph slope, L2-resident and HBM), the bound and, on a card, one
+    launch's phase stamps (L2-resident)."""
     out = torch.zeros(GB, D, dtype=torch.float32, device=device)
     ring = _rotation(x, mode)
 
@@ -122,19 +143,24 @@ def slopes(mode: str, rows: int, x: dict, device, i_lo: int = I_LO, i_hi: int = 
     args = (x["q"], x["k"], x["v"], x["sk"], x["sv"], rows)
     res["plain_ms"] = timing.event_mean(lambda: probe_attend.attend_once_reference(*args, mode),
                                         3, warmup=1, device=device)
-    # SDPA on bf16 K / V: the i8 modes' dequantized values (i8cast's function).
-    if mode in probe_attend.INT8_MODES:
-        deq = lambda t, s: (t.float() * s[..., None]).to(torch.bfloat16)
-        lk, lv = deq(x["k"], x["sk"]), deq(x["v"], x["sv"])
-    else:
-        lk, lv = x["k"], x["v"]
-    lib = lambda i, h: library_sdpa(x["q"], lk, lv, rows)
-    res["library_ms"] = timing.graph_slope(lib, out, i_lo, i_hi, reps)["per_launch_ms"]
-    res["library_event_ms"] = timing.event_mean(lambda: lib(0, None), 30, device=device)
+    # The yardsticks on bf16 K / V (the i8 modes' dequantized values), one
+    # copy and the same rotation past the L2.
+    kv = [_bf16_kv(y, mode) for y in ring]
+    q = x["q"]
+    for key, fn in (("library", library_sdpa), ("main_attention", main_attention)):
+        def yard(ring_kv, fn=fn):
+            return lambda i, h: fn(q, *ring_kv[i % len(ring_kv)], rows)
+        res[f"{key}_ms"] = timing.graph_slope(yard(kv[:1]), out, i_lo, i_hi, reps)["per_launch_ms"]
+        res[f"{key}_hbm_ms"] = timing.graph_slope(yard(kv), out, i_lo, i_hi, reps)["per_launch_ms"]
+    res["library_event_ms"] = timing.event_mean(lambda: library_sdpa(q, *kv[0], rows), 30,
+                                                device=device)
     if device.type == "cuda":
-        res["library_kernels"] = sdpa_kernels({**x, "k": lk, "v": lv}, rows)
+        res["library_kernels"] = sdpa_kernels({**x, "k": kv[0][0], "v": kv[0][1]}, rows)
+    if device.type == "cuda":
+        res["phase_us"] = probe_attend.read_phases(
+            probe_attend.attend_stamps(x["q"], x["k"], x["v"], x["sk"], x["sv"], rows, mode))
     res.update(timing.bound(*attend_work(mode, rows)))
-    del ring
+    del ring, kv
     return res
 
 
@@ -145,9 +171,20 @@ def report(res: dict) -> str:
             f"{res['graph_l2_ms'] * 1e3:.3f} / {res['graph_hbm_ms'] * 1e3:.3f} us, plain "
             f"{res['plain_ms'] * 1e3:.1f} us, bound {res['bound_ms'] * 1e3:.3f} us "
             f"({res['bound_by']})")
-    return line + (f"; SDPA {res['library_ms'] * 1e3:.3f} us graph, "
-                   f"{res['library_event_ms'] * 1e3:.3f} us event mean, kernels "
-                   f"{res.get('library_kernels', 'not measured')}")
+    us = lambda key: f"{res[key] * 1e3:.3f}"
+    return line + (f"; SDPA {us('library_ms')} / {us('library_hbm_ms')} us graph (L2 / HBM), "
+                   f"{us('library_event_ms')} us event mean, kernels "
+                   f"{res.get('library_kernels', 'not measured')}; main path's attention "
+                   f"{us('main_attention_ms')} / {us('main_attention_hbm_ms')} us graph (L2 / HBM)"
+                   + _phases(res))
+
+
+def _phases(res: dict) -> str:
+    ph = res.get("phase_us")
+    if ph is None:
+        return ""
+    return "; stamps, last block us: " + ", ".join(
+        f"{n} {ph[f'{n}_last_us']:.2f}" for n in probe_attend.STAMP_NAMES[1:])
 
 
 def main(argv=None) -> int:

@@ -835,6 +835,109 @@ def test_probe_attend_kernel_matches_plain(cuda, mode, rows, iters):
     assert float((got - want).abs().max()) <= 5e-4 * float(want.abs().max())
 
 
+def _probe_attend_args(mode: str, device, slots=None) -> list:
+    if mode in ("bf16", "i8mixed", "i8cast"):
+        x = opt_int8_attend_probe.inputs_for(mode, opt_int8_attend_probe.make_inputs(device))
+    else:
+        x = opt_attend_probe.make_inputs(device)
+    args = [x[n] for n in ("q", "k", "v", "sk", "sv")]
+    if slots is not None:
+        args = [None if a is None else a[slots].contiguous() for a in args]
+    return args
+
+
+def _probe_attend_close(got, want) -> bool:
+    return float((got.cpu() - want.cpu()).abs().max()) <= 5e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("rows", [1, 63, 65, 639])
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_probe_attend_kernel_ragged_rows(cuda, mode, rows):
+    """Rows that are not a multiple of the plan's chunk, against plain within
+    5e-4 of the largest value."""
+    args = _probe_attend_args(mode, cuda)
+    got = probe_attend.attend(*args, rows, 1, mode)
+    torch.cuda.synchronize()
+    assert _probe_attend_close(got, probe_attend.attend_reference(*args, rows, 1, mode))
+
+
+@pytest.mark.parametrize("rows", [320, 640])
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_probe_attend_kernel_matches_chunked_model(cuda, mode, rows):
+    """The kernel against the CPU model of its arithmetic (chunk partials in
+    chunk order), 5e-4 of the largest value (expf differs by an ulp between
+    the card and the CPU, which can move a bf16 probability)."""
+    args = _probe_attend_args(mode, cuda)
+    got = probe_attend.attend(*args, rows, 1, mode)
+    torch.cuda.synchronize()
+    assert _probe_attend_close(got, probe_attend.chunked_model(*args, rows, mode))
+
+
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_probe_attend_slot_bits_do_not_depend_on_the_slot_count(cuda, mode):
+    """Slots 0 and 5 alone (G = 1) give the bits they give among 8 slots."""
+    many = probe_attend.attend(*_probe_attend_args(mode, cuda), 640, 1, mode)
+    for b in (0, 5):
+        one = probe_attend.attend(*_probe_attend_args(mode, cuda, slice(b, b + 1)), 640, 1, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], many[b])
+
+
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_probe_attend_more_blocks_than_the_card_holds(cuda, mode):
+    """G = 64 at 640 rows: more blocks than the card holds at once (the
+    clusters run in waves; cur's blocks loop over items, later items copying
+    their V in phase 2). Against plain, and slot 3 bit-equal to the same
+    slot at G = 8."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = [a.repeat(8, *([1] * (a.dim() - 1))) if a is not None else None
+           for a in _probe_attend_args(mode, cuda)]
+    big[1] = big[1].roll(1, dims=0).contiguous()  # slots differ from their copies
+    if mode not in probe_attend.INT8_MODES:
+        big[2] = (big[2].float() + 0.01 * torch.randn(big[2].shape, generator=gen,
+                                                      device=cuda)).to(BF)
+    got = probe_attend.attend(*big, 640, 1, mode)
+    want = probe_attend.attend_reference(*big, 640, 1, mode)
+    few = probe_attend.attend(*[None if a is None else a[:8].contiguous() for a in big], 640, 1,
+                              mode)
+    torch.cuda.synchronize()
+    assert _probe_attend_close(got, want) and torch.equal(got[3], few[3])
+
+
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_probe_attend_phase_stamps(cuda, mode):
+    """Every block stamps its six phases in order; the stamped launch adds
+    the same attend as an ordinary one."""
+    args = _probe_attend_args(mode, cuda)
+    st = probe_attend.attend_stamps(*args, 640, mode).cpu()
+    st = st[st[:, 0] > 0]
+    assert st.shape[0] == probe_attend.plan_attend(mode).blocks(8, 12, 640)
+    assert bool((st[:, 1:] >= st[:, :-1]).all())
+    ph = probe_attend.read_phases(st)
+    assert 0 < ph["end_last_us"] < 1e5 and ph["blocks"] == st.shape[0]
+
+
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_probe_attend_graph_replays_are_stable(cuda, mode):
+    """One launch captured in a CUDA graph (the output zeroed, then the
+    attend added) and replayed 50 times gives the eager launch's bits every
+    time: no ticket or barrier word is left stale by a replay."""
+    args = _probe_attend_args(mode, cuda)
+    out = torch.zeros(8, 768, device=cuda)
+    probe_attend.attend_accumulate(out, *args, 640, mode)
+    torch.cuda.synchronize()
+    eager = out.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.zero_()
+        probe_attend.attend_accumulate(out, *args, 640, mode)
+    for _ in range(50):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    del graph
+
+
 @pytest.mark.parametrize("grid_n,variant", [(1, "minimal"), (8, "minimal"), (20, "minimal"),
                                             (8, "constblk"), (8, "streamed"), (3, "streamed")])
 def test_probe_copy_kernel_bit_equal_plain(cuda, grid_n, variant):

@@ -19,6 +19,7 @@ order); 15-17 bit-equal, their chained bf16 adds included.
 import contextlib
 import functools
 import importlib.util
+import inspect
 import os
 import types
 from pathlib import Path
@@ -173,6 +174,100 @@ def test_attend_sum_over_iters_is_in_order():
     for _ in range(3):
         probe_attend.attend_accumulate(out, *args, "cur")
     assert torch.equal(out, probe_attend.attend_reference(*args, 3, "cur"))
+
+
+def _attend_inputs(mode: str) -> dict:
+    return (opt_int8_attend_probe.inputs_for(mode, int8_inputs())
+            if mode in ("bf16", "i8mixed", "i8cast") else opt_attend_probe.make_inputs(CPU))
+
+
+def _attend_args(mode: str, x=None, slots=None) -> list:
+    x = _attend_inputs(mode) if x is None else x
+    args = [x[n] for n in ("q", "k", "v", "sk", "sv")]
+    if slots is not None:
+        args = [None if a is None else a[slots].contiguous() for a in args]
+    return args
+
+
+@functools.lru_cache(maxsize=None)
+def jax_attend_once(mode: str, rows: int) -> np.ndarray:
+    """One attend (iters 1) of the mode's Pallas probe in interpret mode."""
+    args = _attend_args(mode)
+    if mode in ("cur", "tr"):
+        return f32(jax_script("opt_attend_probe").run(mode, rows, 1,
+                                                      *[to_jax(a) for a in args[:3]]))
+    return f32(jax_script("opt_int8_attend_probe").run(mode, rows, 1,
+                                                       *[to_jax(a) for a in args]))
+
+
+@pytest.mark.parametrize("rows", [320, 640])
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_attend_chunked_model_matches_plain_and_jax(mode, rows):
+    """The CPU model of the redesigned kernel (the plan's chunks, chunk
+    partials merged in chunk order, probabilities rounded after normalising)
+    against the plain version and the Pallas probe in interpret mode, within
+    ATTEND_REL of the largest value (a probability near a bf16 boundary moves
+    by one ulp when the sum of exponentials runs in another order)."""
+    args = _attend_args(mode)
+    got = probe_attend.chunked_model(*args, rows, mode)
+    plain = probe_attend.attend_once_reference(*args, rows, mode)
+    assert float((got - plain).abs().max()) <= ATTEND_REL * float(plain.abs().max())
+    want = jax_attend_once(mode, rows)
+    assert np.abs(got.numpy() - want).max() <= ATTEND_REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("rows", [1, 63, 65, 639])
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_attend_chunked_model_ragged_rows(mode, rows):
+    """Rows that are not a multiple of the chunk (a last chunk of 1 row, one
+    row short of or past a chunk): the model against plain, ATTEND_REL."""
+    args = _attend_args(mode)
+    got = probe_attend.chunked_model(*args, rows, mode)
+    plain = probe_attend.attend_once_reference(*args, rows, mode)
+    assert float((got - plain).abs().max()) <= ATTEND_REL * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_attend_slot_bits_do_not_depend_on_the_slot_count(mode):
+    """A slot's result is bit-equal alone (G = 1) and among 8 slots: the
+    model's items, like the kernel's, are per slot."""
+    args8 = _attend_args(mode)
+    many = probe_attend.chunked_model(*args8, 640, mode)
+    for b in (0, 5):
+        one = probe_attend.chunked_model(*_attend_args(mode, slots=slice(b, b + 1)), 640, mode)
+        assert torch.equal(one[0], many[b])
+
+
+@pytest.mark.parametrize("mode", probe_attend.MODES)
+def test_attend_plan_does_not_depend_on_the_slot_count(mode):
+    """The plan takes the mode and the head width alone; a launch's blocks
+    are G times a slot's; at G = 8 and 640 rows every mode has at least two
+    blocks an SM of the H100 (2 x 132); a slot's blocks hold every row
+    once, in chunks dealt round robin; cur's workspace is the kernel's
+    layout."""
+    assert list(inspect.signature(probe_attend.plan_attend).parameters) == ["mode", "d_head"]
+    plan = probe_attend.plan_attend(mode)
+    per_slot = plan.blocks(1, 12, 640)
+    assert all(plan.blocks(G, 12, 640) == G * per_slot for G in (1, 3, 8, 64))
+    assert plan.blocks(8, 12, 640) >= 2 * 132
+    for rows in (1, 63, 320, 639, 640):
+        b = plan.bounds(rows)
+        assert b[0][0] == 0 and b[-1][1] == rows and len(b) == plan.chunks(rows)
+        assert all(r1 == b[i + 1][0] for i, (_, r1) in enumerate(b[:-1]))
+        for split in (plan.groups(rows), plan.partials(rows)):
+            assert sorted(r for grp in split for r in grp) == list(range(rows))
+    if mode == "cur":
+        assert (plan.chunk, plan.cluster) == (16, 0)
+        assert probe_attend.workspace_words(8, 768, 640) == 8 * (12 * 640 + 12 * 40 * 2 +
+                                                                   40 * 768)
+    else:
+        assert plan.chunk * 64 * (1 if mode.startswith("i8") else 2) == 2048
+        c = plan.chunk
+        assert plan.cluster == 8 and len(plan.partials(640)) == 32
+        assert plan.groups(640)[3][c - 1:c + 1] == [4 * c - 1, 11 * c]
+        # warp 1 of CTA 3: local rows 32 .., i.e. row 32 % c of its chunk 32 // c
+        first = (3 + 8 * (32 // c)) * c + 32 % c
+        assert plan.partials(640)[4 * 3 + 1][:2] == [first, first + 1]
 
 
 # ----------------------------------------------------------- copies 15-17
