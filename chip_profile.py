@@ -3,7 +3,7 @@ kernel's time goes, the fused frame against the split path, and where
 ``serve``'s time goes.
 
 Run from the root of a checkout:
-    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|serve|admission|all]
+    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|gemv|serve|admission|all]
                             [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
@@ -45,6 +45,16 @@ q8: kernel 10 (csrc/q8_dequant.cu) on every block-stored tensor of a 357M
     bf16: device ms a tensor by CUDA-graph slope (Q8_N dequants a graph)
     beside its CUDA-event mean, and their sums (one ``materialize``); with
     ``--root DIR`` another checkout's kernel, for turns.
+gemv: the GEMV probes (kernels 11-13, csrc/probe_gemv.cu) at x [8, K] @
+    W [K, 3072] for K in GEMV_K: ``scripts/probe_int4.probe`` (graph slopes
+    L2-resident and from HBM beside cuBLAS and the main path's batched GEMM,
+    the plan, phase stamps), plus the SHA-256 of each kernel's float32
+    output on a seeded normal bf16 x (bits to hold across commits) and, for
+    kernels 11 / 13, the slopes L2-resident / from HBM at every K split the
+    kernel takes (``splits_ms``: the sweep behind ``plan_gemv``'s rule).
+    ``--root DIR`` takes a checkout whose ``probe`` has ``k`` (this
+    design's on); an older kernel is timed in turns by its own checkout's
+    ``python -m magpie_tts_tpu_torch.scripts.probe_int4``.
 serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
@@ -86,6 +96,8 @@ SERVE_CASES = [(4, 6), (8, 16), (32, 48)]
 SERVE_SEGMENT = 16
 REPS = 20
 SLOPE_N = (4, 16, 3)   # graph slopes: frames a graph, lo / hi, and replays
+GEMV_K = (256, 768, 1024)
+GEMV_N = (50, 450, 5)  # the split sweep's slopes: launches a graph, lo / hi, and replays
 # Kernel families by the device kernels' names (csrc/): the split-row
 # attention's two launches, the batched frames' tensor-core GEMM, the
 # single-stream GEMV, the reducers and the LT sampling.
@@ -366,6 +378,42 @@ def profile_q8(dev) -> None:
                 torch.cuda.empty_cache()
             emit({"phase": "q8", "tensor": "all", "tensors": len(found),
                   "dtype": str(dtype).replace("torch.", ""), **total})
+
+
+def profile_gemv(dev) -> None:
+    """Kernels 11-13 by ``probe_int4.probe`` with the outputs' SHA-256 and
+    the split sweep (see ``gemv`` above); one JSON line a (format, K)."""
+    import hashlib
+
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import probe_gemv
+    from magpie_tts_tpu_torch.scripts import probe_int4, timing
+
+    slope = lambda body, init: timing.graph_slope(body, init, *GEMV_N)["per_launch_ms"]
+    with torch.no_grad():
+        for k in GEMV_K:
+            inputs = probe_int4.make_inputs(dev, k)
+            xr = torch.from_numpy(np.random.default_rng(7).standard_normal((8, k))).to(
+                device=dev, dtype=torch.bfloat16)
+            for fmt in probe_gemv.FORMATS:
+                res = probe_int4.probe(fmt, dev, k=k)
+                x, w = inputs[fmt][:2]
+                out = probe_gemv.gemv(xr, w, fmt)
+                res["sha256_random_x"] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+                if fmt in probe_gemv.SPLIT_FORMATS:
+                    copies = [w] + [w.clone() for _ in range(
+                        timing.copies_past_l2(w.numel() * w.element_size()) - 1)]
+                    res["splits_ms"] = {}
+                    for sp in (s for s in range(1, probe_gemv.MAX_CLUSTER + 1)
+                               if (k // probe_gemv.STEP) % s == 0):
+                        body = lambda i, h, ws=(w,), sp=sp: probe_gemv.gemv(
+                            x, ws[i % len(ws)], fmt, splits=sp)
+                        res["splits_ms"][sp] = (slope(body, out),
+                                                slope(lambda i, h: body(i, h, copies), out))
+                    del copies
+                emit({"phase": "gemv", **res})
+                torch.cuda.empty_cache()
 
 
 def profile_frame(dev) -> None:
@@ -871,10 +919,10 @@ def main() -> int:
     from magpie_tts_tpu_torch.runtime.engine import resolve_device
 
     what = args[0] if args else "all"
-    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "serve",
+    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "gemv", "serve",
                     "admission", "all"):
         print("usage: python3 chip_profile.py "
-              "[frame|split|fused|stream|slope|lt|q8|serve|admission|all] [--root DIR]",
+              "[frame|split|fused|stream|slope|lt|q8|gemv|serve|admission|all] [--root DIR]",
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
@@ -891,6 +939,8 @@ def main() -> int:
         profile_lt_stamps(dev)
     if what == "q8":
         profile_q8(dev)
+    if what == "gemv":
+        profile_gemv(dev)
     if what in ("split", "fused", "all"):
         profile_split(dev, split=what != "fused")
     if what in ("stream", "all"):

@@ -3032,6 +3032,54 @@ def _rel(got, want) -> dict:
     return {"max_abs_err": err, "max_abs": scale, "rel_err": err / scale if scale else err}
 
 
+# SHA-256 of kernel 12's output on a seeded normal x before kernels 11 and 13
+# were redesigned (tests/test_torch_cuda.py holds the same value).
+PACKED_SHA256 = "517cab530c88ae554448e7592bc3ce27a3bb0e85f16ac6561b1aa04e7e235699"
+
+
+def check_gemv_bits(dev) -> None:
+    """Kernels 11 and 13 on a seeded normal x at the probe's shape: two
+    launches, 100 launches replayed from one CUDA graph and the stamped
+    launch give the same bits; kernel 12's bits on the same x are the ones
+    it gave before. Raises on any difference."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import probe_gemv
+    from magpie_tts_tpu_torch.scripts import probe_int4
+
+    xr = torch.from_numpy(np.random.default_rng(7).standard_normal((8, 768))).to(
+        device=dev, dtype=torch.bfloat16)
+    inputs = probe_int4.make_inputs(dev)
+    for fmt in probe_gemv.SPLIT_FORMATS:
+        w = inputs[fmt][1]
+        a, b = probe_gemv.gemv(xr, w, fmt), probe_gemv.gemv(xr, w, fmt)
+        stamped, _ = probe_gemv.gemv_stamps(xr, w, fmt)
+        outs = torch.zeros(100, *a.shape, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(100):
+                outs[i].copy_(probe_gemv.gemv(xr, w, fmt))
+        graph.replay()
+        torch.cuda.synchronize()
+        same = (torch.equal(a, b), torch.equal(a, stamped), torch.equal(outs, a.expand_as(outs)))
+        del graph
+        rel = _rel(a, probe_gemv.gemv_reference(xr, w, fmt))["rel_err"]
+        plan = probe_gemv.plan_gemv(fmt, 768, 3072)
+        log(f"probe gemv [{fmt}] {plan.tiles} tiles x {plan.splits} splits = {plan.ctas} CTAs, "
+            f"clusters of {plan.cluster}, normal x: two launches / stamped / 100 graph "
+            f"replays bit-equal {same}; {rel:.3g} of the largest value off plain")
+        if not all(same) or rel > PROBE_GEMV_REL:
+            raise AssertionError(f"probe gemv [{fmt}] changes its bits between launches")
+    packed = probe_gemv.gemv(xr, inputs["packed_int8"][1], "packed_int8")
+    digest = hashlib.sha256(packed.cpu().numpy().tobytes()).hexdigest()
+    log(f"probe gemv [packed_int8] normal x: sha256 {digest} (before: {PACKED_SHA256})")
+    if digest != PACKED_SHA256:
+        raise AssertionError("probe gemv [packed_int8] changed its bits")
+
+
 def check_probes(dev) -> dict:
     """The probe kernels (11-18) against their plain versions at the probe
     shapes, once each; then the probe path: every probe module's functions
@@ -3058,6 +3106,7 @@ def check_probes(dev) -> dict:
         if (fmt != "bf16" and not r["bit_equal"]) or r["rel_err"] > PROBE_GEMV_REL:
             raise AssertionError(f"probe gemv [{fmt}] disagrees with its plain version")
         err[f"gemv_{fmt}"] = r
+    check_gemv_bits(dev)
     i8 = opt_int8_attend_probe.make_inputs(dev)
     orient = opt_attend_probe.make_inputs(dev)
     attend_x = {m: opt_int8_attend_probe.inputs_for(m, i8) for m in ("bf16", "i8mixed", "i8cast")}
@@ -3150,10 +3199,13 @@ def probe_rows(res: dict) -> list:
     """Rows 11-18 of the kernels line: ms is the CUDA-graph slope a launch
     with the data L2-resident (graph_hbm_ms: rotated past the L2; eager_ms:
     issued from Python), plain_ms the plain version's CUDA-event mean,
-    library_ms the library call's graph slope (cuBLAS bf16 matmul, SDPA,
-    torch.add), launches the probe path's; the attends add SDPA's slope from
-    HBM and the main path's attention (decode_attention) L2-resident and
-    from HBM."""
+    library_ms the library call's graph slope (cuBLAS bf16 matmul, for the
+    nibble formats on the widened weight; SDPA; torch.add), launches the
+    probe path's; the GEMVs add the main path's batched GEMM (split-K
+    partials, not reduced) L2-resident and from HBM (main_gemm_ms,
+    main_gemm_hbm_ms), their plan and, for 11 and 13, phase stamps; the
+    attends add SDPA's slope from HBM and the main path's attention
+    (decode_attention) L2-resident and from HBM."""
     src = "magpie_tts_tpu_torch/csrc/"
     launches = res["launches"]
     rows = []
@@ -3167,10 +3219,12 @@ def probe_rows(res: dict) -> list:
 
     for fmt, line in (("native_int4", 42), ("packed_int8", 71), ("bf16", 110)):
         r = res[f"gemv_{fmt}"]
+        extra = {"phase_us": r["phase_us"]} if "phase_us" in r else {}
         row(f"probe_gemv[{fmt}]", "probe_gemv.cu", f"scripts/probe_int4.py:{line}",
             launches["gemv"][fmt], r, r["graph_l2_ms"], r["library_graph_l2_ms"], r,
             graph_hbm_ms=r["graph_hbm_ms"], event_ms=r["ms"],
-            library_graph_hbm_ms=r["library_graph_hbm_ms"])
+            library_graph_hbm_ms=r["library_graph_hbm_ms"], main_gemm_ms=r["main_gemm_ms"],
+            main_gemm_hbm_ms=r["main_gemm_hbm_ms"], plan=r["plan"], **extra)
     for mode, replaces in (("bf16", "scripts/opt_int8_attend_probe.py:106"),
                            ("i8mixed", "scripts/opt_int8_attend_probe.py:106"),
                            ("i8cast", "scripts/opt_int8_attend_probe.py:106"),

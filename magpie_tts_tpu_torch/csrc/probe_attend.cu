@@ -76,6 +76,7 @@
 #include <algorithm>
 #include <mutex>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
@@ -120,52 +121,10 @@ __device__ __forceinline__ void cp_async_wait_at_most(int n) {
   }
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
-}
-
-// The cluster: this CTA's rank, stores into another CTA's shared memory, and
-// the barrier of every thread of the cluster (writes before it, remote ones
-// included, are seen by every thread of the cluster after it).
-__device__ __forceinline__ int cluster_rank() {
-  int r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-// Stores into CTA `rank`'s shared memory at this CTA's address p.
-__device__ __forceinline__ unsigned cluster_addr(const float* p, int rank) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_cluster(float* p, float v, int rank) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(cluster_addr(p, rank)), "f"(v)
-               : "memory");
-}
-__device__ __forceinline__ void st_cluster2(float* p, float x, float y, int rank) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(cluster_addr(p, rank)), "f"(x),
-               "f"(y)
-               : "memory");
-}
-// A CTA may write another's shared memory only once that CTA runs: each
-// arrives (relaxed) as it starts and waits before its first remote store.
-__device__ __forceinline__ void cluster_arrive_started() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait_started() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // The grid barrier of cur (see the note above). A wait past 2 s traps: a
@@ -645,35 +604,6 @@ __global__ void __launch_bounds__(kCurThreads, 3) attend_cur_kernel(const Call a
 }
 
 // ------------------------------------------------------------------ launches
-
-// Raises a kernel's dynamic shared-memory limit to the largest size asked on
-// this device, never lowering it; 0 or a CUDA error.
-int raise_smem(const void* kernel, int smem) {
-  struct Entry {
-    const void* kernel;
-    int device, smem;
-  };
-  static std::mutex mu;
-  static Entry limits[16];
-  static int n_limits = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  std::lock_guard<std::mutex> lock(mu);
-  Entry* limit = nullptr;
-  for (int i = 0; i < n_limits; ++i) {
-    if (limits[i].kernel == kernel && limits[i].device == dev) limit = &limits[i];
-  }
-  if (limit != nullptr && smem <= limit->smem) return 0;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (limit != nullptr) {
-    limit->smem = smem;
-  } else if (n_limits < 16) {
-    limits[n_limits++] = Entry{kernel, dev, smem};
-  }
-  return 0;
-}
 
 // Co-resident blocks an SM of cur at `smem` bytes, cached per device and size;
 // -1 on a CUDA error.

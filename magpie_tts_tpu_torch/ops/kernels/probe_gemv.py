@@ -15,11 +15,21 @@ The weight formats (``FORMATS``) and their storage:
 - ``bf16``: bf16 [K, N].
 
 A nibble n is the signed value ``(n ^ 8) - 8``.
+
+Kernels 13 (``bf16``) and 11 (``native_int4``) split K across the card:
+``plan_gemv(fmt, K, N)`` gives the column tile, the K split and the
+cluster (the CTAs of a tile, one a split, meet in rank 0's shared memory and
+are summed there in rank order); ``split_model`` is a CPU model of that sum
+order. ``gemv_stamps`` runs one launch with per-block phase stamps
+(``read_phases``). Kernel 12 (``packed_int8``) keeps its SIMT kernel: a
+block of 64 columns, K in 32 slices inside it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -30,6 +40,64 @@ FORMATS = ("native_int4", "packed_int8", "bf16")
 M = 8  # rows of x, as the probe has them
 launches = 0  # kernel launches since the last reset
 format_launches = dict.fromkeys(FORMATS, 0)  # the same, by weight format
+SPLIT_FORMATS = ("native_int4", "bf16")  # kernels 11 and 13: K split across a cluster
+# csrc/probe_gemv.cu: output columns a CTA (and a kernel-12 block), K rows of
+# an mma step, the largest cluster (the most splits a launch takes), the
+# plan's most splits and fewest K rows a CTA, phase stamps a block, the C
+# format codes of the split entry point.
+TILE = 64
+STEP = 16
+MAX_CLUSTER = 8
+PLAN_SPLITS = 4
+MIN_ROWS = 128
+STAMPS = 5
+STAMP_NAMES = ("start", "landed", "products", "partials", "end")
+_FMT_CODE = {"native_int4": 0, "bf16": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    tile: int     # output columns a CTA
+    tiles: int    # column tiles: N / tile
+    splits: int   # K splits: CTAs of a tile's cluster (1: kernel 12, no cluster)
+    kchunk: int   # K rows a CTA
+
+    @property
+    def cluster(self) -> int:
+        return self.splits
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.splits
+
+    def bounds(self):
+        """[(first row, end row)] of each split of K, in rank order."""
+        return [(r * self.kchunk, (r + 1) * self.kchunk) for r in range(self.splits)]
+
+
+def _check_shape(K: int, N: int) -> None:
+    if not (256 <= K <= 1024 and K % 256 == 0 and N >= TILE and N % TILE == 0):
+        raise ValueError(f"probe_gemv: K {K} must be a multiple of 256 in [256, 1024] and N "
+                         f"{N} a multiple of {TILE}")
+
+
+@functools.lru_cache(maxsize=None)
+def plan_gemv(fmt: str, K: int, N: int) -> GemvPlan:
+    """The launch plan of a format at (K, N): for kernels 11 and 13 N / TILE
+    column tiles x the most splits of K, at most PLAN_SPLITS, that leave a
+    CTA MIN_ROWS rows (csrc/probe_gemv.cu plan_splits: 2 at K 256, 4 at K
+    512 to 1024; K a multiple of 256, so they are whole mma steps), the rule
+    a sweep of every split measured fastest on an H100 (PERF.md §6); kernel
+    12 has one block a tile. A function of the format and the shapes alone,
+    so the sum order, and the bits, are fixed by them."""
+    _check_shape(K, N)
+    tiles = N // TILE
+    if fmt == "packed_int8":
+        return GemvPlan(tile=TILE, tiles=tiles, splits=1, kchunk=K)
+    if fmt not in SPLIT_FORMATS:
+        raise ValueError(f"probe_gemv: unknown format {fmt!r}, want one of {FORMATS}")
+    splits = min(PLAN_SPLITS, K // MIN_ROWS)
+    return GemvPlan(tile=TILE, tiles=tiles, splits=splits, kchunk=K // splits)
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -38,6 +106,8 @@ def declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, f"magpie_probe_gemv_{fmt}")
         fn.argtypes = [p, p, p, i, i, p]
         fn.restype = ctypes.c_int
+    lib.magpie_probe_gemv_split.argtypes = [i, p, p, p, i, i, i, p, p]
+    lib.magpie_probe_gemv_split.restype = ctypes.c_int
 
 
 def pack_native_int4(w: np.ndarray) -> np.ndarray:
@@ -77,7 +147,7 @@ def gemv_reference(x: torch.Tensor, w: torch.Tensor, fmt: str) -> torch.Tensor:
     return x.float() @ unpack(w, fmt).float()
 
 
-def _dims(w: torch.Tensor, fmt: str):
+def dims(w: torch.Tensor, fmt: str):
     """(K, N, storage dtype) of a stored weight."""
     if fmt == "native_int4":
         return w.shape[0], 2 * w.shape[1], torch.uint8
@@ -88,16 +158,33 @@ def _dims(w: torch.Tensor, fmt: str):
     raise ValueError(f"probe_gemv: unknown format {fmt!r}, want one of {FORMATS}")
 
 
-def gemv(x: torch.Tensor, w: torch.Tensor, fmt: str) -> torch.Tensor:
-    """x [8, K] bf16, w in ``fmt``'s storage -> x @ W [8, N] float32."""
-    global launches
-    if x.device.type == "cpu":
-        return gemv_reference(x, w, fmt)
+def split_model(x: torch.Tensor, w: torch.Tensor, fmt: str, plan=None) -> torch.Tensor:
+    """A CPU model of kernels 11 / 13's sum order: each split's float32
+    partial of x[:, rows] @ W[rows] over its rows (``plan.bounds()``), 16
+    rows (one mma) at a time summed exactly and rounded to float32, the steps
+    added in order; then the splits added in rank order. The tensor cores'
+    rounding inside an mma is not modelled (within 1e-5 of the largest value
+    in bf16; exact for integer weights and small-integer x, where every sum
+    is an integer below 2^24). ``plan`` defaults to the format's."""
+    xf, wf = x.double().cpu(), unpack(w, fmt).double().cpu()
+    K, N = wf.shape
+    plan = plan_gemv(fmt, K, N) if plan is None else plan
+    out = None
+    for k0, k1 in plan.bounds():
+        part = torch.zeros(xf.shape[0], N, dtype=torch.float32)
+        for k in range(k0, k1, STEP):
+            part = part + (xf[:, k:k + STEP] @ wf[k:k + STEP]).float()
+        out = part if out is None else out + part
+    return out.to(x.device)
+
+
+def _check_inputs(x: torch.Tensor, w: torch.Tensor, fmt: str):
+    """(K, N) of a launch's inputs on a card, or ValueError."""
     if x.device.type != "cuda":
         raise ValueError(f"probe_gemv: unsupported device {x.device}")
     if w.dim() != 2:
         raise ValueError(f"probe_gemv: w must be 2-D, got shape {tuple(w.shape)}")
-    K, N, wdt = _dims(w, fmt)
+    K, N, wdt = dims(w, fmt)
     if x.dtype != torch.bfloat16 or tuple(x.shape) != (M, K) or not x.is_contiguous():
         raise ValueError(f"probe_gemv: x must be a contiguous bf16 [{M}, {K}] tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -105,16 +192,74 @@ def gemv(x: torch.Tensor, w: torch.Tensor, fmt: str) -> torch.Tensor:
             or w.data_ptr() % 16):
         raise ValueError(f"probe_gemv: a {fmt} weight must be a contiguous, 16-byte aligned "
                          f"{wdt} tensor on {x.device}, got {w.dtype} on {w.device}")
-    if not (256 <= K <= 1024 and K % 256 == 0 and N >= 64 and N % 64 == 0):
-        raise ValueError(f"probe_gemv: K {K} must be a multiple of 256 in [256, 1024] and N "
-                         f"{N} a multiple of 64")
+    _check_shape(K, N)
+    return K, N
+
+
+def gemv(x: torch.Tensor, w: torch.Tensor, fmt: str, splits=None, stamps=None) -> torch.Tensor:
+    """x [8, K] bf16, w in ``fmt``'s storage -> x @ W [8, N] float32.
+    Kernels 11 / 13 only: ``splits``, a K split other than the plan's (a
+    divisor of K / 16, at most 8: for sweeps and tests); ``stamps``, a
+    zeroed int64 [splits * N / 64, STAMPS] tensor for the phase stamps."""
+    global launches
+    if x.device.type == "cpu":
+        return gemv_reference(x, w, fmt)
+    K, N = _check_inputs(x, w, fmt)
+    if x.data_ptr() % 16:
+        # kernels 11 / 13 copy x by 16-byte cp.async: a view at an unaligned
+        # offset goes to a fresh (aligned) buffer on the card first
+        x = x.clone()
+    if (splits is not None or stamps is not None) and fmt not in SPLIT_FORMATS:
+        raise ValueError(f"probe_gemv: {fmt} takes no split or stamps (kernel 12 has no "
+                         f"cluster)")
+    plan = plan_gemv(fmt, K, N)
+    split_entry = splits is not None or stamps is not None
+    splits = plan.splits if splits is None else int(splits)
+    if not (1 <= splits <= MAX_CLUSTER and (K // STEP) % splits == 0):
+        raise ValueError(f"probe_gemv: splits {splits} must divide K / {STEP} = {K // STEP} and "
+                         f"be at most {MAX_CLUSTER}")
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != x.device
+                               or tuple(stamps.shape) != (plan.tiles * splits, STAMPS)
+                               or not stamps.is_contiguous()):
+        raise ValueError(f"probe_gemv: stamps must be a contiguous int64 "
+                         f"[{plan.tiles * splits}, {STAMPS}] tensor on {x.device}")
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     lib = build.load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = getattr(lib, f"magpie_probe_gemv_{fmt}")(x.data_ptr(), w.data_ptr(),
-                                                       out.data_ptr(), K, N, stream)
+        if not split_entry:
+            err = getattr(lib, f"magpie_probe_gemv_{fmt}")(x.data_ptr(), w.data_ptr(),
+                                                           out.data_ptr(), K, N, stream)
+        else:
+            err = lib.magpie_probe_gemv_split(
+                _FMT_CODE[fmt], x.data_ptr(), w.data_ptr(), out.data_ptr(), K, N, splits,
+                None if stamps is None else stamps.data_ptr(), stream)
     build.check(err, f"probe_gemv[{fmt}]")
     launches += 1
     format_launches[fmt] += 1
     return out
+
+
+def gemv_stamps(x: torch.Tensor, w: torch.Tensor, fmt: str, splits=None):
+    """One launch of kernel 11 or 13 on a card with phase stamps: (out, int64
+    [CTAs, STAMPS] %globaltimer ns: start, all weights and x landed,
+    products summed, the other ranks' partials landed in rank 0 (the other
+    ranks: theirs pushed), end)."""
+    K, N = _check_inputs(x, w, fmt)
+    plan = plan_gemv(fmt, K, N)
+    stamps = torch.zeros(plan.tiles * (plan.splits if splits is None else int(splits)), STAMPS,
+                         dtype=torch.int64, device=x.device)
+    return gemv(x, w, fmt, splits=splits, stamps=stamps), stamps
+
+
+def read_phases(stamps: torch.Tensor) -> dict:
+    """us from the first CTA's start to the last CTA's reaching each stamp,
+    and the median CTA's us from its own start."""
+    t = stamps.cpu().double()
+    t0 = float(t[:, 0].min())
+    res = {}
+    for i, name in enumerate(STAMP_NAMES):
+        res[f"{name}_last_us"] = (float(t[:, i].max()) - t0) / 1e3
+        res[f"{name}_median_us"] = float((t[:, i] - t[:, 0]).median()) / 1e3
+    res["ctas"] = int(t.shape[0])
+    return res

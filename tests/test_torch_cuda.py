@@ -1040,3 +1040,147 @@ def test_probe_scripts_run_on_the_card(cuda):
     assert opt_launch_probe.run("grid 20", 32, 20, 0, cuda, n_lo=2, n_hi=6, reps=1, iters=10)[
         "bit_equal_plain"]
     assert opt_slope_probe.probe_constblk(cuda, n_lo=2, n_hi=6, reps=1)["graph_ms"] > 0
+
+
+# ------------------------- kernels 11 and 13: K split across a cluster
+
+# SHA-256 of kernel 12's float32 output on the probe's packed weight and x =
+# bf16(default_rng(7).standard_normal((8, 768))), from the kernel as it was
+# before kernels 11 and 13 moved to their own kernel (chip_profile.py gemv,
+# "sha256_random_x" at K 768): kernel 12 keeps its bits.
+PACKED_SHA256 = "517cab530c88ae554448e7592bc3ce27a3bb0e85f16ac6561b1aa04e7e235699"
+
+
+def _gemv_inputs(fmt: str, K: int, N: int, device, seed: int, small_x: bool = True):
+    """Random inputs: int4 weights with small-integer x (every sum an exact
+    integer) or, with small_x False, normal x; bf16 normal weights and x."""
+    rng = np.random.default_rng(seed)
+    if fmt == "bf16":
+        w = torch.from_numpy(rng.standard_normal((K, N))).to(device=device, dtype=BF)
+    else:
+        w = torch.from_numpy(probe_gemv.pack_native_int4(rng.integers(-8, 8, size=(K, N))))
+        w = w.to(device)
+    if fmt != "bf16" and small_x:
+        x = torch.from_numpy(rng.integers(-3, 4, size=(8, K)).astype(np.float32))
+    else:
+        x = torch.from_numpy(rng.standard_normal((8, K)))
+    return x.to(device=device, dtype=BF), w
+
+
+def _gemv_close(fmt: str, got, want) -> bool:
+    got, want = got.cpu(), want.cpu()
+    if fmt == "bf16":
+        return float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    return torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N", [64, 192, 3072])
+@pytest.mark.parametrize("K", [256, 512, 768, 1024])
+@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+def test_probe_gemv_split_kernel_matches_plain(cuda, fmt, K, N):
+    """Kernels 11 and 13 at every K the wrapper takes and N 64 / 192 / 3072
+    (one tile, three, the probe's 48): int4 bit-equal to plain and to the
+    CPU model of the sum order, bf16 within 1e-5 of the largest value."""
+    x, w = _gemv_inputs(fmt, K, N, cuda, seed=K + N)
+    got = probe_gemv.gemv(x, w, fmt)
+    torch.cuda.synchronize()
+    assert _gemv_close(fmt, got, probe_gemv.gemv_reference(x, w, fmt))
+    assert _gemv_close(fmt, got, probe_gemv.split_model(x, w, fmt))
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+def test_probe_gemv_split_launches_repeat_their_bits(cuda, fmt):
+    """Normal x (sums no longer exact, so the order shows): two launches give
+    the same bits, the plan passed explicitly gives the default launch's
+    bits (the kernel's plan_splits mirrors plan_gemv), and every split of
+    K = 768 agrees with plain."""
+    x, w = _gemv_inputs(fmt, 768, 3072, cuda, seed=1, small_x=False)
+    a, b = probe_gemv.gemv(x, w, fmt), probe_gemv.gemv(x, w, fmt)
+    plan = probe_gemv.plan_gemv(fmt, 768, 3072)
+    explicit = probe_gemv.gemv(x, w, fmt, splits=plan.splits)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, explicit)
+    want = probe_gemv.gemv_reference(x, w, fmt)
+    for splits in (1, 2, 3, 4, 6, 8):
+        got = probe_gemv.gemv(x, w, fmt, splits=splits)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+def test_probe_gemv_split_graph_replays_are_stable(cuda, fmt):
+    """100 launches captured in one CUDA graph give an eager launch's bits
+    every time (no state carried between launches)."""
+    x, w = _gemv_inputs(fmt, 768, 3072, cuda, seed=2, small_x=False)
+    eager = probe_gemv.gemv(x, w, fmt)
+    torch.cuda.synchronize()
+    outs = torch.zeros(100, 8, 3072, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(100):
+            outs[i].copy_(probe_gemv.gemv(x, w, fmt))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(outs, eager.expand(100, 8, 3072))
+    del graph
+
+
+def test_probe_gemv_packed_keeps_its_bits(cuda):
+    """Kernel 12 is unchanged: on the probe's inputs the exact integer
+    product, and on a seeded normal x the bits it gave before kernels 11 and
+    13 were redesigned."""
+    import hashlib
+
+    x, w, _, wint = probe_int4.make_inputs(cuda)["packed_int8"]
+    got = probe_gemv.gemv(x, w, "packed_int8")
+    xr = torch.from_numpy(np.random.default_rng(7).standard_normal((8, 768))).to(device=cuda,
+                                                                                  dtype=BF)
+    rnd = probe_gemv.gemv(xr, w, "packed_int8")
+    torch.cuda.synchronize()
+    exact = np.ones((8, 768), np.float32) @ wint.astype(np.float32)
+    assert np.array_equal(got.cpu().numpy(), exact)
+    assert hashlib.sha256(rnd.cpu().numpy().tobytes()).hexdigest() == PACKED_SHA256
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+def test_probe_gemv_phase_stamps(cuda, fmt):
+    """The stamped launch gives the plain launch's bits; every CTA stamps its
+    five phases in order."""
+    x, w = _gemv_inputs(fmt, 768, 3072, cuda, seed=3, small_x=False)
+    plain = probe_gemv.gemv(x, w, fmt)
+    out, st = probe_gemv.gemv_stamps(x, w, fmt)
+    torch.cuda.synchronize()
+    st = st.cpu()
+    assert torch.equal(out, plain)
+    assert st.shape == (probe_gemv.plan_gemv(fmt, 768, 3072).ctas, probe_gemv.STAMPS)
+    assert bool((st > 0).all()) and bool((st[:, 1:] >= st[:, :-1]).all())
+    ph = probe_gemv.read_phases(st)
+    assert 0 < ph["end_last_us"] < 1e5 and ph["ctas"] == st.shape[0]
+
+
+def test_probe_gemv_split_rejects_bad_plans(cuda):
+    x, w = _gemv_inputs("bf16", 768, 3072, cuda, seed=4)
+    for splits in (0, 5, 7, 9):
+        with pytest.raises(ValueError):
+            probe_gemv.gemv(x, w, "bf16", splits=splits)
+    with pytest.raises(ValueError):
+        probe_gemv.gemv(x, w, "bf16", stamps=torch.zeros(10, 5, dtype=torch.int64, device=cuda))
+    xp, wp, _, _ = probe_int4.make_inputs(cuda)["packed_int8"]
+    with pytest.raises(ValueError):
+        probe_gemv.gemv(xp, wp, "packed_int8", splits=1)
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
+def test_probe_gemv_takes_an_unaligned_x(cuda, fmt):
+    """A contiguous x at an offset that is not 16-byte aligned (the kernels
+    copy x in 16-byte pieces) is still taken: the aligned copy's bits."""
+    x, w, _, _ = probe_int4.make_inputs(cuda)[fmt]
+    xr = torch.from_numpy(np.random.default_rng(8).standard_normal((8, 768))).to(device=cuda,
+                                                                                  dtype=BF)
+    base = torch.zeros(8 * 768 + 1, dtype=BF, device=cuda)
+    unaligned = base[1:].view(8, 768)
+    unaligned.copy_(xr)
+    assert unaligned.is_contiguous() and unaligned.data_ptr() % 16
+    got, want = probe_gemv.gemv(unaligned, w, fmt), probe_gemv.gemv(xr, w, fmt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

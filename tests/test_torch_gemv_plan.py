@@ -1,0 +1,163 @@
+"""Kernels 11 and 13 (the native-int4 and bf16 GEMV probes) split K across
+the card: their launch plan (``probe_gemv.plan_gemv``) and a CPU model of
+their sum order (``probe_gemv.split_model``: per-split float32 partials,
+then a rank-order sum), held against the plain version and against the JAX
+probe's Pallas kernels in interpret mode (scripts/probe_int4.py, loaded as
+tests/test_torch_probes.py loads it).
+
+Tolerances: the nibble formats bit-equal (integer weights and x = ones or
+small integers: every partial sum is an exact integer below 2^24, so any
+order gives the same bits); bf16 within 1e-5 of the largest value (float32
+sums in another order).
+"""
+
+import inspect
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from magpie_tts_tpu_torch.ops.kernels import probe_gemv
+from magpie_tts_tpu_torch.scripts import probe_int4
+from tests.test_torch_probes import GEMV_BF16_REL, jax_gemv_outputs
+
+CPU = torch.device("cpu")
+SMS = 132  # the H100's SMs
+SOURCE = Path(probe_gemv.__file__).resolve().parents[2] / "csrc" / "probe_gemv.cu"
+
+
+def _close(fmt, got, want) -> bool:
+    if fmt == "bf16":
+        return float((got - want).abs().max()) <= GEMV_BF16_REL * float(want.abs().max())
+    return torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+def test_plan_at_the_probe_shape(fmt):
+    """At (768, 3072): at least one CTA an SM, a cluster of at most 8, and
+    splits of whole mma steps that tile K exactly."""
+    plan = probe_gemv.plan_gemv(fmt, 768, 3072)
+    assert plan.ctas >= SMS and 1 < plan.cluster <= 8
+    assert (plan.tiles, plan.splits, plan.kchunk, plan.ctas) == (48, 4, 192, 192)
+    assert plan.splits * plan.kchunk == 768 and plan.kchunk % probe_gemv.STEP == 0
+    assert plan.bounds() == [(0, 192), (192, 384), (384, 576), (576, 768)]
+
+
+def test_plan_takes_only_the_format_and_the_shapes():
+    """The plan is a function of (fmt, K, N) alone, so the sum order and the
+    bits are fixed by them; kernel 12 keeps one block a tile."""
+    assert list(inspect.signature(probe_gemv.plan_gemv).parameters) == ["fmt", "K", "N"]
+    for fmt in probe_gemv.SPLIT_FORMATS:
+        assert probe_gemv.plan_gemv(fmt, 512, 1024) == probe_gemv.plan_gemv(fmt, 512, 1024)
+    assert probe_gemv.plan_gemv("bf16", 1024, 640) == probe_gemv.plan_gemv("native_int4", 1024,
+                                                                              640)
+    packed = probe_gemv.plan_gemv("packed_int8", 768, 3072)
+    assert (packed.tiles, packed.splits, packed.ctas) == (48, 1, 48)
+
+
+@pytest.mark.parametrize("K", [256, 512, 768, 1024])
+@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+def test_plan_covers_every_accepted_shape(fmt, K):
+    """Every (K, N) the wrapper takes has a plan: splits of whole mma steps
+    that tile K, at most 8: the most, at most 4, that leave a CTA 128 rows
+    (2 at K 256, 4 above), whatever N (N = 64: one tile, below 132 CTAs)."""
+    want = {256: 2, 512: 4, 768: 4, 1024: 4}[K]
+    for N in list(range(64, 8192 + 1, 64)) + [16896, 65536]:
+        plan = probe_gemv.plan_gemv(fmt, K, N)
+        assert plan.tiles * plan.tile == N and plan.splits * plan.kchunk == K
+        assert plan.kchunk % probe_gemv.STEP == 0 and 1 <= plan.splits <= probe_gemv.MAX_CLUSTER
+        assert plan.splits == want and plan.kchunk >= probe_gemv.MIN_ROWS
+        more = [s for s in range(plan.splits + 1, probe_gemv.PLAN_SPLITS + 1)
+                if (K // probe_gemv.STEP) % s == 0]
+        assert all(K // s < probe_gemv.MIN_ROWS for s in more)
+    small = probe_gemv.plan_gemv(fmt, K, 64)
+    assert (small.splits, small.ctas) == (want, want) and small.ctas < SMS
+
+
+def test_plan_rejects_shapes_the_wrapper_refuses():
+    for K, N in ((128, 3072), (640, 3072), (1280, 3072), (768, 96), (768, 0)):
+        with pytest.raises(ValueError):
+            probe_gemv.plan_gemv("bf16", K, N)
+    with pytest.raises(ValueError):
+        probe_gemv.plan_gemv("int3", 768, 3072)
+
+
+def test_kernel_constants_mirror_the_plan():
+    """csrc/probe_gemv.cu's plan_splits reads the same constants as
+    plan_gemv: tile, mma step, largest cluster, the plan's most splits and
+    fewest rows a CTA, stamps."""
+    src = SOURCE.read_text()
+    const = lambda name: re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+    assert int(const("kTile")) == probe_gemv.TILE
+    assert int(const("kStep")) == probe_gemv.STEP
+    assert int(const("kMaxCluster")) == probe_gemv.MAX_CLUSTER
+    assert int(const("kPlanSplits")) == probe_gemv.PLAN_SPLITS
+    assert int(const("kMinRows")) == probe_gemv.MIN_ROWS
+    assert int(const("kGemvStamps")) == probe_gemv.STAMPS
+    assert "cudaLaunchAttributeClusterDimension" in src and "atomicAdd" not in src
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
+def test_split_model_matches_plain_and_jax(fmt):
+    """The model of the kernels' sum order on the probe's inputs against the
+    plain version and the JAX probe's outputs (interpret mode)."""
+    outs, _ = jax_gemv_outputs()
+    x, w, _, _ = probe_int4.make_inputs(CPU)[fmt]
+    got = probe_gemv.split_model(x, w, fmt)
+    assert _close(fmt, got, probe_gemv.gemv_reference(x, w, fmt))
+    assert _close(fmt, got, torch.from_numpy(outs[fmt]))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 6, 8])
+@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+def test_split_model_over_every_split(fmt, splits):
+    """Every split of K = 768 the kernels take: the model against plain on
+    random inputs (small-integer x for int4: bit-equal; normal x for bf16)."""
+    rng = np.random.default_rng(splits)
+    if fmt == "bf16":
+        w = torch.from_numpy(rng.standard_normal((768, 192))).to(torch.bfloat16)
+        x = torch.from_numpy(rng.standard_normal((8, 768))).to(torch.bfloat16)
+    else:
+        w = torch.from_numpy(probe_gemv.pack_native_int4(rng.integers(-8, 8, size=(768, 192))))
+        x = torch.from_numpy(rng.integers(-3, 4, size=(8, 768)).astype(np.float32)).to(
+            torch.bfloat16)
+    plan = probe_gemv.GemvPlan(tile=64, tiles=3, splits=splits, kchunk=768 // splits)
+    got = probe_gemv.split_model(x, w, fmt, plan)
+    assert _close(fmt, got, probe_gemv.gemv_reference(x, w, fmt))
+
+
+def test_gemv_on_the_cpu_is_the_plain_version():
+    """On CPU tensors the wrapper runs the plain version and launches nothing;
+    the stamped launch needs a card."""
+    x, w, _, _ = probe_int4.make_inputs(CPU)["bf16"]
+    before = probe_gemv.launches
+    assert torch.equal(probe_gemv.gemv(x, w, "bf16"), probe_gemv.gemv_reference(x, w, "bf16"))
+    assert probe_gemv.launches == before
+    with pytest.raises(ValueError):
+        probe_gemv.gemv_stamps(x, w, "bf16")
+
+
+def test_read_phases_from_stamps():
+    """us from the first CTA's start to the last CTA's each stamp, and the
+    median CTA's from its own start."""
+    t = torch.tensor([[1000, 2000, 2500, 3000, 3500],
+                      [1500, 2100, 2600, 3900, 4000],
+                      [1200, 2400, 2700, 3100, 3600]], dtype=torch.int64)
+    ph = probe_gemv.read_phases(t)
+    assert ph["ctas"] == 3 and ph["start_last_us"] == 0.5 and ph["end_last_us"] == 3.0
+    assert ph["landed_median_us"] == 1.0 and ph["partials_median_us"] == 2.0
+
+
+@pytest.mark.parametrize("k", [256, 1024])
+def test_probe_int4_other_widths_on_the_cpu(k):
+    """The probe path at K 256 / 1024 on the CPU (plain versions, host
+    clock): the exact product, the plan, the main path's GEMM yardstick."""
+    res = probe_int4.probe("native_int4", CPU, n_lo=1, n_hi=2, reps=1, timed_n=1, k=k)
+    assert res["k"] == k and res["max_abs_err"] == 0.0 and res["bit_equal_plain"]
+    assert res["plan"]["splits"] * res["plan"]["kchunk"] == k
+    assert res["plan"]["splits"] == min(probe_gemv.PLAN_SPLITS, k // probe_gemv.MIN_ROWS)
+    assert res["main_gemm_splits"] >= 1 and "split-K partials" in probe_int4.report(res)
+    nbytes, flops = probe_int4.gemv_work(probe_int4.make_inputs(CPU, k)["bf16"][1])
+    assert nbytes == k * 3072 * 2 + 8 * k * 2 + 8 * 3072 * 4 and flops == 2.0 * 8 * k * 3072
