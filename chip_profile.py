@@ -3,7 +3,7 @@ kernel's time goes, the fused frame against the split path, and where
 ``serve``'s time goes.
 
 Run from the root of a checkout:
-    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|gemv|serve|admission|all]
+    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|gemv|copy|serve|admission|all]
                             [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
@@ -49,12 +49,23 @@ gemv: the GEMV probes (kernels 11-13, csrc/probe_gemv.cu) at x [8, K] @
     W [K, 3072] for K in GEMV_K: ``scripts/probe_int4.probe`` (graph slopes
     L2-resident and from HBM beside cuBLAS and the main path's batched GEMM,
     the plan, phase stamps), plus the SHA-256 of each kernel's float32
-    output on a seeded normal bf16 x (bits to hold across commits) and, for
-    kernels 11 / 13, the slopes L2-resident / from HBM at every K split the
-    kernel takes (``splits_ms``: the sweep behind ``plan_gemv``'s rule).
+    output on a seeded normal bf16 x (bits to hold across commits) and the
+    slopes L2-resident / from HBM at every K split the kernel takes
+    (``splits_ms``: the sweep behind ``plan_gemv``'s rule).
     ``--root DIR`` takes a checkout whose ``probe`` has ``k`` (this
     design's on); an older kernel is timed in turns by its own checkout's
     ``python -m magpie_tts_tpu_torch.scripts.probe_int4``.
+copy: the copy probes (kernels 15-17, csrc/probe_copy.cu), each form the
+    probes time: minimal (grid 8), constblk (grid 8, 10 constant blocks),
+    grid 1 / 8 / 20 and streamed (grid 8, a 1 MB slab a step). Each form's
+    graph slope L2-resident and, for constblk and streamed, from HBM, the
+    eager slope, ``torch.add``'s graph slope, the plain version's event mean
+    and the bound (``scripts/opt_slope_probe`` / ``opt_launch_probe``, as
+    the smoke runs them); the plan; the graph slopes at every CTA count a
+    step of COPY_CTAS (``ctas_ms``, L2-resident / from HBM: the sweep behind
+    ``plan_copy``'s rule); the median of STAMP_RUNS launches' phase stamps
+    (``phase_us``). A parent without ``ctas`` is timed in turns by its own
+    ``opt_slope_probe`` / ``opt_launch_probe``.
 serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
     16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
     after one warm-up run: an unprofiled run (serve's aggregate fps and the
@@ -96,8 +107,10 @@ SERVE_CASES = [(4, 6), (8, 16), (32, 48)]
 SERVE_SEGMENT = 16
 REPS = 20
 SLOPE_N = (4, 16, 3)   # graph slopes: frames a graph, lo / hi, and replays
-GEMV_K = (256, 768, 1024)
+GEMV_K = (256, 512, 768, 1024)
 GEMV_N = (50, 450, 5)  # the split sweep's slopes: launches a graph, lo / hi, and replays
+COPY_CTAS = (1, 2, 3, 4, 6, 8, 12, 16)
+STAMP_RUNS = 5
 # Kernel families by the device kernels' names (csrc/): the split-row
 # attention's two launches, the batched frames' tensor-core GEMM, the
 # single-stream GEMV, the reducers and the LT sampling.
@@ -401,19 +414,73 @@ def profile_gemv(dev) -> None:
                 x, w = inputs[fmt][:2]
                 out = probe_gemv.gemv(xr, w, fmt)
                 res["sha256_random_x"] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
-                if fmt in probe_gemv.SPLIT_FORMATS:
-                    copies = [w] + [w.clone() for _ in range(
-                        timing.copies_past_l2(w.numel() * w.element_size()) - 1)]
-                    res["splits_ms"] = {}
-                    for sp in (s for s in range(1, probe_gemv.MAX_CLUSTER + 1)
-                               if (k // probe_gemv.STEP) % s == 0):
-                        body = lambda i, h, ws=(w,), sp=sp: probe_gemv.gemv(
-                            x, ws[i % len(ws)], fmt, splits=sp)
-                        res["splits_ms"][sp] = (slope(body, out),
-                                                slope(lambda i, h: body(i, h, copies), out))
-                    del copies
+                copies = [w] + [w.clone() for _ in range(
+                    timing.copies_past_l2(w.numel() * w.element_size()) - 1)]
+                steps = probe_gemv.plan_gemv(fmt, k, probe_int4.OUT).steps(k)
+                res["splits_ms"] = {}
+                for sp in (s for s in range(1, probe_gemv.MAX_CLUSTER + 1) if steps % s == 0):
+                    body = lambda i, h, ws=(w,), sp=sp: probe_gemv.gemv(
+                        x, ws[i % len(ws)], fmt, splits=sp)
+                    res["splits_ms"][sp] = (slope(body, out),
+                                            slope(lambda i, h: body(i, h, copies), out))
+                del copies
                 emit({"phase": "gemv", **res})
                 torch.cuda.empty_cache()
+
+
+def profile_copy(dev) -> None:
+    """Kernels 15-17 by the probes' own functions, the CTA sweep and the
+    phase stamps (see ``copy`` above); one JSON line a copy form."""
+    import torch
+
+    from magpie_tts_tpu_torch.ops.kernels import probe_copy
+    from magpie_tts_tpu_torch.scripts import opt_launch_probe, opt_slope_probe, timing
+
+    slope = lambda body, init: timing.graph_slope(body, init, *GEMV_N)["per_launch_ms"]
+    with torch.no_grad():
+        consts = opt_slope_probe.const_blocks(dev)
+        slab = torch.zeros(8, 512, 1024, dtype=torch.bfloat16, device=dev)
+        full = torch.full((opt_slope_probe.probe_b(), opt_slope_probe.WIDTH), 1e-3,
+                          dtype=torch.bfloat16, device=dev)
+        zeros = torch.zeros(32, opt_launch_probe.WIDTH, dtype=torch.bfloat16, device=dev)
+        # name: (the probe's result, grid_n, x0, the weight the launch reads or None, the key)
+        forms = {
+            "minimal": (lambda: opt_slope_probe.probe_minimal(dev), 8, full, None, None),
+            "constblk": (lambda: opt_slope_probe.probe_constblk(dev), 8, full, consts, "consts"),
+            "grid1": (lambda: opt_launch_probe.run("minimal copy kernel grid=(1,)", 32, 1, 0,
+                                                   dev), 1, zeros, None, None),
+            "grid8": (lambda: opt_launch_probe.run("minimal copy kernel grid=(8,)", 32, 8, 0,
+                                                   dev), 8, zeros, None, None),
+            "grid20": (lambda: opt_launch_probe.run("minimal copy kernel grid=(20,)", 32, 20, 0,
+                                                    dev), 20, zeros, None, None),
+            "streamed": (lambda: opt_launch_probe.run(
+                "minimal + 1MB streamed block/step grid=(8,)", 32, 8, 1, dev), 8, zeros, slab,
+                "slab")}
+        for name, (probe, g, x0, weight, key) in forms.items():
+            res = {"form": name, **probe()}
+            kw = {} if key is None else {key: weight}
+            ring = None
+            if key is not None:
+                nbytes = sum(t.numel() * 2 for t in (weight if key == "consts" else [weight]))
+                ring = [weight] + [[t.clone() for t in weight] if key == "consts" else
+                                   weight.clone()
+                                   for _ in range(timing.copies_past_l2(nbytes) - 1)]
+            res["ctas_ms"] = {}
+            for c in COPY_CTAS:
+                body = lambda i, h, c=c, ws=(weight,): probe_copy.copy(
+                    h, g, **({} if key is None else {key: ws[i % len(ws)]}), ctas=c)[0]
+                res["ctas_ms"][c] = (slope(body, x0),
+                                     slope(lambda i, h: body(i, h, ws=ring), x0) if ring else None)
+            runs = [probe_copy.copy_stamps(x0, g, ctas=None, **kw) for _ in range(STAMP_RUNS)]
+            plain = probe_copy.copy_reference(x0.cpu(), g, **{k: (
+                [t.cpu() for t in v] if k == "consts" else v.cpu()) for k, v in kw.items()})
+            res["stamped_bit_equal"] = all(torch.equal(o.cpu(), plain[0]) and
+                                           torch.equal(cs.cpu(), plain[1]) for o, cs, _ in runs)
+            phases = [probe_copy.read_phases(st) for _, _, st in runs]
+            res["phase_us"] = {k: float(np.median([ph[k] for ph in phases])) for k in phases[0]}
+            emit({"phase": "copy", **res})
+            del ring
+            torch.cuda.empty_cache()
 
 
 def profile_frame(dev) -> None:
@@ -919,10 +986,10 @@ def main() -> int:
     from magpie_tts_tpu_torch.runtime.engine import resolve_device
 
     what = args[0] if args else "all"
-    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "gemv", "serve",
-                    "admission", "all"):
+    if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "gemv", "copy",
+                    "serve", "admission", "all"):
         print("usage: python3 chip_profile.py "
-              "[frame|split|fused|stream|slope|lt|q8|gemv|serve|admission|all] [--root DIR]",
+              "[frame|split|fused|stream|slope|lt|q8|gemv|copy|serve|admission|all] [--root DIR]",
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
@@ -941,6 +1008,8 @@ def main() -> int:
         profile_q8(dev)
     if what == "gemv":
         profile_gemv(dev)
+    if what in ("copy", "all"):
+        profile_copy(dev)
     if what in ("split", "fused", "all"):
         profile_split(dev, split=what != "fused")
     if what in ("stream", "all"):

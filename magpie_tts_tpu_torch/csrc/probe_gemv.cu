@@ -18,9 +18,10 @@
 // cores. A launch in a CUDA-graph chain costs ~1 us by itself (a 49 KB
 // torch.add takes 1.05 us), so the int4 bound sits below the launch floor
 // and cannot be reached at this size; the bf16 one is about one launch.
-// What is left above the bytes is latency, and the design cuts its chain:
+// What is left above the bytes is latency, and the design cuts its chain.
 //
-// Kernels 13 (bf16) and 11 (native_int4), gemv_split_kernel:
+// All three are one kernel, gemv_split_kernel<F>, a branch a format where
+// the weight is read:
 // - K is split across the card by the plan (ops/kernels/probe_gemv.py
 //   plan_gemv, mirrored by plan_splits below: a function of K alone): a CTA
 //   owns 64 output columns and K / S rows, S the most splits, at most 4,
@@ -35,7 +36,14 @@
 //   4 L2-resident, 3 from HBM in three runs of four; int4: tied in one
 //   sweep, 3 by 2% in the other), and the rule takes 4, in bf16 the faster
 //   of the two over both settings together in every run; at K 256 in bf16, 1 split is 2.5%
-//   faster than 2 from HBM and 3-4% slower L2-resident.
+//   faster than 2 from HBM and 3-4% slower L2-resident. packed_int8 has its
+//   own rule from its own two sweeps (PERF.md §6): the most splits,
+//   at most 4, that leave a CTA 256 K rows, and at least 2 (2 at K 256 and
+//   512, 3 at 768, 4 at 1024; at K 768 3 splits 5% faster than 4 both
+//   ways, 48 x 3 = 144 CTAs, at K 256 2 faster than 1). Its split s owns byte rows
+//   [s K / 2S, (s + 1) K / 2S): K rows of the same range in their low
+//   nibbles and that range plus K / 2 in their high ones, so a split reads
+//   each byte once and x's two matching slices.
 // - The S CTAs of a column tile are one thread-block cluster along K. Each
 //   issues its whole weight slice (bf16 24 KB, int4 6 KB at K 768)
 //   as 16-byte cp.async copies into shared memory as its first act, in two
@@ -53,8 +61,14 @@
 //   signed nibble, exact). A byte holds two neighbouring columns of one k,
 //   a fragment register two k of one column, so the m16 tile's rows are
 //   permuted: row g is column 2g of the 16, row g + 8 column 2g + 1, and one
-//   byte feeds both. Each mma sums its 16 k from zero and float adds carry
-//   the total (the tensor cores truncate a chained float32 sum).
+//   byte feeds both. packed_int8: a byte holds two k of one column, so a
+//   fragment register's pair is two bytes of one column, unpermuted (tile
+//   rows padded to 80 bytes: a warp's byte reads fall in distinct banks);
+//   their low nibbles feed the mma of the low-half K rows, their high
+//   nibbles the mma of the same rows plus K / 2, and 4 pairs of byte loads
+//   a lane feed both. Each mma sums its 16 k from zero and float adds carry
+//   the total (the tensor cores truncate a chained float32 sum); packed_int8
+//   adds a step's low mma, then its high one, step by step.
 // - The cluster's [8, 64] float32 partials meet in rank 0's shared memory:
 //   each other rank pushes its fragments there, one 16-byte st.async a
 //   thread that counts its bytes on a transaction barrier (mbarrier) of
@@ -70,12 +84,6 @@
 //   1 all its weights and x in shared memory (the first half's products
 //   done), 2 its products summed, 3 the other ranks' partials landed (ranks
 //   above 0: their partial pushed), 4 its end (rank 0: the output stored).
-//
-// Kernel 12 (packed_int8), gemv_packed_kernel, keeps the SIMT design: a
-// block owns 64 output columns (8 threads across, 8 columns each) and 32
-// K-slices (the other thread index), 4 weight rows' loads in flight a
-// thread; x sits in shared memory as float. The 32 slices' sums are
-// combined in a fixed order (two warp shuffles, then the 8 warps in order).
 
 #include "cluster.cuh"
 #include "common.cuh"
@@ -87,117 +95,7 @@ constexpr int kM = 8;  // rows of x
 
 enum Format { kNativeInt4 = 0, kPackedInt8 = 1, kBf16 = 2 };
 
-// ------------------------------------------------- kernel 12 (packed_int8)
-
-constexpr int kCols = 8;                           // output columns per thread
-constexpr int kColThreads = 8;                     // threads across a block's columns
-constexpr int kSlices = 32;                        // threads along K
-constexpr int kThreads = kColThreads * kSlices;    // 256
-constexpr int kBlockCols = kCols * kColThreads;    // 64
-constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 4;                          // weight rows whose loads issue together
-
-// A 4-bit two's-complement nibble n (0..15) as a float in [-8, 8).
-__device__ __forceinline__ float nibble(unsigned v, int shift) {
-  return (float)((int)(((v >> shift) & 15u) ^ 8u) - 8);
-}
-
-__device__ __forceinline__ void fma_row(float (&acc)[kM][kCols], const float* xk, int K,
-                                        const float (&w)[kCols]) {
-#pragma unroll
-  for (int m = 0; m < kM; ++m) {
-    const float xv = xk[m * K];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-  }
-}
-
-// Grid N / 64 blocks of 256 threads; dynamic shared memory packed_smem(K).
-__global__ void __launch_bounds__(kThreads)
-gemv_packed_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ wv,
-                   float* __restrict__ out, int K, int N) {
-  extern __shared__ float sm[];
-  float* xs = sm;                  // [kM][K]
-  float* red = sm + kM * K;        // [kWarps][kM][kBlockCols]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ct = lane & (kColThreads - 1);               // column thread
-  const int slice = warp * (32 / kColThreads) + lane / kColThreads;
-  const int col0 = blockIdx.x * kBlockCols + ct * kCols;
-
-  for (int i = tid; i < kM * K; i += kThreads) xs[i] = __bfloat162float(x[i]);
-  __syncthreads();
-
-  float acc[kM][kCols];
-#pragma unroll
-  for (int m = 0; m < kM; ++m) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[m][j] = 0.f;
-  }
-  const int half = K / 2, per = half / kSlices;
-  const signed char* P = static_cast<const signed char*>(wv);
-  for (int r0 = slice * per; r0 < (slice + 1) * per; r0 += kBatch) {
-    uint2 raw[kBatch];
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      raw[b] = __ldg(reinterpret_cast<const uint2*>(P + (size_t)(r0 + b) * N + col0));
-    }
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      float lo[kCols], hi[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const unsigned word = j < 4 ? raw[b].x : raw[b].y;
-        lo[j] = nibble(word, 8 * (j & 3));
-        hi[j] = nibble(word, 8 * (j & 3) + 4);
-      }
-      fma_row(acc, xs + r0 + b, K, lo);
-      fma_row(acc, xs + r0 + b + half, K, hi);
-    }
-  }
-  // Combine the 4 slices of a warp (lane bits 3 and 4), then the 8 warps.
-#pragma unroll
-  for (int m = 0; m < kM; ++m) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(MAGPIE_FULL_MASK, v, 8);
-      v += __shfl_xor_sync(MAGPIE_FULL_MASK, v, 16);
-      acc[m][j] = v;
-    }
-  }
-  if (lane < kColThreads) {
-#pragma unroll
-    for (int m = 0; m < kM; ++m) {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) red[(warp * kM + m) * kBlockCols + ct * kCols + j] = acc[m][j];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < kM * kBlockCols; i += kThreads) {
-    float o = red[i];
-    for (int w = 1; w < kWarps; ++w) o += red[w * kM * kBlockCols + i];
-    const int m = i / kBlockCols, c = i % kBlockCols;
-    out[(size_t)m * N + blockIdx.x * kBlockCols + c] = o;
-  }
-}
-
-int packed_smem(int K) { return (kM * K + kWarps * kM * kBlockCols) * (int)sizeof(float); }
-
-bool shape_ok(int K, int N) {
-  // K: a multiple of 256 in [256, 1024]; N: whole 64-column tiles.
-  return K >= 256 && K <= 1024 && K % 256 == 0 && N >= kBlockCols && N % kBlockCols == 0;
-}
-
-int gemv_packed(const void* x, const void* w, float* out, int K, int N, cudaStream_t st) {
-  // 32 slices of whole kBatch row groups of K / 2; x and the partial sums in
-  // 48 KB of shared memory.
-  if (!shape_ok(K, N)) return (int)cudaErrorInvalidValue;
-  gemv_packed_kernel<<<N / kBlockCols, kThreads, packed_smem(K), st>>>(
-      static_cast<const __nv_bfloat16*>(x), w, out, K, N);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------ kernels 11 and 13 (native_int4, bf16)
+// -------------------------- kernels 11-13 (native_int4, packed_int8, bf16)
 
 constexpr int kTile = 64;                    // output columns a CTA
 constexpr int kSplitWarps = kTile / 16;      // a warp an m16 tile of columns
@@ -206,18 +104,41 @@ constexpr int kStep = 16;                    // K of one mma
 constexpr int kMaxCluster = 8;               // the portable cluster size: the most splits
 constexpr int kPlanSplits = 4;               // the plan's most splits
 constexpr int kMinRows = 128;                // the plan's fewest K rows a CTA
+constexpr int kPackedMinRows = 256;          // packed_int8: the same, in 8 byte-row steps
+constexpr int kPackedMinSplits = 2;          // packed_int8: the plan's fewest splits
 constexpr int kGemvStamps = 5;
 constexpr int kWStride = kTile + 8;          // bf16 tile row: 144 bytes
 constexpr int kW4Stride = 48;                // int4 tile row: 32 bytes + 16
+constexpr int kP8Stride = 80;                // packed tile row: 64 bytes + 16
+
+bool shape_ok(int K, int N) {
+  // K: a multiple of 256 in [256, 1024]; N: whole 64-column tiles.
+  return K >= 256 && K <= 1024 && K % 256 == 0 && N >= kTile && N % kTile == 0;
+}
 
 // The K split of plan_gemv (ops/kernels/probe_gemv.py): the most splits,
-// at most kPlanSplits, that leave a CTA kMinRows rows. K is a multiple of
-// 256 (shape_ok), so the split divides K / kStep.
-int plan_splits(int K) { return K / kMinRows < kPlanSplits ? K / kMinRows : kPlanSplits; }
+// at most kPlanSplits, that leave a CTA kMinRows rows; for packed_int8
+// kPackedMinRows rows, and at least kPackedMinSplits. K is a multiple of 256
+// (shape_ok), so the split divides K / kStep and, for packed_int8, the byte
+// rows' steps K / 2 / kStep.
+int plan_splits(int F, int K) {
+  if (F == kPackedInt8) {
+    const int s = K / kPackedMinRows;
+    return s < kPackedMinSplits ? kPackedMinSplits : s > kPlanSplits ? kPlanSplits : s;
+  }
+  return K / kMinRows < kPlanSplits ? K / kMinRows : kPlanSplits;
+}
 
+// Rows of a CTA's weight tile: its K rows, or for packed_int8 its byte rows,
+// each holding two of its K rows (one from each half of K).
+template <int F>
+__host__ __device__ constexpr int tile_rows(int kchunk) {
+  return F == kPackedInt8 ? kchunk / 2 : kchunk;
+}
 template <int F>
 __host__ __device__ constexpr int w_tile_bytes(int kchunk) {
-  return F == kBf16 ? kchunk * kWStride * 2 : kchunk * kW4Stride;
+  return F == kBf16 ? kchunk * kWStride * 2
+                    : F == kPackedInt8 ? tile_rows<F>(kchunk) * kP8Stride : kchunk * kW4Stride;
 }
 __host__ __device__ constexpr int x_stride(int kchunk) { return kchunk + 8; }
 template <int F>
@@ -261,11 +182,18 @@ __device__ __forceinline__ uint32_t widen_nibbles(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// This CTA's 16-byte copies of weight rows [r0, r1) of its slice.
+// This CTA's 16-byte copies of tile rows [r0, r1) of its slice, whose first
+// stored row is k0.
 template <int F>
 __device__ __forceinline__ void copy_rows(const GemvCall& a, unsigned char* wt, int k0, int col0,
                                           int r0, int r1) {
-  if (F == kBf16) {
+  if (F == kPackedInt8) {
+    const unsigned char* W = static_cast<const unsigned char*>(a.w) + (size_t)k0 * a.N + col0;
+    for (int i = r0 * (kTile / 16) + threadIdx.x; i < r1 * (kTile / 16); i += kSplitThreads) {
+      const int r = i >> 2, c = (i & 3) * 16;
+      conv_mma::cp_async<16>(wt + r * kP8Stride + c, W + (size_t)r * a.N + c, true);
+    }
+  } else if (F == kBf16) {
     const __nv_bfloat16* W = static_cast<const __nv_bfloat16*>(a.w) + (size_t)k0 * a.N + col0;
     __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(wt);
     for (int i = r0 * (kTile / 8) + threadIdx.x; i < r1 * (kTile / 8); i += kSplitThreads) {
@@ -282,16 +210,38 @@ __device__ __forceinline__ void copy_rows(const GemvCall& a, unsigned char* wt, 
   }
 }
 
-// The products of weight rows [r0, r1) (whole mma steps) added to acc.
+// The products of tile rows [r0, r1) (whole mma steps) added to acc. For
+// packed_int8 a step of byte rows is two mmas, the low nibbles' K rows (x's
+// slice from column kk) then the high nibbles' (x's from hi + kk).
 template <int F>
 __device__ __forceinline__ void products(float (&acc)[4], const unsigned char* wt,
-                                         const __nv_bfloat16* xs, int xstr, int r0, int r1) {
+                                         const __nv_bfloat16* xs, int xstr, int hi, int r0,
+                                         int r1) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll 4
   for (int kk = r0; kk < r1; kk += kStep) {
     uint32_t af[4], bf[2];
+    float d[4];
     ldsm_x2(bf, xs + (lane & 7) * xstr + kk + ((lane >> 3) & 1) * 8);
-    if (F == kBf16) {
+    if (F == kPackedInt8) {
+      // byte rows kk + 2t, + 1, + 8, + 9 at columns g (m-row g) and g + 8
+      // (m-row g + 8) of the warp's 16: a fragment register's pair of k is
+      // two bytes of one column, their low nibbles for the low mma and their
+      // high nibbles for the high one
+      const unsigned char* p = wt + (kk + 2 * t) * kP8Stride + warp * 16 + g;
+      const uint32_t v[4] = {(uint32_t)p[0] | ((uint32_t)p[kP8Stride] << 16),
+                             (uint32_t)p[8] | ((uint32_t)p[kP8Stride + 8] << 16),
+                             (uint32_t)p[8 * kP8Stride] | ((uint32_t)p[9 * kP8Stride] << 16),
+                             (uint32_t)p[8 * kP8Stride + 8] | ((uint32_t)p[9 * kP8Stride + 8] << 16)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) af[j] = widen_nibbles(v[j] & 0x000f000fu);
+      conv_mma::mma_bf16_zero(d, af, bf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += d[j];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) af[j] = widen_nibbles((v[j] >> 4) & 0x000f000fu);
+      ldsm_x2(bf, xs + (lane & 7) * xstr + hi + kk + ((lane >> 3) & 1) * 8);
+    } else if (F == kBf16) {
       const int q = lane >> 3;
       ldsm_x4_trans(af, reinterpret_cast<const __nv_bfloat16*>(wt) +
                             (kk + (lane & 7) + 8 * (q >> 1)) * kWStride + warp * 16 + 8 * (q & 1));
@@ -306,7 +256,6 @@ __device__ __forceinline__ void products(float (&acc)[4], const unsigned char* w
       af[2] = widen_nibbles(lo89 & 0x000f000fu);
       af[3] = widen_nibbles((lo89 >> 4) & 0x000f000fu);
     }
-    float d[4];
     conv_mma::mma_bf16_zero(d, af, bf);
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[j] += d[j];
@@ -323,22 +272,26 @@ __global__ void __launch_bounds__(kSplitThreads) gemv_split_kernel(GemvCall a) {
   stamp(a, 0);
   const int tid = threadIdx.x;
   const int rank = cluster_rank();
-  const int kc = a.kchunk, k0 = blockIdx.x * kc, col0 = blockIdx.y * kTile;
-  const int half = kc / (2 * kStep) * kStep;  // rows of the first stage: half the mma steps
+  const int kc = a.kchunk, col0 = blockIdx.y * kTile;
+  const int rows = tile_rows<F>(kc), k0 = blockIdx.x * rows;  // the slice's first stored row
+  const int half = rows / (2 * kStep) * kStep;  // rows of the first stage: half the mma steps
   unsigned char* wt = smem;
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + w_tile_bytes<F>(kc));
   float* red = reinterpret_cast<float*>(smem + w_tile_bytes<F>(kc) + kM * x_stride(kc) * 2);
 
   // Every weight byte of the slice in flight at once, in two cp.async groups:
-  // the first half of the rows, then x's slice with it, then the rest.
+  // the first half of the rows, then x's slice with it, then the rest. x's
+  // slice is kc columns: for packed_int8 columns [k0, k0 + rows) of x, then
+  // the same from K / 2 on.
   copy_rows<F>(a, wt, k0, col0, 0, half);
   const int xv = kc / 8;  // 16-byte copies a row of x's slice
   for (int i = tid; i < kM * xv; i += kSplitThreads) {
     const int m = i / xv, c = (i - m * xv) * 8;
-    conv_mma::cp_async<16>(xs + m * x_stride(kc) + c, a.x + (size_t)m * a.K + k0 + c, true);
+    const int src = c < rows ? k0 + c : a.K / 2 + k0 + c - rows;
+    conv_mma::cp_async<16>(xs + m * x_stride(kc) + c, a.x + (size_t)m * a.K + src, true);
   }
   conv_mma::cp_async_commit();
-  copy_rows<F>(a, wt, k0, col0, half, kc);
+  copy_rows<F>(a, wt, k0, col0, half, rows);
   conv_mma::cp_async_commit();
   if (rank == 0 && tid == 0) {
     // the other ranks' partials complete this phase: one arrival, their bytes
@@ -352,11 +305,11 @@ __global__ void __launch_bounds__(kSplitThreads) gemv_split_kernel(GemvCall a) {
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   conv_mma::cp_async_wait<1>();
   __syncthreads();
-  products<F>(acc, wt, xs, x_stride(kc), 0, half);
+  products<F>(acc, wt, xs, x_stride(kc), rows, 0, half);
   conv_mma::cp_async_wait<0>();
   __syncthreads();
   stamp(a, 1);
-  products<F>(acc, wt, xs, x_stride(kc), half, kc);
+  products<F>(acc, wt, xs, x_stride(kc), rows, half, rows);
   stamp(a, 2);
 
   // acc: rows 2t, 2t + 1 of out at column lo (acc 0, 1) and hi (acc 2, 3).
@@ -382,8 +335,8 @@ __global__ void __launch_bounds__(kSplitThreads) gemv_split_kernel(GemvCall a) {
     acc[3] += p.w;
   }
   const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int lo = F == kBf16 ? warp * 16 + g : warp * 16 + 2 * g;
-  const int hi = F == kBf16 ? lo + 8 : lo + 1;
+  const int lo = F == kNativeInt4 ? warp * 16 + 2 * g : warp * 16 + g;
+  const int hi = F == kNativeInt4 ? lo + 1 : lo + 8;
   float* o = a.out + col0;
   o[(size_t)2 * t * a.N + lo] = acc[0];
   o[(size_t)(2 * t + 1) * a.N + lo] = acc[1];
@@ -395,7 +348,7 @@ __global__ void __launch_bounds__(kSplitThreads) gemv_split_kernel(GemvCall a) {
 template <int F>
 int gemv_split(GemvCall a, cudaStream_t st) {
   if (!shape_ok(a.K, a.N) || a.splits < 1 || a.splits > kMaxCluster ||
-      (a.K / kStep) % a.splits || a.N / kTile > 65535 ||
+      (tile_rows<F>(a.K) / kStep) % a.splits || a.N / kTile > 65535 ||
       reinterpret_cast<uintptr_t>(a.x) % 16 || reinterpret_cast<uintptr_t>(a.w) % 16) {
     return (int)cudaErrorInvalidValue;
   }
@@ -439,27 +392,29 @@ GemvCall make_call(const void* x, const void* w, float* out, int K, int N, int s
 // float32.
 extern "C" int magpie_probe_gemv_native_int4(const void* x, const void* w, float* out, int K,
                                              int N, void* stream) {
-  return gemv_split<kNativeInt4>(make_call(x, w, out, K, N, plan_splits(K), nullptr),
+  return gemv_split<kNativeInt4>(make_call(x, w, out, K, N, plan_splits(kNativeInt4, K), nullptr),
                                  static_cast<cudaStream_t>(stream));
 }
 extern "C" int magpie_probe_gemv_packed_int8(const void* x, const void* w, float* out, int K,
                                              int N, void* stream) {
-  return gemv_packed(x, w, out, K, N, static_cast<cudaStream_t>(stream));
+  return gemv_split<kPackedInt8>(make_call(x, w, out, K, N, plan_splits(kPackedInt8, K), nullptr),
+                                 static_cast<cudaStream_t>(stream));
 }
 extern "C" int magpie_probe_gemv_bf16(const void* x, const void* w, float* out, int K, int N,
                                       void* stream) {
-  return gemv_split<kBf16>(make_call(x, w, out, K, N, plan_splits(K), nullptr),
+  return gemv_split<kBf16>(make_call(x, w, out, K, N, plan_splits(kBf16, K), nullptr),
                            static_cast<cudaStream_t>(stream));
 }
-// Kernels 11 and 13 with the split given (plan_gemv's, or another for a
-// sweep) and optional phase stamps: fmt 0 native_int4, 2 bf16; stamps null
-// or [splits * N / 64, 5] uint64.
+// Kernels 11-13 with the split given (plan_gemv's, or another for a sweep)
+// and optional phase stamps: fmt 0 native_int4, 1 packed_int8, 2 bf16;
+// stamps null or [splits * N / 64, 5] uint64.
 extern "C" int magpie_probe_gemv_split(int fmt, const void* x, const void* w, float* out, int K,
                                        int N, int splits, unsigned long long* stamps,
                                        void* stream) {
   const GemvCall a = make_call(x, w, out, K, N, splits, stamps);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fmt == kNativeInt4) return gemv_split<kNativeInt4>(a, st);
+  if (fmt == kPackedInt8) return gemv_split<kPackedInt8>(a, st);
   if (fmt == kBf16) return gemv_split<kBf16>(a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,13 +16,13 @@ The weight formats (``FORMATS``) and their storage:
 
 A nibble n is the signed value ``(n ^ 8) - 8``.
 
-Kernels 13 (``bf16``) and 11 (``native_int4``) split K across the card:
+All three kernels split K across the card in one kernel body:
 ``plan_gemv(fmt, K, N)`` gives the column tile, the K split and the
 cluster (the CTAs of a tile, one a split, meet in rank 0's shared memory and
-are summed there in rank order); ``split_model`` is a CPU model of that sum
-order. ``gemv_stamps`` runs one launch with per-block phase stamps
-(``read_phases``). Kernel 12 (``packed_int8``) keeps its SIMT kernel: a
-block of 64 columns, K in 32 slices inside it.
+are summed there in rank order); a ``packed_int8`` split reads byte rows
+that hold two ranges of K (``GemvPlan.bounds``); ``split_model`` is a CPU
+model of the sum order. ``gemv_stamps`` runs one launch with per-block
+phase stamps (``read_phases``).
 """
 
 from __future__ import annotations
@@ -40,27 +40,29 @@ FORMATS = ("native_int4", "packed_int8", "bf16")
 M = 8  # rows of x, as the probe has them
 launches = 0  # kernel launches since the last reset
 format_launches = dict.fromkeys(FORMATS, 0)  # the same, by weight format
-SPLIT_FORMATS = ("native_int4", "bf16")  # kernels 11 and 13: K split across a cluster
-# csrc/probe_gemv.cu: output columns a CTA (and a kernel-12 block), K rows of
-# an mma step, the largest cluster (the most splits a launch takes), the
-# plan's most splits and fewest K rows a CTA, phase stamps a block, the C
-# format codes of the split entry point.
+# csrc/probe_gemv.cu: output columns a CTA, K rows of an mma step, the
+# largest cluster (the most splits a launch takes), the plan's most splits
+# and fewest K rows a CTA, phase stamps a block, the C format codes of the
+# split entry point.
 TILE = 64
 STEP = 16
 MAX_CLUSTER = 8
 PLAN_SPLITS = 4
 MIN_ROWS = 128
+PACKED_MIN_ROWS = 256  # packed_int8: its own fewest K rows a CTA and fewest splits
+PACKED_MIN_SPLITS = 2
 STAMPS = 5
 STAMP_NAMES = ("start", "landed", "products", "partials", "end")
-_FMT_CODE = {"native_int4": 0, "bf16": 2}
+_FMT_CODE = {"native_int4": 0, "packed_int8": 1, "bf16": 2}
 
 
 @dataclasses.dataclass(frozen=True)
 class GemvPlan:
     tile: int     # output columns a CTA
     tiles: int    # column tiles: N / tile
-    splits: int   # K splits: CTAs of a tile's cluster (1: kernel 12, no cluster)
+    splits: int   # K splits: CTAs of a tile's cluster
     kchunk: int   # K rows a CTA
+    packed: bool = False  # packed_int8: a CTA's byte rows hold two ranges of K
 
     @property
     def cluster(self) -> int:
@@ -71,8 +73,18 @@ class GemvPlan:
         return self.tiles * self.splits
 
     def bounds(self):
-        """[(first row, end row)] of each split of K, in rank order."""
-        return [(r * self.kchunk, (r + 1) * self.kchunk) for r in range(self.splits)]
+        """The K rows of each split, in rank order: (first row, end row), or
+        for packed_int8 ((first, end) of the low nibbles' rows, (first, end)
+        of the high nibbles', the same plus K / 2)."""
+        if not self.packed:
+            return [(r * self.kchunk, (r + 1) * self.kchunk) for r in range(self.splits)]
+        h, half = self.kchunk // 2, self.splits * self.kchunk // 2
+        return [((r * h, (r + 1) * h), (half + r * h, half + (r + 1) * h))
+                for r in range(self.splits)]
+
+    def steps(self, K: int) -> int:
+        """mma steps a split must divide: of K rows, or of packed byte rows."""
+        return (K // 2 if self.packed else K) // STEP
 
 
 def _check_shape(K: int, N: int) -> None:
@@ -83,21 +95,24 @@ def _check_shape(K: int, N: int) -> None:
 
 @functools.lru_cache(maxsize=None)
 def plan_gemv(fmt: str, K: int, N: int) -> GemvPlan:
-    """The launch plan of a format at (K, N): for kernels 11 and 13 N / TILE
-    column tiles x the most splits of K, at most PLAN_SPLITS, that leave a
-    CTA MIN_ROWS rows (csrc/probe_gemv.cu plan_splits: 2 at K 256, 4 at K
-    512 to 1024; K a multiple of 256, so they are whole mma steps), the rule
-    a sweep of every split measured fastest on an H100 (PERF.md §6); kernel
-    12 has one block a tile. A function of the format and the shapes alone,
-    so the sum order, and the bits, are fixed by them."""
+    """The launch plan of a format at (K, N): N / TILE column tiles x the
+    most splits of K, at most PLAN_SPLITS, that leave a CTA MIN_ROWS rows
+    (csrc/probe_gemv.cu plan_splits: 2 at K 256, 4 at K 512 to 1024); for
+    packed_int8 PACKED_MIN_ROWS rows, and at least PACKED_MIN_SPLITS (2 at
+    K 256 and 512, 3 at 768, 4 at 1024). K is a multiple of 256, so they are
+    whole mma steps, of packed byte rows too. The rules are what sweeps of
+    every split measured fastest on an H100 (PERF.md §6). A
+    function of the format and the shapes alone, so the sum order, and the
+    bits, are fixed by them."""
     _check_shape(K, N)
-    tiles = N // TILE
-    if fmt == "packed_int8":
-        return GemvPlan(tile=TILE, tiles=tiles, splits=1, kchunk=K)
-    if fmt not in SPLIT_FORMATS:
+    if fmt not in FORMATS:
         raise ValueError(f"probe_gemv: unknown format {fmt!r}, want one of {FORMATS}")
-    splits = min(PLAN_SPLITS, K // MIN_ROWS)
-    return GemvPlan(tile=TILE, tiles=tiles, splits=splits, kchunk=K // splits)
+    if fmt == "packed_int8":
+        splits = min(PLAN_SPLITS, max(PACKED_MIN_SPLITS, K // PACKED_MIN_ROWS))
+    else:
+        splits = min(PLAN_SPLITS, K // MIN_ROWS)
+    return GemvPlan(tile=TILE, tiles=N // TILE, splits=splits, kchunk=K // splits,
+                    packed=fmt == "packed_int8")
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -159,21 +174,26 @@ def dims(w: torch.Tensor, fmt: str):
 
 
 def split_model(x: torch.Tensor, w: torch.Tensor, fmt: str, plan=None) -> torch.Tensor:
-    """A CPU model of kernels 11 / 13's sum order: each split's float32
+    """A CPU model of kernels 11-13's sum order: each split's float32
     partial of x[:, rows] @ W[rows] over its rows (``plan.bounds()``), 16
     rows (one mma) at a time summed exactly and rounded to float32, the steps
-    added in order; then the splits added in rank order. The tensor cores'
-    rounding inside an mma is not modelled (within 1e-5 of the largest value
-    in bf16; exact for integer weights and small-integer x, where every sum
-    is an integer below 2^24). ``plan`` defaults to the format's."""
+    added in order (packed_int8: a byte-row step's low-nibble rows, then its
+    high-nibble rows, step by step); then the splits added in rank order.
+    The tensor cores' rounding inside an mma is not modelled (within 1e-5 of
+    the largest value in bf16; exact for integer weights and small-integer
+    x, where every sum is an integer below 2^24). ``plan`` defaults to the
+    format's."""
     xf, wf = x.double().cpu(), unpack(w, fmt).double().cpu()
     K, N = wf.shape
     plan = plan_gemv(fmt, K, N) if plan is None else plan
     out = None
-    for k0, k1 in plan.bounds():
+    for ranges in plan.bounds():
+        ranges = ranges if plan.packed else (ranges,)
         part = torch.zeros(xf.shape[0], N, dtype=torch.float32)
-        for k in range(k0, k1, STEP):
-            part = part + (xf[:, k:k + STEP] @ wf[k:k + STEP]).float()
+        for step in range(0, ranges[0][1] - ranges[0][0], STEP):
+            for k0, _ in ranges:
+                k = k0 + step
+                part = part + (xf[:, k:k + STEP] @ wf[k:k + STEP]).float()
         out = part if out is None else out + part
     return out.to(x.device)
 
@@ -198,26 +218,24 @@ def _check_inputs(x: torch.Tensor, w: torch.Tensor, fmt: str):
 
 def gemv(x: torch.Tensor, w: torch.Tensor, fmt: str, splits=None, stamps=None) -> torch.Tensor:
     """x [8, K] bf16, w in ``fmt``'s storage -> x @ W [8, N] float32.
-    Kernels 11 / 13 only: ``splits``, a K split other than the plan's (a
-    divisor of K / 16, at most 8: for sweeps and tests); ``stamps``, a
-    zeroed int64 [splits * N / 64, STAMPS] tensor for the phase stamps."""
+    ``splits``, a K split other than the plan's (a divisor of the plan's mma
+    steps, K / 16 or for packed_int8 K / 32, at most 8: for sweeps and
+    tests); ``stamps``, a zeroed int64 [splits * N / 64, STAMPS] tensor for
+    the phase stamps."""
     global launches
     if x.device.type == "cpu":
         return gemv_reference(x, w, fmt)
     K, N = _check_inputs(x, w, fmt)
     if x.data_ptr() % 16:
-        # kernels 11 / 13 copy x by 16-byte cp.async: a view at an unaligned
+        # the kernels copy x by 16-byte cp.async: a view at an unaligned
         # offset goes to a fresh (aligned) buffer on the card first
         x = x.clone()
-    if (splits is not None or stamps is not None) and fmt not in SPLIT_FORMATS:
-        raise ValueError(f"probe_gemv: {fmt} takes no split or stamps (kernel 12 has no "
-                         f"cluster)")
     plan = plan_gemv(fmt, K, N)
     split_entry = splits is not None or stamps is not None
     splits = plan.splits if splits is None else int(splits)
-    if not (1 <= splits <= MAX_CLUSTER and (K // STEP) % splits == 0):
-        raise ValueError(f"probe_gemv: splits {splits} must divide K / {STEP} = {K // STEP} and "
-                         f"be at most {MAX_CLUSTER}")
+    if not (1 <= splits <= MAX_CLUSTER and plan.steps(K) % splits == 0):
+        raise ValueError(f"probe_gemv: splits {splits} must divide the {plan.steps(K)} mma "
+                         f"steps of {fmt} at K {K} and be at most {MAX_CLUSTER}")
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != x.device
                                or tuple(stamps.shape) != (plan.tiles * splits, STAMPS)
                                or not stamps.is_contiguous()):
@@ -241,7 +259,7 @@ def gemv(x: torch.Tensor, w: torch.Tensor, fmt: str, splits=None, stamps=None) -
 
 
 def gemv_stamps(x: torch.Tensor, w: torch.Tensor, fmt: str, splits=None):
-    """One launch of kernel 11 or 13 on a card with phase stamps: (out, int64
+    """One launch of kernels 11-13 on a card with phase stamps: (out, int64
     [CTAs, STAMPS] %globaltimer ns: start, all weights and x landed,
     products summed, the other ranks' partials landed in rank 0 (the other
     ranks: theirs pushed), end)."""
@@ -252,13 +270,14 @@ def gemv_stamps(x: torch.Tensor, w: torch.Tensor, fmt: str, splits=None):
     return gemv(x, w, fmt, splits=splits, stamps=stamps), stamps
 
 
-def read_phases(stamps: torch.Tensor) -> dict:
-    """us from the first CTA's start to the last CTA's reaching each stamp,
-    and the median CTA's us from its own start."""
+def read_phases(stamps: torch.Tensor, names=STAMP_NAMES) -> dict:
+    """us from the first CTA's start to the last CTA's reaching each stamp
+    (``names``: the stamps' phases), and the median CTA's us from its own
+    start."""
     t = stamps.cpu().double()
     t0 = float(t[:, 0].min())
     res = {}
-    for i, name in enumerate(STAMP_NAMES):
+    for i, name in enumerate(names):
         res[f"{name}_last_us"] = (float(t[:, i].max()) - t0) / 1e3
         res[f"{name}_median_us"] = float((t[:, i] - t[:, 0]).median()) / 1e3
     res["ctas"] = int(t.shape[0])

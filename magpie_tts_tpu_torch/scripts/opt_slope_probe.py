@@ -89,14 +89,17 @@ def const_blocks(device) -> list:
 def copy_yardsticks(device, x0, grid_n: int, n_lo: int, n_hi: int, reps: int, consts=(),
                     slab=None) -> dict:
     """Beside a copy probe's slopes: its bound (x read, out written, the
-    constant blocks or slabs read once), the plain version's CUDA-event mean
-    and the graph slope of one ``torch.add`` a launch (the library call)."""
+    constant blocks or slabs read once), the plain version's CUDA-event mean,
+    the graph slope of one ``torch.add`` a launch (the library call) and the
+    kernel's launch plan (``probe_copy.plan_for``)."""
     nbytes = 2 * x0.numel() * x0.element_size() + 4 * grid_n + sum(
         t.numel() * t.element_size() for t in (*consts, *(() if slab is None else (slab,))))
     plain = timing.event_mean(lambda: probe_copy.copy_reference(x0, grid_n, consts, slab), 3,
                               warmup=1, device=device)
     library = timing.graph_slope(lambda i, h: torch.add(h, grid_n - 1), x0, n_lo, n_hi, reps)
-    return {"bound": timing.bound(nbytes), "plain_ms": plain, "library": library}
+    plan = probe_copy.plan_for(x0, grid_n, consts, slab)
+    return {"bound": timing.bound(nbytes), "plain_ms": plain, "library": library,
+            "plan": {"grid_n": plan.grid_n, "ctas": plan.ctas, "blocks": plan.blocks}}
 
 
 def probe_minimal(device, n_lo: int = N_LO, n_hi: int = N_HI, reps: int = REPS) -> dict:
@@ -107,13 +110,20 @@ def probe_minimal(device, n_lo: int = N_LO, n_hi: int = N_HI, reps: int = REPS) 
 
 
 def probe_constblk(device, n_lo: int = N_LO, n_hi: int = N_HI, reps: int = REPS) -> dict:
+    """The const-block copy; beside its slopes the graph slope with the
+    blocks read from HBM (``graph_hbm``: launch i reads set i of enough
+    copies of the 10 blocks to pass the L2)."""
     ws = const_blocks(device)
     x0 = torch.full((probe_b(), WIDTH), 1e-3, dtype=DT, device=device)
-    body = lambda i, h: probe_copy.copy(h, 8, consts=ws)[0]
     nbytes = sum(w.numel() for w in ws) * 2
-    return slopes(f"+10 const blocks ({nbytes / 1e6:.2f}MB) grid=(8,)", body, x0, n_lo, n_hi,
-                  reps, const_bytes=nbytes,
-                  **copy_yardsticks(device, x0, 8, n_lo, n_hi, reps, consts=ws))
+    sets = [ws] + [[w.clone() for w in ws] for _ in range(timing.copies_past_l2(nbytes) - 1)]
+    body = lambda i, h, sets=(ws,): probe_copy.copy(h, 8, consts=sets[i % len(sets)])[0]
+    hbm = timing.graph_slope(lambda i, h: body(i, h, sets), x0, n_lo, n_hi, reps)
+    res = slopes(f"+10 const blocks ({nbytes / 1e6:.2f}MB) grid=(8,)", body, x0, n_lo, n_hi,
+                 reps, const_bytes=nbytes, graph_hbm=hbm, hbm_copies=len(sets),
+                 **copy_yardsticks(device, x0, 8, n_lo, n_hi, reps, consts=ws))
+    del sets
+    return res
 
 
 # ------------------------------------------------------------ frame kernels

@@ -12,8 +12,8 @@ one ``torch.matmul`` of bf16 x and the bf16 weight (cuBLAS; for the nibble
 formats on the weight widened up front, four times their bytes) and the main
 path's batched GEMM (``batched_gemm.batched_gemm`` on the bf16 weight at
 B = 8: its split-K partials, not reduced), timed by graph slope L2-resident
-and from HBM; the plan (``plan_gemv``) and, for kernels 11 and 13, the
-median of STAMP_RUNS launches' phase stamps (``phase_us``). ``--k`` sets the inner width (the TPU
+and from HBM; the plan (``plan_gemv``) and the median of STAMP_RUNS
+launches' phase stamps (``phase_us``). ``--k`` sets the inner width (the TPU
 probe's is 768; 256 to 1024 in steps of 256).
 
     python -m magpie_tts_tpu_torch.scripts.probe_int4 [--k 768 ...] [--device cuda|cpu]
@@ -71,8 +71,8 @@ def gemv_work(w: torch.Tensor) -> tuple:
 def probe(fmt: str, device, n_lo: int = N_LO, n_hi: int = N_HI, reps: int = timing.REPS,
           timed_n: int = TIMED_N, k: int = IN) -> dict:
     """One format at inner width k: error, times (event mean, graph L2,
-    graph HBM), plain, cuBLAS, the main path's batched GEMM, bound, and for
-    kernels 11 / 13 the plan and phase stamps. Times in ms."""
+    graph HBM), plain, cuBLAS, the main path's batched GEMM, bound, the plan
+    and, on a card, phase stamps. Times in ms."""
     x, w, wb, wint = make_inputs(device, k)[fmt]
     out = probe_gemv.gemv(x, w, fmt)
     plain = probe_gemv.gemv_reference(x, w, fmt)
@@ -110,7 +110,7 @@ def probe(fmt: str, device, n_lo: int = N_LO, n_hi: int = N_HI, reps: int = timi
     res["main_gemm_splits"] = batched_gemm.plan_gemm(k, OUT).splits
     res["plan"] = {"tile": plan.tile, "tiles": plan.tiles, "splits": plan.splits,
                    "kchunk": plan.kchunk, "ctas": plan.ctas}
-    if fmt in probe_gemv.SPLIT_FORMATS and device.type == "cuda":
+    if device.type == "cuda":
         runs = [probe_gemv.gemv_stamps(x, w, fmt) for _ in range(STAMP_RUNS)]
         res["stamped_bit_equal"] = all(bool(torch.equal(o, out)) for o, _ in runs)
         phases = [probe_gemv.read_phases(st) for _, st in runs]

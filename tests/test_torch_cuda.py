@@ -962,6 +962,65 @@ def test_probe_copy_kernel_bit_equal_plain(cuda, grid_n, variant):
         assert bool((h == 764).all())
 
 
+def _copy_kwargs(variant: str, grid_n: int, device) -> dict:
+    gen = torch.Generator(device=device).manual_seed(grid_n)
+    if variant == "constblk":
+        return {"consts": opt_slope_probe.const_blocks(device)}
+    if variant == "streamed":
+        return {"slab": torch.randn(grid_n, 512, 1024, generator=gen, device=device).to(BF)}
+    return {}
+
+
+@pytest.mark.parametrize("grid_n", [1, 8, 20])
+@pytest.mark.parametrize("variant", probe_copy.VARIANTS)
+def test_probe_copy_every_cluster_size(cuda, variant, grid_n):
+    """Kernels 15-17 at every CTA count a step a launch takes (1 to 16,
+    clusters above 8 non-portable), 3 chained launches each from a random x:
+    output and every step's checksum bit-equal to plain, whatever the
+    count."""
+    kw = _copy_kwargs(variant, grid_n, cuda)
+    x0 = torch.randn(32, 768, generator=torch.Generator(device=cuda).manual_seed(7),
+                     device=cuda).to(BF)
+    want = [x0]
+    sums = []
+    for _ in range(3):
+        out, cs = probe_copy.copy_reference(want[-1], grid_n, **kw)
+        want.append(out)
+        sums.append(cs)
+    for ctas in range(1, probe_copy.MAX_CLUSTER + 1):
+        h = x0
+        for n in range(3):
+            h, cs = probe_copy.copy(h, grid_n, ctas=ctas, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(cs, sums[n]), (ctas, n)
+        assert torch.equal(h, want[-1]), ctas
+
+
+@pytest.mark.parametrize("variant", probe_copy.VARIANTS)
+def test_probe_copy_phase_stamps(cuda, variant):
+    """The stamped launch gives the plain launch's bits; every CTA of the
+    plan stamps its five phases in order."""
+    kw = _copy_kwargs(variant, 8, cuda)
+    x = torch.randn(32, 768, device=cuda).to(BF)
+    out, cs = probe_copy.copy(x, 8, **kw)
+    out_s, cs_s, st = probe_copy.copy_stamps(x, 8, **kw)
+    torch.cuda.synchronize()
+    st = st.cpu()
+    assert torch.equal(out, out_s) and torch.equal(cs, cs_s)
+    assert st.shape == (probe_copy.plan_for(x, 8, **kw).blocks, probe_copy.STAMPS)
+    assert bool((st > 0).all()) and bool((st[:, 1:] >= st[:, :-1]).all())
+    assert 0 < probe_copy.read_phases(st)["end_last_us"] < 1e5
+
+
+def test_probe_copy_rejects_bad_plans(cuda):
+    x = torch.zeros(32, 768, dtype=BF, device=cuda)
+    for ctas in (0, 17):
+        with pytest.raises(ValueError):
+            probe_copy.copy(x, 8, ctas=ctas)
+    with pytest.raises(ValueError):
+        probe_copy.copy(x, 8, stamps=torch.zeros(3, 5, dtype=torch.int64, device=cuda))
+
+
 def test_probe_wrappers_reject_bad_inputs(cuda):
     x, w, _, _ = probe_int4.make_inputs(cuda)["native_int4"]
     bad_gemv = [(x.float(), w, "native_int4"), (x, w.to(torch.int8), "native_int4"),
@@ -1042,24 +1101,19 @@ def test_probe_scripts_run_on_the_card(cuda):
     assert opt_slope_probe.probe_constblk(cuda, n_lo=2, n_hi=6, reps=1)["graph_ms"] > 0
 
 
-# ------------------------- kernels 11 and 13: K split across a cluster
-
-# SHA-256 of kernel 12's float32 output on the probe's packed weight and x =
-# bf16(default_rng(7).standard_normal((8, 768))), from the kernel as it was
-# before kernels 11 and 13 moved to their own kernel (chip_profile.py gemv,
-# "sha256_random_x" at K 768): kernel 12 keeps its bits.
-PACKED_SHA256 = "517cab530c88ae554448e7592bc3ce27a3bb0e85f16ac6561b1aa04e7e235699"
+# --------------------- kernels 11-13: K split across a cluster
 
 
 def _gemv_inputs(fmt: str, K: int, N: int, device, seed: int, small_x: bool = True):
-    """Random inputs: int4 weights with small-integer x (every sum an exact
-    integer) or, with small_x False, normal x; bf16 normal weights and x."""
+    """Random inputs: int4 weights (native or packed) with small-integer x
+    (every sum an exact integer) or, with small_x False, normal x; bf16
+    normal weights and x."""
     rng = np.random.default_rng(seed)
     if fmt == "bf16":
         w = torch.from_numpy(rng.standard_normal((K, N))).to(device=device, dtype=BF)
     else:
-        w = torch.from_numpy(probe_gemv.pack_native_int4(rng.integers(-8, 8, size=(K, N))))
-        w = w.to(device)
+        pack = probe_gemv.pack_int8 if fmt == "packed_int8" else probe_gemv.pack_native_int4
+        w = torch.from_numpy(pack(rng.integers(-8, 8, size=(K, N)))).to(device)
     if fmt != "bf16" and small_x:
         x = torch.from_numpy(rng.integers(-3, 4, size=(8, K)).astype(np.float32))
     else:
@@ -1076,9 +1130,9 @@ def _gemv_close(fmt: str, got, want) -> bool:
 
 @pytest.mark.parametrize("N", [64, 192, 3072])
 @pytest.mark.parametrize("K", [256, 512, 768, 1024])
-@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+@pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
 def test_probe_gemv_split_kernel_matches_plain(cuda, fmt, K, N):
-    """Kernels 11 and 13 at every K the wrapper takes and N 64 / 192 / 3072
+    """Kernels 11-13 at every K the wrapper takes and N 64 / 192 / 3072
     (one tile, three, the probe's 48): int4 bit-equal to plain and to the
     CPU model of the sum order, bf16 within 1e-5 of the largest value."""
     x, w = _gemv_inputs(fmt, K, N, cuda, seed=K + N)
@@ -1088,7 +1142,7 @@ def test_probe_gemv_split_kernel_matches_plain(cuda, fmt, K, N):
     assert _gemv_close(fmt, got, probe_gemv.split_model(x, w, fmt))
 
 
-@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+@pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
 def test_probe_gemv_split_launches_repeat_their_bits(cuda, fmt):
     """Normal x (sums no longer exact, so the order shows): two launches give
     the same bits, the plan passed explicitly gives the default launch's
@@ -1107,7 +1161,7 @@ def test_probe_gemv_split_launches_repeat_their_bits(cuda, fmt):
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+@pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
 def test_probe_gemv_split_graph_replays_are_stable(cuda, fmt):
     """100 launches captured in one CUDA graph give an eager launch's bits
     every time (no state carried between launches)."""
@@ -1126,23 +1180,49 @@ def test_probe_gemv_split_graph_replays_are_stable(cuda, fmt):
 
 
 def test_probe_gemv_packed_keeps_its_bits(cuda):
-    """Kernel 12 is unchanged: on the probe's inputs the exact integer
-    product, and on a seeded normal x the bits it gave before kernels 11 and
-    13 were redesigned."""
-    import hashlib
-
+    """Kernel 12 on the cluster design keeps its bits: on the probe's inputs
+    the exact integer product; on a seeded normal x the same bits from two
+    launches, the plan's split passed explicitly and the stamped launch, and
+    those of the CPU model of its sum order within 1e-5 of the largest
+    value (the tensor cores' rounding inside an mma is not modelled)."""
     x, w, _, wint = probe_int4.make_inputs(cuda)["packed_int8"]
     got = probe_gemv.gemv(x, w, "packed_int8")
     xr = torch.from_numpy(np.random.default_rng(7).standard_normal((8, 768))).to(device=cuda,
                                                                                   dtype=BF)
-    rnd = probe_gemv.gemv(xr, w, "packed_int8")
+    rnd = [probe_gemv.gemv(xr, w, "packed_int8"), probe_gemv.gemv(xr, w, "packed_int8"),
+           probe_gemv.gemv(xr, w, "packed_int8",
+                           splits=probe_gemv.plan_gemv("packed_int8", 768, 3072).splits),
+           probe_gemv.gemv_stamps(xr, w, "packed_int8")[0]]
     torch.cuda.synchronize()
     exact = np.ones((8, 768), np.float32) @ wint.astype(np.float32)
     assert np.array_equal(got.cpu().numpy(), exact)
-    assert hashlib.sha256(rnd.cpu().numpy().tobytes()).hexdigest() == PACKED_SHA256
+    assert all(torch.equal(r, rnd[0]) for r in rnd[1:])
+    model = probe_gemv.split_model(xr, w, "packed_int8").cpu()
+    assert float((rnd[0].cpu() - model).abs().max()) <= 1e-5 * float(model.abs().max())
 
 
-@pytest.mark.parametrize("fmt", probe_gemv.SPLIT_FORMATS)
+@pytest.mark.parametrize("K", [256, 512, 768, 1024])
+def test_probe_gemv_packed_every_split(cuda, K):
+    """Kernel 12 at every K and every split it takes (divisors of its K / 32
+    byte-row steps, at most 8): small-integer x bit-equal to plain and to
+    the model of the split's sum order; normal x within 1e-5 of the largest
+    plain value."""
+    x, w = _gemv_inputs("packed_int8", K, 3072, cuda, seed=K)
+    xn, _ = _gemv_inputs("packed_int8", K, 3072, cuda, seed=K, small_x=False)
+    base = probe_gemv.plan_gemv("packed_int8", K, 3072)
+    want, want_n = probe_gemv.gemv_reference(x, w, "packed_int8"), probe_gemv.gemv_reference(
+        xn, w, "packed_int8")
+    for splits in (s for s in range(1, 9) if base.steps(K) % s == 0):
+        plan = dataclasses.replace(base, splits=splits, kchunk=K // splits)
+        got = probe_gemv.gemv(x, w, "packed_int8", splits=splits)
+        got_n = probe_gemv.gemv(xn, w, "packed_int8", splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), splits
+        assert torch.equal(got, probe_gemv.split_model(x, w, "packed_int8", plan)), splits
+        assert float((got_n - want_n).abs().max()) <= 1e-5 * float(want_n.abs().max()), splits
+
+
+@pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
 def test_probe_gemv_phase_stamps(cuda, fmt):
     """The stamped launch gives the plain launch's bits; every CTA stamps its
     five phases in order."""
@@ -1166,8 +1246,9 @@ def test_probe_gemv_split_rejects_bad_plans(cuda):
     with pytest.raises(ValueError):
         probe_gemv.gemv(x, w, "bf16", stamps=torch.zeros(10, 5, dtype=torch.int64, device=cuda))
     xp, wp, _, _ = probe_int4.make_inputs(cuda)["packed_int8"]
-    with pytest.raises(ValueError):
-        probe_gemv.gemv(xp, wp, "packed_int8", splits=1)
+    for splits in (0, 5, 7, 9):
+        with pytest.raises(ValueError):
+            probe_gemv.gemv(xp, wp, "packed_int8", splits=splits)
 
 
 @pytest.mark.parametrize("fmt", probe_gemv.FORMATS)
