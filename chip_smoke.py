@@ -25,8 +25,9 @@ Phases (each raises on failure, so the process exits non-zero):
    the same with ``--no-fused`` (the split kernels, none of the fused one);
 4. the serve path on the same GGUFs: ``cli.main(["serve", ...])`` with JSONL
    requests on a stdin stand-in, every WAV checked, the batched kernel's
-   launches checked against the segments run; then the same under
-   ``MAGPIE_NO_FUSED=1`` (the split batched kernels, none of the fused one);
+   launches checked against the segments run (one a slot group of at most 64
+   a frame); then the same under ``MAGPIE_NO_FUSED=1`` (the split batched
+   kernels, none of the fused one, no plain version);
 5. quantized weight serving: kernels A, 5, C and 8 with the Q8_0 stream bit
    for bit against the same kernel dense on the dequantized weights, and with
    the Q8_0 and int8 streams against their plain versions; kernel 10 (the
@@ -123,6 +124,16 @@ Phases (each raises on failure, so the process exits non-zero):
    Each arm's launch counters are reset before it and checked after it; the
    kernels line's rows of A, 4, 5, C, 7 and 8 carry the phase's launches as
    ``whole_loop_launches``.
+
+14. more than 64 slots (kernels C, 7 and 8 run a frame as slot groups of at
+   most 64, one launch each): at 357M in both dtypes, B = 65 against the
+   plain versions, B = 96 and 128 bit-equal to the same slots in launches of
+   GROUP_SPLIT, kernel C's graph slope a frame at B = 64 / 96 / 128; then
+   ``cli.main serve --slots 96`` with 96 requests, fused and under
+   ``MAGPIE_NO_FUSED=1``, bf16 and float32 (launches = groups x frames), and
+   ``BatchedMagpieEngine(batch_size=128)`` at temp 0 against two batches of
+   64, with ``decode_batch`` of its 128 results. The C / 7 / 8 rows of the
+   kernels line carry it as ``slot_groups``.
 
 The line before last is a JSON summary of the kernels (float32 rows, then
 the ``[bf16]`` rows, then the weight streams, then the probe rows with
@@ -2879,16 +2890,20 @@ SERVE_TEXTS = ["hello world", "hello, world!", "world hello.", "abc def", "hello
 
 
 def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
-              dtype: str = "bfloat16", fused_codec: bool = False) -> dict:
-    """cli.main serve at full width: six JSONL requests and a malformed line on
-    a stdin stand-in; checks every result, the error line, the WAVs, and the
+              dtype: str = "bfloat16", fused_codec: bool = False, slots: int = None,
+              n_requests: int = None) -> dict:
+    """cli.main serve at full width: ``n_requests`` JSONL requests (default
+    the six SERVE_TEXTS; more cycle through them with their own seeds) and a
+    malformed line on a stdin stand-in, ``--slots slots`` (default
+    SERVE_SLOTS); checks every result, the error line, the WAVs, and the
     launch counts: one ``prepare_batch`` a (bucket, power-of-two chunk)
     group of each admission, as the JAX engine groups; kernel C once per
-    segment frame, or with ``split``
-    (``MAGPIE_NO_FUSED=1``) kernels 7 and 8 once per segment frame and kernel
-    C never; codec conv 92 per ``decode_batch`` (N utterances a call), or with
-    ``fused_codec`` (MAGPIE_FUSED_CODEC=1) 38 and kernel 9 three times; every
-    launch in ``dtype`` (bfloat16: serve's default, no ``--dtype`` given)."""
+    slot group (``slot_groups(slots)``) per segment frame, or with ``split``
+    (``MAGPIE_NO_FUSED=1``) kernels 7 and 8 so and kernel C never; the plain
+    frame versions never; codec conv 92 per ``decode_batch`` (N utterances a
+    call), or with ``fused_codec`` (MAGPIE_FUSED_CODEC=1) 38 and kernel 9
+    three times; every launch in ``dtype`` (bfloat16: serve's default, no
+    ``--dtype`` given)."""
     from magpie_tts_tpu_torch import cli
     from magpie_tts_tpu_torch.io.wav import read_wav
     from magpie_tts_tpu_torch.ops.kernels import codec_conv as cc
@@ -2901,10 +2916,11 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     from magpie_tts_tpu_torch.runtime.engine import CodecEngine, pick_bucket
 
     hop = ccfg.hop_length
-    lines = [json.dumps({"id": f"r{i}", "text": t, "seed": i})
-             for i, t in enumerate(SERVE_TEXTS)]
+    slots = SERVE_SLOTS if slots is None else slots
+    texts = [SERVE_TEXTS[i % len(SERVE_TEXTS)] for i in range(n_requests or len(SERVE_TEXTS))]
+    lines = [json.dumps({"id": f"r{i}", "text": t, "seed": i}) for i, t in enumerate(texts)]
     lines.insert(3, '{"id": "bad", "text": ')
-    counts = {"segments": 0, "decode_batch": 0}
+    counts = {"segments": 0, "decode_batch": 0, "plain": 0}
     groups = {"want": [], "got": []}   # (bucket, m) of each admission group
 
     def counted(fn, key):
@@ -2935,9 +2951,10 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
         groups["got"].append((tokens.shape[1], tokens.shape[0]))
         return prepare_fn(tokens, *a, **k)
 
-    out_dir = tmp / f"serve_{dtype}{'_split' if split else ''}{'_fc' if fused_codec else ''}"
+    out_dir = tmp / (f"serve_{dtype}{'_split' if split else ''}{'_fc' if fused_codec else ''}"
+                     f"_{slots}")
     argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
-            "--out-dir", str(out_dir), "--slots", str(SERVE_SLOTS),
+            "--out-dir", str(out_dir), "--slots", str(slots),
             "--segment-frames", str(SERVE_SEGMENT), "--temp", "0.7", "--device", "cuda"]
     if dtype != "bfloat16":
         argv += ["--dtype", dtype]
@@ -2950,6 +2967,18 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     magpie_mod.prepare_batch = prepare_counted
     sys.stdin = io.StringIO("\n".join(lines) + "\n")
     kernels = (fsb, ltsb, dsb, cc, crf)
+    plain = [(mod, name, getattr(mod, name)) for mod, name in (
+        (fsb, "frame_step_batched_reference"), (ltsb, "sample_frame_codes_batched_reference"),
+        (dsb, "decode_step_batched_reference"))]
+    def on_card(fn):
+        def wrapper(*a, **k):
+            rows = a[0] if a else k.get("hidden", k.get("x_pe"))
+            counts["plain"] += rows.device.type == "cuda"
+            return fn(*a, **k)
+        return wrapper
+
+    for mod, name, fn in plain:
+        setattr(mod, name, on_card(fn))
     if split:
         os.environ["MAGPIE_NO_FUSED"] = "1"
     try:
@@ -2964,6 +2993,8 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     finally:
         ContinuousBatchingEngine._segment, CodecEngine.decode_batch = seg_fn, dec_fn
         ContinuousBatchingEngine._admit_pending, magpie_mod.prepare_batch = admit_fn, prepare_fn
+        for mod, name, fn in plain:
+            setattr(mod, name, fn)
         sys.stdin = stdin
         os.environ.pop("MAGPIE_NO_FUSED", None)
     log(err.getvalue().rstrip())
@@ -2972,7 +3003,7 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     results = [json.loads(ln) for ln in out.getvalue().splitlines()]
     errors = [r for r in results if "error" in r]
     done = {r["id"]: r for r in results if "error" not in r}
-    if len(errors) != 1 or sorted(done) != sorted(f"r{i}" for i in range(len(SERVE_TEXTS))):
+    if len(errors) != 1 or sorted(done) != sorted(f"r{i}" for i in range(len(texts))):
         raise AssertionError(f"serve results: {results}")
     frames = 0
     for r in done.values():
@@ -2983,11 +3014,17 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
             raise AssertionError(f"serve WAV of {r['id']} is not finite or is constant")
         frames += r["frames"]
     seg_frames = counts["segments"] * SERVE_SEGMENT
-    want = (0, seg_frames, seg_frames) if split else (seg_frames, 0, 0)
+    n_groups = len(fsb.slot_groups(slots))
+    group_launches = n_groups * seg_frames
+    want = (0, group_launches, group_launches) if split else (group_launches, 0, 0)
     if seg_frames == 0 or (batched_launches, lt_launches, dec_launches) != want:
         raise AssertionError(f"frame_step_batched / lt_sampler_batched / decoder_step_batched "
                              f"launched {batched_launches} / {lt_launches} / {dec_launches}x for "
-                             f"{counts['segments']} segments of {SERVE_SEGMENT} (split {split})")
+                             f"{counts['segments']} segments of {SERVE_SEGMENT} frames in "
+                             f"{n_groups} slot groups of {slots} slots (split {split})")
+    if counts["plain"]:
+        raise AssertionError(f"serve at {slots} slots ran a plain frame version "
+                             f"{counts['plain']}x on the card")
     per_call = (38, 3) if fused_codec else (92, 0)
     if conv_launches == 0 or (conv_launches, res_launches) != tuple(
             n * counts["decode_batch"] for n in per_call):
@@ -3001,7 +3038,8 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) aggregate fps", err.getvalue())
     fps = float(m.group(2)) if m else float("nan")
     log(f"serve path {dtype}{' MAGPIE_NO_FUSED=1' if split else ''}"
-        f"{' MAGPIE_FUSED_CODEC=1' if fused_codec else ''}: {len(done)} requests, "
+        f"{' MAGPIE_FUSED_CODEC=1' if fused_codec else ''}, {slots} slots ({n_groups} slot "
+        f"groups): {len(done)} requests, "
         f"{frames} frames, {counts['segments']} segments, frame_step_batched / "
         f"lt_sampler_batched / decoder_step_batched launches {batched_launches} / {lt_launches} / "
         f"{dec_launches}, "
@@ -3011,7 +3049,7 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
         f"wall {wall:.2f} s incl. load) on {card}")
     return {"batched_launches": batched_launches, "lt_launches": lt_launches,
             "dec_launches": dec_launches, "conv_launches": conv_launches,
-            "res_launches": res_launches, "frames": frames, "fps": fps}
+            "res_launches": res_launches, "frames": frames, "fps": fps, "slots": slots}
 
 
 # ------------------------------------------------------ the H100 probes (11-18)
@@ -3489,13 +3527,16 @@ LOCKSTEP_N = (100, 400, 3)             # probe_lockstep: frames lo / hi, runs ea
 MESH_B, MESH_FRAMES = 8, 100           # the device-list engines: slots, forced frames
 
 
-def mesh_codes_agree(who: str, ref_engine, reqs, got, want, temp: float, seed: int) -> list:
+def mesh_codes_agree(who: str, ref_engine, reqs, got, want, temp: float, seed: int,
+                     B: int = MESH_B) -> list:
     """A meshed engine's codes (one request each, in slot order) against the
-    unmeshed engine's: equal, or each differing slot parting first at a
-    near-tie of the unmeshed loop re-run to that frame (parity_decode's
-    rule). Returns the near-tied slots. The unmeshed engine admits all B
-    rows in one ``prepare_batch``, a mesh entry its slice: cuBLAS picks its
-    algorithm by shape, so the rows may differ in their last bits."""
+    unmeshed engine's (``ref_engine``, B slots): equal, or each differing
+    slot parting first at a near-tie of the unmeshed loop re-run to that
+    frame (parity_decode's rule). Returns the near-tied slots. The unmeshed
+    engine admits all B rows in one ``prepare_batch``, a mesh entry its
+    slice: cuBLAS picks its algorithm by shape, so the rows may differ in
+    their last bits. The same holds for one engine of B slots against the
+    same requests in smaller batches."""
     from magpie_tts_tpu_torch.ops import sampling
     from magpie_tts_tpu_torch.parallel.serving import pad_wave
     from magpie_tts_tpu_torch.scripts import parity_batched as pb
@@ -3503,8 +3544,8 @@ def mesh_codes_agree(who: str, ref_engine, reqs, got, want, temp: float, seed: i
 
     base = sampling.prng_key(seed)
     tokens, lens, spk, keys = pad_wave(reqs, [0] * len(reqs),
-                                       [sampling.fold_in(base, i) for i in range(MESH_B)],
-                                       MESH_B, ref_engine.token_buckets)
+                                       [sampling.fold_in(base, i) for i in range(B)],
+                                       B, ref_engine.token_buckets)
     inputs = {"tokens": tokens, "lens": lens.tolist(), "spk": spk.tolist(), "keys": keys}
     replica = (ref_engine.weights, ref_engine.prepare_weights)
     ties = []
@@ -3537,6 +3578,7 @@ def run_whole_loops(dev, card: str, probes: dict) -> dict:
     checked after it (the scripts' check_launches)."""
     import torch
 
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
     from magpie_tts_tpu_torch.parallel import mesh as mesh_mod
     from magpie_tts_tpu_torch.parallel.serving import BatchedMagpieEngine
     from magpie_tts_tpu_torch.scripts import opt_slope_probe
@@ -3620,7 +3662,7 @@ def run_whole_loops(dev, card: str, probes: dict) -> dict:
             got = eng.synthesize_batch(reqs, temperature=temp, seed=5)
             secs = time.perf_counter() - t0
             launches = pd.read_launches(batched=True)
-            want_c = len(mesh) * MESH_FRAMES
+            want_c = len(mesh) * MESH_FRAMES * len(fsb.slot_groups(MESH_B // len(mesh)))
             if launches != {"C": want_c, "7": 0, "8": 0}:
                 raise AssertionError(f"mesh {name}: launches {launches}, want C {want_c}")
             ties = mesh_codes_agree(name, unmeshed, reqs, got, want, temp, 5)
@@ -3632,6 +3674,282 @@ def run_whole_loops(dev, card: str, probes: dict) -> dict:
                 f"{t_ref:.3f} s, host clock); on {card}")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"whole loops and the device list: phase {out['wall_s']:.1f} s wall on {card}")
+    return out
+
+
+# ------------------------------------------ slot groups: more than 64 slots (phase 14)
+
+GROUP_PLAIN_B = 65               # kernels C, 7, 8 against plain: one slot past a launch
+GROUP_BITS_B = (96, 128)         # against the same slots in launches of GROUP_SPLIT
+GROUP_SPLIT = 48                 # slots a launch of that comparison: <= 64, off the group edges
+GROUP_SLOPE_B = (64, 96, 128)    # kernel C's CUDA-graph slope a frame
+GROUP_SERVE_SLOTS = 96           # cli.main serve --slots, with as many requests
+GROUP_LOCKSTEP_B, GROUP_LOCKSTEP_FRAMES = 128, 32   # against two batches of 64
+
+
+def group_inputs(dev, B: int, write_row: int, rng, dtype: str):
+    """Kernel C's arguments for B slots past BATCH_MAX: batched_state's
+    prepared streams repeated (hidden, xa, enc_lengths), each slot with its
+    own ring mask (slot B // 2 - 1 empty, so that the last group's slots are
+    live), seed, forbid_eos, may_continue and posemb row; and [B, L, S, D]
+    caches of batched_state's rows repeated."""
+    import torch
+
+    c, w, hidden, xa_k, xa_v, k_base, v_base, enc = batched_state(dev, dtype)
+    reps = -(-B // BATCH_MAX)
+    rep = lambda t: t.repeat(reps, *([1] * (t.dim() - 1)))[:B].contiguous()
+    x = dict(
+        hidden=rep(hidden), write_row=write_row,
+        valid=torch.tensor(np.roll(_ring_valid(B, c.max_seq, write_row, rng), B // 2, axis=0),
+                           device=dev),
+        may_continue=torch.tensor(rng.random(B) < 0.8, device=dev),
+        posemb=w.decoder.pos_emb[torch.tensor(rng.integers(c.context_frames + 1, c.max_seq, B),
+                                               device=dev)],
+        xa_k=rep(xa_k), xa_v=rep(xa_v),
+        enc_lengths=torch.tensor((enc * reps)[:B], dtype=torch.int32, device=dev),
+        seeds=torch.tensor(rng.integers(-2**31, 2**31, B), dtype=torch.int32, device=dev),
+        forbid_eos=torch.tensor(rng.random(B) < 0.3, device=dev),
+        weights=w, config=c, top_k=80)
+    return x, rep(k_base), rep(v_base)
+
+
+def bits_equal(a, b) -> bool:
+    """Bit for bit (NaN payloads included)."""
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def check_slot_groups(dev) -> dict:
+    """Kernels C, 7 and 8 past one launch's 64 slots at 357M, both dtypes,
+    row 300: at B = 65 against their plain versions at temp 0 (float32 codes
+    exact and floats within FRAME_TOL, bf16 codes equal or near-ties and
+    floats within ULP_SHARE / ULP_MAX, live slots); at B = 96 and 128 every
+    slot's codes, hidden row and new K/V rows bit-equal to the same slots
+    run as launches of GROUP_SPLIT slots (temp 0.7); one launch a slot group
+    each; kernel C's CUDA-graph slope a frame at GROUP_SLOPE_B. Memory at
+    B = 128: float32 K/V caches of 47 MB a slot, 6.0 GB a copy, three copies
+    live at once (the repeated rows, the grouped run's, the comparison's)."""
+    import torch
+
+    from magpie_tts_tpu_torch.models.magpie import audio_frame_embedding
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+    from magpie_tts_tpu_torch.scripts import timing
+
+    kernels = (fsb, ltsb, dsb)
+    out = {}
+    t_phase = time.perf_counter()
+    for dtype in ("float32", BF):
+        c, w = prod_weights(dev, dtype)
+        r = c.max_seq // 2 - 20
+        rng = np.random.default_rng(14)
+        res = out[dtype] = {}
+
+        def step8(x, sampled, argmax):
+            valid = x["valid"].clone()
+            valid[:, r] = x["may_continue"] & ~_eos(sampled, argmax, c)
+            return (audio_frame_embedding(sampled, w, c) + x["posemb"], r, valid, x["xa_k"],
+                    x["xa_v"])
+
+        def launched(who, B):
+            want = len(fsb.slot_groups(B))
+            counts = [k.launches for k in kernels]
+            if counts != [want] * 3:
+                raise AssertionError(f"{who}: kernels C / 7 / 8 launched {counts}x at B {B}, "
+                                     f"want {want} each (its slot groups)")
+            check_dtype_launches(kernels, dtype, who)
+            return want
+
+        with torch.no_grad():
+            B = GROUP_PLAIN_B
+            x, kb, vb = group_inputs(dev, B, r, rng, dtype)
+            (kk, vk), (kr, vr), (k8, v8), (k8r, v8r) = [(kb.clone(), vb.clone())
+                                                        for _ in range(4)]
+            del kb, vb
+            reset_counts(kernels)
+            sk, ak, hk, _, _ = fsb.frame_step_batched(k_cache=kk, v_cache=vk, temperature=0.0,
+                                                      **x)
+            s7, a7 = ltsb.sample_frame_codes_batched(x["hidden"], w, c, x["seeds"], 0.0, 80,
+                                                     x["forbid_eos"])
+            sr, ar, hr, _, _ = fsb.frame_step_batched_reference(k_cache=kr, v_cache=vr,
+                                                                temperature=0.0, **x)
+            step = step8(x, sr, ar)
+            h8 = dsb.decode_step_batched(*step, k8, v8, w, c, x["enc_lengths"])
+            groups = launched(f"slot groups [{dtype}] B {B}", B)
+            t0 = time.perf_counter()
+            h8r = dsb.decode_step_batched_reference(*step, k8r, v8r, w, c, x["enc_lengths"])
+            torch.cuda.synchronize()
+            who = f"slot groups [{dtype}] B {B} row {r} temp 0"
+            live = x["valid"].any(-1).nonzero().flatten().tolist()   # slots with a valid row
+            # codes (sampled and argmax) that differ from plain, counted
+            differ = {k: int((s != sr).sum() + (a != ar).sum())
+                      for k, s, a in (("C", sk, ak), ("7", s7, a7))}
+            if dtype == "float32":
+                if any(differ.values()):
+                    raise AssertionError(f"{who}: kernel C / 7 codes differ from plain {differ}")
+                bad = bad7 = []
+            else:
+                bad = codes_agree(f"frame_step_batched {who}", (sk, ak), (sr, ar), x["hidden"],
+                                  w, c, x["seeds"].tolist(), 0.0, x["forbid_eos"].tolist())
+                bad7 = codes_agree(f"lt_sampler_batched {who}", (s7, a7), (sr, ar), x["hidden"],
+                                   w, c, x["seeds"].tolist(), 0.0, x["forbid_eos"].tolist())
+            live_c = [b for b in live if b not in bad]
+            pairs_c = ((hk[live_c], hr[live_c]), (kk[live_c][:, :, r], kr[live_c][:, :, r]),
+                       (vk[live_c][:, :, r], vr[live_c][:, :, r]))
+            pairs_8 = ((h8[live], h8r[live]), (k8[live][:, :, r], k8r[live][:, :, r]),
+                       (v8[live][:, :, r], v8r[live][:, :, r]))
+            err = {k: max(float((a.float() - b.float()).abs().max()) for a, b in p)
+                   for k, p in (("C", pairs_c), ("8", pairs_8))}
+            finite = all(bool(torch.isfinite(t).all()) for t in (hk, h8))
+            if dtype == "float32":
+                ok = max(err.values()) <= FRAME_TOL
+                ulps = {}
+            else:
+                ulps = {k: ulp_pairs(p) for k, p in (("C", pairs_c), ("8", pairs_8))}
+                ok = all(ulp_ok(u) for u in ulps.values())
+                ulps = {k: ulp_summary(u) for k, u in ulps.items()}
+            log(f"{who}: {groups} launches each of C / 7 / 8; codes differing from plain "
+                f"C {differ['C']} in slots {bad}, 7 {differ['7']} in slots {bad7}; max |err| "
+                f"C {err['C']:.3g}, 8 {err['8']:.3g}"
+                + (f"; scaled ulps {ulps}" if ulps else "") + f"; finite {finite}; plain 8 "
+                f"{time.perf_counter() - t0:.1f} s")
+            if not ok or not finite:
+                raise AssertionError(f"{who}: kernels C / 8 disagree with plain ({err}, {ulps})")
+            res["b65"] = {"max_abs_err": err, "ulps": ulps, "codes_differ": differ,
+                          "near_tie_slots": {"C": bad, "7": bad7}}
+            del kk, vk, kr, vr, k8, v8, k8r, v8r
+
+            for B in GROUP_BITS_B:
+                x, kb, vb = group_inputs(dev, B, r, rng, dtype)
+                (kg, vg), (ks, vs) = (kb.clone(), vb.clone()), (kb.clone(), vb.clone())
+                cuts = [slice(a, min(a + GROUP_SPLIT, B)) for a in range(0, B, GROUP_SPLIT)]
+                reset_counts(kernels)
+                sg, ag, hg, _, _ = fsb.frame_step_batched(k_cache=kg, v_cache=vg,
+                                                          temperature=0.7, **x)
+                s7g, a7g = ltsb.sample_frame_codes_batched(x["hidden"], w, c, x["seeds"], 0.7,
+                                                           80, x["forbid_eos"])
+                counts = [fsb.launches, ltsb.launches]
+                parts = {k: [] for k in ("s", "a", "h", "s7", "a7")}
+                for sl in cuts:
+                    xs = {k: v[sl] if isinstance(v, torch.Tensor) else v for k, v in x.items()}
+                    got = fsb.frame_step_batched(k_cache=ks[sl], v_cache=vs[sl], temperature=0.7,
+                                                 **xs)[:3]
+                    got += ltsb.sample_frame_codes_batched(xs["hidden"], w, c, xs["seeds"], 0.7,
+                                                           80, xs["forbid_eos"])
+                    for k, v in zip(parts, got):
+                        parts[k].append(v)
+                torch.cuda.synchronize()
+                whole = dict(s=sg, a=ag, h=hg, s7=s7g, a7=a7g)
+                same = {k: bits_equal(whole[k], torch.cat(v)) for k, v in parts.items()}
+                same["kv"] = bits_equal(kg[:, :, r], ks[:, :, r]) and bits_equal(vg[:, :, r],
+                                                                                  vs[:, :, r])
+                # kernel 8 on the grouped frame's codes, the same caches reset
+                step = step8(x, sg, ag)
+                for t, base in ((kg, kb), (vg, vb), (ks, kb), (vs, vb)):
+                    t.copy_(base)
+                reset_counts(kernels)
+                h8g = dsb.decode_step_batched(*step, kg, vg, w, c, x["enc_lengths"])
+                counts.append(dsb.launches)
+                if counts != [len(fsb.slot_groups(B))] * 3:
+                    raise AssertionError(f"slot groups [{dtype}] B {B}: C / 7 / 8 launched "
+                                         f"{counts}x, want one a slot group")
+                h8s = torch.cat([dsb.decode_step_batched(step[0][sl], r, step[2][sl], step[3][sl],
+                                                         step[4][sl], ks[sl], vs[sl], w, c,
+                                                         x["enc_lengths"][sl]) for sl in cuts])
+                torch.cuda.synchronize()
+                same["h8"] = bits_equal(h8g, h8s)
+                same["kv8"] = bits_equal(kg[:, :, r], ks[:, :, r]) and bits_equal(vg[:, :, r],
+                                                                                   vs[:, :, r])
+                log(f"slot groups [{dtype}] B {B} row {r} temp 0.7: C / 7 / 8 in "
+                    f"{len(fsb.slot_groups(B))} launches against launches of {GROUP_SPLIT} "
+                    f"slots, bit-equal {same}; finite {bool(torch.isfinite(hg).all())}")
+                if not all(same.values()):
+                    raise AssertionError(f"slot groups [{dtype}] B {B}: a slot's result depends "
+                                         f"on its launch ({same})")
+                res[f"b{B}"] = {"bit_equal": True}
+                del kb, vb, kg, vg, ks, vs
+                torch.cuda.empty_cache()
+
+            res["graph_ms"] = {}
+            for B in GROUP_SLOPE_B:
+                x, kb, vb = group_inputs(dev, B, r, rng, dtype)
+                args = {k: v for k, v in x.items() if k != "hidden"}
+
+                def body(i, h):
+                    return fsb.frame_step_batched(h, k_cache=kb, v_cache=vb, temperature=0.7,
+                                                  **args)[2]
+                res["graph_ms"][B] = timing.graph_slope(body, x["hidden"],
+                                                        *PERSIST_N)["per_launch_ms"]
+                del kb, vb
+                torch.cuda.empty_cache()
+        log(f"kernel C [{dtype}] CUDA-graph slope a frame, row {r}, temp 0.7: " + ", ".join(
+            f"B {B} {ms:.4f} ms ({len(fsb.slot_groups(B))} launches)"
+            for B, ms in res["graph_ms"].items()))
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_slot_group_paths(tmp: Path, dev, mcfg, ccfg, card: str) -> dict:
+    """The entry points past 64 slots: ``cli.main serve --slots 96`` with 96
+    requests, fused and under MAGPIE_NO_FUSED=1, in bf16 and float32
+    (run_serve: every WAV, kernel C's launches = slot groups x segment
+    frames, no plain version; ``decode_batch`` takes the finished requests,
+    up to 96 a call); then ``BatchedMagpieEngine(batch_size=128)`` without a
+    mesh at temp 0 over GROUP_LOCKSTEP_FRAMES forced frames against the same
+    requests as two batches of 64 (codes equal, or near-ties only:
+    ``mesh_codes_agree``; each batch is prepared in one ``prepare_batch``),
+    and ``CodecEngine.decode_batch`` of its 128 results."""
+    import torch
+
+    from magpie_tts_tpu_torch.io.codec_weights import random_codec_weights
+    from magpie_tts_tpu_torch.ops.kernels import decoder_step_batched as dsb
+    from magpie_tts_tpu_torch.ops.kernels import frame_step_batched as fsb
+    from magpie_tts_tpu_torch.ops.kernels import lt_sampler_batched as ltsb
+    from magpie_tts_tpu_torch.parallel.serving import BatchedMagpieEngine
+    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
+    from magpie_tts_tpu_torch.scripts import parity_decode as pd
+
+    t_phase = time.perf_counter()
+    out = {"serve": {}}
+    for dt in (BF, "float32"):
+        for split in (False, True):
+            out["serve"][dt, split] = run_serve(tmp, mcfg, ccfg, card, split=split, dtype=dt,
+                                                slots=GROUP_SERVE_SLOTS,
+                                                n_requests=GROUP_SERVE_SLOTS)
+    B, frames = GROUP_LOCKSTEP_B, GROUP_LOCKSTEP_FRAMES
+    _, w = prod_weights(dev)
+    lcfg = pd.parity_config(frames)
+    reqs = pd.make_token_lists(lcfg, B)
+    big = BatchedMagpieEngine(w, lcfg, batch_size=B, device=dev)
+    half = BatchedMagpieEngine(w, lcfg, batch_size=B // 2, device=dev)
+    kernels = (fsb, ltsb, dsb)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    want = big.synthesize_batch(reqs, temperature=0.0, seed=5)
+    secs = time.perf_counter() - t0
+    launches = [k.launches for k in kernels]
+    if launches != [len(fsb.slot_groups(B)) * frames, 0, 0]:
+        raise AssertionError(f"BatchedMagpieEngine B {B}: C / 7 / 8 launched {launches}x over "
+                             f"{frames} frames")
+    got = (half.synthesize_batch(reqs[:B // 2], temperature=0.0, seed=5)
+           + half.synthesize_batch(reqs[B // 2:], temperature=0.0, seed=5))
+    ties = mesh_codes_agree(f"two batches of {B // 2}", big, reqs, got, want, 0.0, 5, B=B)
+    codec = CodecEngine(random_codec_weights(ccfg, seed=1), ccfg, device=dev)
+    audio = codec.decode_batch(want)
+    if len(audio) != B or not all(a.shape == (frames * ccfg.hop_length,)
+                                  and np.all(np.isfinite(a)) for a in audio):
+        raise AssertionError(f"decode_batch of {B} lockstep results: bad audio")
+    torch.cuda.synchronize()
+    out["lockstep"] = {"launches": launches[0], "seconds": secs, "ties": ties}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"BatchedMagpieEngine(batch_size={B}) without a mesh, {frames} forced frames, temp 0: "
+        f"codes {'equal to' if not ties else f'near-ties only (slots {ties}) against'} two "
+        f"batches of {B // 2}; kernel C {launches[0]} launches ({len(fsb.slot_groups(B))} slot "
+        f"groups a frame), {secs:.3f} s (host clock); decode_batch of its {B} results finite; "
+        f"serve and lockstep past 64 slots {out['wall_s']:.1f} s wall on {card}")
     return out
 
 
@@ -3703,6 +4021,7 @@ def main() -> int:
     bf_single = check_bf16_single(dev)
     bf_batched = check_bf16_batched(dev)
     invariance = {dt: check_batch_invariance(dev, dt) for dt in ("float32", BF)}
+    slot_groups = check_slot_groups(dev)
     pers = time_persistent(dev)
     lt_times = time_lt_launch(dev)
     lt_count = count_lt_device_kernels(dev)
@@ -3762,6 +4081,7 @@ def main() -> int:
         quant_main = run_quantized_main_paths(tmp, mcfg, ccfg, card, nodes)
         quant_batched = run_batched_streams(tmp, dev, nodes)
         oracle = run_oracle_acceptance(tmp, mcfg, card, nodes)
+        group_paths = run_slot_group_paths(tmp, dev, mcfg, ccfg, card)
     loops = run_whole_loops(dev, card, probes)
     for res, dt, k in ((fs_res, "float32", "A"), (split_res["lt"], "float32", "4"),
                        (split_res["dec"], "float32", "5"), (fsb_res, "float32", "C"),
@@ -3770,6 +4090,25 @@ def main() -> int:
                        (bf_single["5"], BF, "5"), (bf_batched["C"], BF, "C"),
                        (bf_batched["7"], BF, "7"), (bf_batched["8"], BF, "8")):
         res["whole_loop_launches"] = loops["launches"][dt, k]
+    for res, dt, k in ((fsb_res, "float32", "C"), (splitb_res["lt"], "float32", "7"),
+                       (splitb_res["dec"], "float32", "8"), (bf_batched["C"], BF, "C"),
+                       (bf_batched["7"], BF, "7"), (bf_batched["8"], BF, "8")):
+        serve96 = group_paths["serve"][dt, k != "C"]
+        res["slot_groups"] = {
+            "serve_slots": serve96["slots"], "serve_launches": serve96[
+                {"C": "batched_launches", "7": "lt_launches", "8": "dec_launches"}[k]],
+            "serve_fps": serve96["fps"],
+            "bit_equal_b96_b128": True}
+        b65 = slot_groups[dt]["b65"]
+        if k in ("C", "8"):
+            res["slot_groups"]["b65_max_abs_err"] = b65["max_abs_err"][k]
+        if k in ("C", "7"):
+            res["slot_groups"]["b65_codes_differ"] = b65["codes_differ"][k]
+            res["slot_groups"]["b65_near_tie_slots"] = len(b65["near_tie_slots"][k])
+        if k == "C":
+            res["slot_groups"]["graph_ms"] = slot_groups[dt]["graph_ms"]
+            if dt == "float32":
+                res["slot_groups"]["lockstep_b128_launches"] = group_paths["lockstep"]["launches"]
 
     log(f"summary: e2e {main_res['fps']} fps over {main_res['n_frames']} frames, --no-fused "
         f"{split_main['fps']} fps over {split_main['n_frames']} frames; serve {serve_res['fps']} "
@@ -3886,6 +4225,17 @@ def main() -> int:
     log(f"summary, frame families (CUDA-graph slopes, ms a frame): {fam_line}; slots bit-equal "
         f"at B = 3 / 8 / {BATCH_MAX}: {all(v['bit_equal'] for v in invariance.values())}; "
         f"on {card}")
+    gs = group_paths["serve"]
+    log(f"summary, slot groups past 64 slots (kernels C / 7 / 8, ceil(B / 64) launches a "
+        f"frame): serve --slots {GROUP_SERVE_SLOTS} aggregate fps bf16 {gs[BF, False]['fps']} "
+        f"(MAGPIE_NO_FUSED=1 {gs[BF, True]['fps']}), float32 {gs['float32', False]['fps']} "
+        f"({gs['float32', True]['fps']}); kernel C graph slope a frame " + "; ".join(
+            f"{dt} " + ", ".join(f"B {B} {ms:.4f} ms" for B, ms in slot_groups[dt][
+                "graph_ms"].items()) for dt in ("float32", BF))
+        + f"; B = 65 against plain, B = {GROUP_BITS_B} bit-equal to launches of {GROUP_SPLIT}; "
+        f"lockstep B = {GROUP_LOCKSTEP_B} near-ties {group_paths['lockstep']['ties']}; kernel "
+        f"checks {slot_groups['wall_s']:.1f} s, entry points {group_paths['wall_s']:.1f} s; "
+        f"on {card}")
     pk = "magpie_tts_tpu/ops/pallas_kernels/"
     src = "magpie_tts_tpu_torch/csrc/"
 
@@ -3901,7 +4251,8 @@ def main() -> int:
                                         "f64_within_1ulp", "plain_f64_within_1ulp",
                                         "families", "graph_ms", "library_covers",
                                         "graph_ms_b32", "graph_ms_b64", "draw_us",
-                                        "device_kernels", "whole_loop_launches")
+                                        "device_kernels", "whole_loop_launches",
+                                        "slot_groups")
                     if k in res})
         return row
 

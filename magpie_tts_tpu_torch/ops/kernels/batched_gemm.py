@@ -226,7 +226,8 @@ def batched_gemm(x: torch.Tensor, K: int, N: int, w: Optional[torch.Tensor] = No
         raise ValueError(f"{ENTRY}: compute dtype {dtype} is not one the kernels take")
     B = x.shape[0]
     if not 1 <= B <= 64 or tuple(x.shape) != (B, K) or x.dtype not in (torch.float32, dtype):
-        raise ValueError(f"{ENTRY}: x must be [B <= 64, {K}] float32 or {dtype}")
+        raise ValueError(f"{ENTRY}: x must be [B <= 64, {K}] float32 or {dtype} (a launch's "
+                         f"slots; the frame wrappers run more as slot groups)")
     weight = w if mode == "dense" else q
     for t in (x, weight, s):
         if t is not None and (t.device.type != "cuda" or not t.is_contiguous()

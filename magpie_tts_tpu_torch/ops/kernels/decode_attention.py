@@ -297,7 +297,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: i
         raise ValueError(f"{ENTRY}: k / v rows must be contiguous, W a multiple of heads")
     rows = S if rows is None else int(rows)
     if not 1 <= rows <= S or not 1 <= B <= 64:
-        raise ValueError(f"{ENTRY}: rows {rows} of {S}, B {B} out of range")
+        raise ValueError(f"{ENTRY}: rows {rows} of {S}, B {B} out of range (B <= 64 a "
+                         f"launch; the frame wrappers run more as slot groups)")
     sq = 1 if q.dim() == 2 else q.shape[0]
     _check(q, "q", torch.float32, q.dim())
     if tuple(q.shape[-2:]) != (B, W) or not q.is_contiguous():

@@ -12,9 +12,10 @@ picks one) or raises; on CPU
 tensors it runs ``decode_step_batched_reference``: per slot, the plain
 ``models.decoder.decode_rows``.
 
-Any 1 <= B <= 64: the TPU kernel's ``B % 8`` grouping is a VMEM rule. Its
-half-prefix cache streaming becomes the host attention bound ``rows``, as for
-kernel C.
+Any B >= 1, one launch (on the CPU, one plain call) a slot group of at most
+64 (``frame_step_batched.slot_groups``): the TPU kernel's ``B % 8`` grouping
+is a VMEM rule. Its half-prefix cache streaming becomes the host attention
+bound ``rows``, as for kernel C.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ...io.magpie_weights import MagpieWeights
 from . import frame_step_batched as fsb
 
 ENTRY = "magpie_decode_step_batched"
-launches = 0  # kernel launches (one per frame) since the last reset
+launches = 0  # device launches (one a slot group) since the last reset
 mode_launches = dict.fromkeys(fsb.MODES, 0)  # the same, by weight stream
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
@@ -73,30 +74,58 @@ def decode_step_batched(x_pe: torch.Tensor, write_row: int, valid: torch.Tensor,
     every slot (in place); xa_k / xa_v [B, L, enc, d_xa]; enc_lengths [B]
     int32. ``rows`` (host int, default max_seq) bounds self-attention to rows
     [0, rows): no valid row may lie past it. ``stream`` supplies the four
-    streamed decoder matrices when given. Returns hidden [B, d_model].
+    streamed decoder matrices when given. Any B >= 1: one launch a slot
+    group. Returns hidden [B, d_model].
     """
-    global launches
-    if x_pe.device.type == "cpu":
-        return decode_step_batched_reference(x_pe, write_row, valid, xa_k, xa_v, k_cache,
-                                             v_cache, weights, config, enc_lengths, rows, stream)
-    if x_pe.device.type != "cuda":
-        raise ValueError(f"decode_step_batched: unsupported device {x_pe.device}")
     c = config
-    dtype = fsb.compute_dtype(ENTRY, x_pe)
+    dev = x_pe.device
     B, S = k_cache.shape[0], k_cache.shape[2]
-    fsb.check_batch(ENTRY, B)
+    groups = fsb.slot_groups(B)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_step_batched: unsupported device {dev}")
+    per_slot = dict(x_pe=x_pe, valid=valid, xa_k=xa_k, xa_v=xa_v, k_cache=k_cache,
+                    v_cache=v_cache, enc_lengths=enc_lengths)
+    hidden_out = torch.empty(B, c.d_model, dtype=x_pe.dtype, device=dev)
+    if dev.type == "cuda":
+        dtype = fsb.compute_dtype(ENTRY, x_pe)
+        rows = fsb.check_rows(ENTRY, c, write_row, rows, S)
+        fsb.check_config(ENTRY, c)
+
+    def plain(**g):
+        return (decode_step_batched_reference(write_row=write_row, weights=weights, config=c,
+                                              rows=rows, stream=stream, **g),)
+
+    def kernel(g, o, n):
+        global launches
+        tensors = {"hidden": (g["x_pe"], (n, c.d_model), dtype, False),
+                   **fsb.decoder_tensors(g["valid"], g["enc_lengths"], g["k_cache"],
+                                         g["v_cache"], g["xa_k"], g["xa_v"], weights, c, stream,
+                                         dtype)}
+        fsb.launch(fsb.entry_name(ENTRY, dtype), n, tensors, o, c, dev, stream, max_seq=S,
+                   enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
+                   valid_stride=valid.stride(0))
+        with _launches_lock:
+            launches += 1
+            mode_launches[fsb.MODES[fsb.stream_mode(stream)]] += 1
+            fsb.count_dtype(dtype_launches, dtype)
+
+    fsb.run_groups(groups, per_slot, dict(hidden_out=hidden_out), plain, kernel)
+    return hidden_out
+    dtype = fsb.compute_dtype(ENTRY, x_pe)
     rows = fsb.check_rows(ENTRY, c, write_row, rows, S)
     fsb.check_config(ENTRY, c)
-    hidden_out = torch.empty(B, c.d_model, dtype=dtype, device=x_pe.device)
-    tensors = {"hidden": (x_pe, (B, c.d_model), dtype, False),
-               **fsb.decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights,
-                                     c, stream, dtype)}
-    fsb.launch(fsb.entry_name(ENTRY, dtype), B, tensors, dict(hidden_out=hidden_out), c,
-               x_pe.device, stream,
-               max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
-               valid_stride=valid.stride(0))
-    with _launches_lock:
-        launches += 1
-        mode_launches[fsb.MODES[fsb.stream_mode(stream)]] += 1
-        fsb.count_dtype(dtype_launches, dtype)
+    for a, b in groups:
+        g = fsb.slot_group(per_slot, a, b)
+        tensors = {"hidden": (g["x_pe"], (b - a, c.d_model), dtype, False),
+                   **fsb.decoder_tensors(g["valid"], g["enc_lengths"], g["k_cache"],
+                                         g["v_cache"], g["xa_k"], g["xa_v"], weights, c, stream,
+                                         dtype)}
+        fsb.launch(fsb.entry_name(ENTRY, dtype), b - a, tensors,
+                   dict(hidden_out=hidden_out[a:b]), c, dev, stream, max_seq=S,
+                   enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
+                   valid_stride=valid.stride(0))
+        with _launches_lock:
+            launches += 1
+            mode_launches[fsb.MODES[fsb.stream_mode(stream)]] += 1
+            fsb.count_dtype(dtype_launches, dtype)
     return hidden_out

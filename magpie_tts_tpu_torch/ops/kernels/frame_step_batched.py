@@ -18,13 +18,18 @@ Both update the K/V caches ``[B, L, max_seq, d_model]`` in place (row
 also serve the split path's kernels 7 and 8, entry points of the same source.
 As for kernel A, the hidden rows' dtype (float32 or bfloat16) picks the entry
 point and every weight, cache and row must have it.
+
+One launch takes at most ``MAX_SLOTS`` slots; kernels C, 7 and 8 run any
+B >= 1 as the slot groups of ``slot_groups``, one launch (on the CPU, one
+plain call) a group, each group's rows sliced from the caller's tensors
+(``slot_group``) and its outputs written into rows of one [B, ...] output.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -36,13 +41,22 @@ from .frame_step import (DTYPES, MODES, check_config, compute_dtype, count_dtype
                          decoder_weight_tensors, entry_name, lt_weight_tensors, stream_mode,
                          stream_tensors)
 
-launches = 0  # kernel launches (one per frame) since the last reset
+# Device launches since the last reset: one a slot group, so a frame of B
+# slots adds len(slot_groups(B)).
+launches = 0
 mode_launches = dict.fromkeys(MODES, 0)  # the same, by weight stream
 dtype_launches = dict.fromkeys(("float32", "bfloat16"), 0)  # the same, by compute dtype
 _launches_lock = threading.Lock()  # engines on several cards launch from a thread pool
 
-MAX_SLOTS = 64  # the GEMM's slot tiles: 4 m16 tiles
+MAX_SLOTS = 64  # slots a launch: the GEMM's slot tiles, 4 m16 tiles
 _PART_CAP = batched_gemm.PART_CAP  # most split-K partial rows a GEMM may produce
+
+# The arguments and outputs of kernels C, 7 and 8 that hold one row a slot on
+# their leading dim: a slot group takes its rows of these and nothing else.
+# Named, never found by shape: at B = 12 the weights [L, K, N] lead with 12.
+SLOT_TENSORS = frozenset((
+    "hidden", "x_pe", "valid", "may_continue", "posemb", "seeds", "forbid_eos",
+    "enc_lengths", "xa_k", "xa_v", "k_cache", "v_cache", "sampled", "argmax", "hidden_out"))
 
 
 class FrameStepBatchedArgs(ctypes.Structure):
@@ -118,8 +132,55 @@ def check_tensor(who: str, name: str, t: torch.Tensor, shape: Tuple[int, ...],
 
 
 def check_batch(who: str, B: int) -> None:
+    """The slots of one launch: 1..MAX_SLOTS."""
     if not 1 <= B <= MAX_SLOTS:
-        raise ValueError(f"{who}: {B} slots, the kernel takes 1..{MAX_SLOTS}")
+        raise ValueError(f"{who}: {B} slots, a launch takes 1..{MAX_SLOTS}")
+
+
+def slot_groups(B: int) -> List[Tuple[int, int]]:
+    """The slot groups a frame of B >= 1 slots runs as: ordered, contiguous
+    (start, stop) ranges that cover 0..B-1, each of at most ``MAX_SLOTS``
+    (read here, at call time). Greedy: every group but the last holds
+    MAX_SLOTS slots (96 -> 64 + 32, 129 -> 64 + 64 + 1), so the groups start
+    at multiples of MAX_SLOTS and hold ceil(B / 16) m16 slot tiles in all,
+    the fewest.
+
+    Exact: a group's launch gives each of its slots what one launch of all B
+    would (csrc/frame_step_batched.cu: the split-K plan and the mma K order do
+    not depend on B, an mma row depends on its own slot's row alone, the
+    partials are reduced in a fixed order); seeds, forbid_eos and the masks
+    are per slot, and every group takes the shared write row and attention
+    bound unchanged."""
+    if B < 1:
+        raise ValueError(f"{B} slots: a frame takes at least 1")
+    return [(a, min(a + MAX_SLOTS, B)) for a in range(0, B, MAX_SLOTS)]
+
+
+def slot_group(tensors: dict, start: int, stop: int) -> dict:
+    """``tensors`` ({name: value}) for slots [start, stop): the SLOT_TENSORS
+    sliced on their leading dim, everything else as it is. A slice is a
+    view: in-place cache writes land in the caller's cache, a leading-dim
+    slice of a contiguous tensor is contiguous, and a stride-0 broadcast
+    row stays one."""
+    return {k: v[start:stop] if k in SLOT_TENSORS else v for k, v in tensors.items()}
+
+
+def run_groups(groups: List[Tuple[int, int]], per_slot: dict, out: dict, plain, kernel) -> None:
+    """Run a frame as its slot ``groups`` (``slot_groups``), each on its rows
+    of ``per_slot`` and of ``out`` ({name: [B, ...] output}, written in
+    place) as ``slot_group`` gives them; a lone group takes both dicts as
+    they are. On CPU tensors ``plain(**rows)`` returns the group's outputs
+    in ``out``'s order, copied into its rows; on the card ``kernel(rows,
+    out_rows, n)`` launches the group's n slots and counts the launch."""
+    cpu = next(iter(out.values())).device.type == "cpu"
+    for a, b in groups:
+        g, o = ((per_slot, out) if len(groups) == 1
+                else (slot_group(per_slot, a, b), slot_group(out, a, b)))
+        if cpu:
+            for t, r in zip(o.values(), plain(**g)):
+                t.copy_(r)
+        else:
+            kernel(g, o, b - a)
 
 
 def check_rows(who: str, config: MagpieConfig, write_row: int, rows: Optional[int],
@@ -185,11 +246,16 @@ def launch(entry: str, B: int, tensors: dict, outputs: dict, config: MagpieConfi
     the weight ``stream``, allocate a B-slot workspace on ``device`` and call
     the library's ``entry`` on that card with a FrameStepBatchedArgs of the
     tensors, the stream's tensors and mode, the workspace, ``outputs``
-    ({name: tensor}) and the config's dims; ``scalars`` fill the remaining
-    fields (unset pointers are null)."""
+    ({name: tensor}, contiguous, 16-byte aligned) and the config's dims;
+    ``scalars`` fill the remaining fields (unset pointers are null)."""
     c = config
+    check_batch(entry, B)
     for name, (t, shape, dtype, broadcast_ok) in tensors.items():
         check_tensor(entry, name, t, shape, dtype, broadcast_ok)
+    for name, t in outputs.items():
+        if t.device.type != "cuda" or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{entry}: output {name} must be a contiguous 16-byte aligned "
+                             f"CUDA tensor")
     quantized = stream_tensors(entry, stream, c)
     batched_gemm.check_widths(entry, c, tensors["hidden"][2], stream_mode(stream))
     lib = build.load_library()
@@ -237,40 +303,49 @@ def frame_step_batched(hidden: torch.Tensor, write_row: int, valid: torch.Tensor
     int32; caches [B, L, max_seq, d_model]; xa_k/xa_v [B, L, enc, d_xa].
     ``rows`` (host int, default max_seq) bounds self-attention to rows
     [0, rows): no valid row may lie past it. ``stream`` supplies the four
-    streamed decoder matrices when given. No value is read back to the
-    host. Returns (sampled [B, 8] int32, argmax [B, 8] int32,
-    hidden [B, d_model], k_cache, v_cache); the caches update in place.
+    streamed decoder matrices when given. Any B >= 1: one launch a slot group
+    (``slot_groups``). No value is read back to the host. Returns (sampled
+    [B, 8] int32, argmax [B, 8] int32, hidden [B, d_model], k_cache,
+    v_cache); the caches update in place.
     """
-    global launches
-    if hidden.device.type == "cpu":
-        return frame_step_batched_reference(hidden, write_row, valid, may_continue, posemb,
-                                            xa_k, xa_v, k_cache, v_cache, weights, config,
-                                            enc_lengths, seeds, temperature, top_k, forbid_eos,
-                                            rows, stream)
-    if hidden.device.type != "cuda":
-        raise ValueError(f"frame_step_batched: unsupported device {hidden.device}")
     c = config
-    dtype = compute_dtype("frame_step_batched", hidden)
-    B, S = k_cache.shape[0], k_cache.shape[2]
-    check_batch("frame_step_batched", B)
-    rows = check_rows("frame_step_batched", c, write_row, rows, S)
-    check_config("frame_step_batched", c, top_k)
     dev = hidden.device
-    sampled = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
-    argmax = torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev)
-    hidden_out = torch.empty(B, c.d_model, dtype=dtype, device=dev)
-    tensors = {**sampler_tensors(hidden, forbid_eos, seeds, weights, c),
-               **decoder_tensors(valid, enc_lengths, k_cache, v_cache, xa_k, xa_v, weights, c,
-                                 stream, dtype),
-               "may_continue": (may_continue, (B,), torch.bool, False),
-               "posemb": (posemb, (B, c.d_model), dtype, True)}
-    launch(entry_name("magpie_frame_step_batched", dtype), B, tensors,
-           dict(sampled=sampled, argmax=argmax, hidden_out=hidden_out), c, dev, stream,
-           max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
-           valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
-           top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
-    with _launches_lock:
-        launches += 1
-        mode_launches[MODES[stream_mode(stream)]] += 1
-        count_dtype(dtype_launches, dtype)
-    return sampled, argmax, hidden_out, k_cache, v_cache
+    B, S = k_cache.shape[0], k_cache.shape[2]
+    groups = slot_groups(B)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"frame_step_batched: unsupported device {dev}")
+    per_slot = dict(hidden=hidden, valid=valid, may_continue=may_continue, posemb=posemb,
+                    xa_k=xa_k, xa_v=xa_v, k_cache=k_cache, v_cache=v_cache,
+                    enc_lengths=enc_lengths, seeds=seeds, forbid_eos=forbid_eos)
+    out = dict(sampled=torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev),
+               argmax=torch.empty(B, c.num_codebooks, dtype=torch.int32, device=dev),
+               hidden_out=torch.empty(B, c.d_model, dtype=hidden.dtype, device=dev))
+    if dev.type == "cuda":
+        dtype = compute_dtype("frame_step_batched", hidden)
+        rows = check_rows("frame_step_batched", c, write_row, rows, S)
+        check_config("frame_step_batched", c, top_k)
+        entry = entry_name("magpie_frame_step_batched", dtype)
+
+    def plain(**g):
+        return frame_step_batched_reference(
+            weights=weights, config=c, write_row=write_row, temperature=temperature,
+            top_k=top_k, rows=rows, stream=stream, **g)[:3]
+
+    def kernel(g, o, n):
+        global launches
+        tensors = {**sampler_tensors(g["hidden"], g["forbid_eos"], g["seeds"], weights, c),
+                   **decoder_tensors(g["valid"], g["enc_lengths"], g["k_cache"], g["v_cache"],
+                                     g["xa_k"], g["xa_v"], weights, c, stream, dtype),
+                   "may_continue": (g["may_continue"], (n,), torch.bool, False),
+                   "posemb": (g["posemb"], (n, c.d_model), dtype, True)}
+        launch(entry, n, tensors, o, c, dev, stream,
+               max_seq=S, enc_rows=xa_k.shape[2], write_row=int(write_row), rows=rows,
+               valid_stride=valid.stride(0), posemb_stride=posemb.stride(0),
+               top_k=min(int(top_k), c.vocab_per_cb), temperature=float(temperature))
+        with _launches_lock:
+            launches += 1
+            mode_launches[MODES[stream_mode(stream)]] += 1
+            count_dtype(dtype_launches, dtype)
+
+    run_groups(groups, per_slot, out, plain, kernel)
+    return out["sampled"], out["argmax"], out["hidden_out"], k_cache, v_cache

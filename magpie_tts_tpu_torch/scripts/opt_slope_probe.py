@@ -23,9 +23,10 @@ Probes:
             fused (C) then split (7 + 8), glue included: a host-clock slope
             over ``max_steps`` (LOCKSTEP_N_LO / LOCKSTEP_N_HI frames)
 A probe name may carry the position offset: ``fused:340``. The frame probes
-run in bf16 (the TPU script's DT), B = MAGPIE_PROBE_B (default 32; any 1..64),
-temp MAGPIE_PROBE_TEMP (default 0.7) for ``fused``, each launch seeded with
-its index. Frame chains are FRAME_N_LO / FRAME_N_HI frames long.
+run in bf16 (the TPU script's DT), B = MAGPIE_PROBE_B (default 32; any B >= 1,
+past 64 one launch a slot group), temp MAGPIE_PROBE_TEMP (default 0.7) for
+``fused``, each launch seeded with its index. Frame chains are FRAME_N_LO /
+FRAME_N_HI frames long.
 
     python -m magpie_tts_tpu_torch.scripts.opt_slope_probe [probe ...] [--device cuda|cpu]
 """

@@ -345,10 +345,12 @@ def test_split_wrappers_reject_bad_inputs(cuda):
         dsb.decode_step_batched(x["hidden"], 5, x["valid"].to(torch.int32), x["xa_k"],
                                 x["xa_v"], x["k_cache"], x["v_cache"], w, SMALL,
                                 x["enc_lengths"])
-    with pytest.raises(ValueError):   # at most 64 slots
-        ltsb.sample_frame_codes_batched(torch.zeros(65, D, device=cuda), w, SMALL,
-                                        torch.zeros(65, dtype=torch.int32, device=cuda), 0.0,
-                                        8, torch.zeros(65, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):   # at least one slot (65 run as two slot groups)
+        ltsb.sample_frame_codes_batched(torch.zeros(0, D, device=cuda), w, SMALL,
+                                        torch.zeros(0, dtype=torch.int32, device=cuda), 0.0,
+                                        8, torch.zeros(0, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):   # at most 64 slots a launch
+        fsb.launch("magpie_lt_sample_batched_f32", 65, {}, {}, SMALL, cuda)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
