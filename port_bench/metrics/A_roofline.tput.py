@@ -1,0 +1,8 @@
+"""Percent of kernel A's roofline: the least time of its calls
+(rooflines/A.py) over the device time of the kernels its spans launched."""
+
+from port_bench.readings import roofline
+
+
+def read(run):
+    return roofline(run, "A")
