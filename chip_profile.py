@@ -1,9 +1,8 @@
 """Profile of the PyTorch/CUDA port on one NVIDIA GPU: where the batched frame
-kernel's time goes, the fused frame against the split path, and where
-``serve``'s time goes.
+kernel's time goes, and the fused frame against the split path.
 
 Run from the root of a checkout:
-    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|gemv|copy|serve|admission|all]
+    python3 chip_profile.py [frame|split|fused|stream|slope|lt|q8|gemv|copy|admission|all]
                             [--root DIR]
 
 frame: kernel C (csrc/frame_step_batched.cu) at full 357M width, random
@@ -66,19 +65,6 @@ copy: the copy probes (kernels 15-17, csrc/probe_copy.cu), each form the
     ``plan_copy``'s rule); the median of STAMP_RUNS launches' phase stamps
     (``phase_us``). A parent without ``ctas`` is timed in turns by its own
     ``opt_slope_probe`` / ``opt_launch_probe``.
-serve: ``cli.main serve`` on random production-width GGUFs (chip_smoke's),
-    16-frame segments, temp 0.7, for each (slots, requests) of SERVE_CASES,
-    after one warm-up run: an unprofiled run (serve's aggregate fps and the
-    wall seconds spent in admission, segments and ``decode_batch``) and a
-    profiled run. ``admit_ms_per_request`` is admission's wall
-    (``_admit_pending``) over the requests admitted, ``admit_share`` that
-    wall over serve's loop seconds, ``admitted`` the requests each admission
-    took in. ``busy_share`` is the device's busy time
-    inside serve's loop window (the ``serve.loop`` span, the window of
-    serve's aggregate-fps line) over that window's length; busy time is the
-    union of the kernels' intervals, copies excluded. With ``--root DIR``
-    another checkout's package, for turns.
-
 admission: ``prepare_batch`` (profile_admission): rows of groups against
     the request alone with the products folded (the port's) and as a
     per-request-shaped bmm, device work by family at M = 1 / 8 / 32, and bf16
@@ -90,10 +76,7 @@ limit come first.
 
 from __future__ import annotations
 
-import contextlib
-import io
 import json
-import re
 import sys
 import tempfile
 import time
@@ -103,8 +86,6 @@ import numpy as np
 
 FRAME_CASES = [(1, 0.7, 640), (1, 0.7, 301), (8, 0.0, 301), (8, 0.7, 640), (8, 0.7, 301),
                (32, 0.7, 640), (32, 0.7, 301)]
-SERVE_CASES = [(4, 6), (8, 16), (32, 48)]
-SERVE_SEGMENT = 16
 REPS = 20
 SLOPE_N = (4, 16, 3)   # graph slopes: frames a graph, lo / hi, and replays
 GEMV_K = (256, 512, 768, 1024)
@@ -552,125 +533,6 @@ def profile_frame(dev) -> None:
               "launches_per_frame": {k: v / REPS for k, v in launches.items()}})
 
 
-class _StageTimer:
-    """Wall seconds spent inside a few methods, by name."""
-
-    def __init__(self, targets):
-        self.targets = targets       # [(owner, attribute name)]
-        self.seconds = {name: 0.0 for _, name in targets}
-        self._saved = []
-
-    def __enter__(self):
-        for owner, name in self.targets:
-            fn = getattr(owner, name)
-            self._saved.append((owner, name, fn))
-
-            def timed(*a, _fn=fn, _name=name, **k):
-                t0 = time.perf_counter()
-                try:
-                    return _fn(*a, **k)
-                finally:
-                    self.seconds[_name] += time.perf_counter() - t0
-            setattr(owner, name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        for owner, name, fn in self._saved:
-            setattr(owner, name, fn)
-
-
-def _serve_once(tmp: Path, slots: int, n_requests: int, seed0: int):
-    """One cli.main serve run; returns (stderr, frames)."""
-    from chip_smoke import SERVE_TEXTS
-    from magpie_tts_tpu_torch import cli
-
-    lines = [json.dumps({"id": f"q{i}", "text": SERVE_TEXTS[i % len(SERVE_TEXTS)],
-                         "seed": seed0 + i}) for i in range(n_requests)]
-    argv = ["serve", "-m", str(tmp / "magpie.gguf"), "-c", str(tmp / "codec.gguf"),
-            "--out-dir", str(tmp / "serve"), "--slots", str(slots), "--segment-frames",
-            str(SERVE_SEGMENT), "--temp", "0.7", "--device", "cuda"]
-    out, err, stdin = io.StringIO(), io.StringIO(), sys.stdin
-    sys.stdin = io.StringIO("\n".join(lines) + "\n")
-    try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = cli.main(argv)
-    finally:
-        sys.stdin = stdin
-    results = [json.loads(ln) for ln in out.getvalue().splitlines()]
-    if rc != 0 or len(results) != n_requests or any("error" in r for r in results):
-        raise AssertionError(f"serve run failed (rc {rc}): {err.getvalue()[-2000:]}")
-    return err.getvalue(), sum(r["frames"] for r in results)
-
-
-def _busy_share(prof) -> dict:
-    """Union of kernel intervals inside the serve.loop span, over the span."""
-    from torch.autograd import DeviceType
-
-    spans = [e for e in prof.events() if e.name == "serve.loop" and e.device_type == DeviceType.CPU]
-    if len(spans) != 1:
-        raise AssertionError(f"the profile holds {len(spans)} serve.loop spans, want 1")
-    ws, we = spans[0].time_range.start, spans[0].time_range.end
-    kernels = sorted((max(t0, ws), min(t1, we)) for name, t0, t1 in _device_events(prof)
-                     if not _is_copy(name) and t1 > ws and t0 < we)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in kernels:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return {"window_s": (we - ws) / 1e6, "device_busy_s": busy / 1e6,
-            "busy_share": busy / (we - ws), "kernels_in_window": len(kernels)}
-
-
-def profile_serve() -> None:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from chip_smoke import write_ggufs
-    from magpie_tts_tpu_torch.parallel.continuous import ContinuousBatchingEngine
-    from magpie_tts_tpu_torch.runtime.engine import CodecEngine
-
-    fps_re = re.compile(r"(\d+) frames in ([0-9.]+)s \(([0-9.]+) aggregate fps")
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        write_ggufs(tmp)
-        _serve_once(tmp, 8, 2, 1000)   # warm-up: kernel build, CUDA init
-        for slots, n_req in SERVE_CASES:
-            stages = [(ContinuousBatchingEngine, "_admit_pending"),
-                      (ContinuousBatchingEngine, "_segment"), (CodecEngine, "decode_batch")]
-            admitted = []    # requests each admission took in
-            admit = ContinuousBatchingEngine._admit_pending
-
-            def counted(engine):
-                before = len(engine._queue)
-                admit(engine)
-                if before > len(engine._queue):
-                    admitted.append(before - len(engine._queue))
-            ContinuousBatchingEngine._admit_pending = counted
-            try:
-                with _StageTimer(stages) as timer:
-                    log, frames = _serve_once(tmp, slots, n_req, 0)
-            finally:
-                ContinuousBatchingEngine._admit_pending = admit
-            m = fps_re.search(log)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                plog, _ = _serve_once(tmp, slots, n_req, 0)
-                torch.cuda.synchronize()
-            pm = fps_re.search(plog)
-            admit_s = timer.seconds["_admit_pending"]
-            emit({"phase": "serve", "slots": slots, "requests": n_req, "frames": frames,
-                  "serve_s": float(m.group(2)), "fps": float(m.group(3)),
-                  "stage_wall_s": timer.seconds,
-                  "admit_ms_per_request": admit_s * 1e3 / n_req, "admitted": admitted,
-                  "admit_share": admit_s / float(m.group(2)),
-                  "profiled": {"serve_s": float(pm.group(2)), "fps": float(pm.group(3)),
-                               **_busy_share(prof)}})
-
-
 def _profile_frames(frame, reps: int = REPS) -> dict:
     """Host wall ms per frame over ``reps`` calls of ``frame()`` then one
     sync, and the device ms per frame in all and by kernel family (copies
@@ -987,9 +849,9 @@ def main() -> int:
 
     what = args[0] if args else "all"
     if what not in ("frame", "split", "fused", "stream", "slope", "lt", "q8", "gemv", "copy",
-                    "serve", "admission", "all"):
+                    "admission", "all"):
         print("usage: python3 chip_profile.py "
-              "[frame|split|fused|stream|slope|lt|q8|gemv|copy|serve|admission|all] [--root DIR]",
+              "[frame|split|fused|stream|slope|lt|q8|gemv|copy|admission|all] [--root DIR]",
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
@@ -1014,8 +876,6 @@ def main() -> int:
         profile_split(dev, split=what != "fused")
     if what in ("stream", "all"):
         profile_stream(dev)
-    if what in ("serve", "all"):
-        profile_serve()
     if what in ("admission", "all"):
         profile_admission(dev)
     return 0

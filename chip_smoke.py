@@ -882,7 +882,8 @@ def time_codec_decode(dev, dtype: str, frames: int = 32) -> dict:
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy")
-                   and not e.name.startswith("Memset"))
+                   and not e.name.startswith("Memset")
+                   and not getattr(e, "is_user_annotation", False))
     busy, cur = 0.0, None
     for a, b in spans:
         if cur is None or a > cur[1]:
@@ -2452,12 +2453,13 @@ def device_trace():
 
 
 def count_device_kernels(prof) -> dict:
-    """{device kernel name: launches} of a finished trace."""
+    """{device kernel name: launches} of a finished trace (user annotations,
+    the device copies of ``record_function`` spans, left out)."""
     from torch.autograd import DeviceType
 
     out = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             out[e.name] = out.get(e.name, 0) + 1
     return out
 

@@ -311,43 +311,40 @@ def serve(argv) -> int:
     n_done = 0
     total_frames = 0
     t0 = time.perf_counter()
-    # The span marks the window of the aggregate-fps line for a profiler
-    # (chip_profile.py reads the device's busy share over it).
-    with torch.profiler.record_function("serve.loop"):
-        eof = False
-        while not eof or engine.pending:
-            # Drain everything already queued; block only when idle.
-            while True:
-                try:
-                    line = lines.get(block=not engine.pending and not eof)
-                except queue.Empty:
-                    break
-                if line is None:
-                    eof = True
-                    break
-                admit(line)
-                if engine.pending and lines.empty():
-                    break  # do not starve the decode loop
-            if not engine.pending:
-                continue
-            finished = engine.step(temperature=args.temp, top_k=args.top_k)
-            if not finished:
-                continue
+    eof = False
+    while not eof or engine.pending:
+        # Drain everything already queued; block only when idle.
+        while True:
             try:
-                audios = codec.decode_batch(list(finished.values()))
-            except Exception as e:
-                for rid in finished:
-                    emit({"id": names.get(rid, str(rid)),
-                          "error": f"codec decode failed: {type(e).__name__}: {e}"})
-                continue
-            for (rid, codes), audio in zip(finished.items(), audios):
-                path = os.path.join(args.out_dir, f"{names.get(rid, rid)}.wav")
-                write_wav(path, audio, config.sample_rate)
-                total_frames += codes.shape[0]
-                n_done += 1
-                emit({"id": names.get(rid, str(rid)), "wav": path, "frames": int(codes.shape[0]),
-                      "seconds": round(len(audio) / config.sample_rate, 3)})
-        dt = time.perf_counter() - t0
+                line = lines.get(block=not engine.pending and not eof)
+            except queue.Empty:
+                break
+            if line is None:
+                eof = True
+                break
+            admit(line)
+            if engine.pending and lines.empty():
+                break  # do not starve the decode loop
+        if not engine.pending:
+            continue
+        finished = engine.step(temperature=args.temp, top_k=args.top_k)
+        if not finished:
+            continue
+        try:
+            audios = codec.decode_batch(list(finished.values()))
+        except Exception as e:
+            for rid in finished:
+                emit({"id": names.get(rid, str(rid)),
+                      "error": f"codec decode failed: {type(e).__name__}: {e}"})
+            continue
+        for (rid, codes), audio in zip(finished.items(), audios):
+            path = os.path.join(args.out_dir, f"{names.get(rid, rid)}.wav")
+            write_wav(path, audio, config.sample_rate)
+            total_frames += codes.shape[0]
+            n_done += 1
+            emit({"id": names.get(rid, str(rid)), "wav": path, "frames": int(codes.shape[0]),
+                  "seconds": round(len(audio) / config.sample_rate, 3)})
+    dt = time.perf_counter() - t0
     log(f"serve: {n_done} requests, {total_frames} frames in {dt:.2f}s "
         f"({total_frames / dt:.0f} aggregate fps)" if dt > 0 else "serve: done")
     return 0

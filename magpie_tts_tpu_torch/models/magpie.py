@@ -45,6 +45,7 @@ from ..ops.kernels.frame_step import frame_step
 from ..ops.kernels.frame_step_batched import frame_step_batched
 from ..ops.kernels.lt_sampler import sample_frame_codes
 from ..ops.kernels.lt_sampler_batched import sample_frame_codes_batched
+from ..runtime import telemetry
 from . import decoder as decoder_mod
 from .encoder import run_encoder
 
@@ -202,7 +203,8 @@ def decode_loop(xa_k: torch.Tensor, xa_v: torch.Tensor, state: DecodeState,
         else:
             sampled, argmax = sample_frame_codes(s.hidden, weights, config, seed, temperature,
                                                  top_k, forbid_eos)
-        sampled_h, argmax_h = sampled.cpu(), argmax.cpu()
+        with telemetry.span("decode.read"):
+            sampled_h, argmax_h = sampled.cpu(), argmax.cpu()
         s.codes[s.frame_idx] = sampled_h.numpy()
         s.done = sampling.frame_has_eos(sampled_h, argmax_h, config.audio_eos_id)
         if not fused:

@@ -24,6 +24,7 @@ and uploaded at once.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
@@ -38,6 +39,7 @@ from ..ops import sampling
 from ..ops.kernels.decoder_step_batched import decode_step_batched
 from ..ops.kernels.frame_step_batched import frame_step_batched
 from ..ops.kernels.lt_sampler_batched import sample_frame_codes_batched
+from ..runtime import telemetry
 from ..runtime.engine import check_dtype, pick_bucket, resolve_device, split_to_buckets
 
 
@@ -47,6 +49,7 @@ class _Request:
     token_ids: List[int]
     speaker_id: int
     seed: int
+    submit_ns: int   # perf_counter_ns of its submit, where its queue wait starts
 
 
 class ContinuousBatchingEngine:
@@ -117,60 +120,73 @@ class ContinuousBatchingEngine:
         0), its XA K/V fill rows [0, bucket) of a zeroed slot."""
         c, dev = self.config, self.device
         S, n_rows = c.max_seq, c.context_frames + 1
-        tokens = np.zeros((len(chunk), bucket), np.int64)
-        for i, (_, req) in enumerate(chunk):
-            tokens[i, :len(req.token_ids)] = req.token_ids
-        lens = [len(req.token_ids) for _, req in chunk]
-        xa_k, xa_v, k_rows, v_rows, hidden = magpie_mod.prepare_batch(
-            torch.from_numpy(tokens).to(dev), lens, [req.speaker_id for _, req in chunk],
-            self.prepare_weights, c)
-        start = self.ring_p - n_rows
-        rows = (torch.arange(n_rows, device=dev) + start) % S
-        slots = torch.tensor([slot for slot, _ in chunk], dtype=torch.int64).to(dev)
-        for cache, new in ((self.k_cache, k_rows), (self.v_cache, v_rows)):
-            cache.index_fill_(0, slots, 0)
-            cache[slots[:, None], :, rows] = new.transpose(1, 2)   # [M, n_rows, L, D]
-        for xa, new in ((self.xa_k, xa_k), (self.xa_v, xa_v)):
-            xa.index_fill_(0, slots, 0)
-            xa[slots, :, :bucket] = new
-        vmask = torch.zeros(S, dtype=torch.bool, device=dev)
-        vmask[rows] = True
-        self.hidden[slots] = hidden
-        self.valid[slots] = vmask
-        self.enc_lengths[slots] = torch.tensor(lens, dtype=torch.int32).to(dev)
-        self.logical_pos[slots] = n_rows
-        self.frame_count[slots] = 0
-        self._rows_hi = S if start < 0 else max(self._rows_hi, self.ring_p)
-        for slot, req in chunk:
-            self.keys[slot] = sampling.fold_in(sampling.prng_key(req.seed), req.req_id)
+        with telemetry.span("engine.admit.group", bucket=bucket, requests=len(chunk)) as sp:
+            if sp.on:
+                sp.set(request_ids=[req.req_id for _, req in chunk],
+                       queue_wait_ms=[(sp.start_ns - req.submit_ns) / 1e6 for _, req in chunk])
+            tokens = np.zeros((len(chunk), bucket), np.int64)
+            for i, (_, req) in enumerate(chunk):
+                tokens[i, :len(req.token_ids)] = req.token_ids
+            lens = [len(req.token_ids) for _, req in chunk]
+            with telemetry.span("engine.admit.prepare"):
+                xa_k, xa_v, k_rows, v_rows, hidden = magpie_mod.prepare_batch(
+                    torch.from_numpy(tokens).to(dev), lens, [req.speaker_id for _, req in chunk],
+                    self.prepare_weights, c)
+            with telemetry.span("engine.admit.place"):
+                start = self.ring_p - n_rows
+                rows = (torch.arange(n_rows, device=dev) + start) % S
+                # A pageable upload synchronizes the stream: the host waits
+                # here for the device work enqueued before it.
+                with telemetry.span("engine.admit.upload"):
+                    slots = torch.tensor([slot for slot, _ in chunk], dtype=torch.int64).to(dev)
+                for cache, new in ((self.k_cache, k_rows), (self.v_cache, v_rows)):
+                    cache.index_fill_(0, slots, 0)
+                    cache[slots[:, None], :, rows] = new.transpose(1, 2)   # [M, n_rows, L, D]
+                for xa, new in ((self.xa_k, xa_k), (self.xa_v, xa_v)):
+                    xa.index_fill_(0, slots, 0)
+                    xa[slots, :, :bucket] = new
+                vmask = torch.zeros(S, dtype=torch.bool, device=dev)
+                vmask[rows] = True
+                self.hidden[slots] = hidden
+                self.valid[slots] = vmask
+                with telemetry.span("engine.admit.upload"):
+                    enc_lengths = torch.tensor(lens, dtype=torch.int32).to(dev)
+                self.enc_lengths[slots] = enc_lengths
+                self.logical_pos[slots] = n_rows
+                self.frame_count[slots] = 0
+                self._rows_hi = S if start < 0 else max(self._rows_hi, self.ring_p)
+                for slot, req in chunk:
+                    self.keys[slot] = sampling.fold_in(sampling.prng_key(req.seed), req.req_id)
 
     def _admit_pending(self) -> None:
         """Pop queued requests into free slots (lowest slot first), grouped by
         token bucket in queue order, as the JAX engine admits them: each
         bucket's requests in power-of-two chunks (the largest ``m`` <= the
         requests left and <= ``n_slots``), one ``prepare_batch`` a chunk."""
-        free = [s for s in range(self.n_slots) if self._slot_req[s] is None]
-        pairs = []
-        while free and self._queue:
-            pairs.append((free.pop(0), self._queue.popleft()))
-        by_bucket: Dict[int, list] = {}
-        for slot, req in pairs:
-            by_bucket.setdefault(pick_bucket(self.token_buckets, len(req.token_ids)),
-                                 []).append((slot, req))
-        with torch.no_grad():
-            for bucket, group in by_bucket.items():
-                while group:
-                    m = 1
-                    while m * 2 <= len(group) and m * 2 <= self.n_slots:
-                        m *= 2
-                    self._admit_group(bucket, group[:m])
-                    group = group[m:]
-        for slot, req in pairs:
-            self.active[slot] = True
-            self._done_host[slot] = False
-            self._counts_host[slot] = 0
-            self._slot_req[slot] = req.req_id
-            self._partial[req.req_id] = []
+        with telemetry.span("engine.admit") as sp:
+            free = [s for s in range(self.n_slots) if self._slot_req[s] is None]
+            pairs = []
+            while free and self._queue:
+                pairs.append((free.pop(0), self._queue.popleft()))
+            by_bucket: Dict[int, list] = {}
+            for slot, req in pairs:
+                by_bucket.setdefault(pick_bucket(self.token_buckets, len(req.token_ids)),
+                                     []).append((slot, req))
+            with torch.no_grad():
+                for bucket, group in by_bucket.items():
+                    while group:
+                        m = 1
+                        while m * 2 <= len(group) and m * 2 <= self.n_slots:
+                            m *= 2
+                        self._admit_group(bucket, group[:m])
+                        group = group[m:]
+            for slot, req in pairs:
+                self.active[slot] = True
+                self._done_host[slot] = False
+                self._counts_host[slot] = 0
+                self._slot_req[slot] = req.req_id
+                self._partial[req.req_id] = []
+            sp.set(admitted=len(pairs))
 
     def _segment(self, temperature: float, top_k: int) -> np.ndarray:
         """``segment_frames`` batched frames at ring rows ring_p + j; one
@@ -178,69 +194,82 @@ class ContinuousBatchingEngine:
         c = self.config
         K, S, B = self.segment_frames, c.max_seq, self.n_slots
         dev = self.device
-        seeds, next_keys = sampling.frame_seeds_batch(self.keys, K)
-        self.keys = next_keys
-        seeds = torch.from_numpy(seeds).to(dev)
-        active = torch.from_numpy(self.active).to(dev)
-        done = torch.from_numpy(self._done_host).to(dev)
-        codes_seg = torch.zeros(K, B, c.num_codebooks, dtype=torch.int32, device=dev)
-        self._rows_hi = S if self.ring_p + K > S else max(self._rows_hi, self.ring_p + K)
-        pos_emb = self.weights.decoder.pos_emb
-        fused = magpie_mod.resolve_use_fused(self.use_fused)
-        for j in range(K):
-            r = (self.ring_p + j) % S
-            alive = active & ~done
-            may_continue = alive & (self.frame_count < c.max_dec_steps)
-            forbid = self.frame_count < c.min_generated_frames
-            posemb = pos_emb[self.logical_pos.clamp(0, c.max_pos - 1).long()]
-            if fused:
-                sampled, argmax, self.hidden, _, _ = frame_step_batched(
-                    self.hidden, r, self.valid, may_continue, posemb, self.xa_k, self.xa_v,
-                    self.k_cache, self.v_cache, self.weights, c, self.enc_lengths, seeds[j],
-                    temperature, top_k, forbid, rows=self._rows_hi)
-            else:
-                sampled, argmax = sample_frame_codes_batched(self.hidden, self.weights, c,
-                                                             seeds[j], temperature, top_k,
-                                                             forbid)
-            is_eos = ((sampled == c.audio_eos_id) | (argmax == c.audio_eos_id)).any(-1)
-            codes_seg[j] = sampled
-            counts = may_continue & ~is_eos
-            self.frame_count += counts.to(torch.int32)
-            done = done | (active & is_eos)
-            # Split path: ring row r's validity is written before the decoder
-            # step attends to it (the fused kernel decides it inside).
-            self.valid[:, r] = counts
-            if not fused:
-                x_pe = magpie_mod.audio_frame_embedding(sampled, self.weights, c) + posemb
-                self.hidden = decode_step_batched(x_pe, r, self.valid, self.xa_k, self.xa_v,
-                                                  self.k_cache, self.v_cache, self.weights, c,
-                                                  self.enc_lengths, rows=self._rows_hi)
-            self.logical_pos += counts.to(torch.int32)
-        self.ring_p = (self.ring_p + K) % S
-        self._counts_host = self.frame_count.cpu().numpy().astype(np.int64)
-        self._done_host = done.cpu().numpy().copy()
-        return codes_seg.cpu().numpy()
+        with telemetry.span("engine.segment", slot_frames=K * B) as sp:
+            counts_before = self._counts_host
+            seeds, next_keys = sampling.frame_seeds_batch(self.keys, K)
+            self.keys = next_keys
+            # Pageable uploads synchronize the stream: the host waits here for
+            # admission's device work.
+            with telemetry.span("engine.segment.upload"):
+                seeds = torch.from_numpy(seeds).to(dev)
+                active = torch.from_numpy(self.active).to(dev)
+                done = torch.from_numpy(self._done_host).to(dev)
+            codes_seg = torch.zeros(K, B, c.num_codebooks, dtype=torch.int32, device=dev)
+            self._rows_hi = S if self.ring_p + K > S else max(self._rows_hi, self.ring_p + K)
+            pos_emb = self.weights.decoder.pos_emb
+            fused = magpie_mod.resolve_use_fused(self.use_fused)
+            with telemetry.span("engine.segment.enqueue"):
+                for j in range(K):
+                    r = (self.ring_p + j) % S
+                    alive = active & ~done
+                    may_continue = alive & (self.frame_count < c.max_dec_steps)
+                    forbid = self.frame_count < c.min_generated_frames
+                    posemb = pos_emb[self.logical_pos.clamp(0, c.max_pos - 1).long()]
+                    if fused:
+                        sampled, argmax, self.hidden, _, _ = frame_step_batched(
+                            self.hidden, r, self.valid, may_continue, posemb, self.xa_k,
+                            self.xa_v, self.k_cache, self.v_cache, self.weights, c,
+                            self.enc_lengths, seeds[j], temperature, top_k, forbid,
+                            rows=self._rows_hi)
+                    else:
+                        sampled, argmax = sample_frame_codes_batched(
+                            self.hidden, self.weights, c, seeds[j], temperature, top_k, forbid)
+                    is_eos = ((sampled == c.audio_eos_id) | (argmax == c.audio_eos_id)).any(-1)
+                    codes_seg[j] = sampled
+                    counts = may_continue & ~is_eos
+                    self.frame_count += counts.to(torch.int32)
+                    done = done | (active & is_eos)
+                    # Split path: ring row r's validity is written before the
+                    # decoder step attends to it (the fused kernel decides it
+                    # inside).
+                    self.valid[:, r] = counts
+                    if not fused:
+                        x_pe = magpie_mod.audio_frame_embedding(sampled, self.weights, c) + posemb
+                        self.hidden = decode_step_batched(
+                            x_pe, r, self.valid, self.xa_k, self.xa_v, self.k_cache,
+                            self.v_cache, self.weights, c, self.enc_lengths, rows=self._rows_hi)
+                    self.logical_pos += counts.to(torch.int32)
+            self.ring_p = (self.ring_p + K) % S
+            with telemetry.span("engine.segment.read"):
+                self._counts_host = self.frame_count.cpu().numpy().astype(np.int64)
+                self._done_host = done.cpu().numpy().copy()
+                codes = codes_seg.cpu().numpy()
+            if sp.on:
+                sp.set(kept_frames=int((self._counts_host - counts_before).sum()))
+        return codes
 
     def _retire_finished(self, codes_seg: np.ndarray,
                          counts_before: np.ndarray) -> Dict[int, np.ndarray]:
-        finished = {}
-        for slot in range(self.n_slots):
-            req_id = self._slot_req[slot]
-            if req_id is None:
-                continue
-            new = int(self._counts_host[slot] - counts_before[slot])
-            if new > 0:
-                self._partial[req_id].append(codes_seg[:new, slot, :])
-            hit_cap = self._counts_host[slot] >= self.config.max_dec_steps
-            if self._done_host[slot] or hit_cap:
-                parts = self._partial.pop(req_id)
-                codes = (np.concatenate(parts, axis=0) if parts
-                         else np.zeros((0, self.config.num_codebooks), np.int32))
-                finished[req_id] = codes
-                self._finished[req_id] = codes
-                self._slot_req[slot] = None
-                self.active[slot] = False
-        return self._resolve_groups(finished)
+        with telemetry.span("engine.retire") as sp:
+            finished = {}
+            for slot in range(self.n_slots):
+                req_id = self._slot_req[slot]
+                if req_id is None:
+                    continue
+                new = int(self._counts_host[slot] - counts_before[slot])
+                if new > 0:
+                    self._partial[req_id].append(codes_seg[:new, slot, :])
+                hit_cap = self._counts_host[slot] >= self.config.max_dec_steps
+                if self._done_host[slot] or hit_cap:
+                    parts = self._partial.pop(req_id)
+                    codes = (np.concatenate(parts, axis=0) if parts
+                             else np.zeros((0, self.config.num_codebooks), np.int32))
+                    finished[req_id] = codes
+                    self._finished[req_id] = codes
+                    self._slot_req[slot] = None
+                    self.active[slot] = False
+            sp.set(request_ids=list(finished))
+            return self._resolve_groups(finished)
 
     def _resolve_groups(self, finished: Dict[int, np.ndarray]) -> Dict[int, np.ndarray]:
         """Map finished chunk-children onto their parent request: the parent
@@ -266,17 +295,22 @@ class ContinuousBatchingEngine:
 
     # ---- public API -----------------------------------------------------------
 
-    def submit(self, token_ids: Sequence[int], *, speaker_id: int = 0, seed: int = 0) -> int:
+    def submit(self, token_ids: Sequence[int], *, speaker_id: int = 0, seed: int = 0,
+               submit_ns: Optional[int] = None) -> int:
         """Queue one request; returns its id. Requests longer than the largest
         token bucket split into word-boundary child chunks (child i > 0 gets
         its own id and ``seed + i``); the request id is reported finished once
-        all chunks are, with their codes concatenated in order."""
+        all chunks are, with their codes concatenated in order. ``submit_ns``
+        (``time.perf_counter_ns``) is when the request arrived, where a server
+        in front of the engine queued it first; this call's time by default."""
+        if submit_ns is None:
+            submit_ns = time.perf_counter_ns()
         chunks = split_to_buckets(token_ids, self.token_buckets, self.split_token_id,
                                   self.config.text_bos_id, self.config.text_eos_id)
         req_id = self._next_id
         self._next_id += 1
         if len(chunks) == 1:
-            self._queue.append(_Request(req_id, chunks[0], speaker_id, seed))
+            self._queue.append(_Request(req_id, chunks[0], speaker_id, seed, submit_ns))
             return req_id
         children = []
         for i, chunk in enumerate(chunks):
@@ -285,7 +319,7 @@ class ContinuousBatchingEngine:
                 self._next_id += 1
             children.append(child_id)
             self._group_parent[child_id] = req_id
-            self._queue.append(_Request(child_id, chunk, speaker_id, seed + i))
+            self._queue.append(_Request(child_id, chunk, speaker_id, seed + i, submit_ns))
         self._groups[req_id] = children
         return req_id
 
@@ -297,13 +331,14 @@ class ContinuousBatchingEngine:
     def step(self, *, temperature: float = 0.7, top_k: int = 80) -> Dict[int, np.ndarray]:
         """Admit queued requests, run one segment, retire finished slots.
         Returns {request_id: codes [n_frames, 8]} finished in this segment."""
-        self._admit_pending()
-        if not self.active.any():
-            return {}
-        counts_before = self._counts_host.copy()
-        with torch.no_grad():
-            codes_seg = self._segment(temperature, top_k)
-        return self._retire_finished(codes_seg, counts_before)
+        with telemetry.span("engine.step"):
+            self._admit_pending()
+            if not self.active.any():
+                return {}
+            counts_before = self._counts_host.copy()
+            with torch.no_grad():
+                codes_seg = self._segment(temperature, top_k)
+            return self._retire_finished(codes_seg, counts_before)
 
     def synthesize_all(self, token_lists: Sequence[Sequence[int]], *,
                        temperature: float = 0.7, top_k: int = 80,
@@ -342,7 +377,7 @@ class MultiChipContinuousServer:
     def submit(self, token_ids: Sequence[int], *, speaker_id: int = 0, seed: int = 0) -> int:
         gid = self._next_id
         self._next_id += 1
-        self._queue.append((gid, list(token_ids), speaker_id, seed))
+        self._queue.append((gid, list(token_ids), speaker_id, seed, time.perf_counter_ns()))
         return gid
 
     @property
@@ -357,8 +392,9 @@ class MultiChipContinuousServer:
             best = int(np.argmax(caps))
             if caps[best] <= 0:
                 return
-            gid, toks, spk, seed = self._queue.popleft()
-            local = self.engines[best].submit(toks, speaker_id=spk, seed=seed)
+            gid, toks, spk, seed, submit_ns = self._queue.popleft()
+            local = self.engines[best].submit(toks, speaker_id=spk, seed=seed,
+                                              submit_ns=submit_ns)
             self._to_global[(best, local)] = gid
 
     def step(self, *, temperature: float = 0.7, top_k: int = 80) -> Dict[int, np.ndarray]:

@@ -25,6 +25,7 @@ from ..io.magpie_weights import (MagpieWeights, Q8DecoderStream, materialize_wei
 from ..models import codec as codec_mod
 from ..models import magpie as magpie_mod
 from ..ops import sampling
+from . import telemetry
 
 DEFAULT_TOKEN_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 DEFAULT_FRAME_BUCKETS = (32, 64, 128, 256, 384, 512)
@@ -181,8 +182,8 @@ class MagpieEngine:
         """Prefill for incremental decoding (token_ids must fit a bucket).
         Returns the stream context ``decode_chunk`` advances; it holds the
         dense weights (``--serve-q8`` blocks dequantized once per stream)."""
-        tokens, enc_length = self._pad_tokens(token_ids)
-        with torch.no_grad():
+        with telemetry.span("stream.prepare"), torch.no_grad():
+            tokens, enc_length = self._pad_tokens(token_ids)
             weights = materialize_weights(self.weights)
             xa_k, xa_v, state = magpie_mod.prepare(tokens, enc_length, speaker_id,
                                                    self.prepare_weights or weights, self.config)
@@ -199,11 +200,12 @@ class MagpieEngine:
         state = stream["state"]
         start = state.frame_idx
         key = sampling.fold_in(sampling.prng_key(seed), stream["chunk_idx"])
-        with torch.no_grad():
+        with telemetry.span("stream.chunk") as sp, torch.no_grad():
             state = magpie_mod.decode_loop(
                 stream["xa_k"], stream["xa_v"], state, stream["enc_length"], stream["weights"],
                 self.config, key, temperature, top_k, use_fused=self.use_fused,
                 int8_stream=self.int8_stream, target_frames=start + n_frames)
+            sp.set(frames=state.frame_idx - start)
         stream["state"] = state
         stream["chunk_idx"] += 1
         end = state.frame_idx
@@ -252,17 +254,18 @@ class CodecEngine:
         n = codes.shape[0]
         if n == 0:
             return np.zeros(0, np.int16 if pcm16 else np.float32)
-        frames = pick_bucket(self.frame_buckets, n) if bucket else n
-        padded = np.zeros((self.config.num_codebooks, frames), np.int64)
-        padded[:, :n] = codes.T
-        with torch.no_grad():
+        with telemetry.span("codec.decode"), torch.no_grad():
+            frames = pick_bucket(self.frame_buckets, n) if bucket else n
+            padded = np.zeros((self.config.num_codebooks, frames), np.int64)
+            padded[:, :n] = codes.T
             audio = codec_mod.codec_decode(torch.from_numpy(padded).to(self.device),
                                            self.weights, self.config, self._fused())
             audio = audio[: n * self.config.hop_length]
             audio = audio.float()
             if pcm16:
                 audio = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
-        return audio.cpu().numpy()
+            with telemetry.span("codec.read"):
+                return audio.cpu().numpy()
 
     def decode_batch(self, codes_list) -> list:
         """Vocode several utterances in one batched codec call (padded to the
@@ -271,15 +274,18 @@ class CodecEngine:
             return []
         lens = [np.asarray(c).shape[0] for c in codes_list]
         bucket = pick_bucket(self.frame_buckets, max(max(lens), 1))
-        padded = np.zeros((len(codes_list), self.config.num_codebooks, bucket), np.int64)
-        for i, c in enumerate(codes_list):
-            padded[i, :, :lens[i]] = np.asarray(c, np.int64).T
-        with torch.no_grad():
+        with telemetry.span("codec.decode_batch", requests=len(lens), frames=sum(lens),
+                            vocoded=len(lens) * bucket), torch.no_grad():
+            padded = np.zeros((len(codes_list), self.config.num_codebooks, bucket), np.int64)
+            for i, c in enumerate(codes_list):
+                padded[i, :, :lens[i]] = np.asarray(c, np.int64).T
             codes = torch.from_numpy(padded).to(self.device)
             latent = codec_mod.fsq_dequantize(codes, self.config).to(self.weights.pre_conv_w.dtype)
             audio = codec_mod.codec_decode_latent(latent.contiguous(), self.weights,
                                                   self.config, self._fused())
-            audio = audio.float().cpu().numpy()
+            audio = audio.float()
+            with telemetry.span("codec.read"):
+                audio = audio.cpu().numpy()
         hop = self.config.hop_length
         return [audio[i, :lens[i] * hop] for i in range(len(codes_list))]
 

@@ -22,6 +22,7 @@ from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
+from . import telemetry
 from .engine import CodecEngine, MagpieEngine, split_to_buckets
 
 _SENTENCE_ENDINGS = ".!?"
@@ -100,7 +101,8 @@ def stream_sentence(engine: MagpieEngine, codec: CodecEngine, token_ids,
             continue
         stalls = 0
         base = min(max(start - ctx, 0), max_steps - win)
-        audio = codec.decode(stream["state"].codes[base:base + win], bucket=False)
+        with telemetry.span("stream.vocode", frames=n_new, vocoded=win):
+            audio = codec.decode(stream["state"].codes[base:base + win], bucket=False)
         off = start - base
         yield AudioChunk(samples=audio[off * hop:(off + n_new) * hop],
                          sentence_index=sentence_index, total_sentences=total_sentences,
