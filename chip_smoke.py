@@ -94,8 +94,9 @@ Phases (each raises on failure, so the process exits non-zero):
    4, 8 and 32 requests and token buckets 32 and 128, in both dtypes, in
    turns against M calls of ``prepare`` (host ms a group and a request),
    every row held against its request alone (ADMIT_REL, ADMIT_ULP_*); the
-   serve runs of phases 4 and 6 check one ``prepare_batch`` per (bucket,
-   power-of-two chunk) group of each admission.
+   serve runs of phases 4 and 6 check one ``PrepareGraphs`` call (the
+   engine's ``prepare_batch`` as CUDA graphs) per (bucket, power-of-two
+   chunk) group of each admission.
 
 12. the oracle and the acceptance tooling (last, on the same GGUFs): the
    native GGUF reader bit-equal to the numpy reader on the float32 and Q8_0
@@ -2898,8 +2899,9 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
     the six SERVE_TEXTS; more cycle through them with their own seeds) and a
     malformed line on a stdin stand-in, ``--slots slots`` (default
     SERVE_SLOTS); checks every result, the error line, the WAVs, and the
-    launch counts: one ``prepare_batch`` a (bucket, power-of-two chunk)
-    group of each admission, as the JAX engine groups; kernel C once per
+    launch counts: one ``PrepareGraphs`` call (``prepare_batch``, replayed as
+    a CUDA graph) a (bucket, power-of-two chunk) group of each admission, as
+    the JAX engine groups; kernel C once per
     slot group (``slot_groups(slots)``) per segment frame, or with ``split``
     (``MAGPIE_NO_FUSED=1``) kernels 7 and 8 so and kernel C never; the plain
     frame versions never; codec conv 92 per ``decode_batch`` (N utterances a
@@ -2949,9 +2951,9 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
                 left -= m
         return admit_fn(engine)
 
-    def prepare_counted(tokens, *a, **k):
+    def prepare_counted(owner, tokens, *a, **k):
         groups["got"].append((tokens.shape[1], tokens.shape[0]))
-        return prepare_fn(tokens, *a, **k)
+        return prepare_fn(owner, tokens, *a, **k)
 
     out_dir = tmp / (f"serve_{dtype}{'_split' if split else ''}{'_fc' if fused_codec else ''}"
                      f"_{slots}")
@@ -2962,11 +2964,12 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
         argv += ["--dtype", dtype]
     out, err = io.StringIO(), io.StringIO()
     seg_fn, dec_fn, stdin = ContinuousBatchingEngine._segment, CodecEngine.decode_batch, sys.stdin
-    admit_fn, prepare_fn = ContinuousBatchingEngine._admit_pending, magpie_mod.prepare_batch
+    admit_fn = ContinuousBatchingEngine._admit_pending
+    prepare_fn = magpie_mod.PrepareGraphs.__call__
     ContinuousBatchingEngine._segment = counted(seg_fn, "segments")
     CodecEngine.decode_batch = counted(dec_fn, "decode_batch")
     ContinuousBatchingEngine._admit_pending = admit_counted
-    magpie_mod.prepare_batch = prepare_counted
+    magpie_mod.PrepareGraphs.__call__ = prepare_counted
     sys.stdin = io.StringIO("\n".join(lines) + "\n")
     kernels = (fsb, ltsb, dsb, cc, crf)
     plain = [(mod, name, getattr(mod, name)) for mod, name in (
@@ -2994,7 +2997,8 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
             k.launches for k in kernels)
     finally:
         ContinuousBatchingEngine._segment, CodecEngine.decode_batch = seg_fn, dec_fn
-        ContinuousBatchingEngine._admit_pending, magpie_mod.prepare_batch = admit_fn, prepare_fn
+        ContinuousBatchingEngine._admit_pending = admit_fn
+        magpie_mod.PrepareGraphs.__call__ = prepare_fn
         for mod, name, fn in plain:
             setattr(mod, name, fn)
         sys.stdin = stdin
@@ -3035,7 +3039,7 @@ def run_serve(tmp: Path, mcfg, ccfg, card: str, split: bool = False,
                              f"per call")
     check_dtype_launches(kernels, dtype, f"serve {dtype} split {split}")
     if not groups["got"] or groups["got"] != groups["want"]:
-        raise AssertionError(f"serve admission: prepare_batch groups (bucket, m) {groups['got']}, "
+        raise AssertionError(f"serve admission: PrepareGraphs groups (bucket, m) {groups['got']}, "
                              f"want one a power-of-two chunk of each bucket {groups['want']}")
     m = re.search(r"in ([0-9.]+)s \(([0-9.]+) aggregate fps", err.getvalue())
     fps = float(m.group(2)) if m else float("nan")

@@ -3,7 +3,8 @@ prefill, and the autoregressive decode loops.
 
 1. ``prepare_batch`` encoder + XA-KV precompute + context prefill + BOS step for
                    M requests in one pass (plain PyTorch); ``prepare`` is its
-                   M = 1 case.
+                   M = 1 case, ``prepare_rows`` its device work, which the
+                   serving engines replay as CUDA graphs (``PrepareGraphs``).
 2. ``decode_loop`` a Python loop over frames; each iteration is one call of
                    ``ops.kernels.frame_step.frame_step`` (the CUDA kernel on a
                    CUDA device, the plain LT sampler + embedding + decoder step
@@ -31,7 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Sequence, Tuple
+from collections import Counter
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -92,15 +94,22 @@ def prepare(tokens: torch.Tensor, enc_length: int, speaker_id: int,
     context + BOS rows in a fresh [L, max_seq, d_model] cache."""
     xa_k, xa_v, k_rows, v_rows, hidden = prepare_batch(tokens[None], [enc_length], [speaker_id],
                                                        weights, config)
-    n_rows = k_rows.shape[2]
+    return xa_k[0], xa_v[0], decode_state(k_rows[0], v_rows[0], hidden[0], config)
+
+
+def decode_state(k_rows: torch.Tensor, v_rows: torch.Tensor, hidden: torch.Tensor,
+                 config: MagpieConfig) -> DecodeState:
+    """A fresh stream's state: one request's context + BOS rows (k_rows /
+    v_rows [L, context_frames + 1, d_model]) copied into a new
+    [L, max_seq, d_model] cache, ``hidden`` its BOS-step output."""
+    n_rows = k_rows.shape[1]
     k_cache = k_rows.new_zeros(config.dec_layers, config.max_seq, config.d_model)
     v_cache = torch.zeros_like(k_cache)
-    k_cache[:, :n_rows] = k_rows[0]
-    v_cache[:, :n_rows] = v_rows[0]
-    state = DecodeState(
-        k_cache=k_cache, v_cache=v_cache, hidden=hidden[0], pos=n_rows, frame_idx=0,
+    k_cache[:, :n_rows] = k_rows
+    v_cache[:, :n_rows] = v_rows
+    return DecodeState(
+        k_cache=k_cache, v_cache=v_cache, hidden=hidden, pos=n_rows, frame_idx=0,
         codes=np.zeros((config.max_dec_steps, config.num_codebooks), np.int32), done=False)
-    return xa_k[0], xa_v[0], state
 
 
 def prepare_batch(tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids: Sequence[int],
@@ -116,14 +125,25 @@ def prepare_batch(tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids:
     [M, L, context_frames + 1, d_model] (the context and BOS rows, cache rows
     0..context_frames), hidden [M, d_model]). The callers place the rows in
     their own caches, so no M full ``max_seq`` caches are built here.
-    ``weights`` may be ``float32_products(w)`` of the engine's weights."""
+    ``weights`` may be ``float32_products(w)`` of the engine's weights.
+    The device work is ``prepare_rows``; this uploads its inputs."""
+    device = weights.text_emb.device
+    enc = torch.tensor([int(n) for n in enc_lengths], dtype=torch.int64).to(device)
+    spk = torch.tensor([int(s) for s in speaker_ids], dtype=torch.int64).to(device)
+    return prepare_rows(tokens, enc, spk, weights, config)
+
+
+def prepare_rows(tokens: torch.Tensor, enc: torch.Tensor, spk: torch.Tensor,
+                 weights: MagpieWeights, config: MagpieConfig):
+    """``prepare_batch``'s device work on device inputs: tokens [M, T], the
+    encoder lengths ``enc`` [M] and the speaker ids ``spk`` [M] (int64). It
+    copies nothing between host and device and reads nothing back, so a CUDA
+    graph can capture it (``PrepareGraphs``); Q8_0 blocks dequantize inside."""
     weights = materialize_weights(weights)
     dtype = weights.text_emb.dtype
     device = weights.text_emb.device
     M = tokens.shape[0]
     n_rows = config.context_frames + 1
-    enc = torch.tensor([int(n) for n in enc_lengths], dtype=torch.int64).to(device)
-    spk = torch.tensor([int(s) for s in speaker_ids], dtype=torch.int64).to(device)
     enc_out = run_encoder(tokens, weights, config)
     xa_k, xa_v = decoder_mod.precompute_xa_kv(enc_out, weights.decoder, config)
     k_rows = torch.zeros(M, config.dec_layers, n_rows, config.d_model, dtype=dtype,
@@ -139,6 +159,88 @@ def prepare_batch(tokens: torch.Tensor, enc_lengths: Sequence[int], speaker_ids:
     hidden = decoder_mod.decode_rows(x_pe, config.context_frames, every_row, xa_k, xa_v,
                                      k_rows, v_rows, weights, config, enc_length=enc)
     return xa_k, xa_v, k_rows, v_rows, hidden
+
+
+class PrepareGraphs:
+    """An engine's ``prepare_batch``, replayed as one CUDA graph per (token
+    bucket T, group size M).
+
+    A call takes host arrays: tokens [M, T] (right-padded to the bucket), M
+    encoder lengths and M speaker ids. On a CUDA device it writes them into
+    the graph's input [M, T + 2] (tokens, lengths, speakers) with one pinned
+    upload and replays the graph of (T, M), into which ``prepare_rows``'s
+    launches were captured the first time that shape came: nothing is
+    captured before its first use, and the caller bounds the shapes (an
+    engine's buckets times its power-of-two group sizes). On another device
+    it calls ``prepare_batch``. Returns (``prepare_batch``'s five tensors,
+    "replay" | "capture" | "eager"); ``calls`` counts the calls by (T, M).
+
+    The outputs belong to the graph: its next replay overwrites them, and an
+    owner's graphs share one memory pool, so a caller consumes them (device
+    work enqueued on the stream counts) or clones them before its next call
+    of the same owner. The graphs read ``weights`` where they lie: pass the
+    engine's own weights object, never a per-call copy (Q8_0 blocks then
+    dequantize inside the graph).
+
+    Capture runs on a side stream of the weights' device in ``thread_local``
+    mode (``MultiChipContinuousServer`` steps its engines from threads),
+    through ``CUDAGraph.capture_begin`` / ``capture_end``, which neither
+    collect garbage nor empty the cache as ``torch.cuda.graph`` does. The
+    side stream's first use runs ``prepare_rows`` once outside any capture,
+    so that cuBLAS makes its handle and workspace for that stream there.
+    """
+
+    def __init__(self, weights: MagpieWeights, config: MagpieConfig):
+        self.weights, self.config = weights, config
+        self.device = weights.text_emb.device
+        self.calls: Counter = Counter()
+        self._graphs: Dict[Tuple[int, int], tuple] = {}   # (T, M) -> (graph, input, outputs)
+        self._pool = None
+        self._stream = None
+
+    def __call__(self, tokens: np.ndarray, enc_lengths: Sequence[int],
+                 speaker_ids: Sequence[int]):
+        M, T = tokens.shape
+        self.calls[(T, M)] += 1
+        if self.device.type != "cuda":
+            rows = prepare_batch(torch.from_numpy(tokens).to(self.device), enc_lengths,
+                                 speaker_ids, self.weights, self.config)
+            return rows, "eager"
+        host = np.empty((M, T + 2), np.int64)
+        host[:, :T] = tokens
+        host[:, T] = enc_lengths
+        host[:, T + 1] = speaker_ids
+        with torch.cuda.device(self.device), torch.no_grad():
+            entry = self._graphs.get((T, M))
+            inputs = entry[1] if entry else torch.empty(M, T + 2, dtype=torch.int64,
+                                                        device=self.device)
+            inputs.copy_(torch.from_numpy(host).pin_memory(), non_blocking=True)
+            mode = "replay" if entry else "capture"
+            if entry is None:
+                entry = self._graphs[(T, M)] = self._capture(inputs, T)
+            entry[0].replay()
+        return entry[2], mode
+
+    def _capture(self, inputs: torch.Tensor, T: int) -> tuple:
+        args = (inputs[:, :T], inputs[:, T], inputs[:, T + 1], self.weights, self.config)
+        current = torch.cuda.current_stream()
+        first = self._stream is None
+        if first:
+            self._stream = torch.cuda.Stream()
+        self._stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._stream):
+            if first:
+                prepare_rows(*args)
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+            try:
+                outputs = prepare_rows(*args)
+            finally:
+                graph.capture_end()
+        current.wait_stream(self._stream)
+        if self._pool is None:
+            self._pool = graph.pool()
+        return graph, inputs, outputs
 
 
 # The matrices prepare multiplies: encoder and decoder fields.

@@ -3,7 +3,8 @@ and leave a RUNNING batch.
 
 The decode loop runs in segments of ``segment_frames`` frames; between
 segments the host retires finished slots and admits queued requests, each
-token bucket's in power-of-two groups with one ``prepare_batch`` a group. The
+token bucket's in power-of-two groups with one ``prepare_batch`` a group (on a
+card one CUDA graph replay a group, captured at a (bucket, size)'s first use). The
 ring cache keeps the JAX engine's design: every slot writes its new K/V row at
 the same physical row ``ring_p + j`` (one shared ``write_row`` for the batched
 frame kernel); what differs per slot is its logical position (for the
@@ -72,8 +73,10 @@ class ContinuousBatchingEngine:
         # Q8_0 blocks (--serve-q8 loads) dequantize once here: this engine
         # serves dense weights (the per-frame stream is a MagpieEngine surface).
         self.weights = materialize_weights(weights.to(device=self.device, dtype=compute_dtype))
-        # What admission multiplies with: bf16 products on float32 copies.
+        # What admission multiplies with: bf16 products on float32 copies;
+        # on a card its groups replay as CUDA graphs, one a (bucket, size).
         self.prepare_weights = magpie_mod.float32_products(self.weights)
+        self._prepare = magpie_mod.PrepareGraphs(self.prepare_weights, config)
 
         B, L = n_slots, config.dec_layers
         S, D = config.max_seq, config.d_model
@@ -115,9 +118,11 @@ class ContinuousBatchingEngine:
 
     def _admit_group(self, bucket: int, chunk: List[tuple]) -> None:
         """Prefill the M requests of ``chunk`` [(slot, request)] in one
-        ``prepare_batch`` and place them with indexed writes: each slot's
+        ``prepare_batch`` (on a card the replay of its graph for (bucket, M),
+        ``PrepareGraphs``) and place them with indexed writes: each slot's
         context + BOS rows end at ring row ``ring_p - 1`` (wrapping past row
-        0), its XA K/V fill rows [0, bucket) of a zeroed slot."""
+        0), its XA K/V fill rows [0, bucket) of a zeroed slot. The writes
+        consume the graph's outputs on the stream before any later replay."""
         c, dev = self.config, self.device
         S, n_rows = c.max_seq, c.context_frames + 1
         with telemetry.span("engine.admit.group", bucket=bucket, requests=len(chunk)) as sp:
@@ -128,10 +133,10 @@ class ContinuousBatchingEngine:
             for i, (_, req) in enumerate(chunk):
                 tokens[i, :len(req.token_ids)] = req.token_ids
             lens = [len(req.token_ids) for _, req in chunk]
-            with telemetry.span("engine.admit.prepare"):
-                xa_k, xa_v, k_rows, v_rows, hidden = magpie_mod.prepare_batch(
-                    torch.from_numpy(tokens).to(dev), lens, [req.speaker_id for _, req in chunk],
-                    self.prepare_weights, c)
+            with telemetry.span("engine.admit.prepare") as pp:
+                (xa_k, xa_v, k_rows, v_rows, hidden), mode = self._prepare(
+                    tokens, lens, [req.speaker_id for _, req in chunk])
+                pp.set(graph=mode)
             with telemetry.span("engine.admit.place"):
                 start = self.ring_p - n_rows
                 rows = (torch.arange(n_rows, device=dev) + start) % S

@@ -109,6 +109,9 @@ class MagpieEngine:
         # blocks save.
         prep = magpie_mod.float32_products(self.weights)
         self.prepare_weights = None if prep is self.weights else prep
+        # begin_stream's prepare: on a card a CUDA graph a token bucket,
+        # captured on these weights (Q8_0 blocks dequantize inside it).
+        self._prepare = magpie_mod.PrepareGraphs(self.prepare_weights or self.weights, config)
         self.int8_stream = None
         if q8_stream is not None:
             self.int8_stream = q8_stream.to(self.device)
@@ -120,11 +123,15 @@ class MagpieEngine:
         # Inter-word space token used to split over-long inputs.
         self.split_token_id = split_token_id
 
-    def _pad_tokens(self, token_ids: Sequence[int]):
+    def _pad_host(self, token_ids: Sequence[int]):
+        """(token ids right-padded to their bucket, an int64 host array; n)."""
         n = len(token_ids)
-        bucket = pick_bucket(self.token_buckets, n)
-        padded = np.zeros(bucket, np.int64)
+        padded = np.zeros(pick_bucket(self.token_buckets, n), np.int64)
         padded[:n] = np.asarray(token_ids, np.int64)
+        return padded, n
+
+    def _pad_tokens(self, token_ids: Sequence[int]):
+        padded, n = self._pad_host(token_ids)
         return torch.from_numpy(padded).to(self.device), n
 
     def synthesize_codes(self, token_ids: Sequence[int], *, speaker_id: int = 0,
@@ -179,16 +186,21 @@ class MagpieEngine:
                 self.synthesize_codes(tokens, top_k=top_k, temperature=0.0)
 
     def begin_stream(self, token_ids: Sequence[int], *, speaker_id: int = 0) -> dict:
-        """Prefill for incremental decoding (token_ids must fit a bucket).
-        Returns the stream context ``decode_chunk`` advances; it holds the
-        dense weights (``--serve-q8`` blocks dequantized once per stream)."""
-        with telemetry.span("stream.prepare"), torch.no_grad():
-            tokens, enc_length = self._pad_tokens(token_ids)
+        """Prefill for incremental decoding (token_ids must fit a bucket):
+        ``prepare`` as the M = 1 replay of the bucket's graph on a card
+        (``PrepareGraphs``), whose outputs the stream copies or clones, so a
+        later stream's replay leaves them alone. Returns the stream context
+        ``decode_chunk`` advances; it holds the dense weights (``--serve-q8``
+        blocks dequantized once per stream)."""
+        with telemetry.span("stream.prepare") as sp, torch.no_grad():
+            tokens, enc_length = self._pad_host(token_ids)
+            (xa_k, xa_v, k_rows, v_rows, hidden), mode = self._prepare(
+                tokens[None], [enc_length], [speaker_id])
+            sp.set(graph=mode)
+            state = magpie_mod.decode_state(k_rows[0], v_rows[0], hidden[0].clone(), self.config)
             weights = materialize_weights(self.weights)
-            xa_k, xa_v, state = magpie_mod.prepare(tokens, enc_length, speaker_id,
-                                                   self.prepare_weights or weights, self.config)
-        return {"xa_k": xa_k, "xa_v": xa_v, "state": state, "enc_length": enc_length,
-                "weights": weights, "chunk_idx": 0}
+        return {"xa_k": xa_k[0].clone(), "xa_v": xa_v[0].clone(), "state": state,
+                "enc_length": enc_length, "weights": weights, "chunk_idx": 0}
 
     def decode_chunk(self, stream: dict, *, n_frames: int, temperature: float = 0.7,
                      top_k: int = 80, seed: int = 0) -> Tuple[np.ndarray, bool]:

@@ -13,7 +13,8 @@ chip_smoke's: ROW_REL (float32), and ROW_ULP_SHARE within 1 scaled ulp and
 none past ROW_ULP_MAX (bf16, scaled ulps as chip_smoke.scaled_ulps). A group
 of 8 or 32 launches about as much device work as a group of 1 (one pass, no
 loop over requests), and float32 serve codes at temp 0 are the same whether
-the continuous engine admits in groups or one request a group.
+the continuous engine admits in groups or one request a group (each inside
+the group's CUDA graph).
 """
 
 import dataclasses
@@ -123,8 +124,10 @@ def test_device_work_does_not_grow_with_the_group(card, weights):
 
 
 def test_serve_codes_grouped_equal_one_a_group(card, weights, monkeypatch):
-    """float32, temp 0: eight requests admitted as one group of 8 against the
-    same requests, slots and ring rows with each row's prepare run alone."""
+    """float32, temp 0: eight requests admitted as one group of 8 (one call
+    of the engine's ``PrepareGraphs``, replaying the graph of (bucket, 8))
+    against the same requests, slots and ring rows with each row's
+    ``prepare_rows`` run alone inside that graph."""
     c, ws = weights
     cfg = dataclasses.replace(c, max_dec_steps=48)
     tokens, lens, spk = _requests(c, card)
@@ -137,23 +140,17 @@ def test_serve_codes_grouped_equal_one_a_group(card, weights, monkeypatch):
         done = {}
         while eng.pending:
             done.update(eng.step(temperature=0.0, top_k=1))
+        assert dict(eng._prepare.calls) == {(BUCKET, 8): 1}
         return [done[i] for i in ids]
 
-    groups = []
-    real = magpie_mod.prepare_batch
-
-    def counted(tok, *a, **k):
-        groups.append(tok.shape[0])
-        return real(tok, *a, **k)
-    monkeypatch.setattr(magpie_mod, "prepare_batch", counted)
     grouped = run()
-    assert groups == [8]
+    real = magpie_mod.prepare_rows
 
     def one_a_group(tok, enc, sp, w, config):
         rows = [real(tok[i:i + 1], enc[i:i + 1], sp[i:i + 1], w, config)
                 for i in range(tok.shape[0])]
         return tuple(torch.cat(parts) for parts in zip(*rows))
-    monkeypatch.setattr(magpie_mod, "prepare_batch", one_a_group)
+    monkeypatch.setattr(magpie_mod, "prepare_rows", one_a_group)
     alone = run()
     for i, (g, a) in enumerate(zip(grouped, alone)):
         assert g.shape[0] > 0
